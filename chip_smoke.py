@@ -10,14 +10,24 @@ raising on failure:
    power limit;
 2. build: nvcc builds every kernel of the port from csrc/;
 3. kernels: each kernel (K1 opening, K2 smoother in both flag sets of the
-   main path, K3/K4 tower) against its plain PyTorch version on the card, at
-   the main path's shapes, in float32 (within 4 ulp of the field's max-abs)
-   and float64 (within 1e-13), with kernel and plain times;
+   main path, K3/K4 tower, K5 five-band and K6 nine-band smoothers in the
+   flag sets of their paths) against its plain PyTorch version on the
+   card, at the paths' shapes, in float32 (within 4 ulp of the field's
+   max-abs) and float64 (within 1e-13), with kernel and plain times;
 4. main path: the n=1024, 100-step delta-form run through
    AdvectionDiffusion, with every certificate <= 1e-6, the center value,
    the launch count of every kernel, and the same run through the plain
    versions on the card;
-5. golden: the n=256 delta-form run against tests/golden/uT_n256.npy.
+5. golden: the n=256 delta-form run against tests/golden/uT_n256.npy;
+6. galerkin: the main path with Galerkin coarse levels (K1, K2, K6);
+7. poisson: Poisson(n=1024) in float64 to tol 1e-10 and in its float32
+   default, which stalls at 50 cycles as the JAX package's does (K5);
+8. refined: n=1024, 100 refined fixed-cycle steps, not in delta form (K2,
+   K3, K4).
+
+Each path phase (4, 6, 7, 8) resets the launch counts just before the run
+it reads, checks every count, and runs the same path once more through
+the plain versions.
 
 The last two lines are a JSON object with the kernels' numbers, then
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside the
@@ -48,9 +58,17 @@ KERNELS = [  # (counter, name, source, the TPU kernel's pallas_call)
      f"{TPU}/tower.py:326"),
     ("tower_ascent", "K4 tower ascent", f"{PKG}/csrc/tower.cu",
      f"{TPU}/tower.py:349"),
+    ("smooth5", "K5 five-band smoother", f"{PKG}/csrc/smoother.cu",
+     f"{TPU}/smoother.py:437"),
+    ("smooth9", "K6 nine-band smoother", f"{PKG}/csrc/smoother.cu",
+     f"{TPU}/smoother.py:437"),
 ]
 MAIN_N, MAIN_STEPS = 1024, 100
 CENTER_1024 = 4.60419316843316e-5  # delta form at n=1024 (BENCH_r05.json)
+# the JAX package's values on the CPU under x64, at n=1024
+CENTER_GALERKIN = 4.604193168566387e-05   # delta form, Galerkin levels
+CENTER_REFINED = 4.604193170120696e-05    # refined, fixed, one cycle
+CENTER_POISSON = 0.07367129792055582      # u[512, 512], f64, tol 1e-10
 TOL = 1e-6
 
 
@@ -138,12 +156,35 @@ def _compare(name, got, want, dtype):
     return err, bound, exact
 
 
+def _smooth_cases(tag, level, f, lvl):
+    """K5 or K6 on `level` in the flag sets of its paths: {name: (kernel,
+    plain version, shape)}."""
+    from hpcclassmultigridproject_tpu_torch.ops.cuda import smoother
+
+    u, corr, rhs = f(lvl=lvl), f(1e-2, lvl), f(lvl=lvl)
+    flag_sets = {
+        "zero_init, residual": dict(want_residual=True, zero_init=True),
+        "zero_init, res_rows_dec": dict(want_residual=True, zero_init=True,
+                                        residual_rows_decimated=True),
+        "corr": dict(corr=corr),
+        "u, residual": dict(want_residual=True),
+    }
+    return {f"{tag} ({name})": (
+        lambda kw=kw: smoother.fused_rb_sweeps(level, u, rhs, 3, **kw),
+        lambda kw=kw: smoother.fused_rb_sweeps_plain(level, u, rhs, 3, **kw),
+        level.padded) for name, kw in flag_sets.items()}
+
+
 def phase_kernels(device, n: int) -> dict:
-    """Each kernel against its plain version at the main path's shapes for
-    n, in float64 then float32; returns {counter: (max-abs difference,
-    kernel ms, plain ms)} of the float32 run, the main path's dtype."""
+    """Each kernel against its plain version at its paths' shapes for n,
+    in float64 then float32; returns {counter: (max-abs difference, kernel
+    ms, plain ms)} of the float32 run, the main path's dtype (a kernel with
+    several flag sets: the largest difference and the mean times)."""
     from hpcclassmultigridproject_tpu_torch.mg.cycle import coarse_solve_dense
     from hpcclassmultigridproject_tpu_torch.mg.levels import build_hierarchy
+    from hpcclassmultigridproject_tpu_torch.models.poisson import (
+        build_poisson_hierarchy,
+    )
     from hpcclassmultigridproject_tpu_torch.ops.cuda import (
         delta_step,
         smoother,
@@ -154,10 +195,14 @@ def phase_kernels(device, n: int) -> dict:
     for dtype in (torch.float64, torch.float32):
         rng = np.random.default_rng(2024)
         vel = np.random.default_rng(7).standard_normal((2, n + 1, n + 1))
+        num_levels = delta_config().resolved_num_levels(n)
         levels = build_hierarchy(
-            vel[0], vel[1], 0.1 / n, -4e-4,
-            delta_config().resolved_num_levels(n), dtype=dtype,
-            device=device)
+            vel[0], vel[1], 0.1 / n, -4e-4, num_levels, dtype=dtype,
+            device=device, coarse_mode="dense")
+        galerkin = build_hierarchy(
+            vel[0], vel[1], 0.1 / n, -4e-4, 2, dtype=dtype, device=device,
+            coarse_operator="galerkin")[1]
+        poisson = build_poisson_hierarchy(n, 1, dtype=dtype, device=device)[0]
         fine = levels[0]
         f = lambda scale=1.0, lvl=0: _field(
             rng, levels[lvl].padded, levels[lvl].n, dtype, device, scale)
@@ -194,6 +239,8 @@ def phase_kernels(device, n: int) -> dict:
                 lambda: tower.tower_ascend_plain(levels, 1, v, u_mids,
                                                  rhs_mids, 3),
                 levels[1].padded),
+            **_smooth_cases("smooth5", poisson, f, 0),
+            **_smooth_cases("smooth9", galerkin, f, 1),
         }
         for name, (kern, plain, shape) in cases.items():
             got, want = _flatten(kern()), _flatten(plain())
@@ -208,11 +255,167 @@ def phase_kernels(device, n: int) -> dict:
                 line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
                 out[name] = (err, ms, plain_ms)
             print(line)
-    pre, post = out.pop("smooth pre (zero_init, res_rows_dec)"), out.pop(
-        "smooth post (corr, residual)")
-    out["smooth"] = (max(pre[0], post[0]), (pre[1] + post[1]) / 2,
-                     (pre[2] + post[2]) / 2)
-    return out
+    merged = {}
+    for name, numbers in out.items():
+        merged.setdefault(name.split(" ")[0], []).append(numbers)
+    return {key: (max(e for e, _, _ in rows),
+                  statistics.mean(ms for _, ms, _ in rows),
+                  statistics.mean(p for _, _, p in rows))
+            for key, rows in merged.items()}
+
+
+def _drive(tag, run, want: dict, plain_bound: float):
+    """Drive one path: a warm-up run, then a run between a reset and a
+    read of the launch counts (every count must equal `want`, 0 where it
+    names none), three timed runs, a run for peak device memory, and one
+    run through the plain versions on the card, whose output may differ by
+    at most `plain_bound`.  `run` returns (output tensor, stats).  Returns
+    (output, stats, launch counts)."""
+    from hpcclassmultigridproject_tpu_torch.ops import cuda
+
+    def timed():
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    timed()  # warm-up
+    cuda.reset_launches()
+    (out, stats), _ = timed()
+    counts = dict(cuda.LAUNCHES)
+    want = {k: want.get(k, 0) for k in counts}
+    print(f"[{tag}] launches in one run: {counts}")
+    require(counts == want, f"{tag}: launch counts {counts}, expected {want}")
+    walls = [timed()[1] for _ in range(3)]
+    torch.cuda.reset_peak_memory_stats()
+    timed()
+    peak = torch.cuda.max_memory_allocated()
+    with cuda.plain_route():
+        (out_plain, _), plain_wall = timed()
+    du = (out - out_plain).abs().max().item()
+    print(f"[{tag}] wall per run (median of 3): kernels "
+          f"{statistics.median(walls):.4f} s {walls}, plain (one run) "
+          f"{plain_wall:.4f} s; peak device memory {peak / 2**20:.1f} MiB")
+    print(f"[{tag}] max|output(kernels) - output(plain)| {du:.3g} "
+          f"(bound {plain_bound:g})")
+    require(du <= plain_bound, f"{tag}: kernel path and plain path differ "
+            f"by {du:.3g}")
+    return out, stats, counts
+
+
+def _check_advection(tag, model, uT, stats, center_ref, delta: bool):
+    """Shape, finiteness, every certificate <= 1e-6 and the center value
+    of an AdvectionDiffusion run."""
+    n, steps = model.problem.n, model.problem.num_steps
+    require(tuple(uT.shape) == (n + 1, n + 1), f"{tag}: uT shape")
+    require(bool(torch.isfinite(uT).all()), f"{tag}: uT not finite")
+    rel = stats["rel_residual"].cpu().numpy()
+    line = f"[{tag}] step certificates: {rel.size}, max {rel.max():.3e}"
+    require(rel.size == steps and bool((rel <= TOL).all()),
+            f"{tag}: a step certificate exceeds 1e-6")
+    if delta:
+        hi = stats["rel_residual_hi_steps"].cpu().numpy()
+        certified = hi[hi >= 0]
+        final = float(stats["final_rel_residual_hi"])
+        line += (f"; f64 mid-run certificates: {certified.size}, max "
+                 f"{certified.max():.3e}; final f64 certificate {final:.3e}")
+        require(certified.size == steps // 10
+                and bool((certified <= TOL).all()),
+                f"{tag}: a mid-run f64 certificate is missing or > 1e-6")
+        require(final <= TOL, f"{tag}: final f64 certificate {final:.3e}")
+    center = model.center_value(uT)
+    print(line)
+    print(f"[{tag}] center uT {center!r} (reference {center_ref!r}, |diff| "
+          f"{abs(center - center_ref):.3g})")
+    require(abs(center - center_ref) <= 1e-9,
+            f"{tag}: center value off by > 1e-9")
+
+
+def phase_galerkin(device, n: int, steps: int):
+    """The main path with Galerkin R·A·P coarse levels: K6 smooths levels
+    1 to 4, K2 level 0, and no level goes through the tower."""
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig
+    from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+
+    t0 = time.perf_counter()
+    model = AdvectionDiffusion(
+        ProblemConfig(n=n, num_steps=steps),
+        delta_config(certify_every=10, coarse_operator="galerkin"),
+        device=device)
+    forms = [level.form for level in model.levels]
+    print(f"[galerkin] n={n}, {steps} steps, level forms {forms}, model "
+          f"built in {time.perf_counter() - t0:.2f} s")
+    require(forms == ["from_v"] + ["nine"] * (len(forms) - 1),
+            f"galerkin: level forms {forms}")
+    smoothed = len(forms) - 2  # nine-band levels above the dense solve
+    uT, stats, counts = _drive(
+        "galerkin", lambda: model.run(warn=False),
+        {"delta_open": steps, "smooth": 2 * steps,
+         "smooth9": 2 * smoothed * steps}, 1e-8)
+    _check_advection("galerkin", model, uT, stats, CENTER_GALERKIN, True)
+    return counts
+
+
+def phase_poisson(device, n: int):
+    """Poisson(n) in float64 to tol 1e-10 (7 cycles, the center value), and
+    in its float32 default, which stalls at 50 cycles without converging,
+    as the JAX package's does."""
+    from hpcclassmultigridproject_tpu_torch import SolverConfig
+    from hpcclassmultigridproject_tpu_torch.models import Poisson
+
+    counts = None
+    for dtype, solver in (
+            (torch.float64, SolverConfig(dtype=torch.float64, tol=1e-10,
+                                         restriction="full",
+                                         coarse_mode="dense")),
+            (torch.float32, Poisson.DEFAULT_SOLVER)):
+        tag = f"poisson {str(dtype)[6:]}"
+        model = Poisson(n=n, solver=solver, device=device)
+        smoothed = model.num_levels - 1
+        cycles_want = 7 if dtype == torch.float64 else solver.max_cycles
+        u, stats, got = _drive(
+            tag, model.solve, {"smooth5": 2 * smoothed * cycles_want},
+            1e-13 if dtype == torch.float64 else 1e-6)
+        cycles = int(stats["cycles"])
+        rel = float(stats["rel_residual"])
+        conv = bool(stats["converged"])
+        center = float(u[n // 2, n // 2])
+        print(f"[{tag}] cycles {cycles}, rel_residual {rel:.4g}, converged "
+              f"{conv}, center u {center!r}")
+        require(tuple(u.shape) == (n + 1, n + 1)
+                and bool(torch.isfinite(u).all()), f"{tag}: u")
+        require(cycles == cycles_want, f"{tag}: {cycles} cycles, expected "
+                f"{cycles_want}")
+        if dtype == torch.float64:
+            require(conv, f"{tag}: did not converge")
+            require(abs(center - CENTER_POISSON) <= 1e-11,
+                    f"{tag}: center off by {abs(center - CENTER_POISSON):.3g}")
+            counts = got
+        else:
+            require(not conv, f"{tag}: converged, unlike the JAX package")
+            print(f"[{tag}] does not converge in float32, as the JAX "
+                  "package's float32 default does not")
+    return counts
+
+
+def phase_refined(device, n: int, steps: int):
+    """Refined fixed-cycle stepping (not delta form): float64 state and
+    residuals, one float32 V-cycle per step through K2 and the tower."""
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig, SolverConfig
+    from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+
+    model = AdvectionDiffusion(
+        ProblemConfig(n=n, num_steps=steps),
+        SolverConfig(dtype=torch.float32, refine_dtype=torch.float64,
+                     tol=TOL, cycle_mode="fixed", num_cycles=1,
+                     coarse_mode="dense"),
+        device=device)
+    uT, stats, counts = _drive(
+        "refined", lambda: model.run(warn=False),
+        {"smooth": 2 * steps, "tower_descent": steps,
+         "tower_ascent": steps}, 1e-8)
+    _check_advection("refined", model, uT, stats, CENTER_REFINED, False)
+    return counts
 
 
 def phase_main_path(device, n: int, steps: int, center_ref: float):
@@ -220,7 +423,6 @@ def phase_main_path(device, n: int, steps: int, center_ref: float):
     of one run."""
     from hpcclassmultigridproject_tpu_torch import ProblemConfig
     from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
-    from hpcclassmultigridproject_tpu_torch.ops import cuda
 
     t0 = time.perf_counter()
     model = AdvectionDiffusion(ProblemConfig(n=n, num_steps=steps),
@@ -228,63 +430,11 @@ def phase_main_path(device, n: int, steps: int, center_ref: float):
                                device=device)
     print(f"[main] n={n}, {steps} steps, {model.num_levels} levels, model "
           f"built in {time.perf_counter() - t0:.2f} s")
-
-    def run():
-        uT, stats = model.run(warn=False)
-        torch.cuda.synchronize()
-        return uT, stats
-
-    run()  # warm-up
-    cuda.reset_launches()
-    uT, stats = run()
-    counts = dict(cuda.LAUNCHES)
-    want = {"delta_open": steps, "smooth": 2 * steps, "tower_descent": steps,
-            "tower_ascent": steps}
-    print(f"[main] launches in one run: {counts}")
-    require(counts == want, f"launch counts {counts}, expected {want}")
-
-    require(tuple(uT.shape) == (n + 1, n + 1), f"uT shape {tuple(uT.shape)}")
-    require(bool(torch.isfinite(uT).all()), "uT not finite")
-    rel = stats["rel_residual"].cpu().numpy()
-    hi = stats["rel_residual_hi_steps"].cpu().numpy()
-    final = float(stats["final_rel_residual_hi"])
-    certified = hi[hi >= 0]
-    center = model.center_value(uT)
-    print(f"[main] f32 step certificates: {rel.size}, max {rel.max():.3e}; "
-          f"f64 mid-run certificates: {certified.size}, max "
-          f"{certified.max():.3e}; final f64 certificate {final:.3e}")
-    print(f"[main] center uT {center!r} (reference {center_ref!r}, "
-          f"|diff| {abs(center - center_ref):.3g})")
-    require(rel.size == steps and bool((rel <= TOL).all()),
-            "an f32 step certificate exceeds 1e-6")
-    require(certified.size == steps // 10 and bool((certified <= TOL).all()),
-            "a mid-run f64 certificate is missing or exceeds 1e-6")
-    require(final <= TOL, f"final f64 certificate {final:.3e} > 1e-6")
-    require(abs(center - center_ref) <= 1e-9, "center value off by > 1e-9")
-
-    walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        run()
-        walls.append(time.perf_counter() - t0)
-    torch.cuda.reset_peak_memory_stats()
-    run()
-    peak = torch.cuda.max_memory_allocated()
-
-    with cuda.plain_route():
-        uT_plain, _ = run()  # warm-up
-        plain_walls = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            uT_plain, _ = run()
-            plain_walls.append(time.perf_counter() - t0)
-    du = (uT - uT_plain).abs().max().item()
-    print(f"[main] wall per run (median of 3): kernels "
-          f"{statistics.median(walls):.4f} s {walls}, plain "
-          f"{statistics.median(plain_walls):.4f} s {plain_walls}; peak "
-          f"device memory {peak / 2**20:.1f} MiB")
-    print(f"[main] max|uT(kernels) - uT(plain)| {du:.3g}")
-    require(du <= 1e-8, f"kernel path and plain path differ by {du:.3g}")
+    uT, stats, counts = _drive(
+        "main", lambda: model.run(warn=False),
+        {"delta_open": steps, "smooth": 2 * steps, "tower_descent": steps,
+         "tower_ascent": steps}, 1e-8)
+    _check_advection("main", model, uT, stats, center_ref, True)
     return counts
 
 
@@ -322,6 +472,9 @@ def main() -> None:
     measured = phase_kernels(device, MAIN_N)
     counts = phase_main_path(device, MAIN_N, MAIN_STEPS, CENTER_1024)
     phase_golden(device)
+    counts["smooth9"] = phase_galerkin(device, MAIN_N, MAIN_STEPS)["smooth9"]
+    counts["smooth5"] = phase_poisson(device, MAIN_N)["smooth5"]
+    phase_refined(device, MAIN_N, MAIN_STEPS)
     kernels = []
     for key, label, source, replaces in KERNELS:
         err, ms, plain_ms = measured[key]

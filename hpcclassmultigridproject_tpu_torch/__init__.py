@@ -2,18 +2,22 @@
 hpcclassmultigridproject_tpu, for NVIDIA Hopper (H100).
 
 The JAX package beside it is the reference; this package mirrors its
-module names and imports torch and numpy, never jax.  It runs one slice
-so far: delta-form Crank–Nicolson stepping with one fixed V-cycle per step
-(red–black GS, injection, bilinear prolongation, dense coarse solve) and
-f64 certificates.  Its four kernels are hand-written CUDA C++ in `csrc/`,
-built with nvcc at first use (`ops/cuda/_build.py`); on CPU tensors each
-kernel's plain PyTorch version runs instead.
+module names and imports torch and numpy, never jax.  It runs the
+single-device solver: Crank–Nicolson advection–diffusion with the
+adaptive, fixed, FMG, refined and delta steppers, V- and W-cycles of
+red–black GS with injection or full weighting, dense or GS coarse solves,
+rediscretized or Galerkin coarse operators, and the Poisson family.  Its
+kernels are hand-written CUDA C++ in `csrc/`, built with nvcc at first use
+(`ops/cuda/_build.py`); on CPU tensors each kernel's plain PyTorch version
+runs instead.
 
 Layer map:
   core/       padded layout, problem fields
   ops/        plain level operations (padded.py) and the kernels (cuda/)
-  mg/         levels, V-cycle, delta stepper, timestepper
-  models/     AdvectionDiffusion
+  mg/         levels, cycles and solvers, refined and delta
+              steppers, timestepper
+  sparse/     Galerkin R·A·P coarse operators
+  models/     AdvectionDiffusion, Poisson
   interop.py  the JAX package's level fields into the port's levels
 """
 

@@ -1,12 +1,14 @@
 """Configuration dataclasses, field for field the JAX package's
 (`hpcclassmultigridproject_tpu/config.py`), with torch dtypes.
 
-Defaults and validation are the reference package's.  The port runs one
-slice of it so far: delta-form Crank–Nicolson stepping with one fixed
-V-cycle family, red–black Gauss–Seidel, injection and a dense coarse
-solve.  Every other configuration raises `NotImplementedError` naming the
-ROADMAP item that will port it, so nothing silently runs a different
-algorithm from the one asked for.
+Defaults and validation are the reference package's.  The port runs every
+single-device red–black Gauss–Seidel configuration: V- and W-cycles,
+injection and full weighting, dense and GS coarse solves, rediscretized
+and Galerkin coarse operators, and the adaptive, fixed, FMG, refined and
+delta steppers.  The rest (Jacobi and Chebyshev smoothing, a mesh, the
+on-device build) raises `NotImplementedError` naming the ROADMAP item that
+will port it, so nothing silently runs a different algorithm from the one
+asked for.
 """
 
 from __future__ import annotations
@@ -108,19 +110,22 @@ class SolverConfig:
             )
         if self.dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype={self.dtype}: need float32 or float64")
-        off_slice = [
-            (not self.delta_form, "cycle_mode other than fixed + delta_form", 8),
-            (self.cycle_shape != 1, "cycle_shape=2 (W-cycle)", 9),
+        not_ported = [
             (self.smoother != "rbgs", f"smoother={self.smoother!r}", 9),
-            (self.restriction != "inject", "restriction='full'", 9),
-            (self.coarse_mode != "dense", "coarse_mode='gs'", 9),
-            (self.coarse_operator != "rediscretize",
-             "coarse_operator='galerkin'", 10),
             (self.sharded_overlap, "sharded_overlap (a mesh)", 14),
+            (bool(self.device_build), "device_build=True (the on-device "
+             "build)", 3),
         ]
-        for off, what, item in off_slice:
+        for off, what, item in not_ported:
             if off:
                 raise NotImplementedError(f"{what}: {_NOT_PORTED.format(item)}")
+        if self.certify_every and not self.delta_form:
+            warnings.warn(
+                "certify_every is only honored by the delta stepper "
+                "(delta_form=True); this configuration will compute no "
+                "mid-run rigorous certificates",
+                stacklevel=2,
+            )
 
     def resolved_num_cycles(self, dt: float, nu: float, h: float) -> int:
         """Cycle count for fixed/delta modes when `num_cycles` is None: the

@@ -1,6 +1,8 @@
 // Device code shared by the port's kernels: the CN coefficient recompute,
-// the red-black Gauss-Seidel cascade on a shared-memory window, and the
-// per-point bilinear prolongation.
+// the red-black Gauss-Seidel cascade on a shared-memory window (for the
+// three coefficient sources: recomputed from (v1, v2), five stored bands,
+// nine stored bands with a varying diagonal), and the per-point bilinear
+// prolongation.
 //
 // Every expression keeps the operation order of the JAX package's Pallas
 // kernels and of the port's plain PyTorch versions (ops/padded.py), and the
@@ -36,14 +38,26 @@ enum ResMode {
   RES_INJECT = 3,    // coarse[I, J] = res[2I, 2J], 0 past the fine array
 };
 
+// Where a smoothing block takes the stencil coefficients from.
+enum CoefForm {
+  FORM_FROM_V = 0,  // recomputed from (v1, v2): the CN levels (K2, K3, K4)
+  FORM_FIVE = 1,    // stored aa, bb, cc, dd; scalar diagonal (K5)
+  FORM_NINE = 2,    // stored aa..dd, ne, nw, se, sw and diag (K6)
+};
+
+// Stored planes: FORM_FIVE reads bands[0..3] = aa, bb, cc, dd; FORM_NINE
+// also bands[4..7] = ne, nw, se, sw and bands[8] = diag.
+constexpr int MAX_BANDS = 9;
+
 template <typename T>
 struct SmoothArgs {
   const T* u;       // LOAD_U, LOAD_U_CORR, LOAD_U_PROLONG
   const T* corr;    // LOAD_U_CORR
   const T* src;     // LOAD_U_PROLONG: the coarser field, (src_rows, src_cols)
   const T* rhs;
-  const T* v1;
+  const T* v1;      // FORM_FROM_V
   const T* v2;
+  const T* bands[MAX_BANDS];  // FORM_FIVE, FORM_NINE
   T* u_out;         // (rows, cols)
   T* res_out;       // (res_rows, res_cols), unless RES_NONE
   int rows, cols, n, nsweeps;
@@ -51,7 +65,8 @@ struct SmoothArgs {
   int dom_rows, dom_cols;  // extent the tiles cover: the array, or more
                            // where RES_INJECT has coarse cells past it
   int load_mode, res_mode;
-  T rr, hh, nu, diag, inv_diag;  // CN constants, rounded to T on the host
+  T rr, hh, nu, diag, inv_diag;  // constants, rounded to T on the host
+                                 // (FORM_NINE reads none of them)
 };
 
 template <typename T>
@@ -90,6 +105,22 @@ __device__ __forceinline__ T nb_at(const T* s, int r, int c, int wh, int ww,
   return k.cc * up + k.dd * dn + k.aa * lf + k.bb * rt;
 }
 
+// The nine-point neighbour sum: nb_at plus ne*u_NE + nw*u_NW + se*u_SE +
+// sw*u_SW, in the operation order of ops/padded.py::neighbor_sum.
+template <typename T>
+__device__ __forceinline__ T nb9_at(const T* s, int r, int c, int wh, int ww,
+                                    const Coefs<T>& k, T ne, T nw, T se,
+                                    T sw) {
+  const int idx = r * ww + c;
+  const bool has_up = r > 0, has_dn = r < wh - 1;
+  const bool has_lf = c > 0, has_rt = c < ww - 1;
+  const T ur = has_up && has_rt ? s[idx - ww + 1] : T(0);
+  const T ul = has_up && has_lf ? s[idx - ww - 1] : T(0);
+  const T dr = has_dn && has_rt ? s[idx + ww + 1] : T(0);
+  const T dl = has_dn && has_lf ? s[idx + ww - 1] : T(0);
+  return nb_at(s, r, c, wh, ww, k) + ne * ur + nw * ul + se * dr + sw * dl;
+}
+
 template <typename T>
 __device__ __forceinline__ T at_or_zero(const T* x, int rows, int cols, int i,
                                         int j) {
@@ -113,10 +144,16 @@ __device__ __forceinline__ T prolong_at(const T* c, int rows_c, int cols_c,
   return half * (half * (c00 + c10) + half * (c01 + c11));
 }
 
-// Shared memory of one smoothing block: four (wh, ww) planes of T.
-inline size_t smooth_smem_bytes(int nsweeps, size_t elem) {
+// Shared-memory planes of one smoothing block's window: u and rhs, the
+// coefficient source, and for FORM_NINE one plane of pending updates.
+template <int FORM>
+constexpr int smooth_planes() {
+  return FORM == FORM_FROM_V ? 4 : FORM == FORM_FIVE ? 6 : 12;
+}
+
+inline size_t smooth_smem_bytes(int nsweeps, size_t elem, int planes) {
   const int halo = 2 * nsweeps + 1;
-  return 4 * static_cast<size_t>(TILE_H + 2 * halo) * (TILE_W + 2 * halo) *
+  return planes * static_cast<size_t>(TILE_H + 2 * halo) * (TILE_W + 2 * halo) *
          elem;
 }
 
@@ -125,22 +162,27 @@ inline size_t smooth_smem_bytes(int nsweeps, size_t elem) {
 // 2*nsweeps+1 cells on every side, runs all 2*nsweeps color passes in
 // shared memory, and writes the tile.  A window cell whose neighbour lies
 // past the window reads 0 there; the error that makes moves in one cell per
-// pass, so after the cascade and the residual it has not reached the tile,
-// which therefore holds exactly what a global barrier between colors would
-// give.  Cells past the array are 0 and stay 0, since their coefficients
-// and rhs are 0: that is the truth at the array's edges.  Red is (i+j) even
-// in global indices; a color pass reads only the other color, so it updates
-// in place.
-template <typename T>
+// pass (corners included: the nine-point stencil also has radius 1), so
+// after the cascade and the residual it has not reached the tile, which
+// therefore holds exactly what a global barrier between colors would give.
+// Cells past the array are 0 and stay 0, since their coefficients and rhs
+// are 0 (and a nine-band diagonal loads 1 there, so 1/diag stays finite):
+// that is the truth at the array's edges.  Red is (i+j) even in global
+// indices.  A five-point color pass reads only the other color, so it
+// updates in place; a nine-point pass also reads its own color at the
+// corners, so it computes every update of the pass first and writes them
+// after a barrier.
+template <typename T, int FORM>
 __device__ void smooth_tile(const SmoothArgs<T>& a) {
   extern __shared__ __align__(16) unsigned char mg_smem[];
+  constexpr int NCOEF = FORM == FORM_FROM_V ? 2 : FORM == FORM_FIVE ? 4 : 9;
   const int halo = 2 * a.nsweeps + 1;
   const int wh = TILE_H + 2 * halo, ww = TILE_W + 2 * halo;
   const int wsize = wh * ww;
   T* su = reinterpret_cast<T*>(mg_smem);
   T* srhs = su + wsize;
-  T* sv1 = srhs + wsize;
-  T* sv2 = sv1 + wsize;
+  T* sco = srhs + wsize;  // NCOEF coefficient planes: v1, v2 or the bands
+  T* spend = sco + NCOEF * wsize;  // FORM_NINE: the pass's pending updates
   const int ti0 = blockIdx.y * TILE_H, tj0 = blockIdx.x * TILE_W;
   const int gi0 = ti0 - halo, gj0 = tj0 - halo;
   const int tid = threadIdx.x, nth = blockDim.x;
@@ -148,12 +190,11 @@ __device__ void smooth_tile(const SmoothArgs<T>& a) {
   for (int k = tid; k < wsize; k += nth) {
     const int r = k / ww, c = k - r * ww;
     const int gi = gi0 + r, gj = gj0 + c;
-    T u = T(0), rhs = T(0), v1 = T(0), v2 = T(0);
-    if (gi >= 0 && gi < a.rows && gj >= 0 && gj < a.cols) {
-      const size_t g = static_cast<size_t>(gi) * a.cols + gj;
+    const bool in = gi >= 0 && gi < a.rows && gj >= 0 && gj < a.cols;
+    const size_t g = in ? static_cast<size_t>(gi) * a.cols + gj : 0;
+    T u = T(0), rhs = T(0);
+    if (in) {
       rhs = a.rhs[g];
-      v1 = a.v1[g];
-      v2 = a.v2[g];
       if (a.load_mode == LOAD_U) {
         u = a.u[g];
       } else if (a.load_mode == LOAD_U_CORR) {
@@ -164,10 +205,39 @@ __device__ void smooth_tile(const SmoothArgs<T>& a) {
     }
     su[k] = u;
     srhs[k] = rhs;
-    sv1[k] = v1;
-    sv2[k] = v2;
+    if (FORM == FORM_FROM_V) {
+      sco[k] = in ? a.v1[g] : T(0);
+      sco[wsize + k] = in ? a.v2[g] : T(0);
+    } else {
+      for (int q = 0; q < NCOEF; ++q) {
+        // the nine-band diagonal is 1 past the array, as outside the
+        // interior, or 0/0 would poison the cascade through the corners
+        const T fill = (FORM == FORM_NINE && q == 8) ? T(1) : T(0);
+        sco[q * wsize + k] = in ? a.bands[q][g] : fill;
+      }
+    }
   }
   __syncthreads();
+
+  // the stencil at window cell idx (global (gi, gj)): its four edge bands
+  auto coefs = [&](int idx, int gi, int gj) {
+    if (FORM == FORM_FROM_V)
+      return coefs_at(sco[idx], sco[wsize + idx],
+                      interior_at<T>(gi, gj, a.n), a.rr, a.hh, a.nu);
+    Coefs<T> k;
+    k.aa = sco[idx];
+    k.bb = sco[wsize + idx];
+    k.cc = sco[2 * wsize + idx];
+    k.dd = sco[3 * wsize + idx];
+    return k;
+  };
+  // the neighbour sum of su at window cell (r, c)
+  auto nb = [&](int r, int c, int idx, const Coefs<T>& k) {
+    if (FORM != FORM_NINE) return nb_at(su, r, c, wh, ww, k);
+    return nb9_at(su, r, c, wh, ww, k, sco[4 * wsize + idx],
+                  sco[5 * wsize + idx], sco[6 * wsize + idx],
+                  sco[7 * wsize + idx]);
+  };
 
   const int half = (ww + 1) / 2;  // cells of one color in a window row, at most
   for (int p = 0; p < 2 * a.nsweeps; ++p) {
@@ -177,12 +247,25 @@ __device__ void smooth_tile(const SmoothArgs<T>& a) {
       const int c = 2 * (k - r * half) + ((gi0 + r + gj0 + color) & 1);
       if (c >= ww) continue;
       const int idx = r * ww + c;
-      const Coefs<T> co = coefs_at(sv1[idx], sv2[idx],
-                                   interior_at<T>(gi0 + r, gj0 + c, a.n),
-                                   a.rr, a.hh, a.nu);
-      su[idx] = (srhs[idx] - nb_at(su, r, c, wh, ww, co)) * a.inv_diag;
+      const Coefs<T> co = coefs(idx, gi0 + r, gj0 + c);
+      const T inv = FORM == FORM_NINE ? T(1) / sco[8 * wsize + idx]
+                                      : a.inv_diag;
+      const T upd = (srhs[idx] - nb(r, c, idx, co)) * inv;
+      if (FORM == FORM_NINE) {
+        spend[idx] = upd;
+      } else {
+        su[idx] = upd;
+      }
     }
     __syncthreads();
+    if (FORM == FORM_NINE) {
+      for (int k = tid; k < wh * half; k += nth) {
+        const int r = k / half;
+        const int c = 2 * (k - r * half) + ((gi0 + r + gj0 + color) & 1);
+        if (c < ww) su[r * ww + c] = spend[r * ww + c];
+      }
+      __syncthreads();
+    }
   }
 
   for (int k = tid; k < TILE_H * TILE_W; k += nth) {
@@ -195,10 +278,9 @@ __device__ void smooth_tile(const SmoothArgs<T>& a) {
     if (a.res_mode == RES_NONE) continue;
     T res = T(0);
     if (in) {
-      const Coefs<T> co = coefs_at(sv1[idx], sv2[idx],
-                                   interior_at<T>(gi, gj, a.n), a.rr, a.hh,
-                                   a.nu);
-      res = srhs[idx] - a.diag * su[idx] - nb_at(su, r, c, wh, ww, co);
+      const Coefs<T> co = coefs(idx, gi, gj);
+      const T diag = FORM == FORM_NINE ? sco[8 * wsize + idx] : a.diag;
+      res = srhs[idx] - diag * su[idx] - nb(r, c, idx, co);
     }
     if (a.res_mode == RES_FULL) {
       if (in) a.res_out[g] = res;
@@ -214,11 +296,14 @@ __device__ void smooth_tile(const SmoothArgs<T>& a) {
 }
 
 // Launch one smoothing pass over the tiles of a.dom_rows x a.dom_cols with
-// `kernel`, a __global__ wrapper of smooth_tile.  Returns the launch error.
-template <typename T>
+// `kernel`, a __global__ wrapper of smooth_tile<T, FORM>.  Returns the
+// launch error (a window past the 227 KB of shared memory a block may
+// have is refused here, by cudaFuncSetAttribute).
+template <int FORM, typename T>
 cudaError_t launch_smooth(void (*kernel)(SmoothArgs<T>), const SmoothArgs<T>& a,
                           cudaStream_t stream) {
-  const size_t smem = smooth_smem_bytes(a.nsweeps, sizeof(T));
+  const size_t smem =
+      smooth_smem_bytes(a.nsweeps, sizeof(T), smooth_planes<FORM>());
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,51 +1,64 @@
-// K2: fused red-black Gauss-Seidel smoothing block, from_v form.
+// K2, K5, K6: the fused red-black Gauss-Seidel smoothing block.
 //
 // Replaces the TPU kernel hpcclassmultigridproject_tpu/ops/pallas/smoother.py
-// (_kernel, launched by _fused at :437, through fused_rb_sweeps), in the
-// form that recomputes the CN coefficients from the two velocity fields.
+// (_kernel, launched by _fused at :437, through fused_rb_sweeps) in three of
+// its forms, one entry point each:
+//
+//   K2 mg_smooth:  the CN coefficients recomputed from the two velocity
+//                  fields (cn set; the rediscretized advection-diffusion
+//                  levels);
+//   K5 mg_smooth5: four stored bands aa..dd and the scalar diagonal (cn None;
+//                  the Poisson levels);
+//   K6 mg_smooth9: eight stored bands and a diagonal that varies in space
+//                  (nine; the Galerkin R.A.P levels).
+//
 // One launch runs `nsweeps` red-black sweeps and the trailing residual of a
 // whole level.
 //
 // What bounds it on the H100: device-memory traffic.  A plain version
 // reads and writes the field once per color pass and per elementwise op;
-// this kernel reads (u [+ corr], rhs, v1, v2) once and writes u and the
-// residual once.  The TPU kernel cut the grid into row bands with a row
+// this kernel reads (u [+ corr], rhs, coefficients) once and writes u and
+// the residual once.  The TPU kernel cut the grid into row bands with a row
 // halo; a Hopper block's shared memory holds far less than the TPU's VMEM,
 // so here each block owns a 32x32 tile and carries the halo on all four
-// sides (smooth_tile in common.cuh): 46x46 cells x 4 planes = 34 KB in
-// float32 at nsweeps = 3.  The halo is recomputed work: about 2x the tile's
-// cells per pass, paid in shared-memory arithmetic instead of traffic.
-// The residual's even rows can be written alone (res_rows_dec), the row
-// half of the injection that follows.
+// sides (smooth_tile in common.cuh).  At nsweeps = 3 the 46x46 window takes
+// 4 planes in K2 (34 KB in float32), 6 in K5 (51 KB; 102 KB in float64)
+// and 12 in K6 (u, rhs, 9 coefficient planes and the pass's pending
+// updates: 102 KB in float32, 203 KB in float64, under the 227 KB a block
+// may have, at one block per SM in float64).  Keeping K6's bands in shared
+// memory instead of reading them through the read-only cache on each pass
+// keeps the kernel one simple loop nest; its occupancy is the price.  The
+// halo is recomputed work: about 2x the tile's cells per pass, paid in
+// shared-memory arithmetic instead of traffic.  The residual's even rows
+// can be written alone (res_rows_dec), the row half of the injection that
+// follows.
 
 #include "common.cuh"
 
 namespace {
 
-template <typename T>
+template <typename T, int FORM>
 __global__ void __launch_bounds__(mg::SMOOTH_THREADS)
     smooth_kernel(mg::SmoothArgs<T> a) {
-  mg::smooth_tile(a);
+  mg::smooth_tile<T, FORM>(a);
 }
 
 constexpr int ZERO_INIT = 1, ADD_CORR = 2, WANT_RES = 4, RES_ROWS_DEC = 8;
 
+// The fields every form shares: the iterate, the rhs, the outputs, the
+// extent and the flags.
 template <typename T>
-int smooth(const T* u, const T* corr, const T* rhs, const T* v1, const T* v2,
-           T* u_out, T* res_out, int rows, int cols, int n, int nsweeps,
-           double rr, double hh, double nu, double diag, double inv_diag,
-           int flags, cudaStream_t stream) {
+mg::SmoothArgs<T> smooth_args(const T* u, const T* corr, const T* rhs,
+                              T* u_out, T* res_out, int rows, int cols,
+                              int nsweeps, int flags) {
   mg::SmoothArgs<T> a{};
   a.u = u;
   a.corr = corr;
   a.rhs = rhs;
-  a.v1 = v1;
-  a.v2 = v2;
   a.u_out = u_out;
   a.res_out = res_out;
   a.rows = a.dom_rows = rows;
   a.cols = a.dom_cols = a.res_cols = cols;
-  a.n = n;
   a.nsweeps = nsweeps;
   a.load_mode = (flags & ZERO_INIT)  ? mg::LOAD_ZERO
                 : (flags & ADD_CORR) ? mg::LOAD_U_CORR
@@ -54,21 +67,80 @@ int smooth(const T* u, const T* corr, const T* rhs, const T* v1, const T* v2,
                : (flags & RES_ROWS_DEC) ? mg::RES_ROWS_DEC
                                         : mg::RES_FULL;
   a.res_rows = a.res_mode == mg::RES_ROWS_DEC ? rows / 2 : rows;
+  return a;
+}
+
+template <typename T>
+int smooth(const T* u, const T* corr, const T* rhs, const T* v1, const T* v2,
+           T* u_out, T* res_out, int rows, int cols, int n, int nsweeps,
+           double rr, double hh, double nu, double diag, double inv_diag,
+           int flags, cudaStream_t stream) {
+  mg::SmoothArgs<T> a =
+      smooth_args(u, corr, rhs, u_out, res_out, rows, cols, nsweeps, flags);
+  a.v1 = v1;
+  a.v2 = v2;
+  a.n = n;
   mg::set_constants(a, rr, hh, nu, diag, inv_diag);
-  return static_cast<int>(mg::launch_smooth(smooth_kernel<T>, a, stream));
+  return static_cast<int>(mg::launch_smooth<mg::FORM_FROM_V>(
+      smooth_kernel<T, mg::FORM_FROM_V>, a, stream));
+}
+
+template <typename T>
+int smooth5(const T* u, const T* corr, const T* rhs, const T* aa,
+            const T* bb, const T* cc, const T* dd, T* u_out, T* res_out,
+            int rows, int cols, int nsweeps, double diag, double inv_diag,
+            int flags, cudaStream_t stream) {
+  mg::SmoothArgs<T> a =
+      smooth_args(u, corr, rhs, u_out, res_out, rows, cols, nsweeps, flags);
+  const T* bands[4] = {aa, bb, cc, dd};
+  for (int q = 0; q < 4; ++q) a.bands[q] = bands[q];
+  a.diag = static_cast<T>(diag);
+  a.inv_diag = static_cast<T>(inv_diag);
+  return static_cast<int>(mg::launch_smooth<mg::FORM_FIVE>(
+      smooth_kernel<T, mg::FORM_FIVE>, a, stream));
+}
+
+template <typename T>
+int smooth9(const T* u, const T* corr, const T* rhs, const T* aa,
+            const T* bb, const T* cc, const T* dd, const T* ne, const T* nw,
+            const T* se, const T* sw, const T* diag, T* u_out, T* res_out,
+            int rows, int cols, int nsweeps, int flags,
+            cudaStream_t stream) {
+  mg::SmoothArgs<T> a =
+      smooth_args(u, corr, rhs, u_out, res_out, rows, cols, nsweeps, flags);
+  const T* bands[9] = {aa, bb, cc, dd, ne, nw, se, sw, diag};
+  for (int q = 0; q < 9; ++q) a.bands[q] = bands[q];
+  return static_cast<int>(mg::launch_smooth<mg::FORM_NINE>(
+      smooth_kernel<T, mg::FORM_NINE>, a, stream));
 }
 
 }  // namespace
 
-#define MG_SMOOTH_ENTRY(NAME, T)                                              \
-  extern "C" int NAME(const T* u, const T* corr, const T* rhs, const T* v1,  \
-                      const T* v2, T* u_out, T* res_out, int rows, int cols, \
-                      int n, int nsweeps, double rr, double hh, double nu,   \
-                      double diag, double inv_diag, int flags,               \
-                      cudaStream_t stream) {                                 \
+#define MG_SMOOTH_ENTRIES(SUFFIX, T)                                          \
+  extern "C" int mg_smooth_##SUFFIX(                                         \
+      const T* u, const T* corr, const T* rhs, const T* v1, const T* v2,     \
+      T* u_out, T* res_out, int rows, int cols, int n, int nsweeps,          \
+      double rr, double hh, double nu, double diag, double inv_diag,         \
+      int flags, cudaStream_t stream) {                                      \
     return smooth<T>(u, corr, rhs, v1, v2, u_out, res_out, rows, cols, n,    \
                      nsweeps, rr, hh, nu, diag, inv_diag, flags, stream);    \
+  }                                                                          \
+  extern "C" int mg_smooth5_##SUFFIX(                                        \
+      const T* u, const T* corr, const T* rhs, const T* aa, const T* bb,     \
+      const T* cc, const T* dd, T* u_out, T* res_out, int rows, int cols,    \
+      int nsweeps, double diag, double inv_diag, int flags,                  \
+      cudaStream_t stream) {                                                 \
+    return smooth5<T>(u, corr, rhs, aa, bb, cc, dd, u_out, res_out, rows,    \
+                      cols, nsweeps, diag, inv_diag, flags, stream);         \
+  }                                                                          \
+  extern "C" int mg_smooth9_##SUFFIX(                                        \
+      const T* u, const T* corr, const T* rhs, const T* aa, const T* bb,     \
+      const T* cc, const T* dd, const T* ne, const T* nw, const T* se,       \
+      const T* sw, const T* diag, T* u_out, T* res_out, int rows, int cols,  \
+      int nsweeps, int flags, cudaStream_t stream) {                         \
+    return smooth9<T>(u, corr, rhs, aa, bb, cc, dd, ne, nw, se, sw, diag,    \
+                      u_out, res_out, rows, cols, nsweeps, flags, stream);   \
   }
 
-MG_SMOOTH_ENTRY(mg_smooth_f32, float)
-MG_SMOOTH_ENTRY(mg_smooth_f64, double)
+MG_SMOOTH_ENTRIES(f32, float)
+MG_SMOOTH_ENTRIES(f64, double)

@@ -29,13 +29,13 @@ namespace {
 template <typename T>
 __global__ void __launch_bounds__(mg::SMOOTH_THREADS)
     descend_kernel(mg::SmoothArgs<T> a) {
-  mg::smooth_tile(a);
+  mg::smooth_tile<T, mg::FORM_FROM_V>(a);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(mg::SMOOTH_THREADS)
     ascend_kernel(mg::SmoothArgs<T> a) {
-  mg::smooth_tile(a);
+  mg::smooth_tile<T, mg::FORM_FROM_V>(a);
 }
 
 template <typename T>
@@ -61,7 +61,7 @@ int descend(const T* rhs, const T* v1, const T* v2, T* u_out, T* rhs_c_out,
   a.load_mode = mg::LOAD_ZERO;
   a.res_mode = mg::RES_INJECT;
   mg::set_constants(a, rr, hh, nu, diag, inv_diag);
-  return static_cast<int>(mg::launch_smooth(descend_kernel<T>, a, stream));
+  return static_cast<int>(mg::launch_smooth<mg::FORM_FROM_V>(descend_kernel<T>, a, stream));
 }
 
 template <typename T>
@@ -85,7 +85,7 @@ int ascend(const T* src, int src_rows, int src_cols, const T* u,
   a.load_mode = mg::LOAD_U_PROLONG;
   a.res_mode = mg::RES_NONE;
   mg::set_constants(a, rr, hh, nu, diag, inv_diag);
-  return static_cast<int>(mg::launch_smooth(ascend_kernel<T>, a, stream));
+  return static_cast<int>(mg::launch_smooth<mg::FORM_FROM_V>(ascend_kernel<T>, a, stream));
 }
 
 }  // namespace

@@ -26,9 +26,10 @@ from hpcclassmultigridproject_tpu_torch.ops.cuda.delta_step import (
 )
 from hpcclassmultigridproject_tpu_torch.ops.padded import (
     as_dtype,
+    coefs,
     interior_norm,
-    neighbor_sum_from_v,
-    residual_from_v,
+    neighbor_sum,
+    residual,
 )
 
 
@@ -84,7 +85,7 @@ def _certify_hi(fine_hi, hi2, lo2, d, acc_dtype):
     rhs_d_hi = delta_rhs(fine_hi, u_prev)
     d_hi = d.to(acc_dtype)
     res_hi = rhs_d_hi - (fine_hi.diag_a * d_hi
-                         + neighbor_sum_from_v(fine_hi, d_hi))
+                         + neighbor_sum(coefs(fine_hi), d_hi))
     rel = interior_norm(res_hi) / torch.clamp_min(
         interior_norm(rhs_d_hi), torch.finfo(rhs_d_hi.dtype).tiny)
     return rel.to(torch.float32)
@@ -125,9 +126,10 @@ def timestepper_delta(levels, fine_hi, u0: torch.Tensor, num_steps: int,
     # last step there, by three independent stencils
     u_prev = hi.to(acc_dtype) + lo.to(acc_dtype)
     uT = u_prev + d_pend.to(acc_dtype)
-    rhs_hi = fine_hi.diag_b * u_prev - neighbor_sum_from_v(fine_hi, u_prev)
-    r_hi = residual_from_v(fine_hi, uT, rhs_hi)
-    res0_hi = interior_norm(residual_from_v(fine_hi, u_prev, rhs_hi))
+    c_hi = coefs(fine_hi)
+    rhs_hi = fine_hi.diag_b * u_prev - neighbor_sum(c_hi, u_prev)
+    r_hi = residual(fine_hi, uT, rhs_hi, c_hi)
+    res0_hi = interior_norm(residual(fine_hi, u_prev, rhs_hi, c_hi))
     rel_hi = interior_norm(r_hi) / torch.clamp_min(
         res0_hi, torch.finfo(res0_hi.dtype).tiny)
 

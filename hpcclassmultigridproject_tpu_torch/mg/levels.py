@@ -1,10 +1,20 @@
 """Grid-level hierarchy: the `Level` type and its host builders.
 
-A level holds what the from_v kernels read: the two velocity fields in
-the padded layout (core/layout.py), the static CN parameters, and at the
-coarsest level the dense inverse of the interior operator.  Unlike the JAX
-package, no level stores the four coefficient fields aa..dd: every kernel
-and every plain op on the port's path recomputes them from (v1, v2).
+A level comes in one of three forms, told apart by which fields are set:
+
+- **from_v** (`aa` None): the two velocity fields in the padded layout
+  (core/layout.py) and the static CN parameters; every kernel and plain op
+  recomputes the coefficients from (v1, v2).  Rediscretized
+  advection–diffusion levels and the high-precision fine operator.
+- **five-band** (`aa..dd` set, `ne` and `diag` None): stored coefficient
+  bands with the scalar diagonal `diag_a`.  Poisson levels.
+- **nine-band** (`aa..dd`, `ne..sw` and `diag` set): a Galerkin R·A·P
+  coarse operator (sparse/galerkin.py), with corner couplings and a
+  diagonal that varies in space and is 1 outside the open interior.
+
+Each level stores only what its form reads: from_v levels carry no bands,
+banded levels no velocities.  The coarsest level of a dense-coarse
+hierarchy also carries the dense inverse of its interior operator.
 
 The build runs in numpy float64 like the JAX package's host build
 (`mg/levels.py::build_hierarchy`): velocities are restricted by injection,
@@ -21,15 +31,20 @@ import torch
 
 from hpcclassmultigridproject_tpu_torch.core.layout import padded_shape
 
+BANDS = ("aa", "bb", "cc", "dd")
+CORNERS = ("ne", "nw", "se", "sw")
+
 
 @dataclasses.dataclass(frozen=True)
 class Level:
-    """One grid level: (n+1)^2 nodes, h = 2^lvl / n_fine.  `v1`, `v2` have
-    the padded shape; `a_inv` ((n-1)^2 square) is set at the coarsest level
-    of a dense-coarse hierarchy only."""
+    """One grid level: (n+1)^2 nodes, h = 2^lvl / n_fine.  Every tensor has
+    the padded shape, except `a_inv` ((n-1)^2 square), which is set at the
+    coarsest level of a dense-coarse hierarchy only.  The stencil bands
+    couple aa → u[i,j−1], bb → u[i,j+1], cc → u[i−1,j], dd → u[i+1,j],
+    ne → u[i−1,j+1], nw → u[i−1,j−1], se → u[i+1,j+1], sw → u[i+1,j−1]."""
 
-    v1: torch.Tensor
-    v2: torch.Tensor
+    v1: Optional[torch.Tensor]
+    v2: Optional[torch.Tensor]
     a_inv: Optional[torch.Tensor]
     n: int
     h: float
@@ -37,11 +52,27 @@ class Level:
     nu: float
     diag_a: float
     diag_b: float
+    aa: Optional[torch.Tensor] = None
+    bb: Optional[torch.Tensor] = None
+    cc: Optional[torch.Tensor] = None
+    dd: Optional[torch.Tensor] = None
+    ne: Optional[torch.Tensor] = None
+    nw: Optional[torch.Tensor] = None
+    se: Optional[torch.Tensor] = None
+    sw: Optional[torch.Tensor] = None
+    diag: Optional[torch.Tensor] = None
+
+    @property
+    def form(self) -> str:
+        """"from_v", "five" or "nine" (see the module docstring)."""
+        if self.aa is None:
+            return "from_v"
+        return "five" if self.ne is None and self.diag is None else "nine"
 
     @property
     def padded(self) -> tuple[int, int]:
         """Padded storage shape (the shape of every field at this level)."""
-        return tuple(self.v1.shape)
+        return tuple((self.v1 if self.aa is None else self.aa).shape)
 
     @property
     def rr(self) -> float:
@@ -89,32 +120,38 @@ def _np_cn_coefficients(v1p, v2p, n, dt, nu, h):
 
 
 def dense_interior_matrix(coef: dict, n: int, diag_a: float) -> np.ndarray:
-    """Dense interior operator A ((n-1)^2 square, float64) from padded
-    coefficient fields; interior ordering p = (i-1)*(n-1) + (j-1)."""
+    """Dense interior operator A ((n-1)^2 square, float64) from padded band
+    fields: aa..dd, and for a nine-band level ne..sw and the varying
+    `diag` (else the scalar `diag_a`).  Interior ordering
+    p = (i-1)*(n-1) + (j-1)."""
     m = n - 1
     A = np.zeros((m * m, m * m))
     idx = np.arange(m * m)
-    A[idx, idx] = diag_a
     ii, jj = np.divmod(idx, m)
-    bands = {(0, -1): "aa", (0, 1): "bb", (-1, 0): "cc", (1, 0): "dd"}
-    for (di, dj), name in bands.items():
+    diag = coef.get("diag")
+    A[idx, idx] = (diag_a if diag is None
+                   else np.asarray(diag, np.float64)[1:n, 1:n][ii, jj])
+    offsets = {(0, -1): "aa", (0, 1): "bb", (-1, 0): "cc", (1, 0): "dd",
+               (-1, 1): "ne", (-1, -1): "nw", (1, 1): "se", (1, -1): "sw"}
+    for (di, dj), name in offsets.items():
+        if coef.get(name) is None:
+            continue
         band = np.asarray(coef[name], np.float64)[1:n, 1:n]
         ok = (ii + di >= 0) & (ii + di <= m - 1) & (jj + dj >= 0) & (jj + dj <= m - 1)
         A[idx[ok], idx[ok] + di * m + dj] = band[ii[ok], jj[ok]]
     return A
 
 
-def _dense_inverse(v1p, v2p, n, h, dt, nu, dtype) -> np.ndarray:
-    """Inverse of the interior operator, built as the JAX package builds it
-    (`sparse/galerkin.py::attach_dense_inverse`): the coefficients are
-    rounded to the level's dtype first, then widened to float64 and
-    inverted, then cast.  Inverting the unrounded float64 coefficients
-    would differ in the last bits."""
+def stored_coefficients(v1p, v2p, n, h, dt, nu, dtype) -> dict:
+    """The coefficient bands the JAX package stores on a rediscretized
+    level: computed in float64 from the float64 velocities, rounded to the
+    level's dtype, and widened back to float64.  In float32 these differ in
+    the last bits from the port's from_v recompute, and the dense inverse
+    and the Galerkin bands below a from_v level are built from them, as the
+    JAX package builds them."""
     npd = np_dtype(dtype)
-    coef = {k: v.astype(npd).astype(np.float64)
+    return {k: v.astype(npd).astype(np.float64)
             for k, v in _np_cn_coefficients(v1p, v2p, n, dt, nu, h).items()}
-    diag_a, _ = _diagonals(h, dt, nu)
-    return np.linalg.inv(dense_interior_matrix(coef, n, diag_a)).astype(npd)
 
 
 def _to_numpy64(x) -> np.ndarray:
@@ -123,16 +160,37 @@ def _to_numpy64(x) -> np.ndarray:
     return np.asarray(x, np.float64)
 
 
+def banded_level(coef: dict, *, n, h, dt, nu, diag_a, diag_b, dtype,
+                 device) -> Level:
+    """A five- or nine-band level from numpy or torch band fields."""
+    as_dev = lambda a: torch.as_tensor(a).to(device=device, dtype=dtype)
+    fields = {k: as_dev(coef[k]) for k in (*BANDS, *CORNERS, "diag")
+              if coef.get(k) is not None}
+    return Level(v1=None, v2=None, a_inv=None, n=n, h=h, dt=dt, nu=nu,
+                 diag_a=diag_a, diag_b=diag_b, **fields)
+
+
 def build_hierarchy(v1, v2, dt: float, nu: float, num_levels: int, *,
-                    dtype: torch.dtype, device) -> tuple[Level, ...]:
+                    dtype: torch.dtype, device, coarse_mode: str = "gs",
+                    coarse_operator: str = "rediscretize",
+                    restriction: str = "inject") -> tuple[Level, ...]:
     """Build the level tower from the finest logical (n+1)^2 velocity
     fields (torch tensors or numpy arrays); every level lands on `device`
-    in `dtype`, and the coarsest carries its dense inverse (the port's
-    only coarse solve so far)."""
+    in `dtype`.
+
+    coarse_operator "rediscretize" makes every level a from_v level on the
+    injected velocities; "galerkin" builds each coarse level as the exact
+    R·A·P product of the level above it (sparse/galerkin.py, nine-band;
+    `restriction` selects R).  coarse_mode "dense" attaches the dense
+    inverse of the coarsest interior operator; "gs" leaves it None."""
+    from hpcclassmultigridproject_tpu_torch.sparse.galerkin import (
+        galerkin_coarse_level,
+    )
+
     n = int(v1.shape[0]) - 1
     v1l = _np_pad_field(_to_numpy64(v1))
     v2l = _np_pad_field(_to_numpy64(v2))
-    levels = []
+    levels, coef = [], None
     for lvl in range(num_levels):
         nl = n >> lvl
         if nl < 2:
@@ -141,27 +199,52 @@ def build_hierarchy(v1, v2, dt: float, nu: float, num_levels: int, *,
             )
         h = 1.0 / n * (1 << lvl)
         diag_a, diag_b = _diagonals(h, dt, nu)
-        a_inv = None
-        if lvl == num_levels - 1:
-            a_inv = torch.from_numpy(
-                _dense_inverse(v1l, v2l, nl, h, dt, nu, dtype)).to(device)
-        levels.append(Level(
-            v1=torch.from_numpy(v1l).to(device=device, dtype=dtype),
-            v2=torch.from_numpy(v2l).to(device=device, dtype=dtype),
-            a_inv=a_inv, n=nl, h=h, dt=dt, nu=nu,
-            diag_a=diag_a, diag_b=diag_b,
-        ))
+        if lvl > 0 and coarse_operator == "galerkin":
+            if lvl == 1:
+                # extract from the fine level's stored bands, as the JAX
+                # package does, not from its from_v recompute
+                fine = banded_level(coef, n=n, h=1.0 / n, dt=dt, nu=nu,
+                                    diag_a=levels[0].diag_a,
+                                    diag_b=levels[0].diag_b, dtype=dtype,
+                                    device="cpu")
+            else:
+                fine = levels[-1]
+            level = galerkin_coarse_level(fine, restriction)
+            coef = {k: _to_numpy64(getattr(level, k))
+                    for k in (*BANDS, *CORNERS, "diag")}
+        else:
+            coef = stored_coefficients(v1l, v2l, nl, h, dt, nu, dtype)
+            level = Level(
+                v1=torch.from_numpy(v1l).to(dtype=dtype),
+                v2=torch.from_numpy(v2l).to(dtype=dtype),
+                a_inv=None, n=nl, h=h, dt=dt, nu=nu,
+                diag_a=diag_a, diag_b=diag_b,
+            )
+        levels.append(level)
         if lvl + 1 < num_levels:
             shape_c = padded_shape(nl >> 1)
             v1l = _np_restrict_inject(v1l, shape_c)
             v2l = _np_restrict_inject(v2l, shape_c)
-    return tuple(levels)
+    if coarse_mode == "dense":
+        a_inv = np.linalg.inv(dense_interior_matrix(
+            coef, levels[-1].n, levels[-1].diag_a)).astype(np_dtype(dtype))
+        levels[-1] = dataclasses.replace(levels[-1],
+                                         a_inv=torch.from_numpy(a_inv))
+    return tuple(to_device(level, device) for level in levels)
+
+
+def to_device(level: Level, device) -> Level:
+    """The level with every tensor moved to `device`."""
+    return dataclasses.replace(level, **{
+        f.name: getattr(level, f.name).to(device)
+        for f in dataclasses.fields(level)
+        if isinstance(getattr(level, f.name), torch.Tensor)})
 
 
 def build_fine_level(v1, v2, dt: float, nu: float, *, dtype: torch.dtype,
                      device) -> Level:
     """The finest level alone at `dtype`: the high-precision operator of
-    the delta stepper's certificates.  It stores (v1, v2) only, like the
+    the refined and delta steppers.  It stores (v1, v2) only, like the
     JAX package's slim form, and every consumer recomputes coefficients
     (bit-identical in IEEE float64)."""
     n = int(v1.shape[0]) - 1

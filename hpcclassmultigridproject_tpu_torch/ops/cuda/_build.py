@@ -32,6 +32,8 @@ _SMOOTH_ARGS = [_P] * 7 + [_I] * 4 + [_D] * 5 + [_I, _P]
 _SIGNATURES = {
     "mg_delta_open": [_P] * 8 + [_I] * 3 + [_D] * 2 + [_P],
     "mg_smooth": _SMOOTH_ARGS,
+    "mg_smooth5": [_P] * 9 + [_I] * 3 + [_D] * 2 + [_I, _P],
+    "mg_smooth9": [_P] * 14 + [_I] * 3 + [_I, _P],
     "mg_tower_descend": [_P] * 5 + [_I] * 6 + [_D] * 5 + [_P],
     "mg_tower_ascend": [_P, _I, _I] + [_P] * 5 + [_I] * 4 + [_D] * 5 + [_P],
 }

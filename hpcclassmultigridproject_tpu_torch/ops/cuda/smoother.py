@@ -1,25 +1,39 @@
-"""K2: the fused red–black Gauss–Seidel smoothing block, `csrc/smoother.cu`.
+"""K2, K5, K6: the fused red–black Gauss–Seidel smoothing block,
+`csrc/smoother.cu`.
 
-`nsweeps` sweeps with the CN coefficients recomputed from (v1, v2), plus
-an optional trailing residual, in one pass over device memory.  Replaces
-the JAX package's `ops/pallas/smoother.py::fused_rb_sweeps` in its from_v
-form.
+`nsweeps` sweeps plus an optional trailing residual, in one pass over
+device memory.  Replaces the JAX package's
+`ops/pallas/smoother.py::fused_rb_sweeps`, whose three single-device forms
+become three kernels picked by the level's form (mg/levels.py):
+
+- K2 (`smooth`): from_v levels, the CN coefficients recomputed from (v1, v2);
+- K5 (`smooth5`): five-band levels, stored aa..dd and the scalar diagonal;
+- K6 (`smooth9`): nine-band (Galerkin) levels, stored aa..dd, ne..sw and
+  the varying diagonal.
 """
 
 from __future__ import annotations
 
 import torch
 
+from hpcclassmultigridproject_tpu_torch.mg.levels import BANDS, CORNERS
 from hpcclassmultigridproject_tpu_torch.ops import cuda
 from hpcclassmultigridproject_tpu_torch.ops.cuda import _build
 from hpcclassmultigridproject_tpu_torch.ops.padded import (
-    coefs_from_v,
+    coefs,
     rb_gauss_seidel,
-    residual_from_v,
+    residual,
 )
 
-# flag bits of the C entry point (csrc/smoother.cu)
+# flag bits of the C entry points (csrc/smoother.cu)
 _ZERO_INIT, _ADD_CORR, _WANT_RES, _RES_ROWS_DEC = 1, 2, 4, 8
+
+# per form: (C entry point, launch counter, stored fields it reads)
+_FORMS = {
+    "from_v": ("mg_smooth", "smooth", ("v1", "v2")),
+    "five": ("mg_smooth5", "smooth5", BANDS),
+    "nine": ("mg_smooth9", "smooth9", (*BANDS, *CORNERS, "diag")),
+}
 
 
 def cn_constants(level):
@@ -34,17 +48,18 @@ def fused_rb_sweeps_plain(level, u, rhs, nsweeps: int,
                           zero_init: bool = False, corr=None,
                           residual_rows_decimated: bool = False):
     """The plain PyTorch version: `nsweeps` calls of
-    `ops/padded.py::rb_gauss_seidel` and one `residual_from_v`."""
-    coefs = coefs_from_v(level)
+    `ops/padded.py::rb_gauss_seidel` and one `residual`, on the level's
+    stencil whatever its form."""
+    c = coefs(level)
     if zero_init:
         u = torch.zeros_like(rhs)
     elif corr is not None:
         u = u + corr
     for _ in range(nsweeps):
-        u = rb_gauss_seidel(level, u, rhs, coefs)
+        u = rb_gauss_seidel(level, u, rhs, c)
     if not want_residual:
         return u, None
-    res = residual_from_v(level, u, rhs, coefs)
+    res = residual(level, u, rhs, c)
     if residual_rows_decimated:
         res = res[::2].contiguous()
     return u, res
@@ -58,17 +73,21 @@ def fused_rb_sweeps(level, u, rhs, nsweeps: int, want_residual: bool = False,
     `zero_init`: start from u = 0 (u may be None).  `corr`: start from
     u + corr.  `residual_rows_decimated`: return the residual's even rows
     only, shape (rows/2, cols), the row half of an injection.  CUDA tensors
-    launch the kernel, CPU tensors run the plain version."""
+    launch the level form's kernel (K2, K5 or K6), CPU tensors run the
+    plain version.  A window too large for a block's shared memory (K6 in
+    float64 past nsweeps 3) is refused by the launch, and raises."""
     if zero_init and corr is not None:
         raise ValueError("zero_init and corr are exclusive")
     if residual_rows_decimated and not want_residual:
         raise ValueError("residual_rows_decimated needs want_residual")
     if zero_init:
         u = None
-    if not cuda.use_kernel(u, corr, rhs, level.v1, level.v2):
+    entry, counter, names = _FORMS[level.form]
+    stored = [getattr(level, k) for k in names]
+    if not cuda.use_kernel(u, corr, rhs, *stored):
         return fused_rb_sweeps_plain(level, u, rhs, nsweeps, want_residual,
                                      zero_init, corr, residual_rows_decimated)
-    fields = dict(rhs=rhs, v1=level.v1, v2=level.v2)
+    fields = dict(zip(names, stored), rhs=rhs)
     fields.update({k: t for k, t in (("u", u), ("corr", corr))
                    if t is not None})
     cuda.check_inputs(level.padded, rhs.dtype, **fields)
@@ -84,11 +103,17 @@ def fused_rb_sweeps(level, u, rhs, nsweeps: int, want_residual: bool = False,
              | (_WANT_RES if want_residual else 0)
              | (_RES_ROWS_DEC if residual_rows_decimated else 0))
     ptr = lambda t: None if t is None else t.data_ptr()
-    err = _build.entry("mg_smooth", rhs.element_size())(
-        ptr(u), ptr(corr), rhs.data_ptr(), level.v1.data_ptr(),
-        level.v2.data_ptr(), u_out.data_ptr(), ptr(res), rows, cols, level.n,
-        nsweeps, *cn_constants(level), flags,
-        torch.cuda.current_stream(rhs.device).cuda_stream)
-    _build.check(err, "smooth kernel")
-    cuda.LAUNCHES["smooth"] += 1
+    head = (ptr(u), ptr(corr), rhs.data_ptr(), *(t.data_ptr() for t in stored),
+            u_out.data_ptr(), ptr(res), rows, cols)
+    stream = torch.cuda.current_stream(rhs.device).cuda_stream
+    fn = _build.entry(entry, rhs.element_size())
+    if level.form == "from_v":
+        err = fn(*head, level.n, nsweeps, *cn_constants(level), flags, stream)
+    elif level.form == "five":
+        err = fn(*head, nsweeps, level.diag_a, 1.0 / level.diag_a, flags,
+                 stream)
+    else:
+        err = fn(*head, nsweeps, flags, stream)
+    _build.check(err, f"{counter} kernel")
+    cuda.LAUNCHES[counter] += 1
     return u_out, res

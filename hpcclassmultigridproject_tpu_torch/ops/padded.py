@@ -1,18 +1,24 @@
 """Level operations on the padded layout (core/layout.py), in plain PyTorch.
 
-These are the JAX package's `ops/padded.py` operations that the port's
-path needs, and the building blocks of every kernel's plain version.
-All fields and velocities share one padded shape; the CN coefficients
+These are the JAX package's `ops/padded.py` operations, and the building
+blocks of every kernel's plain version.  All fields share one padded shape;
+the stencil
 
-    aa → u[i,j−1], bb → u[i,j+1], cc → u[i−1,j], dd → u[i+1,j],
-    (A u) = diag_a·u + Σ,  Σ = cc·u_N + dd·u_S + aa·u_W + bb·u_E
+    (A u) = diag·u + Σ,  (B u) = diag_b·u − Σ,
+    Σ = cc·u_N + dd·u_S + aa·u_W + bb·u_E [+ ne·u_NE + nw·u_NW + se·u_SE + sw·u_SW]
 
-are recomputed from (v1, v2) with the arithmetic of the kernels: the
-constants rr, h/2, ν, diag_a and 1/diag_a are rounded to the working dtype
-first, and every expression keeps the JAX package's operation order.
+takes its bands from `coefs(level)`: recomputed from (v1, v2) on a from_v
+level, stored on a five- or nine-band level (mg/levels.py).  The diagonal
+is the scalar diag_a, or on a nine-band level the stored varying `diag`.
+Scalar constants (rr, h/2, ν, diag_a, 1/diag_a) are rounded to the working
+dtype first, and every expression keeps the JAX package's operation order,
+as the kernels do.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -27,6 +33,25 @@ from hpcclassmultigridproject_tpu_torch.core.layout import (
 def as_dtype(x: float, dtype: torch.dtype) -> float:
     """A Python float rounded to `dtype` (a kernel's scalar constant)."""
     return torch.tensor(x, dtype=dtype).item()
+
+
+@dataclasses.dataclass(frozen=True)
+class Coefs:
+    """A level's stencil: the four edge bands, the corner bands (ne, nw,
+    se, sw) of a nine-band level or None, and the diagonal (a tensor on a
+    nine-band level, else None for the scalar `diag_a`)."""
+
+    aa: torch.Tensor
+    bb: torch.Tensor
+    cc: torch.Tensor
+    dd: torch.Tensor
+    corners: Optional[tuple[torch.Tensor, ...]]
+    diag: Optional[torch.Tensor]
+    diag_a: float
+
+    def diagonal(self, dtype: torch.dtype):
+        """The diagonal of A: the stored array, or diag_a rounded to dtype."""
+        return as_dtype(self.diag_a, dtype) if self.diag is None else self.diag
 
 
 def coefs_from_v(level):
@@ -45,24 +70,59 @@ def coefs_from_v(level):
     return aa, bb, cc, dd
 
 
-def neighbor_sum(coefs, u: torch.Tensor) -> torch.Tensor:
-    """Σ = cc·u[i−1,j] + dd·u[i+1,j] + aa·u[i,j−1] + bb·u[i,j+1]."""
-    aa, bb, cc, dd = coefs
-    return (cc * shift(u, -1, 0) + dd * shift(u, 1, 0)
-            + aa * shift(u, 0, -1) + bb * shift(u, 0, 1))
+def coefs(level) -> Coefs:
+    """The level's stencil, whatever its form: the from_v recompute or the
+    stored bands."""
+    if level.form == "from_v":
+        return Coefs(*coefs_from_v(level), None, None, level.diag_a)
+    corners = None if level.ne is None else (level.ne, level.nw, level.se,
+                                             level.sw)
+    return Coefs(level.aa, level.bb, level.cc, level.dd, corners, level.diag,
+                 level.diag_a)
 
 
-def neighbor_sum_from_v(level, u: torch.Tensor) -> torch.Tensor:
-    """`neighbor_sum` with coefficients recomputed from (v1, v2)."""
-    return neighbor_sum(coefs_from_v(level), u)
+def neighbor_sum(c: Coefs, u: torch.Tensor) -> torch.Tensor:
+    """Σ = cc·u[i−1,j] + dd·u[i+1,j] + aa·u[i,j−1] + bb·u[i,j+1], plus
+    ne·u[i−1,j+1] + nw·u[i−1,j−1] + se·u[i+1,j+1] + sw·u[i+1,j−1] on a
+    nine-band level."""
+    s = (c.cc * shift(u, -1, 0) + c.dd * shift(u, 1, 0)
+         + c.aa * shift(u, 0, -1) + c.bb * shift(u, 0, 1))
+    if c.corners is not None:
+        ne, nw, se, sw = c.corners
+        s = (s + ne * shift(u, -1, 1) + nw * shift(u, -1, -1)
+             + se * shift(u, 1, 1) + sw * shift(u, 1, -1))
+    return s
 
 
-def residual_from_v(level, u, rhs, coefs=None) -> torch.Tensor:
+def apply_A(level, u: torch.Tensor, c: Coefs | None = None) -> torch.Tensor:
+    """A·u = diag·u + Σ (u is zero outside the interior, so the diagonal
+    term needs no mask)."""
+    c = coefs(level) if c is None else c
+    return c.diagonal(u.dtype) * u + neighbor_sum(c, u)
+
+
+def apply_B(level, u: torch.Tensor) -> torch.Tensor:
+    """Explicit CN operator B·u = diag_b·u − Σ."""
+    return as_dtype(level.diag_b, u.dtype) * u - neighbor_sum(coefs(level), u)
+
+
+def compute_rhs(level, u: torch.Tensor) -> torch.Tensor:
+    """The CN right-hand side of a step from u: B·u."""
+    return apply_B(level, u)
+
+
+def rhs_and_residual0(level, u: torch.Tensor):
+    """rhs = B·u and r0 = rhs − A·u from one neighbour sum."""
+    c = coefs(level)
+    ns = neighbor_sum(c, u)
+    rhs = as_dtype(level.diag_b, u.dtype) * u - ns
+    return rhs, rhs - c.diagonal(u.dtype) * u - ns
+
+
+def residual(level, u, rhs, c: Coefs | None = None) -> torch.Tensor:
     """rhs − A·u; zero outside the interior by the layout invariant."""
-    if coefs is None:
-        coefs = coefs_from_v(level)
-    diag = as_dtype(level.diag_a, u.dtype)
-    return rhs - diag * u - neighbor_sum(coefs, u)
+    c = coefs(level) if c is None else c
+    return rhs - c.diagonal(u.dtype) * u - neighbor_sum(c, u)
 
 
 def interior_norm(res: torch.Tensor) -> torch.Tensor:
@@ -73,15 +133,17 @@ def interior_norm(res: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(acc * acc))
 
 
-def rb_gauss_seidel(level, u, rhs, coefs=None) -> torch.Tensor:
+def rb_gauss_seidel(level, u, rhs, c: Coefs | None = None) -> torch.Tensor:
     """One red–black Gauss–Seidel sweep: red = (i+j) even first, then black
-    reading the fresh red values."""
-    if coefs is None:
-        coefs = coefs_from_v(level)
-    inv_diag = as_dtype(1.0 / level.diag_a, u.dtype)
+    reading the fresh red values.  On a nine-band level the corner
+    neighbours share the node's colour and are read at their values from
+    before the pass."""
+    c = coefs(level) if c is None else c
+    inv_diag = (as_dtype(1.0 / level.diag_a, u.dtype) if c.diag is None
+                else 1.0 / c.diag)
     red = color_mask(u.shape, 0, device=u.device)
-    u = torch.where(red, (rhs - neighbor_sum(coefs, u)) * inv_diag, u)
-    u = torch.where(~red, (rhs - neighbor_sum(coefs, u)) * inv_diag, u)
+    u = torch.where(red, (rhs - neighbor_sum(c, u)) * inv_diag, u)
+    u = torch.where(~red, (rhs - neighbor_sum(c, u)) * inv_diag, u)
     return u
 
 
@@ -104,6 +166,25 @@ def restrict_inject_rows_decimated(dec: torch.Tensor,
     """Finish an injection whose row decimation already happened in the
     smoother (its `residual_rows_decimated` output, dec = res[::2, :])."""
     return _fit(dec[:, ::2], coarse_shape)
+
+
+def restrict_full_weighting(fine: torch.Tensor, coarse_shape,
+                            n_coarse: int) -> torch.Tensor:
+    """Full weighting 1/16·[1 2 1; 2 4 2; 1 2 1]: a 9-point smooth, then
+    injection by strided indexing, with the coarse boundary ring masked
+    back to zero."""
+    sm = (
+        4.0 * fine
+        + 2.0 * (shift(fine, -1, 0) + shift(fine, 1, 0) + shift(fine, 0, -1)
+                 + shift(fine, 0, 1))
+        + shift(fine, -1, -1)
+        + shift(fine, -1, 1)
+        + shift(fine, 1, -1)
+        + shift(fine, 1, 1)
+    ) * (1.0 / 16.0)
+    coarse = restrict_inject(sm, coarse_shape)
+    return coarse * interior_mask(n_coarse, coarse_shape, dtype=coarse.dtype,
+                                  device=coarse.device)
 
 
 def prolong_bilinear(coarse: torch.Tensor, fine_shape) -> torch.Tensor:

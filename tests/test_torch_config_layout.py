@@ -70,22 +70,49 @@ def test_solver_config_validation_matches(kw):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(),                                     # adaptive, not delta
-    dict(_DELTA, delta_form=False, refine_dtype=None),
-    dict(_DELTA, cycle_shape=2),
+    dict(smoother="jacobi"),
+    dict(smoother="chebyshev"),
     dict(_DELTA, smoother="jacobi"),
-    dict(_DELTA, smoother="chebyshev"),
-    dict(_DELTA, restriction="full"),
-    dict(_DELTA, coarse_mode="gs"),
-    dict(_DELTA, coarse_operator="galerkin"),
     dict(_DELTA, sharded_overlap=True),
+    dict(device_build=True),
 ])
 def test_off_slice_configs_raise_not_implemented(kw):
-    """Valid JAX configurations off the port's slice name their ROADMAP
-    item instead of running something else."""
+    """Valid JAX configurations the port does not run yet name their
+    ROADMAP item instead of running something else."""
     jcfg.SolverConfig(**kw)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
         tcfg.SolverConfig(**_port_kwargs(kw))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),                                     # adaptive, not delta
+    dict(_DELTA, delta_form=False, refine_dtype=None),
+    dict(_DELTA, cycle_shape=2),
+    dict(_DELTA, restriction="full"),
+    dict(_DELTA, coarse_mode="gs"),
+    dict(_DELTA, coarse_operator="galerkin"),
+    dict(cycle_mode="fmg", refine_dtype=jnp.float64),
+    dict(device_build=False),
+])
+def test_single_device_configs_are_accepted(kw):
+    """Every single-device red–black configuration the JAX package takes,
+    the port takes too, with the same field values."""
+    j = jcfg.SolverConfig(**kw)
+    t = tcfg.SolverConfig(**_port_kwargs(kw))
+    for f in dataclasses.fields(j):
+        assert _DTYPES.get(getattr(j, f.name), getattr(j, f.name)) == \
+            getattr(t, f.name), f.name
+
+
+def test_certify_every_without_delta_warns_like_jax():
+    kw = dict(cycle_mode="fixed", certify_every=10)
+    with pytest.warns(UserWarning, match="only honored by the delta"):
+        jcfg.SolverConfig(**kw)
+    with pytest.warns(UserWarning, match="only honored by the delta"):
+        tcfg.SolverConfig(**kw)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        tcfg.SolverConfig(**_port_kwargs(_DELTA), certify_every=10)
 
 
 def test_resolved_num_cycles_matches_over_grid():

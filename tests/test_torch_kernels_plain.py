@@ -31,7 +31,7 @@ from hpcclassmultigridproject_tpu_torch.ops.cuda import (
     tower,
 )
 from hpcclassmultigridproject_tpu_torch.ops.padded import (
-    residual_from_v,
+    residual,
     restrict_inject,
 )
 
@@ -150,7 +150,7 @@ def test_k3_k4_tower_plain_matches_pallas(n, jdtype):
     # the descent's coarse rhs is the injected residual of its last level
     u_mids, rhs_mids, bottom = tower.tower_descend(
         tl, 1, torch.from_numpy(rhs), 3)
-    res = residual_from_v(tl[1], u_mids[0], rhs_mids[0])
+    res = residual(tl[1], u_mids[0], rhs_mids[0])
     assert torch.equal(bottom, restrict_inject(res, tl[2].padded))
 
 
@@ -202,6 +202,12 @@ def test_cpu_run_never_loads_the_kernel_library():
         "m = AdvectionDiffusion(p.ProblemConfig(n=16, num_steps=2), cfg,"
         " device='cpu')\n"
         "uT, st = m.run()\n"
+        "from hpcclassmultigridproject_tpu_torch.models import Poisson\n"
+        "u, ps = Poisson(n=16, device='cpu').solve()\n"
+        "g = AdvectionDiffusion(p.ProblemConfig(n=16, num_steps=2),"
+        " p.SolverConfig(coarse_operator='galerkin', coarse_mode='dense',"
+        " num_levels=2), device='cpu')\n"
+        "g.run()\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert _build.library.cache_info().currsize == 0, 'library loaded'\n"
         "print('ok', float(st['final_rel_residual_hi']))\n"

@@ -55,7 +55,7 @@ def test_hierarchy_matches_jax_build(jdtype, n, num_levels):
     jl = j_build(jnp.asarray(v1), jnp.asarray(v2), dt, nu, num_levels,
                  dtype=jdtype, coarse_mode="dense")
     tl = build_hierarchy(v1, v2, dt, nu, num_levels, dtype=_DTYPES[jdtype],
-                         device="cpu")
+                         device="cpu", coarse_mode="dense")
     assert len(tl) == len(jl)
     for a, b in zip(jl, tl):
         assert b.v1.dtype == _DTYPES[jdtype]
@@ -81,7 +81,7 @@ def test_fine_level_is_slim_and_matches():
                           device="cpu")
     np.testing.assert_array_equal(tl.v1.numpy(), np.asarray(jl.v1))
     np.testing.assert_array_equal(tl.v2.numpy(), np.asarray(jl.v2))
-    assert tl.a_inv is None and not hasattr(tl, "aa")
+    assert tl.a_inv is None and tl.form == "from_v" and tl.aa is None
     for k in _STATIC:
         assert getattr(tl, k) == getattr(jl, k), k
 
@@ -139,3 +139,31 @@ def test_hierarchy_too_deep_raises():
     with pytest.raises(ValueError, match="too deep"):
         build_hierarchy(v1, v2, 0.01, -4e-4, 4, dtype=torch.float64,
                         device="cpu")
+
+
+def test_interop_carries_galerkin_bands():
+    """A JAX Galerkin hierarchy crosses interop: the fine level as from_v,
+    the coarse levels nine-band with their bands, diagonal and dense
+    inverse bitwise, no velocities; and equals the port's own build."""
+    jc, tc = _delta_cfgs(coarse_operator="galerkin")
+    jm = JModel(JProblem(n=64, num_steps=1), jc)
+    tm = AdvectionDiffusion(ProblemConfig(n=64, num_steps=1), tc,
+                            device="cpu")
+    names = ("aa", "bb", "cc", "dd", "ne", "nw", "se", "sw", "diag")
+    dicts = [_level_dict(jm.levels[0])]
+    for l in jm.levels[1:]:
+        d = _level_dict(l)
+        d.update({k: np.asarray(getattr(l, k)) for k in names})
+        dicts.append(d)
+    levels, fine_hi, _ = interop.levels_from_numpy(
+        dicts, None, np.asarray(jm.u0), device="cpu", dtype=torch.float32)
+    assert fine_hi is None
+    assert [l.form for l in levels] == ["from_v", "nine", "nine"]
+    for d, got, own in zip(dicts[1:], levels[1:], tm.levels[1:]):
+        assert got.v1 is None and got.v2 is None
+        for k in names:
+            np.testing.assert_array_equal(getattr(got, k).numpy(), d[k])
+            np.testing.assert_array_equal(getattr(own, k).numpy(), d[k])
+    np.testing.assert_array_equal(levels[-1].a_inv.numpy(), dicts[-1]["a_inv"])
+    np.testing.assert_array_equal(tm.levels[-1].a_inv.numpy(),
+                                  dicts[-1]["a_inv"])

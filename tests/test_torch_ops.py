@@ -57,8 +57,9 @@ def test_stencil_ops_match(n):
     tu, tr = torch.from_numpy(u), torch.from_numpy(rhs)
     for a, b in zip(jops._coefs_from_v(jl), tops.coefs_from_v(tl)):
         _close(b, a)
-    _close(tops.neighbor_sum_from_v(tl, tu), jops.neighbor_sum_from_v(jl, ju))
-    _close(tops.residual_from_v(tl, tu, tr), jops.residual_from_v(jl, ju, jr))
+    _close(tops.neighbor_sum(tops.coefs(tl), tu),
+           jops.neighbor_sum_from_v(jl, ju))
+    _close(tops.residual(tl, tu, tr), jops.residual_from_v(jl, ju, jr))
     _close(tops.rb_gauss_seidel(tl, tu, tr), jops.rb_gauss_seidel(jl, ju, jr))
 
 
@@ -116,3 +117,55 @@ def test_twosum_accumulate_is_bitwise_f32():
     # renormalized: |lo| within half an ulp of hi
     h2, l2 = (x.numpy() for x in got)
     assert (np.abs(l2) <= 0.5 * np.spacing(np.abs(h2))).all()
+
+
+def _banded_levels(kind, n=32):
+    """A JAX five-band (Poisson) or nine-band (Galerkin) level in f64 and
+    the port's copy of it."""
+    from hpcclassmultigridproject_tpu.core.problem import rotating_velocity
+    from hpcclassmultigridproject_tpu.mg.levels import build_hierarchy
+    from hpcclassmultigridproject_tpu.models.poisson import poisson_level
+
+    if kind == "five":
+        jl = poisson_level(n, 1.0 / n, jnp.float64)
+    else:
+        v1, v2 = rotating_velocity(2 * n, dtype=jnp.float64)
+        jl = build_hierarchy(v1, v2, 0.05 / n, -4e-4, 2, dtype=jnp.float64,
+                             coarse_operator="galerkin")[1]
+    d = {k: getattr(jl, k) for k in ("n", "h", "dt", "nu", "diag_a", "diag_b")}
+    for k in ("aa", "bb", "cc", "dd", "ne", "nw", "se", "sw", "diag"):
+        if getattr(jl, k) is not None:
+            d[k] = np.asarray(getattr(jl, k))
+    return jl, interop.level_from_numpy(d, device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["from_v", "five", "nine"])
+def test_operator_ops_match_on_every_level_form(kind):
+    """apply_A, apply_B, compute_rhs, rhs_and_residual0, residual and
+    rb_gauss_seidel through the `coefs` dispatcher, on each level form."""
+    n = 32
+    jl, tl = _levels(n) if kind == "from_v" else _banded_levels(kind, n)
+    assert tl.form == kind
+    rng = np.random.default_rng(21)
+    u, rhs = _field(rng, n), _field(rng, n)
+    ju, jr = jnp.asarray(u), jnp.asarray(rhs)
+    tu, tr = torch.from_numpy(u), torch.from_numpy(rhs)
+    _close(tops.apply_A(tl, tu), jops.apply_A(jl, ju))
+    _close(tops.apply_B(tl, tu), jops.apply_B(jl, ju))
+    _close(tops.compute_rhs(tl, tu), jops.compute_rhs(jl, ju))
+    for a, b in zip(tops.rhs_and_residual0(tl, tu),
+                    jops.rhs_and_residual0(jl, ju)):
+        _close(a, b)
+    _close(tops.residual(tl, tu, tr), jops.residual(jl, ju, jr))
+    _close(tops.rb_gauss_seidel(tl, tu, tr), jops.rb_gauss_seidel(jl, ju, jr))
+
+
+@pytest.mark.parametrize("n", [16, 64, 128])
+def test_full_weighting_matches(n):
+    """Full weighting by strided decimation against the JAX package's
+    decimation matmul, boundary ring masked, including the padded edges."""
+    x = _field(np.random.default_rng(n + 3), n)
+    coarse_shape = padded_shape(n // 2)
+    _close(tops.restrict_full_weighting(torch.from_numpy(x), coarse_shape,
+                                        n // 2),
+           jops.restrict_full_weighting(jnp.asarray(x), coarse_shape, n // 2))
