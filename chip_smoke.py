@@ -11,9 +11,11 @@ raising on failure:
 2. build: nvcc builds every kernel of the port from csrc/;
 3. kernels: each kernel (K1 opening, K2 smoother in both flag sets of the
    main path, K3/K4 tower, K5 five-band and K6 nine-band smoothers in the
-   flag sets of their paths) against its plain PyTorch version on the
+   flag sets of their paths, K7 on every shape the distributed path's
+   two schedules launch at W=4) against its plain PyTorch version on the
    card, at the paths' shapes, in float32 (within 4 ulp of the field's
-   max-abs) and float64 (within 1e-13), with kernel and plain times;
+   max-abs) and float64 (within 1e-13), with kernel and plain times; and
+   the four K7 blocks of level 0, stitched, against K2 on the whole field;
 4. main path: the n=1024, 100-step delta-form run through
    AdvectionDiffusion, with every certificate <= 1e-6, the center value,
    the launch count of every kernel, and the same run through the plain
@@ -23,10 +25,17 @@ raising on failure:
 7. poisson: Poisson(n=1024) in float64 to tol 1e-10 and in its float32
    default, which stalls at 50 cycles as the JAX package's does (K5);
 8. refined: n=1024, 100 refined fixed-cycle steps, not in delta form (K2,
-   K3, K4).
+   K3, K4);
+9. distributed: parallel.distributed_run of the main path over W=4 spawned
+   ranks on the one card, over gloo with the halos staged through host
+   memory (NCCL takes one rank per GPU), in the plain and the overlap
+   schedule (K7, K3, K4) and once through the plain versions: every
+   certificate, the center value, uT against phase 4's, and each
+   schedule's launch counts; then one NCCL rank, whose 10-step
+   distributed_run must equal a 10-step single-device run.
 
-Each path phase (4, 6, 7, 8) resets the launch counts just before the run
-it reads, checks every count, and runs the same path once more through
+Each path phase (4, 6, 7, 8, 9) resets the launch counts just before the
+run it reads, checks every count, and runs the same path once more through
 the plain versions.
 
 The last two lines are a JSON object with the kernels' numbers, then
@@ -62,6 +71,8 @@ KERNELS = [  # (counter, name, source, the TPU kernel's pallas_call)
      f"{TPU}/smoother.py:437"),
     ("smooth9", "K6 nine-band smoother", f"{PKG}/csrc/smoother.cu",
      f"{TPU}/smoother.py:437"),
+    ("smooth_rows", "K7 row-offset smoother", f"{PKG}/csrc/smoother.cu",
+     f"{TPU}/smoother.py:437"),
 ]
 MAIN_N, MAIN_STEPS = 1024, 100
 CENTER_1024 = 4.60419316843316e-5  # delta form at n=1024 (BENCH_r05.json)
@@ -70,6 +81,7 @@ CENTER_GALERKIN = 4.604193168566387e-05   # delta form, Galerkin levels
 CENTER_REFINED = 4.604193170120696e-05    # refined, fixed, one cycle
 CENTER_POISSON = 0.07367129792055582      # u[512, 512], f64, tol 1e-10
 TOL = 1e-6
+DIST_WORLD, DIST_MIN_LOCAL, NCCL_STEPS = 4, 64, 10
 
 
 def require(ok: bool, what: str) -> None:
@@ -175,6 +187,101 @@ def _smooth_cases(tag, level, f, lvl):
         level.padded) for name, kw in flag_sets.items()}
 
 
+def _rank_views(levels, world: int, rank: int):
+    """Rank `rank`'s view of the distributed path's levels (W ranks,
+    min_local 64): (cut levels, partitions), with no process group."""
+    from hpcclassmultigridproject_tpu_torch.parallel import Mesh
+    from hpcclassmultigridproject_tpu_torch.parallel.sharding import (
+        shard_hierarchy,
+    )
+
+    return shard_hierarchy(levels, Mesh(world=world, rank=rank),
+                           DIST_MIN_LOCAL)
+
+
+def _ext_rows(x, part):
+    """Rows [start − h, stop + h) of the whole field x, zero past it: the
+    extended block the deep-halo exchange gives a rank."""
+    import torch.nn.functional as F
+
+    h = part.halo
+    full = F.pad(x, (0, 0, h, part.span - x.shape[0] + h))
+    return full[part.start:part.stop + 2 * h].contiguous()
+
+
+def _smooth_rows_cases(levels, f):
+    """K7 on the W=4 blocks: level 0 at the first, a middle and the last
+    rank, levels 1 and 2 at a middle rank, each in the two flag sets of
+    the distributed path, on every shape its two schedules launch: the
+    extended block (plain schedule), and the raw block and the two 3h-row
+    edge slabs (overlap schedule)."""
+    from hpcclassmultigridproject_tpu_torch.mg.levels import level_rows
+    from hpcclassmultigridproject_tpu_torch.ops.cuda import smoother
+
+    cases = {}
+    picks = [(0, 0), (0, 1), (0, DIST_WORLD - 1), (1, 1), (2, 1)]
+    for lvl, rank in picks:
+        cut, parts = _rank_views(levels, DIST_WORLD, rank)
+        level, part = cut[lvl], parts[lvl]
+        h, start, stop, local = part.halo, part.start, part.stop, part.local
+        u = _ext_rows(f(lvl=lvl), part)
+        rhs = _ext_rows(f(lvl=lvl), part)
+        # (schedule's block, global rows [a, b)); ext row 0 is start − h
+        blocks = [("extended", start - h, stop + h),
+                  ("overlap raw", start, stop),
+                  ("overlap top slab", start - h, start + 2 * h),
+                  ("overlap bottom slab", stop - 2 * h, stop + h)]
+        for what, a, b in blocks:
+            lv = level if what == "extended" else level_rows(level, a, b)
+            uu, rr = (x[a - start + h:b - start + h].contiguous()
+                      for x in (u, rhs))
+            assert lv.padded[0] == b - a and (b - a) in (local + 2 * h,
+                                                         local, 3 * h)
+            for flags, kw in (("zero_init, residual", dict(zero_init=True)),
+                              ("u, residual", {})):
+                cases[f"smooth_rows ({what}, level {lvl}, rank {rank}, "
+                      f"row_off {lv.row_off}, {flags})"] = (
+                    lambda lv=lv, uu=uu, rr=rr, kw=kw:
+                        smoother.fused_rb_sweeps_rows(lv, uu, rr, 3, True,
+                                                      **kw),
+                    lambda lv=lv, uu=uu, rr=rr, kw=kw:
+                        smoother.fused_rb_sweeps_plain(lv, uu, rr, 3, True,
+                                                       **kw),
+                    lv.padded)
+    return cases
+
+
+def _stitched_rows(levels, u, rhs, dtype):
+    """The W K7 blocks of level 0 (halos cut from the whole field, as the
+    exchange delivers them) stitched, against K2 on the whole field."""
+    from hpcclassmultigridproject_tpu_torch.ops.cuda import smoother
+    from hpcclassmultigridproject_tpu_torch.parallel.rows_halo import (
+        Exchange,
+        smooth_block,
+    )
+
+    outs = []
+    for rank in range(DIST_WORLD):
+        cut, parts = _rank_views(levels, DIST_WORLD, rank)
+        part, h = parts[0], parts[0].halo
+        ext = [_ext_rows(x, part) for x in (u, rhs)]
+        blocks = [x[h:h + part.local] for x in ext]
+        halos = Exchange.given([(x[:h], x[h + part.local:]) for x in ext])
+        outs.append(smooth_block(cut[0], part, blocks, halos, 3, True))
+    rows = levels[0].padded[0]
+    got = [torch.cat([o[i] for o in outs]) for i in (0, 1)]
+    want = smoother.fused_rb_sweeps(levels[0], u, rhs, 3, True)
+    torch.cuda.synchronize()
+    err, bound, exact = _compare("smooth_rows stitched",
+                                 [g[:rows] for g in got], want, dtype)
+    past = max(float(g[rows:].abs().max()) for g in got)
+    require(past == 0.0, "stitched K7 blocks: rows past the array not 0")
+    print(f"[kernels] smooth_rows stitched: {DIST_WORLD} blocks of level 0 "
+          f"{str(dtype)[6:]} against K2 on the whole {levels[0].padded} "
+          f"field: max|K7 - K2| {err:.3g} (bound {bound:.3g}), "
+          f"bit-identical {exact}")
+
+
 def phase_kernels(device, n: int) -> dict:
     """Each kernel against its plain version at its paths' shapes for n,
     in float64 then float32; returns {counter: (max-abs difference, kernel
@@ -241,7 +348,9 @@ def phase_kernels(device, n: int) -> dict:
                 levels[1].padded),
             **_smooth_cases("smooth5", poisson, f, 0),
             **_smooth_cases("smooth9", galerkin, f, 1),
+            **_smooth_rows_cases(levels, f),
         }
+        _stitched_rows(levels, u, rhs, dtype)
         for name, (kern, plain, shape) in cases.items():
             got, want = _flatten(kern()), _flatten(plain())
             torch.cuda.synchronize()
@@ -303,10 +412,9 @@ def _drive(tag, run, want: dict, plain_bound: float):
     return out, stats, counts
 
 
-def _check_advection(tag, model, uT, stats, center_ref, delta: bool):
+def _check_advection(tag, n, steps, uT, stats, center_ref, delta: bool):
     """Shape, finiteness, every certificate <= 1e-6 and the center value
-    of an AdvectionDiffusion run."""
-    n, steps = model.problem.n, model.problem.num_steps
+    of an AdvectionDiffusion run of `steps` steps at n."""
     require(tuple(uT.shape) == (n + 1, n + 1), f"{tag}: uT shape")
     require(bool(torch.isfinite(uT).all()), f"{tag}: uT not finite")
     rel = stats["rel_residual"].cpu().numpy()
@@ -323,7 +431,7 @@ def _check_advection(tag, model, uT, stats, center_ref, delta: bool):
                 and bool((certified <= TOL).all()),
                 f"{tag}: a mid-run f64 certificate is missing or > 1e-6")
         require(final <= TOL, f"{tag}: final f64 certificate {final:.3e}")
-    center = model.center_value(uT)
+    center = float(uT[n // 2, n // 2])
     print(line)
     print(f"[{tag}] center uT {center!r} (reference {center_ref!r}, |diff| "
           f"{abs(center - center_ref):.3g})")
@@ -352,7 +460,8 @@ def phase_galerkin(device, n: int, steps: int):
         "galerkin", lambda: model.run(warn=False),
         {"delta_open": steps, "smooth": 2 * steps,
          "smooth9": 2 * smoothed * steps}, 1e-8)
-    _check_advection("galerkin", model, uT, stats, CENTER_GALERKIN, True)
+    _check_advection("galerkin", n, steps, uT, stats, CENTER_GALERKIN,
+                     True)
     return counts
 
 
@@ -414,13 +523,14 @@ def phase_refined(device, n: int, steps: int):
         "refined", lambda: model.run(warn=False),
         {"smooth": 2 * steps, "tower_descent": steps,
          "tower_ascent": steps}, 1e-8)
-    _check_advection("refined", model, uT, stats, CENTER_REFINED, False)
+    _check_advection("refined", n, steps, uT, stats, CENTER_REFINED,
+                     False)
     return counts
 
 
 def phase_main_path(device, n: int, steps: int, center_ref: float):
     """The main path through AdvectionDiffusion; returns the launch counts
-    of one run."""
+    of one run and its uT."""
     from hpcclassmultigridproject_tpu_torch import ProblemConfig
     from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
 
@@ -434,8 +544,8 @@ def phase_main_path(device, n: int, steps: int, center_ref: float):
         "main", lambda: model.run(warn=False),
         {"delta_open": steps, "smooth": 2 * steps, "tower_descent": steps,
          "tower_ascent": steps}, 1e-8)
-    _check_advection("main", model, uT, stats, center_ref, True)
-    return counts
+    _check_advection("main", n, steps, uT, stats, center_ref, True)
+    return counts, uT
 
 
 def phase_golden(device) -> None:
@@ -458,6 +568,174 @@ def phase_golden(device) -> None:
     require(final <= TOL, "golden final certificate > 1e-6")
 
 
+def _dist_rank(n: int, steps: int) -> dict:
+    """One rank of the distributed phase (a spawned process on cuda:0): the
+    main path through distributed_run in the plain and the overlap
+    schedule, each run read between a reset and a read of this rank's
+    launch counts, and once through the plain versions.  Rank 0's result
+    reaches the parent."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig
+    from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+    from hpcclassmultigridproject_tpu_torch.ops import cuda
+    from hpcclassmultigridproject_tpu_torch.parallel import distributed_run
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = AdvectionDiffusion(ProblemConfig(n=n, num_steps=steps),
+                               delta_config(certify_every=10), device="cuda")
+
+    def run(overlap: bool):
+        model.solver = dataclasses.replace(model.solver,
+                                           sharded_overlap=overlap)
+        dist.barrier()
+        t0 = time.perf_counter()
+        uT, stats = distributed_run(model, min_local=DIST_MIN_LOCAL)
+        torch.cuda.synchronize()
+        dist.barrier()
+        return uT, stats, time.perf_counter() - t0
+
+    run(False)  # warm-up: CUDA context, kernel library, allocator
+    out = {}
+    for tag, overlap in (("plain", False), ("overlap", True)):
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launches()
+        uT, stats, wall = run(overlap)
+        counts = dict(cuda.LAUNCHES)
+        peaks = [None] * dist.get_world_size()
+        dist.all_gather_object(peaks, torch.cuda.max_memory_allocated())
+        out[tag] = dict(uT=uT.cpu().numpy(), wall=wall, counts=counts,
+                        peaks_mib=[b / 2**20 for b in peaks],
+                        stats={k: v.cpu().numpy() for k, v in stats.items()})
+    with cuda.plain_route():
+        uT, _, wall = run(False)
+    out["plain versions"] = dict(uT=uT.cpu().numpy(), wall=wall)
+    out["comm_ms"] = _collective_costs(model)
+    return out
+
+
+def _collective_costs(model, reps: int = 100) -> dict:
+    """Mean ms per call of each collective of the distributed path, with
+    no kernel between the calls, at the path's shapes: the deep-halo
+    exchange of (u, rhs) at level 0, the one-row exchange, the norm's
+    all_sum, and the agglomeration's all-gather into level 3."""
+    import torch.distributed as dist
+
+    from hpcclassmultigridproject_tpu_torch.parallel import (
+        distributed,
+        level_shardings,
+        make_mesh,
+        rows_halo,
+    )
+
+    mesh = make_mesh()
+    parts = level_shardings(model.levels, mesh, DIST_MIN_LOCAL)
+    x = torch.ones(parts[0].shape, device="cuda")
+    coarse = torch.ones((parts[2].local // 2, model.levels[3].padded[1]),
+                        device="cuda")
+    calls = {
+        "exchange (u, rhs), 8 rows": lambda: rows_halo.exchange([x, x], 8,
+                                                                mesh),
+        "exchange (u), 1 row": lambda: rows_halo.exchange([x], 1, mesh),
+        "all_sum": lambda: distributed.all_sum(x.sum(), mesh),
+        "all_gather_rows into level 3": lambda: distributed.all_gather_rows(
+            coarse, mesh),
+    }
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        out[name] = (time.perf_counter() - t0) / reps * 1e3
+    return out
+
+
+def _nccl_rank(n: int, steps: int) -> dict:
+    """The one NCCL rank: distributed_run (every level replicated at world
+    size 1) against a single-device run, and the all-gathers of the
+    collectives on device tensors."""
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig
+    from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+    from hpcclassmultigridproject_tpu_torch.parallel import (
+        distributed,
+        distributed_run,
+        make_mesh,
+    )
+
+    mesh = make_mesh()
+    model = AdvectionDiffusion(ProblemConfig(n=n, num_steps=steps),
+                               delta_config(certify_every=10), device="cuda")
+    uT_dist, _ = distributed_run(model, mesh, min_local=DIST_MIN_LOCAL)
+    uT_single, _ = model.run(warn=False)
+    x = torch.arange(12.0, device="cuda").reshape(3, 4)
+    gathered = distributed.all_gather_rows(x, mesh)
+    total = distributed.all_sum(x.sum(), mesh)
+    return dict(backend=mesh.backend, world=mesh.world,
+                max_diff=float((uT_dist - uT_single).abs().max()),
+                collectives_ok=bool(torch.equal(gathered, x)
+                                    and float(total) == 66.0))
+
+
+def phase_distributed(n: int, steps: int, uT_single) -> int:
+    """distributed_run of the main path over DIST_WORLD ranks on the one
+    card; returns rank 0's K7 launch count of the plain schedule's run."""
+    from hpcclassmultigridproject_tpu_torch.parallel import launch_local
+
+    print(f"[distributed] {DIST_WORLD} ranks on cuda:0 over gloo, halos and "
+          "collectives staged through host memory: the machine has one "
+          "card, and NCCL takes one rank per GPU.  The walls are not a "
+          "scaling figure.")
+    t0 = time.perf_counter()
+    res = launch_local(_dist_rank, DIST_WORLD, (n, steps), backend="gloo",
+                       device="cuda:0")
+    print(f"[distributed] spawn, build and four runs per rank: "
+          f"{time.perf_counter() - t0:.1f} s")
+    single = uT_single.cpu().numpy()
+    want = {"plain": {"smooth_rows": 6 * steps},
+            "overlap": {"smooth_rows": 18 * steps}}
+    comm = res.pop("comm_ms")
+    print("[distributed] collectives per call, ms (rank 0, mean of 100, "
+          "no kernel between them): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in comm.items()))
+    for tag, got in res.items():
+        du = float(np.abs(got["uT"] - single).max())
+        line = (f"[distributed] {tag}: wall {got['wall']:.4f} s (rank 0), "
+                f"max|uT_dist - uT_single| {du:.3g} (bound 1e-09)")
+        if tag in want:
+            counts = got["counts"]
+            expect = {k: 0 for k in counts}
+            expect.update(want[tag], tower_descent=steps,
+                          tower_ascent=steps)
+            line += (f"; launches per rank {counts}; peak device memory per "
+                     f"rank {[round(m, 1) for m in got['peaks_mib']]} MiB")
+            print(line)
+            require(counts == expect, f"distributed {tag}: launch counts "
+                    f"{counts}, expected {expect}")
+            stats = {k: torch.from_numpy(v) for k, v in got["stats"].items()}
+            _check_advection(f"distributed {tag}", n, steps,
+                             torch.from_numpy(got["uT"]), stats, CENTER_1024,
+                             True)
+        else:
+            print(line)
+        require(du <= 1e-9, f"distributed {tag}: uT off the single-device "
+                f"run by {du:.3g}")
+    nccl = launch_local(_nccl_rank, 1, (n, NCCL_STEPS), backend="nccl",
+                        device="cuda:0")
+    print(f"[distributed] one NCCL rank ({nccl['backend']}, world "
+          f"{nccl['world']}): {NCCL_STEPS} steps, max|uT_dist - "
+          f"uT_single| {nccl['max_diff']!r} (expected 0); all_gather_rows "
+          f"and all_sum on device tensors right: {nccl['collectives_ok']}")
+    require(nccl["backend"] == "nccl" and nccl["max_diff"] == 0.0
+            and nccl["collectives_ok"], "the one-rank NCCL run")
+    return res["plain"]["counts"]["smooth_rows"]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -470,11 +748,12 @@ def main() -> None:
     name = phase_device()
     phase_build()
     measured = phase_kernels(device, MAIN_N)
-    counts = phase_main_path(device, MAIN_N, MAIN_STEPS, CENTER_1024)
+    counts, uT_main = phase_main_path(device, MAIN_N, MAIN_STEPS, CENTER_1024)
     phase_golden(device)
     counts["smooth9"] = phase_galerkin(device, MAIN_N, MAIN_STEPS)["smooth9"]
     counts["smooth5"] = phase_poisson(device, MAIN_N)["smooth5"]
     phase_refined(device, MAIN_N, MAIN_STEPS)
+    counts["smooth_rows"] = phase_distributed(MAIN_N, MAIN_STEPS, uT_main)
     kernels = []
     for key, label, source, replaces in KERNELS:
         err, ms, plain_ms = measured[key]

@@ -6,10 +6,11 @@ module names and imports torch and numpy, never jax.  It runs the
 single-device solver: Crank–Nicolson advection–diffusion with the
 adaptive, fixed, FMG, refined and delta steppers, V- and W-cycles of
 red–black GS with injection or full weighting, dense or GS coarse solves,
-rediscretized or Galerkin coarse operators, and the Poisson family.  Its
-kernels are hand-written CUDA C++ in `csrc/`, built with nvcc at first use
-(`ops/cuda/_build.py`); on CPU tensors each kernel's plain PyTorch version
-runs instead.
+rediscretized or Galerkin coarse operators, and the Poisson family; and
+the same run partitioned by rows over `torch.distributed` ranks
+(`parallel.distributed_run`).  Its kernels are hand-written CUDA C++ in
+`csrc/`, built with nvcc at first use (`ops/cuda/_build.py`); on CPU
+tensors each kernel's plain PyTorch version runs instead.
 
 Layer map:
   core/       padded layout, problem fields
@@ -18,6 +19,8 @@ Layer map:
               steppers, timestepper
   sparse/     Galerkin R·A·P coarse operators
   models/     AdvectionDiffusion, Poisson
+  parallel/   the rows-partitioned run: ranks, collectives, deep-halo
+              smoothing (K7), block forms of the level ops
   interop.py  the JAX package's level fields into the port's levels
 """
 

@@ -5,10 +5,12 @@ Defaults and validation are the reference package's.  The port runs every
 single-device red–black Gauss–Seidel configuration: V- and W-cycles,
 injection and full weighting, dense and GS coarse solves, rediscretized
 and Galerkin coarse operators, and the adaptive, fixed, FMG, refined and
-delta steppers.  The rest (Jacobi and Chebyshev smoothing, a mesh, the
-on-device build) raises `NotImplementedError` naming the ROADMAP item that
-will port it, so nothing silently runs a different algorithm from the one
-asked for.
+delta steppers; and each of them but FMG and the Galerkin operator
+row-partitioned over ranks (`parallel.distributed_run`, in either
+`sharded_overlap` schedule).  The rest (Jacobi and Chebyshev smoothing,
+the on-device build) raises `NotImplementedError` naming the ROADMAP item
+that will port it, so nothing silently runs a different algorithm from the
+one asked for.
 """
 
 from __future__ import annotations
@@ -112,7 +114,6 @@ class SolverConfig:
             raise ValueError(f"dtype={self.dtype}: need float32 or float64")
         not_ported = [
             (self.smoother != "rbgs", f"smoother={self.smoother!r}", 9),
-            (self.sharded_overlap, "sharded_overlap (a mesh)", 14),
             (bool(self.device_build), "device_build=True (the on-device "
              "build)", 3),
         ]

@@ -61,6 +61,8 @@ struct SmoothArgs {
   T* u_out;         // (rows, cols)
   T* res_out;       // (res_rows, res_cols), unless RES_NONE
   int rows, cols, n, nsweeps;
+  int row_off;      // FORM_FROM_V: global row of array row 0 (K7's block
+                    // of a row-partitioned level; 0 on a whole level)
   int src_rows, src_cols, res_rows, res_cols;
   int dom_rows, dom_cols;  // extent the tiles cover: the array, or more
                            // where RES_INJECT has coarse cells past it
@@ -167,11 +169,14 @@ inline size_t smooth_smem_bytes(int nsweeps, size_t elem, int planes) {
 // therefore holds exactly what a global barrier between colors would give.
 // Cells past the array are 0 and stay 0, since their coefficients and rhs
 // are 0 (and a nine-band diagonal loads 1 there, so 1/diag stays finite):
-// that is the truth at the array's edges.  Red is (i+j) even in global
-// indices.  A five-point color pass reads only the other color, so it
-// updates in place; a nine-point pass also reads its own color at the
-// corners, so it computes every update of the pass first and writes them
-// after a barrier.
+// that is the truth at the array's edges, and on a rank's extended block of
+// a row-partitioned level (K7) the artificial edge whose error the center
+// rows never see.  Red is (i+j) even in array indices, which are the
+// global ones on a whole level and on a block whose row_off is even (the
+// wrapper refuses an odd one).  A five-point color pass reads only the
+// other color, so it updates in place; a nine-point pass also reads its
+// own color at the corners, so it computes every update of the pass first
+// and writes them after a barrier.
 template <typename T, int FORM>
 __device__ void smooth_tile(const SmoothArgs<T>& a) {
   extern __shared__ __align__(16) unsigned char mg_smem[];
@@ -219,11 +224,18 @@ __device__ void smooth_tile(const SmoothArgs<T>& a) {
   }
   __syncthreads();
 
-  // the stencil at window cell idx (global (gi, gj)): its four edge bands
+  // the stencil at window cell idx (array (gi, gj)): its four edge bands.
+  // The from_v interior mask reads the global row gi + row_off, and is 0
+  // past the array: on a K7 block the rows past it can be interior rows
+  // of the grid, whose cells must stay 0 there as the plain version's
+  // zero fill keeps them (on a whole level they lie outside the interior)
   auto coefs = [&](int idx, int gi, int gj) {
-    if (FORM == FORM_FROM_V)
+    if (FORM == FORM_FROM_V) {
+      const bool in = gi >= 0 && gi < a.rows && gj >= 0 && gj < a.cols;
       return coefs_at(sco[idx], sco[wsize + idx],
-                      interior_at<T>(gi, gj, a.n), a.rr, a.hh, a.nu);
+                      in ? interior_at<T>(gi + a.row_off, gj, a.n) : T(0),
+                      a.rr, a.hh, a.nu);
+    }
     Coefs<T> k;
     k.aa = sco[idx];
     k.bb = sco[wsize + idx];

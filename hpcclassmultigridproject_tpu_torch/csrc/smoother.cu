@@ -1,19 +1,26 @@
-// K2, K5, K6: the fused red-black Gauss-Seidel smoothing block.
+// K2, K5, K6, K7: the fused red-black Gauss-Seidel smoothing block.
 //
 // Replaces the TPU kernel hpcclassmultigridproject_tpu/ops/pallas/smoother.py
-// (_kernel, launched by _fused at :437, through fused_rb_sweeps) in three of
-// its forms, one entry point each:
+// (_kernel, launched by _fused at :437) in four of its forms:
 //
 //   K2 mg_smooth:  the CN coefficients recomputed from the two velocity
 //                  fields (cn set; the rediscretized advection-diffusion
-//                  levels);
+//                  levels), row_off 0;
+//   K7 mg_smooth:  the same on a rank's extended block of a row-partitioned
+//                  level, with the block's global row offset (with_row_off,
+//                  reached from parallel/pallas_halo.py::fused_smooth_sharded);
+//                  the interior mask reads global rows, all else is K2;
 //   K5 mg_smooth5: four stored bands aa..dd and the scalar diagonal (cn None;
 //                  the Poisson levels);
 //   K6 mg_smooth9: eight stored bands and a diagonal that varies in space
 //                  (nine; the Galerkin R.A.P levels).
 //
 // One launch runs `nsweeps` red-black sweeps and the trailing residual of a
-// whole level.
+// whole level, or (K7) of a rank's block extended by h = 8 halo rows above
+// and below; K7 costs what K2 costs on those rows, and the 2h extra rows
+// are the price of exchanging one deep halo per smoothing block instead of
+// one row per color pass.  The block's start and h are even, so the
+// block's row parity is the global one and red stays red.
 //
 // What bounds it on the H100: device-memory traffic.  A plain version
 // reads and writes the field once per color pass and per elementwise op;
@@ -72,14 +79,15 @@ mg::SmoothArgs<T> smooth_args(const T* u, const T* corr, const T* rhs,
 
 template <typename T>
 int smooth(const T* u, const T* corr, const T* rhs, const T* v1, const T* v2,
-           T* u_out, T* res_out, int rows, int cols, int n, int nsweeps,
-           double rr, double hh, double nu, double diag, double inv_diag,
-           int flags, cudaStream_t stream) {
+           T* u_out, T* res_out, int rows, int cols, int n, int row_off,
+           int nsweeps, double rr, double hh, double nu, double diag,
+           double inv_diag, int flags, cudaStream_t stream) {
   mg::SmoothArgs<T> a =
       smooth_args(u, corr, rhs, u_out, res_out, rows, cols, nsweeps, flags);
   a.v1 = v1;
   a.v2 = v2;
   a.n = n;
+  a.row_off = row_off;
   mg::set_constants(a, rr, hh, nu, diag, inv_diag);
   return static_cast<int>(mg::launch_smooth<mg::FORM_FROM_V>(
       smooth_kernel<T, mg::FORM_FROM_V>, a, stream));
@@ -119,11 +127,12 @@ int smooth9(const T* u, const T* corr, const T* rhs, const T* aa,
 #define MG_SMOOTH_ENTRIES(SUFFIX, T)                                          \
   extern "C" int mg_smooth_##SUFFIX(                                         \
       const T* u, const T* corr, const T* rhs, const T* v1, const T* v2,     \
-      T* u_out, T* res_out, int rows, int cols, int n, int nsweeps,          \
-      double rr, double hh, double nu, double diag, double inv_diag,         \
-      int flags, cudaStream_t stream) {                                      \
+      T* u_out, T* res_out, int rows, int cols, int n, int row_off,          \
+      int nsweeps, double rr, double hh, double nu, double diag,             \
+      double inv_diag, int flags, cudaStream_t stream) {                     \
     return smooth<T>(u, corr, rhs, v1, v2, u_out, res_out, rows, cols, n,    \
-                     nsweeps, rr, hh, nu, diag, inv_diag, flags, stream);    \
+                     row_off, nsweeps, rr, hh, nu, diag, inv_diag, flags,    \
+                     stream);                                                \
   }                                                                          \
   extern "C" int mg_smooth5_##SUFFIX(                                        \
       const T* u, const T* corr, const T* rhs, const T* aa, const T* bb,     \

@@ -14,6 +14,16 @@ PyTorch has no on-device while loop, so the adaptive solvers
 (`mg_solve`, `coarse_solve_gs`) are host loops that read one norm per
 iteration, and stop after the same count as the JAX package's
 `lax.while_loop`.
+
+With `shardings` (one `parallel.sharding.RowBlocks` or None per level,
+from `parallel.distributed_run`) a level with a partition holds this
+rank's block: it smooths by one deep-halo exchange and K7 per block
+(parallel/rows_halo.py), or by one-row exchanges on a block thinner than
+the halo, and every other op runs in its block form (parallel/blocks.py).
+Restriction into a replicated level gathers it on every rank (the
+agglomeration), and a partitioned coarsest level is solved on its gathered
+field.  The norms are added over the ranks, so every rank reads the same
+value and takes the same branch.
 """
 
 from __future__ import annotations
@@ -35,17 +45,36 @@ from hpcclassmultigridproject_tpu_torch.ops.padded import (
     restrict_inject,
     restrict_inject_rows_decimated,
 )
+from hpcclassmultigridproject_tpu_torch.parallel import blocks
+from hpcclassmultigridproject_tpu_torch.parallel.distributed import (
+    fetch,
+    make_global,
+)
+from hpcclassmultigridproject_tpu_torch.parallel.rows_halo import (
+    fused_smooth_sharded,
+    sharded_eligible,
+)
+
+_NOT_PORTED = "not ported yet (ROADMAP queue 1, item {})"
+
+
+def _part(shardings, lvl: int):
+    """Level lvl's partition, or None (replicated, or one device)."""
+    return None if shardings is None else shardings[lvl]
 
 
 def _tower_eligible(cfg: SolverConfig, levels, lvl: int,
-                    u_is_zero: bool) -> bool:
+                    u_is_zero: bool, shardings=None) -> bool:
     """The tower covers a correction solve (zero iterate) over a V-shaped
     sub-cycle of from_v levels, from a level below the finest with
     n <= TOWER_MAX_N down to a dense coarse solve, under injection and
-    red–black GS, in a float32 working dtype: the JAX package's gate.  Its
-    backend test has no counterpart: the tower's wrappers pick the kernel
-    or the plain version by device."""
+    red–black GS, in a float32 working dtype, with no level from lvl down
+    partitioned: the JAX package's gate.  Its backend test has no
+    counterpart: the tower's wrappers pick the kernel or the plain version
+    by device."""
     if not u_is_zero or lvl == 0 or lvl >= len(levels) - 1:
+        return False
+    if shardings is not None and any(s is not None for s in shardings[lvl:]):
         return False
     if levels[lvl].n > TOWER_MAX_N:
         return False
@@ -94,45 +123,81 @@ def coarse_solve_dense(level, rhs: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _coarse_solve(level, u, rhs, cfg: SolverConfig):
+def _coarse_solve(level, u, rhs, cfg: SolverConfig, part=None):
+    """The coarsest solve; a partitioned coarsest level (kept whole,
+    parallel/sharding.py) is solved on its gathered field, the same on
+    every rank, and each rank keeps its block."""
+    if part is not None:
+        u = None if u is None else fetch(u, part)
+        return make_global(_coarse_solve(level, u, fetch(rhs, part), cfg),
+                           part)
     if cfg.coarse_mode == "dense" and level.a_inv is not None:
         return coarse_solve_dense(level, rhs)
     return coarse_solve_gs(level, u, rhs, cfg)
 
 
+def _smooth_block(cfg: SolverConfig, level, u, rhs, want_residual: bool,
+                  part=None, zero_init: bool = False, corr=None,
+                  residual_rows_decimated: bool = False):
+    """One smoothing block: the level form's kernel on a whole level; on a
+    partitioned one, the correction added first, then the deep-halo
+    exchange and K7 per block, or on a block thinner than the halo
+    red–black sweeps with a one-row exchange per colour pass."""
+    if part is None:
+        return fused_rb_sweeps(level, u, rhs, cfg.niter, want_residual,
+                               zero_init=zero_init, corr=corr,
+                               residual_rows_decimated=residual_rows_decimated)
+    if corr is not None:
+        u = u + corr
+    if sharded_eligible(level, part, cfg.niter):
+        return fused_smooth_sharded(part, level, u, rhs, cfg.niter,
+                                    want_residual, zero_init=zero_init,
+                                    overlap=cfg.sharded_overlap)
+    u = blocks.rb_sweeps(level, u, rhs, cfg.niter, part, zero_init)
+    return u, (blocks.residual(level, u, rhs, part) if want_residual
+               else None)
+
+
 def mg_cycle(levels, u, rhs, cfg: SolverConfig, lvl: int = 0,
-             want_final_residual: bool = False, u_is_zero: bool = False):
+             want_final_residual: bool = False, u_is_zero: bool = False,
+             shardings=None):
     """One V- (cycle_shape 1) or W-cycle (2) from level `lvl`; the shape
     loop wraps the whole level body, the coarsest solve included.  With
     `u_is_zero` the iterate is zero and `u` may be None.  With
     `want_final_residual` (top level), also return rhs − A·u of the result,
-    which the last post-smooth emits: returns (u, res) instead of u."""
+    which the last post-smooth emits: returns (u, res) instead of u.
+    `shardings`: see the module docstring."""
     if not want_final_residual and _tower_eligible(cfg, levels, lvl,
-                                                   u_is_zero):
+                                                   u_is_zero, shardings):
         return tower_vcycle(levels, lvl, rhs, cfg)
-    level = levels[lvl]
+    level, part = levels[lvl], _part(shardings, lvl)
     res = None
     for sh in range(cfg.cycle_shape):
         last_pass = sh == cfg.cycle_shape - 1
         if lvl == len(levels) - 1:
-            u = _coarse_solve(level, u, rhs, cfg)
+            u = _coarse_solve(level, u, rhs, cfg, part)
             if want_final_residual and last_pass:
-                res = residual(level, u, rhs)
+                res = blocks.residual(level, u, rhs, part)
             continue
-        # under injection the pre-smooth emits the residual's even rows
-        # only, the row half of the restriction
-        res_dec = cfg.restriction == "inject"
-        u, r0 = fused_rb_sweeps(level, u, rhs, cfg.niter, True,
-                                zero_init=u_is_zero and sh == 0,
-                                residual_rows_decimated=res_dec)
+        coarse, part_c = levels[lvl + 1], _part(shardings, lvl + 1)
+        # under injection the pre-smooth of a whole level emits the
+        # residual's even rows only, the row half of the restriction
+        res_dec = cfg.restriction == "inject" and part is None
+        u, r0 = _smooth_block(cfg, level, u, rhs, True, part,
+                              zero_init=u_is_zero and sh == 0,
+                              residual_rows_decimated=res_dec)
         if res_dec:
-            rhs_c = restrict_inject_rows_decimated(r0, levels[lvl + 1].padded)
+            rhs_c = restrict_inject_rows_decimated(r0, coarse.padded)
+        elif part is None:
+            rhs_c = _restrict(cfg, r0, coarse)
         else:
-            rhs_c = _restrict(cfg, r0, levels[lvl + 1])
-        u_c = mg_cycle(levels, None, rhs_c, cfg, lvl + 1, u_is_zero=True)
-        corr = prolong_bilinear(u_c, level.padded)
-        u, res = fused_rb_sweeps(level, u, rhs, cfg.niter,
-                                 want_final_residual and last_pass, corr=corr)
+            rhs_c = blocks.restrict(cfg.restriction, r0, coarse, part, part_c)
+        u_c = mg_cycle(levels, None, rhs_c, cfg, lvl + 1, u_is_zero=True,
+                       shardings=shardings)
+        corr = blocks.prolong(u_c, level.padded, part, part_c)
+        u, res = _smooth_block(cfg, level, u, rhs,
+                               want_final_residual and last_pass, part,
+                               corr=corr)
     if want_final_residual:
         return u, res
     return u
@@ -150,38 +215,52 @@ def _stats(cycles: int, rel, cfg: SolverConfig) -> dict:
     }
 
 
-def mg_solve(levels, u, rhs, cfg: SolverConfig):
+def _fine_norm(levels, u, rhs, shardings):
+    part = _part(shardings, 0)
+    return blocks.interior_norm(blocks.residual(levels[0], u, rhs, part),
+                                part)
+
+
+def mg_solve(levels, u, rhs, cfg: SolverConfig, shardings=None):
     """Solve A u = rhs by repeated cycles until the relative residual is at
     most tol or `max_cycles` cycles ran.  Returns (u, stats) with stats
     {"cycles", "rel_residual", "converged"} on the device; the tolerance
     test runs in the norm's dtype, as in the JAX package."""
-    fine = levels[0]
-    res0 = interior_norm(residual(fine, u, rhs))
+    res0 = _fine_norm(levels, u, rhs, shardings)
     res0_safe = _safe(res0)
     res, it = res0, 0
     while it < cfg.max_cycles and bool(res / res0_safe > cfg.tol):
-        u = mg_cycle(levels, u, rhs, cfg)
-        res = interior_norm(residual(fine, u, rhs))
+        u = mg_cycle(levels, u, rhs, cfg, shardings=shardings)
+        res = _fine_norm(levels, u, rhs, shardings)
         it += 1
     return u, _stats(it, res / res0_safe, cfg)
 
 
-def mg_solve_fixed(levels, u, rhs, cfg: SolverConfig):
+def mg_solve_fixed(levels, u, rhs, cfg: SolverConfig, shardings=None):
     """Exactly `cfg.num_cycles` cycles, with the relative-residual
     certificate in stats; no host read."""
-    fine = levels[0]
-    res0_safe = _safe(interior_norm(residual(fine, u, rhs)))
+    res0_safe = _safe(_fine_norm(levels, u, rhs, shardings))
     for _ in range(cfg.num_cycles):
-        u = mg_cycle(levels, u, rhs, cfg)
-    rel = interior_norm(residual(fine, u, rhs)) / res0_safe
+        u = mg_cycle(levels, u, rhs, cfg, shardings=shardings)
+    rel = _fine_norm(levels, u, rhs, shardings) / res0_safe
     return u, _stats(cfg.num_cycles, rel, cfg)
 
 
-def fmg_iterate(levels, rhs, cfg: SolverConfig):
+def refuse_sharded_fmg(shardings) -> None:
+    """FMG over partitioned levels is not ported: raise if any level of
+    `shardings` is partitioned."""
+    if shardings is not None and any(s is not None for s in shardings):
+        raise NotImplementedError(
+            f"cycle_mode='fmg' over partitioned levels: "
+            f"{_NOT_PORTED.format(14)}")
+
+
+def fmg_iterate(levels, rhs, cfg: SolverConfig, shardings=None):
     """The FMG ascent without a certificate: restrict `rhs` down the
     tower, solve the coarsest level, then prolong upward running
     `cfg.num_cycles` cycles per level.  Shared by `fmg_solve` and the
-    refined path's FMG opening (mg/refine.py)."""
+    refined path's FMG opening (mg/refine.py).  Partitioned levels raise."""
+    refuse_sharded_fmg(shardings)
     rhs_l = [rhs]
     for lvl in range(1, len(levels)):
         rhs_l.append(_restrict(cfg, rhs_l[-1], levels[lvl]))
@@ -193,10 +272,11 @@ def fmg_iterate(levels, rhs, cfg: SolverConfig):
     return v
 
 
-def fmg_solve(levels, u, rhs, cfg: SolverConfig):
+def fmg_solve(levels, u, rhs, cfg: SolverConfig, shardings=None):
     """Full multigrid: the FMG iterate replaces `u`, which only sets the
     certificate's baseline residual.  stats["cycles"] counts num_cycles at
-    each non-coarsest level."""
+    each non-coarsest level.  Partitioned levels raise."""
+    refuse_sharded_fmg(shardings)
     fine = levels[0]
     res0_safe = _safe(interior_norm(residual(fine, u, rhs)))
     v = fmg_iterate(levels, rhs, cfg)

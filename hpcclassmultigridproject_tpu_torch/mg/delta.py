@@ -12,6 +12,12 @@ dtype, and the epilogue certifies the last step in the high dtype.
 
 A Python loop replaces the JAX package's `lax.scan`; the statistics stay on
 the device, so the loop never waits for the card.
+
+With `shardings` (parallel/) a partitioned fine level opens with the plain
+block ops (the TwoSum needs no halo, the delta rhs a one-row halo of hi
+and lo), not K1, as the JAX package's sharded fine level does; the norms,
+the certificates and the epilogue run in their block forms
+(parallel/blocks.py), and `fine_hi` is cut like level 0.
 """
 
 from __future__ import annotations
@@ -24,13 +30,9 @@ from hpcclassmultigridproject_tpu_torch.mg.cycle import mg_cycle
 from hpcclassmultigridproject_tpu_torch.ops.cuda.delta_step import (
     fused_accumulate_open,
 )
-from hpcclassmultigridproject_tpu_torch.ops.padded import (
-    as_dtype,
-    coefs,
-    interior_norm,
-    neighbor_sum,
-    residual,
-)
+from hpcclassmultigridproject_tpu_torch.ops.padded import as_dtype
+from hpcclassmultigridproject_tpu_torch.parallel import blocks
+from hpcclassmultigridproject_tpu_torch.parallel.rows_halo import extend
 
 
 def difference_form_constants(level) -> tuple[float, float]:
@@ -57,7 +59,15 @@ def delta_rhs(level, u_hi, u_lo=None):
         lap, di, dj = lap + lap_l, di + di_l, dj + dj_l
     out = -(two_rnu * lap) - r_h * (level.v1 * di + level.v2 * dj)
     return out * interior_mask(level.n, u_hi.shape, dtype=dtype,
-                               device=u_hi.device)
+                               device=u_hi.device, row_off=level.row_off)
+
+
+def _delta_rhs(level, part, u_hi, u_lo=None):
+    """`delta_rhs` on this rank's block: a one-row halo of hi and lo."""
+    if part is None:
+        return delta_rhs(level, u_hi, u_lo)
+    ext = extend([u_hi] if u_lo is None else [u_hi, u_lo], 1, part.mesh)
+    return delta_rhs(blocks.halo_level(level, part), *ext)[1:-1]
 
 
 def _split_hi_lo(x, dtype):
@@ -78,25 +88,27 @@ def _accumulate(hi, lo, d):
     return hi2, lo3
 
 
-def _certify_hi(fine_hi, hi2, lo2, d, acc_dtype):
+def _certify_hi(fine_hi, hi2, lo2, d, acc_dtype, part=None):
     """The step's true relative residual in the high dtype, by the delta
     identity rhs − A·u^{n+1} = (B−A)·u^n − A·δ: two high-dtype stencils."""
     u_prev = hi2.to(acc_dtype) + lo2.to(acc_dtype)
-    rhs_d_hi = delta_rhs(fine_hi, u_prev)
+    rhs_d_hi = _delta_rhs(fine_hi, part, u_prev)
     d_hi = d.to(acc_dtype)
-    res_hi = rhs_d_hi - (fine_hi.diag_a * d_hi
-                         + neighbor_sum(coefs(fine_hi), d_hi))
-    rel = interior_norm(res_hi) / torch.clamp_min(
-        interior_norm(rhs_d_hi), torch.finfo(rhs_d_hi.dtype).tiny)
+    res_hi = rhs_d_hi - (fine_hi.diag_a * d_hi + blocks.neighbor_sum(
+        blocks.coefs(fine_hi, part), d_hi, part))
+    rel = blocks.interior_norm(res_hi, part) / torch.clamp_min(
+        blocks.interior_norm(rhs_d_hi, part), torch.finfo(rhs_d_hi.dtype).tiny)
     return rel.to(torch.float32)
 
 
 def timestepper_delta(levels, fine_hi, u0: torch.Tensor, num_steps: int,
-                      cfg: SolverConfig):
-    """`num_steps` delta-form CN steps from the padded high-dtype state u0;
-    returns (uT in the high dtype, per-step stats on the device).  The
-    stats keys are the JAX package's."""
+                      cfg: SolverConfig, shardings=None):
+    """`num_steps` delta-form CN steps from the padded high-dtype state u0
+    (this rank's block of it under `shardings`); returns (uT in the high
+    dtype, per-step stats on the device).  The stats keys are the JAX
+    package's, and every rank holds the same stats."""
     fine = levels[0]
+    part = None if shardings is None else shardings[0]
     tiny = torch.finfo(torch.float32).tiny
     acc_dtype = u0.dtype
     hi, lo = _split_hi_lo(u0, cfg.dtype)
@@ -106,31 +118,39 @@ def timestepper_delta(levels, fine_hi, u0: torch.Tensor, num_steps: int,
     rels, conv, certs = [], [], []
     for t in range(num_steps):
         # invariant: u_t = hi + lo + d_pend; the opening folds d_pend in
-        hi, lo, rhs_d = fused_accumulate_open(fine, hi, lo, d_pend)
-        res0 = torch.clamp_min(interior_norm(rhs_d), tiny)
+        if part is None:
+            hi, lo, rhs_d = fused_accumulate_open(fine, hi, lo, d_pend)
+        else:
+            hi, lo = _accumulate(hi, lo, d_pend)
+            rhs_d = _delta_rhs(fine, part, hi, lo)
+        res0 = torch.clamp_min(blocks.interior_norm(rhs_d, part), tiny)
         d = None
         for k in range(cfg.num_cycles):
             if k == cfg.num_cycles - 1:
                 d, r = mg_cycle(levels, d, rhs_d, cfg,
-                                want_final_residual=True, u_is_zero=k == 0)
+                                want_final_residual=True, u_is_zero=k == 0,
+                                shardings=shardings)
             else:
-                d = mg_cycle(levels, d, rhs_d, cfg, u_is_zero=k == 0)
-        rel = interior_norm(r) / res0
+                d = mg_cycle(levels, d, rhs_d, cfg, u_is_zero=k == 0,
+                             shardings=shardings)
+        rel = blocks.interior_norm(r, part) / res0
         rels.append(rel.to(torch.float32))
         conv.append(rel <= cfg.tol)
         d_pend = d
         if t < nseg * seg and t % seg == seg - 1:
-            certs.append(_certify_hi(fine_hi, hi, lo, d_pend, acc_dtype))
+            certs.append(_certify_hi(fine_hi, hi, lo, d_pend, acc_dtype,
+                                     part))
 
     # epilogue: fold the last correction in the high dtype and certify the
     # last step there, by three independent stencils
     u_prev = hi.to(acc_dtype) + lo.to(acc_dtype)
     uT = u_prev + d_pend.to(acc_dtype)
-    c_hi = coefs(fine_hi)
-    rhs_hi = fine_hi.diag_b * u_prev - neighbor_sum(c_hi, u_prev)
-    r_hi = residual(fine_hi, uT, rhs_hi, c_hi)
-    res0_hi = interior_norm(residual(fine_hi, u_prev, rhs_hi, c_hi))
-    rel_hi = interior_norm(r_hi) / torch.clamp_min(
+    c_hi = blocks.coefs(fine_hi, part)
+    rhs_hi = fine_hi.diag_b * u_prev - blocks.neighbor_sum(c_hi, u_prev, part)
+    r_hi = blocks.residual(fine_hi, uT, rhs_hi, part, c_hi)
+    res0_hi = blocks.interior_norm(
+        blocks.residual(fine_hi, u_prev, rhs_hi, part, c_hi), part)
+    rel_hi = blocks.interior_norm(r_hi, part) / torch.clamp_min(
         res0_hi, torch.finfo(res0_hi.dtype).tiny)
 
     device = u0.device

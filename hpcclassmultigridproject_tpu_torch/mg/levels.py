@@ -12,6 +12,10 @@ A level comes in one of three forms, told apart by which fields are set:
   coarse operator (sparse/galerkin.py), with corner couplings and a
   diagonal that varies in space and is 1 outside the open interior.
 
+A rank's block of a row-partitioned level (parallel/sharding.py) is a
+level too: its fields hold the global rows [row_off, row_off + rows), and
+every op reads the offset (`row_off`, 0 on a whole level).
+
 Each level stores only what its form reads: from_v levels carry no bands,
 banded levels no velocities.  The coarsest level of a dense-coarse
 hierarchy also carries the dense inverse of its interior operator.
@@ -28,6 +32,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from hpcclassmultigridproject_tpu_torch.core.layout import padded_shape
 
@@ -61,6 +66,7 @@ class Level:
     se: Optional[torch.Tensor] = None
     sw: Optional[torch.Tensor] = None
     diag: Optional[torch.Tensor] = None
+    row_off: int = 0
 
     @property
     def form(self) -> str:
@@ -239,6 +245,28 @@ def to_device(level: Level, device) -> Level:
         f.name: getattr(level, f.name).to(device)
         for f in dataclasses.fields(level)
         if isinstance(getattr(level, f.name), torch.Tensor)})
+
+
+def level_rows(level: Level, start: int, stop: int) -> Level:
+    """The level on its global rows [start, stop): every field of the
+    stored shape cut to those rows (zero rows where they pass the stored
+    ones, and a nine-band diagonal of 1 there, as outside the interior),
+    with `row_off` = start.  Inside the stored rows the fields are views;
+    `a_inv` stays as it is."""
+    rows = level.padded[0]
+    lo, hi = start - level.row_off, stop - level.row_off
+
+    def cut(t, fill):
+        if t is None:
+            return t
+        x = t[max(lo, 0):min(hi, rows)]
+        top, bot = max(-lo, 0), max(hi - rows, 0)
+        return F.pad(x, (0, 0, top, bot), value=fill) if top or bot else x
+
+    fields = {k: cut(getattr(level, k), 0.0)
+              for k in ("v1", "v2", *BANDS, *CORNERS)}
+    return dataclasses.replace(level, row_off=start,
+                               diag=cut(level.diag, 1.0), **fields)
 
 
 def build_fine_level(v1, v2, dt: float, nu: float, *, dtype: torch.dtype,

@@ -13,6 +13,9 @@ Solve-path dispatch (every combination shares the same cycle kernels):
                                                  for a whole run)
   fmg          float64        refined_solve     (FMG first correction)
   fixed + delta_form          timestepper_delta (mg/delta.py)
+
+`shardings` (parallel/) runs any of them but FMG on this rank's blocks of
+the partitioned levels: see mg/cycle.py.
 """
 
 from __future__ import annotations
@@ -30,41 +33,46 @@ from hpcclassmultigridproject_tpu_torch.mg.refine import (
     refined_solve,
     timestepper_refined_fused,
 )
-from hpcclassmultigridproject_tpu_torch.ops.padded import (
+from hpcclassmultigridproject_tpu_torch.parallel.blocks import (
     compute_rhs,
     rhs_and_residual0,
 )
 
 
-def timestep(levels, u, cfg: SolverConfig, fine_hi=None):
+def timestep(levels, u, cfg: SolverConfig, fine_hi=None, shardings=None):
     """One CN step; returns (u_next, stats of that step).  With `fine_hi`
     (the finest operator in `cfg.refine_dtype`) the step runs under
     mixed-precision refinement, or with cfg.delta_form one delta step."""
     if fine_hi is not None and cfg.delta_form:
-        u_next, stats = timestepper_delta(levels, fine_hi, u, 1, cfg)
+        u_next, stats = timestepper_delta(levels, fine_hi, u, 1, cfg,
+                                          shardings)
         return u_next, {k: v[0] if v.ndim >= 1 else v
                         for k, v in stats.items()}
+    part = None if shardings is None else shardings[0]
     if fine_hi is not None:
-        rhs, r0 = rhs_and_residual0(fine_hi, u)
-        return refined_solve(levels, fine_hi, u, rhs, cfg, r0=r0)
-    rhs = compute_rhs(levels[0], u)
+        rhs, r0 = rhs_and_residual0(fine_hi, u, part)
+        return refined_solve(levels, fine_hi, u, rhs, cfg, r0=r0,
+                             shardings=shardings)
+    rhs = compute_rhs(levels[0], u, part)
     if cfg.cycle_mode == "fixed":
-        return mg_solve_fixed(levels, u, rhs, cfg)
+        return mg_solve_fixed(levels, u, rhs, cfg, shardings)
     if cfg.cycle_mode == "fmg":
-        return fmg_solve(levels, u, rhs, cfg)
-    return mg_solve(levels, u, rhs, cfg)
+        return fmg_solve(levels, u, rhs, cfg, shardings)
+    return mg_solve(levels, u, rhs, cfg, shardings)
 
 
 def timestepper(levels, u0, num_steps: int, cfg: SolverConfig,
-                fine_hi=None):
+                fine_hi=None, shardings=None):
     """Run `num_steps` CN steps from the padded state u0; returns (uT,
     per-step stats stacked along the first axis)."""
     if fine_hi is not None and cfg.delta_form:
-        return timestepper_delta(levels, fine_hi, u0, num_steps, cfg)
+        return timestepper_delta(levels, fine_hi, u0, num_steps, cfg,
+                                 shardings)
     if fine_hi is not None and cfg.cycle_mode == "fixed":
-        return timestepper_refined_fused(levels, fine_hi, u0, num_steps, cfg)
+        return timestepper_refined_fused(levels, fine_hi, u0, num_steps, cfg,
+                                         shardings)
     u, steps = u0, []
     for _ in range(num_steps):
-        u, stats = timestep(levels, u, cfg, fine_hi)
+        u, stats = timestep(levels, u, cfg, fine_hi, shardings)
         steps.append(stats)
     return u, {k: torch.stack([s[k] for s in steps]) for k in steps[0]}

@@ -34,7 +34,9 @@ class AdvectionDiffusion:
     ...     device="cuda")
     >>> uT, stats = model.run()
 
-    Every stepper of `mg/timestepper.py` runs, and either coarse operator.
+    Every stepper of `mg/timestepper.py` runs, and either coarse operator;
+    `parallel.distributed_run(model, mesh)` runs the model row-partitioned
+    over ranks.
     On a CUDA device the path runs the hand-written kernels; on the CPU it
     runs their plain PyTorch versions.  `device="cuda"` without a card
     raises.
@@ -44,7 +46,9 @@ class AdvectionDiffusion:
                  device, mesh=None):
         if mesh is not None:
             raise NotImplementedError(
-                "a mesh: not ported yet (ROADMAP queue 1, item 14)")
+                "a model built sharded over a mesh needs the on-device "
+                "build: not ported yet (ROADMAP queue 1, item 3); build it "
+                "whole and call parallel.distributed_run")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(

@@ -18,7 +18,7 @@ import torch
 
 # Launch counts per kernel, one per wrapper call that launched it.
 LAUNCHES = {"delta_open": 0, "smooth": 0, "smooth5": 0, "smooth9": 0,
-            "tower_descent": 0, "tower_ascent": 0}
+            "smooth_rows": 0, "tower_descent": 0, "tower_ascent": 0}
 
 _plain_on_cuda = False
 

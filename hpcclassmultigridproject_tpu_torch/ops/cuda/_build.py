@@ -28,7 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_SMOOTH_ARGS = [_P] * 7 + [_I] * 4 + [_D] * 5 + [_I, _P]
+_SMOOTH_ARGS = [_P] * 7 + [_I] * 5 + [_D] * 5 + [_I, _P]
 _SIGNATURES = {
     "mg_delta_open": [_P] * 8 + [_I] * 3 + [_D] * 2 + [_P],
     "mg_smooth": _SMOOTH_ARGS,

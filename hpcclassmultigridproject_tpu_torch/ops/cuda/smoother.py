@@ -1,4 +1,4 @@
-"""K2, K5, K6: the fused red–black Gauss–Seidel smoothing block,
+"""K2, K5, K6, K7: the fused red–black Gauss–Seidel smoothing block,
 `csrc/smoother.cu`.
 
 `nsweeps` sweeps plus an optional trailing residual, in one pass over
@@ -9,7 +9,13 @@ become three kernels picked by the level's form (mg/levels.py):
 - K2 (`smooth`): from_v levels, the CN coefficients recomputed from (v1, v2);
 - K5 (`smooth5`): five-band levels, stored aa..dd and the scalar diagonal;
 - K6 (`smooth9`): nine-band (Galerkin) levels, stored aa..dd, ne..sw and
-  the varying diagonal.
+  the varying diagonal;
+
+and its sharded form (`_fused(with_row_off=True)`):
+
+- K7 (`smooth_rows`, `fused_rb_sweeps_rows`): K2 on a rank's block of a
+  row-partitioned from_v level, whose interior mask reads global rows
+  through the level's `row_off` (parallel/rows_halo.py).
 """
 
 from __future__ import annotations
@@ -80,9 +86,41 @@ def fused_rb_sweeps(level, u, rhs, nsweeps: int, want_residual: bool = False,
         raise ValueError("zero_init and corr are exclusive")
     if residual_rows_decimated and not want_residual:
         raise ValueError("residual_rows_decimated needs want_residual")
+    if level.form == "from_v" and level.row_off:
+        raise ValueError("a block of a row-partitioned level (row_off "
+                         f"{level.row_off}) takes fused_rb_sweeps_rows (K7)")
+    return _launch(level, u, rhs, nsweeps, want_residual, zero_init, corr,
+                   residual_rows_decimated, _FORMS[level.form])
+
+
+def fused_rb_sweeps_rows(level, u, rhs, nsweeps: int,
+                         want_residual: bool = False,
+                         zero_init: bool = False):
+    """K7: `fused_rb_sweeps` on a rank's block of a row-partitioned from_v
+    level, whose array row 0 is global row `level.row_off`.  The block
+    (u, rhs and the level's v1, v2) has the level's stored shape; the
+    kernel reads colours from array rows, so an odd `row_off` raises.
+    CUDA tensors launch the kernel, CPU tensors run the plain version
+    (`fused_rb_sweeps_plain`, which reads `row_off` through
+    `ops/padded.py::coefs`)."""
+    if level.form != "from_v":
+        raise ValueError(f"K7 takes from_v levels, not {level.form}")
+    if level.row_off % 2:
+        raise ValueError(
+            f"row_off {level.row_off} is odd: K7 takes a cell's colour from "
+            "its array row, which is its global colour only at an even "
+            "offset")
+    return _launch(level, u, rhs, nsweeps, want_residual, zero_init, None,
+                   False, ("mg_smooth", "smooth_rows", ("v1", "v2")))
+
+
+def _launch(level, u, rhs, nsweeps, want_residual, zero_init, corr,
+            residual_rows_decimated, form):
+    """Launch `form`'s (entry point, counter, stored fields) kernel, or run
+    the plain version for CPU tensors."""
     if zero_init:
         u = None
-    entry, counter, names = _FORMS[level.form]
+    entry, counter, names = form
     stored = [getattr(level, k) for k in names]
     if not cuda.use_kernel(u, corr, rhs, *stored):
         return fused_rb_sweeps_plain(level, u, rhs, nsweeps, want_residual,
@@ -108,7 +146,8 @@ def fused_rb_sweeps(level, u, rhs, nsweeps: int, want_residual: bool = False,
     stream = torch.cuda.current_stream(rhs.device).cuda_stream
     fn = _build.entry(entry, rhs.element_size())
     if level.form == "from_v":
-        err = fn(*head, level.n, nsweeps, *cn_constants(level), flags, stream)
+        err = fn(*head, level.n, level.row_off, nsweeps, *cn_constants(level),
+                 flags, stream)
     elif level.form == "five":
         err = fn(*head, nsweeps, level.diag_a, 1.0 / level.diag_a, flags,
                  stream)

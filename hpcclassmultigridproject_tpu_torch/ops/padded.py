@@ -62,7 +62,8 @@ def coefs_from_v(level):
     rr = as_dtype(level.rr, dt)
     hh = as_dtype(0.5 * level.h, dt)
     nu = as_dtype(level.nu, dt)
-    mask = interior_mask(level.n, level.padded, dtype=dt, device=v1.device)
+    mask = interior_mask(level.n, level.padded, dtype=dt, device=v1.device,
+                         row_off=level.row_off)
     aa = rr * (-v2 * hh + nu) * mask
     bb = rr * (v2 * hh + nu) * mask
     cc = rr * (-v1 * hh + nu) * mask
@@ -141,7 +142,7 @@ def rb_gauss_seidel(level, u, rhs, c: Coefs | None = None) -> torch.Tensor:
     c = coefs(level) if c is None else c
     inv_diag = (as_dtype(1.0 / level.diag_a, u.dtype) if c.diag is None
                 else 1.0 / c.diag)
-    red = color_mask(u.shape, 0, device=u.device)
+    red = color_mask(u.shape, 0, device=u.device, row_off=level.row_off)
     u = torch.where(red, (rhs - neighbor_sum(c, u)) * inv_diag, u)
     u = torch.where(~red, (rhs - neighbor_sum(c, u)) * inv_diag, u)
     return u
@@ -168,12 +169,10 @@ def restrict_inject_rows_decimated(dec: torch.Tensor,
     return _fit(dec[:, ::2], coarse_shape)
 
 
-def restrict_full_weighting(fine: torch.Tensor, coarse_shape,
-                            n_coarse: int) -> torch.Tensor:
-    """Full weighting 1/16·[1 2 1; 2 4 2; 1 2 1]: a 9-point smooth, then
-    injection by strided indexing, with the coarse boundary ring masked
-    back to zero."""
-    sm = (
+def full_weighting_smooth(fine: torch.Tensor) -> torch.Tensor:
+    """The 9-point smooth 1/16·[1 2 1; 2 4 2; 1 2 1] of full weighting, on
+    the whole array."""
+    return (
         4.0 * fine
         + 2.0 * (shift(fine, -1, 0) + shift(fine, 1, 0) + shift(fine, 0, -1)
                  + shift(fine, 0, 1))
@@ -182,7 +181,13 @@ def restrict_full_weighting(fine: torch.Tensor, coarse_shape,
         + shift(fine, 1, -1)
         + shift(fine, 1, 1)
     ) * (1.0 / 16.0)
-    coarse = restrict_inject(sm, coarse_shape)
+
+
+def restrict_full_weighting(fine: torch.Tensor, coarse_shape,
+                            n_coarse: int) -> torch.Tensor:
+    """Full weighting: the 9-point smooth, then injection by strided
+    indexing, with the coarse boundary ring masked back to zero."""
+    coarse = restrict_inject(full_weighting_smooth(fine), coarse_shape)
     return coarse * interior_mask(n_coarse, coarse_shape, dtype=coarse.dtype,
                                   device=coarse.device)
 

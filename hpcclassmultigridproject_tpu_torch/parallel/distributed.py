@@ -1,0 +1,177 @@
+"""Processes and collectives of a distributed run, the port of the JAX
+package's `parallel/distributed.py`.
+
+  * `initialize(backend, ...)`: `torch.distributed.init_process_group`
+    from explicit arguments or the HPCMG_COORDINATOR /
+    HPCMG_NUM_PROCESSES / HPCMG_PROCESS_ID environment variables (the JAX
+    package's names);
+  * `make_global(x, part)`: a host-built padded array to this rank's block;
+  * `fetch(x, part)`: the blocks of every rank gathered to the whole
+    padded array, on every rank;
+  * `all_sum`, `all_gather_rows`: the two collectives the SPMD program
+    needs beyond the halo exchange (parallel/rows_halo.py);
+  * `launch_local(fn, world, ...)`: `world` spawned processes on this
+    host, each in the process group, returning rank 0's result.
+
+Under NCCL the collectives move device tensors.  Gloo has no CUDA
+send/recv, so under gloo a CUDA tensor is copied to the host, exchanged
+there and copied back: that is how several ranks share one card, for
+testing the program and not for speed.  The group's backend picks the
+branch.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import pathlib
+import pickle
+import tempfile
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+
+from hpcclassmultigridproject_tpu_torch.parallel.mesh import Mesh
+
+
+# process-group timeout of the ranks `launch_local` spawns
+LOCAL_TIMEOUT = datetime.timedelta(seconds=300)
+
+
+def initialize(backend: str, coordinator: str | None = None,
+               num_processes: int | None = None,
+               process_id: int | None = None) -> None:
+    """Join the process group (idempotent).  Arguments default to the
+    HPCMG_COORDINATOR / HPCMG_NUM_PROCESSES / HPCMG_PROCESS_ID environment
+    variables; a coordinator "host:port" rendezvous over TCP, a URL
+    ("tcp://…", "file://…") as it is.  With none of them set, torch's
+    env:// rendezvous reads MASTER_ADDR, MASTER_PORT, WORLD_SIZE and RANK.
+    `backend` is "nccl" (one rank per GPU) or "gloo" (CPU tensors, or
+    CUDA tensors staged through the host)."""
+    if dist.is_initialized():
+        return
+    env = os.environ.get
+    coordinator = coordinator or env("HPCMG_COORDINATOR")
+    if num_processes is None and env("HPCMG_NUM_PROCESSES"):
+        num_processes = int(env("HPCMG_NUM_PROCESSES"))
+    if process_id is None and env("HPCMG_PROCESS_ID"):
+        process_id = int(env("HPCMG_PROCESS_ID"))
+    if coordinator is None:
+        init_method = "env://"
+    elif "://" in coordinator:
+        init_method = coordinator
+    else:
+        init_method = f"tcp://{coordinator}"
+    dist.init_process_group(
+        backend, init_method=init_method,
+        world_size=-1 if num_processes is None else num_processes,
+        rank=-1 if process_id is None else process_id)
+
+
+def is_multiprocess() -> bool:
+    return dist.is_initialized() and dist.get_world_size() > 1
+
+
+def _single_rank(mesh: Mesh) -> bool:
+    """True for a one-rank mesh, whose collectives are the identity; a
+    mesh of several ranks with no process group (a view built by hand)
+    raises rather than return this rank's part as the whole."""
+    if mesh.world == 1:
+        return True
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"a collective over {mesh.world} ranks needs a process group")
+    return False
+
+
+def host_staged(mesh: Mesh, t: torch.Tensor) -> bool:
+    """True where a collective on `t` goes through host memory: a CUDA
+    tensor under gloo."""
+    return t.is_cuda and mesh.backend == "gloo"
+
+
+def all_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Σ over the ranks of the 0-d tensor x, the same bits on every rank:
+    each rank gathers every rank's x and adds them in rank order (an
+    all-reduce may add in another order on another rank, and the adaptive
+    loops branch on the sum).  On one rank it is x."""
+    if _single_rank(mesh):
+        return x
+    staged = host_staged(mesh, x)
+    src = (x.cpu() if staged else x).reshape(1)
+    parts = [torch.empty_like(src) for _ in range(mesh.world)]
+    dist.all_gather(parts, src)
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total.reshape(()).to(x.device)
+
+
+def all_gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Every rank's block (all of one shape) stacked by rank along the
+    rows, on every rank.  On one rank it is x."""
+    if _single_rank(mesh):
+        return x
+    staged = host_staged(mesh, x)
+    src = (x.cpu() if staged else x).contiguous()
+    parts = [torch.empty_like(src) for _ in range(mesh.world)]
+    dist.all_gather(parts, src)
+    return torch.cat(parts).to(x.device)
+
+
+def fit_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """x cut or zero-padded to `rows` rows."""
+    x = x[:rows]
+    return F.pad(x, (0, 0, 0, rows - x.shape[0]))
+
+
+def make_global(x: torch.Tensor, part) -> torch.Tensor:
+    """This rank's block of the padded array x (the same on every rank):
+    its rows [part.start, part.stop), zero past the array.  `part` None
+    (a replicated level) keeps x."""
+    if part is None:
+        return x
+    return fit_rows(x, part.span)[part.start:part.stop].clone()
+
+
+def fetch(x: torch.Tensor, part) -> torch.Tensor:
+    """The whole padded array (part.rows rows) from every rank's block, on
+    every rank.  `part` None keeps x."""
+    if part is None:
+        return x
+    return fit_rows(all_gather_rows(x, part.mesh), part.rows)
+
+
+def _rank_main(rank: int, fn, world: int, args: tuple, backend: str,
+               tmp: str, device) -> None:
+    if device is not None and torch.device(device).type == "cuda":
+        torch.cuda.set_device(torch.device(device))
+    dist.init_process_group(backend, init_method=f"file://{tmp}/pg",
+                            world_size=world, rank=rank,
+                            timeout=LOCAL_TIMEOUT)
+    try:
+        out = fn(*args)
+        if rank == 0:
+            with open(pathlib.Path(tmp) / "result.pkl", "wb") as f:
+                pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def launch_local(fn, world: int, args: tuple = (), *, backend: str = "gloo",
+                 device=None):
+    """Run fn(*args) in `world` spawned processes of one process group on
+    this host (rendezvous through a file in a temporary directory) and
+    return rank 0's result, which must pickle (numpy, not CUDA tensors).
+    `fn` must be importable by name; each process finds its rank with
+    `make_mesh()`.  With a CUDA `device`, each process selects it before
+    any CUDA work.  A failed rank raises here."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_rank_main,
+                 args=(fn, world, tuple(args), backend, tmp, device),
+                 nprocs=world, join=True)
+        with open(pathlib.Path(tmp) / "result.pkl", "rb") as f:
+            return pickle.load(f)

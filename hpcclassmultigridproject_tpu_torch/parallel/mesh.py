@@ -1,0 +1,61 @@
+"""The ranks of a distributed run, the port of the JAX package's
+`parallel/mesh.py`.
+
+PyTorch has no device mesh that its ops follow: a run is one process per
+rank over `torch.distributed`, and each process runs the SPMD program on
+its own block.  `Mesh` describes the ranks: the world size, this process's
+rank, the process group's backend, and the 2-D shape `factor_2d` gives the
+JAX package's mesh.  The rows layout (parallel/rows_halo.py) flattens both
+axes into one row of ranks, as the JAX package's `rows_spec` does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch.distributed as dist
+
+
+def factor_2d(n_devices: int) -> tuple[int, int]:
+    """Factor a device count into the most-square (rows, cols) grid."""
+    best = (1, n_devices)
+    for rows in range(1, int(math.isqrt(n_devices)) + 1):
+        if n_devices % rows == 0:
+            best = (rows, n_devices // rows)
+    return best
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """`world` ranks of the default process group; this process is `rank`.
+    A mesh built by hand describes another rank's view for the per-block
+    functions and the tests; a collective over it raises unless a process
+    group of `world` ranks is initialized."""
+
+    world: int
+    rank: int = 0
+
+    def __post_init__(self):
+        if not 0 <= self.rank < self.world:
+            raise ValueError(
+                f"rank {self.rank} outside a world of {self.world}")
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        """The JAX package's 2-D mesh shape for `world` devices."""
+        return factor_2d(self.world)
+
+    @property
+    def backend(self) -> str | None:
+        """The process group's backend ("gloo", "nccl"), or None with no
+        process group."""
+        return dist.get_backend() if dist.is_initialized() else None
+
+
+def make_mesh() -> Mesh:
+    """The mesh of every rank of the default process group; one rank when
+    no process group is initialized."""
+    if not dist.is_initialized():
+        return Mesh(world=1, rank=0)
+    return Mesh(world=dist.get_world_size(), rank=dist.get_rank())

@@ -155,7 +155,7 @@ def test_cuda_device_without_a_card_raises(monkeypatch):
 
 
 def test_mesh_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         AdvectionDiffusion(ProblemConfig(n=16),
                            SolverConfig(refine_dtype=torch.float64, **_RUN),
                            device="cpu", mesh=object())
