@@ -12,10 +12,12 @@ raising on failure:
 3. kernels: each kernel (K1 opening, K2 smoother in both flag sets of the
    main path, K3/K4 tower, K5 five-band and K6 nine-band smoothers in the
    flag sets of their paths, K7 on every shape the distributed path's
-   two schedules launch at W=4) against its plain PyTorch version on the
-   card, at the paths' shapes, in float32 (within 4 ulp of the field's
-   max-abs) and float64 (within 1e-13), with kernel and plain times; and
-   the four K7 blocks of level 0, stitched, against K2 on the whole field;
+   two schedules launch at W=4, K8 whole-step opening in both residual
+   modes) against its plain PyTorch version on the card, at the paths'
+   shapes, in float32 (within 4 ulp of the field's max-abs) and float64
+   (within 1e-13), with kernel and plain times and the bound of the byte
+   and operation model (utils/profiling.py); the four K7 blocks of level
+   0, stitched, against K2 on the whole field; and K8 against K1 then K2;
 4. main path: the n=1024, 100-step delta-form run through
    AdvectionDiffusion, with every certificate <= 1e-6, the center value,
    the launch count of every kernel, and the same run through the plain
@@ -32,13 +34,24 @@ raising on failure:
    schedule (K7, K3, K4) and once through the plain versions: every
    certificate, the center value, uT against phase 4's, and each
    schedule's launch counts; then one NCCL rank, whose 10-step
-   distributed_run must equal a 10-step single-device run.
+   distributed_run must equal a 10-step single-device run;
+10. open-smooth: the main path with mg.delta._FUSE_OPEN_SMOOTH on (K8,
+    K2 post-smooth, K3, K4; no K1): launch counts, certificates, the
+    center, uT against phase 4's, and both paths' walls in turns;
+11. cli: the port's CLI in subprocesses: the main configuration's `run`,
+    the same checkpointed, `gsbench` at n=2048 with both backends, and
+    `profile` of the main configuration;
+12. probe: P's six kernels (ops/cuda/probe.py) against the JAX probe
+    script's checks and their plain versions, with torch.matmul's time
+    beside the three products.
 
-Each path phase (4, 6, 7, 8, 9) resets the launch counts just before the
-run it reads, checks every count, and runs the same path once more through
-the plain versions.
+Each path phase (4, 6, 7, 8, 9, 10) resets the launch counts just before
+the run it reads, checks every count, and runs the same path once more
+through the plain versions.
 
-The last two lines are a JSON object with the kernels' numbers, then
+The last two lines are a JSON object with the kernels' numbers (launches
+on their path, max difference, kernel, plain and bound ms, and the time of
+one PyTorch call computing the same function where there is one), then
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result.
 """
@@ -46,10 +59,12 @@ repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -58,6 +73,9 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 PKG = "hpcclassmultigridproject_tpu_torch"
 TPU = "hpcclassmultigridproject_tpu/ops/pallas"
+PROBE_TPU = "scripts/mosaic_probe_tpu.py:39"
+PROBES = ["stride2_rows", "dot_decimate", "interleave_rows", "flatten",
+          "dot_decimate_rows", "dot_prolong_rows"]
 KERNELS = [  # (counter, name, source, the TPU kernel's pallas_call)
     ("delta_open", "K1 delta opening", f"{PKG}/csrc/delta_step.cu",
      f"{TPU}/delta_step.py:131"),
@@ -73,7 +91,10 @@ KERNELS = [  # (counter, name, source, the TPU kernel's pallas_call)
      f"{TPU}/smoother.py:437"),
     ("smooth_rows", "K7 row-offset smoother", f"{PKG}/csrc/smoother.cu",
      f"{TPU}/smoother.py:437"),
-]
+    ("open_presmooth", "K8 whole-step opening", f"{PKG}/csrc/delta_step.cu",
+     f"{TPU}/delta_step.py:329"),
+] + [(f"probe_{p}", f"P {p}", f"{PKG}/csrc/probe.cu", PROBE_TPU)
+     for p in PROBES]
 MAIN_N, MAIN_STEPS = 1024, 100
 CENTER_1024 = 4.60419316843316e-5  # delta form at n=1024 (BENCH_r05.json)
 # the JAX package's values on the CPU under x64, at n=1024
@@ -82,6 +103,7 @@ CENTER_REFINED = 4.604193170120696e-05    # refined, fixed, one cycle
 CENTER_POISSON = 0.07367129792055582      # u[512, 512], f64, tol 1e-10
 TOL = 1e-6
 DIST_WORLD, DIST_MIN_LOCAL, NCCL_STEPS = 4, 64, 10
+GSBENCH_N, GSBENCH_SWEEPS = 2048, 500  # the reference's GS microbenchmark
 
 
 def require(ok: bool, what: str) -> None:
@@ -98,8 +120,9 @@ def delta_config(**kw):
 
 
 def time_ms(fn, reps: int) -> float:
-    """Mean device time of `fn` in ms, by CUDA events around `reps` calls
-    after one warm-up call."""
+    """Mean time per call of `fn` in ms as the host issues them: CUDA events
+    around `reps` calls after one warm-up call (where a call's host cost
+    exceeds its kernels, this reads the host cost)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -170,8 +193,9 @@ def _compare(name, got, want, dtype):
 
 def _smooth_cases(tag, level, f, lvl):
     """K5 or K6 on `level` in the flag sets of its paths: {name: (kernel,
-    plain version, shape)}."""
+    plain version, shape, (bytes, flops))}."""
     from hpcclassmultigridproject_tpu_torch.ops.cuda import smoother
+    from hpcclassmultigridproject_tpu_torch.utils import profiling
 
     u, corr, rhs = f(lvl=lvl), f(1e-2, lvl), f(lvl=lvl)
     flag_sets = {
@@ -181,10 +205,16 @@ def _smooth_cases(tag, level, f, lvl):
         "corr": dict(corr=corr),
         "u, residual": dict(want_residual=True),
     }
+    itemsize = rhs.element_size()
     return {f"{tag} ({name})": (
         lambda kw=kw: smoother.fused_rb_sweeps(level, u, rhs, 3, **kw),
         lambda kw=kw: smoother.fused_rb_sweeps_plain(level, u, rhs, 3, **kw),
-        level.padded) for name, kw in flag_sets.items()}
+        level.padded,
+        profiling.smooth_cost(
+            level, itemsize, 3, read_u=not kw.get("zero_init", False),
+            corr="corr" in kw, want_residual=kw.get("want_residual", False),
+            res_dec=kw.get("residual_rows_decimated", False)))
+        for name, kw in flag_sets.items()}
 
 
 def _rank_views(levels, world: int, rank: int):
@@ -217,6 +247,7 @@ def _smooth_rows_cases(levels, f):
     edge slabs (overlap schedule)."""
     from hpcclassmultigridproject_tpu_torch.mg.levels import level_rows
     from hpcclassmultigridproject_tpu_torch.ops.cuda import smoother
+    from hpcclassmultigridproject_tpu_torch.utils import profiling
 
     cases = {}
     picks = [(0, 0), (0, 1), (0, DIST_WORLD - 1), (1, 1), (2, 1)]
@@ -247,7 +278,9 @@ def _smooth_rows_cases(levels, f):
                     lambda lv=lv, uu=uu, rr=rr, kw=kw:
                         smoother.fused_rb_sweeps_plain(lv, uu, rr, 3, True,
                                                        **kw),
-                    lv.padded)
+                    lv.padded,
+                    profiling.smooth_cost(lv, uu.element_size(), 3,
+                                          read_u=not kw, want_residual=True))
     return cases
 
 
@@ -282,11 +315,37 @@ def _stitched_rows(levels, u, rhs, dtype):
           f"bit-identical {exact}")
 
 
+def _k8_against_k1_k2(fine, hi, lo, d, dtype) -> None:
+    """K8 against K1 followed by K2 from zero (both on the card), in both
+    residual modes: the same expressions in the same order, so bit-identity
+    is expected, and reported."""
+    from hpcclassmultigridproject_tpu_torch.ops.cuda import (
+        delta_step,
+        smoother,
+    )
+
+    for dec in (True, False):
+        got = delta_step.fused_open_presmooth(fine, hi, lo, d, 3, dec)
+        hi2, lo2, rhs = delta_step.fused_accumulate_open(fine, hi, lo, d)
+        u1, r0 = smoother.fused_rb_sweeps(fine, None, rhs, 3, True,
+                                          zero_init=True,
+                                          residual_rows_decimated=dec)
+        torch.cuda.synchronize()
+        mode = "res_rows_dec" if dec else "full residual"
+        err, bound, exact = _compare(f"K8 vs K1, K2 ({mode})", got,
+                                     (hi2, lo2, rhs, u1, r0), dtype)
+        print(f"[kernels] open_presmooth ({mode}) {str(dtype)[6:]} against "
+              f"K1 then K2 on the card: max|K8 - (K1, K2)| {err:.3g} "
+              f"(bound {bound:.3g}), bit-identical {exact}")
+
+
 def phase_kernels(device, n: int) -> dict:
     """Each kernel against its plain version at its paths' shapes for n,
     in float64 then float32; returns {counter: (max-abs difference, kernel
-    ms, plain ms)} of the float32 run, the main path's dtype (a kernel with
-    several flag sets: the largest difference and the mean times)."""
+    ms, plain ms, bound ms, bound_by)} of the float32 run, the main path's
+    dtype (a kernel with several flag sets: the largest difference and the
+    mean times and bounds).  Kernel and plain ms are the card's time per
+    call (`utils.timing.device_ms`)."""
     from hpcclassmultigridproject_tpu_torch.mg.cycle import coarse_solve_dense
     from hpcclassmultigridproject_tpu_torch.mg.levels import build_hierarchy
     from hpcclassmultigridproject_tpu_torch.models.poisson import (
@@ -297,6 +356,8 @@ def phase_kernels(device, n: int) -> dict:
         smoother,
         tower,
     )
+    from hpcclassmultigridproject_tpu_torch.utils import profiling
+    from hpcclassmultigridproject_tpu_torch.utils.timing import device_ms
 
     out = {}
     for dtype in (torch.float64, torch.float32):
@@ -311,6 +372,7 @@ def phase_kernels(device, n: int) -> dict:
             coarse_operator="galerkin")[1]
         poisson = build_poisson_hierarchy(n, 1, dtype=dtype, device=device)[0]
         fine = levels[0]
+        isz = torch.empty((), dtype=dtype).element_size()
         f = lambda scale=1.0, lvl=0: _field(
             rng, levels[lvl].padded, levels[lvl].n, dtype, device, scale)
         hi, lo, d = f(), f(1e-8), f(1e-2)
@@ -318,11 +380,11 @@ def phase_kernels(device, n: int) -> dict:
         rhs1 = f(lvl=1)
         u_mids, rhs_mids, bottom = tower.tower_descend_plain(levels, 1, rhs1, 3)
         v = coarse_solve_dense(levels[-1], bottom)
-        cases = {  # name: (kernel, plain version, shape of the input)
+        cases = {  # name: (kernel, plain version, input shape, (bytes, flops))
             "delta_open": (
                 lambda: delta_step.fused_accumulate_open(fine, hi, lo, d),
                 lambda: delta_step.fused_accumulate_open_plain(fine, hi, lo, d),
-                fine.padded),
+                fine.padded, profiling.open_cost(fine, isz)),
             "smooth pre (zero_init, res_rows_dec)": (
                 lambda: smoother.fused_rb_sweeps(
                     fine, None, rhs, 3, True, zero_init=True,
@@ -330,28 +392,43 @@ def phase_kernels(device, n: int) -> dict:
                 lambda: smoother.fused_rb_sweeps_plain(
                     fine, None, rhs, 3, True, zero_init=True,
                     residual_rows_decimated=True),
-                fine.padded),
+                fine.padded,
+                profiling.smooth_cost(fine, isz, 3, read_u=False,
+                                      want_residual=True, res_dec=True)),
             "smooth post (corr, residual)": (
                 lambda: smoother.fused_rb_sweeps(fine, u, rhs, 3, True,
                                                  corr=corr),
                 lambda: smoother.fused_rb_sweeps_plain(fine, u, rhs, 3, True,
                                                        corr=corr),
-                fine.padded),
+                fine.padded,
+                profiling.smooth_cost(fine, isz, 3, corr=True,
+                                      want_residual=True)),
             "tower_descent": (
                 lambda: tower.tower_descend(levels, 1, rhs1, 3),
                 lambda: tower.tower_descend_plain(levels, 1, rhs1, 3),
-                levels[1].padded),
+                levels[1].padded,
+                profiling.tower_cost(levels, 1, isz, 3, ascent=False)),
             "tower_ascent": (
                 lambda: tower.tower_ascend(levels, 1, v, u_mids, rhs_mids, 3),
                 lambda: tower.tower_ascend_plain(levels, 1, v, u_mids,
                                                  rhs_mids, 3),
-                levels[1].padded),
+                levels[1].padded,
+                profiling.tower_cost(levels, 1, isz, 3, ascent=True)),
+            **{f"open_presmooth ({mode})": (
+                lambda dec=dec: delta_step.fused_open_presmooth(
+                    fine, hi, lo, d, 3, dec),
+                lambda dec=dec: delta_step.fused_open_presmooth_plain(
+                    fine, hi, lo, d, 3, dec),
+                fine.padded, profiling.open_smooth_cost(fine, isz, 3, dec))
+               for mode, dec in (("res_rows_dec", True),
+                                 ("full residual", False))},
             **_smooth_cases("smooth5", poisson, f, 0),
             **_smooth_cases("smooth9", galerkin, f, 1),
             **_smooth_rows_cases(levels, f),
         }
         _stitched_rows(levels, u, rhs, dtype)
-        for name, (kern, plain, shape) in cases.items():
+        _k8_against_k1_k2(fine, hi, lo, d, dtype)
+        for name, (kern, plain, shape, cost) in cases.items():
             got, want = _flatten(kern()), _flatten(plain())
             torch.cuda.synchronize()
             err, bound, exact = _compare(name, got, want, dtype)
@@ -359,17 +436,31 @@ def phase_kernels(device, n: int) -> dict:
                     f"max|kernel - plain| {err:.3g} (bound {bound:.3g}), "
                     f"bit-identical {exact}")
             if dtype == torch.float32:
-                ms = time_ms(kern, 200)
-                plain_ms = time_ms(plain, 20)
-                line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-                out[name] = (err, ms, plain_ms)
+                ms = device_ms(kern, 200)
+                plain_ms = device_ms(plain, 20)
+                issued = time_ms(kern, 200)
+                bound_ms, bound_by = profiling.bound_ms(*cost, isz)
+                line += (f"; kernel {ms:.4f} ms on the card ({issued:.4f} ms "
+                         f"as issued), plain {plain_ms:.4f} ms, bound "
+                         f"{bound_ms:.4f} ms ({bound_by}: "
+                         f"{cost[0] / 1e6:.2f} MB, {cost[1] / 1e6:.1f} "
+                         "MFLOP)")
+                out[name] = (err, ms, plain_ms, bound_ms, bound_by)
             print(line)
+    k1, k2_pre = out["delta_open"][1], out["smooth pre (zero_init, "
+                                           "res_rows_dec)"][1]
+    k8 = out["open_presmooth (res_rows_dec)"][1]
+    print(f"[kernels] price of the whole-step opening (float32, at "
+          f"{levels[0].padded}): K8 {k8:.4f} ms against K1 + K2 pre-smooth "
+          f"{k1:.4f} + {k2_pre:.4f} = {k1 + k2_pre:.4f} ms")
     merged = {}
     for name, numbers in out.items():
         merged.setdefault(name.split(" ")[0], []).append(numbers)
-    return {key: (max(e for e, _, _ in rows),
-                  statistics.mean(ms for _, ms, _ in rows),
-                  statistics.mean(p for _, _, p in rows))
+    return {key: (max(r[0] for r in rows),
+                  statistics.mean(r[1] for r in rows),
+                  statistics.mean(r[2] for r in rows),
+                  statistics.mean(r[3] for r in rows),
+                  rows[0][4])
             for key, rows in merged.items()}
 
 
@@ -736,6 +827,180 @@ def phase_distributed(n: int, steps: int, uT_single) -> int:
     return res["plain"]["counts"]["smooth_rows"]
 
 
+def _profiled_run(run) -> tuple[float, float, int]:
+    """One call of `run` under torch.profiler: (its wall in s, the card's
+    busy ms -- the union of the intervals of its kernels, copies and
+    memsets --, and its kernel launch calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, reach = 0.0, float("-inf")
+    for a, b in spans:
+        if b > reach:
+            busy_us += b - max(a, reach)
+            reach = b
+    launches = sum(e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                              "cudaLaunchKernelExC") for e in events)
+    return wall, busy_us / 1e3, launches
+
+
+def phase_open_smooth(device, n: int, steps: int, uT_main):
+    """The main path with the whole-step opening on (K8 opens each step,
+    K2 post-smooths, the tower below; no K1), then the two paths' walls in
+    turns in this process (off, on, on, off, ...) and one profiled run of
+    each.  Returns the launch counts of one run."""
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig
+    from hpcclassmultigridproject_tpu_torch.mg import delta
+    from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+
+    model = AdvectionDiffusion(ProblemConfig(n=n, num_steps=steps),
+                               delta_config(certify_every=10), device=device)
+    old = delta._FUSE_OPEN_SMOOTH
+    try:
+        delta._FUSE_OPEN_SMOOTH = True
+        uT, stats, counts = _drive(
+            "open-smooth", lambda: model.run(warn=False),
+            {"open_presmooth": steps, "smooth": steps,
+             "tower_descent": steps, "tower_ascent": steps}, 1e-8)
+        _check_advection("open-smooth", n, steps, uT, stats, CENTER_1024,
+                         True)
+        du = float((uT - uT_main).abs().max())
+        print(f"[open-smooth] max|uT - uT(main path)| {du!r} (bound 1e-9, "
+              "0 expected)")
+        require(du <= 1e-9, f"open-smooth: uT off the main path's by {du:.3g}")
+        walls = {False: [], True: []}
+        for fused in (False, True, True, False) * 3:
+            delta._FUSE_OPEN_SMOOTH = fused
+            t0 = time.perf_counter()
+            model.run(warn=False)
+            torch.cuda.synchronize()
+            walls[fused].append(time.perf_counter() - t0)
+        profiled = {}
+        for fused in (False, True):
+            delta._FUSE_OPEN_SMOOTH = fused
+            profiled[fused] = _profiled_run(lambda: model.run(warn=False))
+    finally:
+        delta._FUSE_OPEN_SMOOTH = old
+    for fused, label in ((False, "K1 + K2 opening"), (True, "K8 opening")):
+        median = statistics.median(walls[fused])
+        wall, busy, launches = profiled[fused]
+        print(f"[open-smooth] {label}: wall per run in turns {median:.4f} s "
+              f"(median of 6, {walls[fused]}); one profiled run {wall:.4f} "
+              f"s, the card busy {busy:.2f} ms of it, idle "
+              f"{1 - busy / 1e3 / median:.1%} of the median wall, "
+              f"{launches} kernel launch calls")
+    return counts
+
+
+def _cli(*argv, timeout=600) -> list[dict]:
+    """The port's CLI in a subprocess from the repository root; its JSON
+    lines.  A non-zero exit raises."""
+    cmd = [sys.executable, "-m", f"{PKG}.cli", *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    require(proc.returncode == 0,
+            f"cli {' '.join(argv)}: exit {proc.returncode}\n{proc.stderr}")
+    print(f"[cli] {' '.join(argv)}: {time.perf_counter() - t0:.1f} s in all")
+    return [json.loads(line) for line in proc.stdout.splitlines()
+            if line.startswith("{")]
+
+
+def phase_cli(n: int, steps: int) -> None:
+    """The port's CLI on the card: the main configuration's run (and
+    checkpointed), gsbench with both backends, and the profile."""
+    from hpcclassmultigridproject_tpu_torch.core.layout import padded_shape
+    from hpcclassmultigridproject_tpu_torch.mg.levels import Level
+    from hpcclassmultigridproject_tpu_torch.utils import profiling
+
+    main_cfg = ["--n", str(n), "--steps", str(steps), "--delta",
+                "--cycle-mode", "fixed", "--num-cycles", "1", "--coarse",
+                "dense", "--certify-every", "10"]
+    (run,) = _cli("run", *main_cfg, "--reps", "3")
+    print(f"[cli] run: {run}")
+    require(run["converged"] and abs(run["center_uT"] - CENTER_1024) <= 1e-9,
+            f"cli run: {run}")
+    with tempfile.TemporaryDirectory() as ck:
+        (ckpt,) = _cli("run", *main_cfg, "--checkpoint-dir", ck,
+                       "--checkpoint-every", "25")
+        kept = sorted(os.listdir(ck))
+    print(f"[cli] checkpointed run: {ckpt}; directory {kept}")
+    require(abs(ckpt["center_uT"] - CENTER_1024) <= 1e-9,
+            f"cli checkpointed run: {ckpt}")
+    rows_cols = torch.empty(padded_shape(GSBENCH_N), device="meta")
+    gs_level = Level(v1=rows_cols, v2=rows_cols, a_inv=None, n=GSBENCH_N,
+                     h=1.0 / GSBENCH_N, dt=0.0, nu=0.0, diag_a=1.0,
+                     diag_b=1.0)
+    sweep_bound, _ = profiling.bound_ms(
+        *profiling.smooth_cost(gs_level, 4, 1), 4)
+    for backend, what in (("pallas", "K2, one launch per sweep"),
+                          ("jnp", "plain rb_gauss_seidel")):
+        (gs,) = _cli("gsbench", "--n", str(GSBENCH_N), "--sweeps",
+                     str(GSBENCH_SWEEPS), "--backend", backend)
+        print(f"[cli] gsbench --backend {backend} ({what}): "
+              f"{gs['gflops']:.2f} GFLOP/s, {gs['stencil_gdof_s']:.3f} "
+              f"stencil GDOF/s, {gs['us_per_sweep']:.2f} us per sweep "
+              f"(K2's bytes bound a sweep at {sweep_bound * 1e3:.2f} us)")
+    prof = _cli("profile", *main_cfg, "--reps", "3")
+    for rec in prof[:-1]:
+        print(f"[cli] profile: {rec['phase']} level {rec['level']} (n="
+              f"{rec['n']}): {rec['best_ms']:.4f} ms, {rec['achieved_gb_s']:.1f}"
+              f" GB/s, x{rec['per_step_count']:g} per step")
+    summary = prof[-1]
+    print(f"[cli] profile: step {summary['step_ms']:.4f} ms, modelled "
+          f"{summary['modeled_ms']:.4f} ms; phase share "
+          f"{json.dumps(summary['phase_share'])}")
+
+
+def phase_probe() -> dict:
+    """P's six kernels once each between a reset and a read of the launch
+    counts, held to the JAX probe script's checks and to their plain
+    versions; then timed.  Returns {counter: (max-abs difference from the
+    expectation, kernel ms, plain ms, bound ms, bound_by, library ms,
+    launches)}."""
+    from hpcclassmultigridproject_tpu_torch.ops import cuda
+    from hpcclassmultigridproject_tpu_torch.ops.cuda import probe
+    from hpcclassmultigridproject_tpu_torch.utils import profiling
+
+    cuda.reset_launches()
+    checked = probe.run_probes("cuda", reps=0)
+    counts = {k: v for k, v in cuda.LAUNCHES.items() if k.startswith("probe_")}
+    print(f"[probe] launches in one run: {counts}")
+    require(counts == {f"probe_{p}": 1 for p in PROBES},
+            f"probe: launch counts {counts}")
+    timed = probe.run_probes("cuda", reps=200)
+    ops = probe.probe_operands()
+    out = {}
+    for rec, again, (name, (_, _, _, _, exact)) in zip(
+            checked, timed, probe.probes().items()):
+        require(rec["passed"] and again["passed"], f"probe {name}: FAIL")
+        if exact:  # an index map equals its plain version exactly
+            require(rec["bit_identical"] and again["bit_identical"],
+                    f"probe {name}: differs from its plain version")
+        bound_ms, bound_by = profiling.bound_ms(
+            *profiling.probe_cost(name, ops), 4)
+        print(f"[probe] PASS {name}: max|kernel - expected| "
+              f"{rec['max_abs_diff']:.3g}, bit-identical to the plain "
+              f"version {rec['bit_identical']}; kernel "
+              f"{again['kernel_ms']:.4f} ms, plain {again['plain_ms']:.4f} ms"
+              f", library call {again['library_ms']:.4f} ms"
+              f", bound {bound_ms:.6f} ms ({bound_by})")
+        out[f"probe_{name}"] = (rec["max_abs_diff"], again["kernel_ms"],
+                                again["plain_ms"], bound_ms, bound_by,
+                                again["library_ms"], counts[f"probe_{name}"])
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -754,12 +1019,22 @@ def main() -> None:
     counts["smooth5"] = phase_poisson(device, MAIN_N)["smooth5"]
     phase_refined(device, MAIN_N, MAIN_STEPS)
     counts["smooth_rows"] = phase_distributed(MAIN_N, MAIN_STEPS, uT_main)
+    counts["open_presmooth"] = phase_open_smooth(
+        device, MAIN_N, MAIN_STEPS, uT_main)["open_presmooth"]
+    phase_cli(MAIN_N, MAIN_STEPS)
+    probes = phase_probe()
     kernels = []
     for key, label, source, replaces in KERNELS:
-        err, ms, plain_ms = measured[key]
+        if key in probes:
+            err, ms, plain_ms, bound, bound_by, library, launches = probes[key]
+        else:
+            err, ms, plain_ms, bound, bound_by = measured[key]
+            library, launches = None, counts[key]
         kernels.append({"name": label, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": counts[key],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                        "replaces": replaces, "launches": launches,
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound, "bound_by": bound_by,
+                        "library_ms": library})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -4,17 +4,24 @@ hpcclassmultigridproject_tpu, for NVIDIA Hopper (H100).
 The JAX package beside it is the reference; this package mirrors its
 module names and imports torch and numpy, never jax.  It runs the
 single-device solver: Crank–Nicolson advection–diffusion with the
-adaptive, fixed, FMG, refined and delta steppers, V- and W-cycles of
-red–black GS with injection or full weighting, dense or GS coarse solves,
-rediscretized or Galerkin coarse operators, and the Poisson family; and
-the same run partitioned by rows over `torch.distributed` ranks
-(`parallel.distributed_run`).  Its kernels are hand-written CUDA C++ in
-`csrc/`, built with nvcc at first use (`ops/cuda/_build.py`); on CPU
-tensors each kernel's plain PyTorch version runs instead.
+adaptive, fixed, FMG, refined and delta steppers (the delta stepper
+optionally opening each step with the whole-step kernel), V- and W-cycles
+of red–black GS, weighted-Jacobi or Chebyshev smoothing with injection or
+full weighting, dense or GS coarse solves, rediscretized or Galerkin
+coarse operators, and the Poisson family; the same run partitioned by rows
+over `torch.distributed` ranks (`parallel.distributed_run`); and the CLI.
+Its kernels are hand-written CUDA C++ in `csrc/`, built with nvcc at first
+use (`ops/cuda/_build.py`); on CPU tensors each kernel's plain PyTorch
+version runs instead.  Entry points run on the card unless asked for the
+CPU (`device="cpu"`).
 
 Layer map:
+  cli.py      the command-line interface (`python -m ....cli`)
+  utils/      timing, field I/O, checkpoints, per-phase profile and the
+              kernels' byte model
   core/       padded layout, problem fields
-  ops/        plain level operations (padded.py) and the kernels (cuda/)
+  ops/        plain level operations (padded.py) and the kernels (cuda/),
+              with the Hopper feature probe (cuda/probe.py)
   mg/         levels, cycles and solvers, refined and delta
               steppers, timestepper
   sparse/     Galerkin R·A·P coarse operators

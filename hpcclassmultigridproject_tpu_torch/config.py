@@ -2,15 +2,15 @@
 (`hpcclassmultigridproject_tpu/config.py`), with torch dtypes.
 
 Defaults and validation are the reference package's.  The port runs every
-single-device red–black Gauss–Seidel configuration: V- and W-cycles,
-injection and full weighting, dense and GS coarse solves, rediscretized
-and Galerkin coarse operators, and the adaptive, fixed, FMG, refined and
-delta steppers; and each of them but FMG and the Galerkin operator
+single-device configuration: red–black Gauss–Seidel, weighted-Jacobi and
+Chebyshev smoothing, V- and W-cycles, injection and full weighting, dense
+and GS coarse solves, rediscretized and Galerkin coarse operators, and the
+adaptive, fixed, FMG, refined and delta steppers; and each of them but FMG,
+the Galerkin operator and the Jacobi and Chebyshev smoothers
 row-partitioned over ranks (`parallel.distributed_run`, in either
-`sharded_overlap` schedule).  The rest (Jacobi and Chebyshev smoothing,
-the on-device build) raises `NotImplementedError` naming the ROADMAP item
-that will port it, so nothing silently runs a different algorithm from the
-one asked for.
+`sharded_overlap` schedule).  The on-device build raises
+`NotImplementedError` naming the ROADMAP item that will port it, so nothing
+silently runs a different algorithm from the one asked for.
 """
 
 from __future__ import annotations
@@ -112,14 +112,10 @@ class SolverConfig:
             )
         if self.dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype={self.dtype}: need float32 or float64")
-        not_ported = [
-            (self.smoother != "rbgs", f"smoother={self.smoother!r}", 9),
-            (bool(self.device_build), "device_build=True (the on-device "
-             "build)", 3),
-        ]
-        for off, what, item in not_ported:
-            if off:
-                raise NotImplementedError(f"{what}: {_NOT_PORTED.format(item)}")
+        if self.device_build:
+            raise NotImplementedError(
+                f"device_build=True (the on-device build): "
+                f"{_NOT_PORTED.format(3)}")
         if self.certify_every and not self.delta_form:
             warnings.warn(
                 "certify_every is only honored by the delta stepper "

@@ -1,8 +1,8 @@
 // Device code shared by the port's kernels: the CN coefficient recompute,
-// the red-black Gauss-Seidel cascade on a shared-memory window (for the
-// three coefficient sources: recomputed from (v1, v2), five stored bands,
-// nine stored bands with a varying diagonal), and the per-point bilinear
-// prolongation.
+// the delta step's opening at one node (K1, K8), the red-black Gauss-Seidel
+// cascade on a shared-memory window (for the three coefficient sources:
+// recomputed from (v1, v2), five stored bands, nine stored bands with a
+// varying diagonal), and the per-point bilinear prolongation.
 //
 // Every expression keeps the operation order of the JAX package's Pallas
 // kernels and of the port's plain PyTorch versions (ops/padded.py), and the
@@ -54,12 +54,18 @@ struct SmoothArgs {
   const T* u;       // LOAD_U, LOAD_U_CORR, LOAD_U_PROLONG
   const T* corr;    // LOAD_U_CORR
   const T* src;     // LOAD_U_PROLONG: the coarser field, (src_rows, src_cols)
-  const T* rhs;
+  const T* rhs;     // unless OPEN
+  const T* hi;      // OPEN: the state pair and the pending correction
+  const T* lo;
+  const T* d;
   const T* v1;      // FORM_FROM_V
   const T* v2;
   const T* bands[MAX_BANDS];  // FORM_FIVE, FORM_NINE
   T* u_out;         // (rows, cols)
   T* res_out;       // (res_rows, res_cols), unless RES_NONE
+  T* hi_out;        // OPEN: (hi', lo', rhs_delta) at the tile's cells
+  T* lo_out;
+  T* rhs_out;
   int rows, cols, n, nsweeps;
   int row_off;      // FORM_FROM_V: global row of array row 0 (K7's block
                     // of a row-partitioned level; 0 on a whole level)
@@ -69,11 +75,74 @@ struct SmoothArgs {
   int load_mode, res_mode;
   T rr, hh, nu, diag, inv_diag;  // constants, rounded to T on the host
                                  // (FORM_NINE reads none of them)
+  T two_rnu, r_h;                // OPEN: 2 r nu and r h, likewise
 };
 
 template <typename T>
 __device__ __forceinline__ T interior_at(int gi, int gj, int n) {
   return (gi >= 1 && gi <= n - 1 && gj >= 1 && gj <= n - 1) ? T(1) : T(0);
+}
+
+template <typename T>
+struct Pair {
+  T hi, lo;
+};
+
+// (hi, lo) + d at node (i, j) by TwoSum with a Fast2Sum renormalization
+// (mg/delta.py::_accumulate), or (0, 0) past the array.
+template <typename T>
+__device__ __forceinline__ Pair<T> accumulate_at(const T* hi, const T* lo,
+                                                 const T* d, int rows,
+                                                 int cols, int i, int j) {
+  if (i < 0 || i >= rows || j < 0 || j >= cols) return {T(0), T(0)};
+  const size_t g = static_cast<size_t>(i) * cols + j;
+  const T h = hi[g], l = lo[g], x = d[g];
+  const T t = h + x;
+  const T bv = t - h;
+  const T err = (h - (t - bv)) + (x - bv);
+  const T lo2 = l + err;
+  const T hi2 = t + lo2;
+  const T lo3 = lo2 - (hi2 - t);
+  return {hi2, lo3};
+}
+
+template <typename T>
+struct Opened {
+  T hi, lo, rhs;
+};
+
+// The delta step's opening at node (i, j) of the array: the accumulated
+// pair (hi', lo') and the difference-form delta rhs of the new pair,
+//   rhs = -2 r nu lap(hi' + lo') - r h (v1 D_i + v2 D_j),
+// masked to the open interior, in the operation order of
+// mg/delta.py::delta_rhs.  A neighbour's (hi', lo') is a pointwise function
+// of that neighbour's (hi, lo, d), so it is recomputed from their loads.
+// K1 and K8 both call this, so their rhs agree to the bit.
+template <typename T>
+__device__ __forceinline__ Opened<T> delta_open_at(
+    const T* hi, const T* lo, const T* d, const T* v1, const T* v2, int rows,
+    int cols, int i, int j, int n, T two_rnu, T r_h) {
+  const Pair<T> x = accumulate_at(hi, lo, d, rows, cols, i, j);
+  const Pair<T> up = accumulate_at(hi, lo, d, rows, cols, i - 1, j);
+  const Pair<T> dn = accumulate_at(hi, lo, d, rows, cols, i + 1, j);
+  const Pair<T> lf = accumulate_at(hi, lo, d, rows, cols, i, j - 1);
+  const Pair<T> rt = accumulate_at(hi, lo, d, rows, cols, i, j + 1);
+
+  T lap = (up.hi - x.hi) + (dn.hi - x.hi) + (lf.hi - x.hi) + (rt.hi - x.hi);
+  T di = dn.hi - up.hi;
+  T dj = rt.hi - lf.hi;
+  const T lap_l =
+      (up.lo - x.lo) + (dn.lo - x.lo) + (lf.lo - x.lo) + (rt.lo - x.lo);
+  const T di_l = dn.lo - up.lo;
+  const T dj_l = rt.lo - lf.lo;
+  lap = lap + lap_l;
+  di = di + di_l;
+  dj = dj + dj_l;
+
+  const size_t g = static_cast<size_t>(i) * cols + j;
+  const T m = interior_at<T>(i, j, n);
+  return {x.hi, x.lo,
+          (-(two_rnu * lap) - r_h * (v1[g] * di + v2[g] * dj)) * m};
 }
 
 template <typename T>
@@ -167,7 +236,12 @@ inline size_t smooth_smem_bytes(int nsweeps, size_t elem, int planes) {
 // pass (corners included: the nine-point stencil also has radius 1), so
 // after the cascade and the residual it has not reached the tile, which
 // therefore holds exactly what a global barrier between colors would give.
-// Cells past the array are 0 and stay 0, since their coefficients and rhs
+// With OPEN (K8, a compile-time flag, so the other kernels carry none of
+// it) the window starts from u = 0 and the rhs of every window cell is the
+// delta opening, computed from global memory (its neighbours too), so the
+// window's rhs is exact to its edge and the argument holds unchanged; the
+// write-back also writes (hi', lo', rhs_delta) at the tile's cells.  Cells
+// past the array are 0 and stay 0, since their coefficients and rhs
 // are 0 (and a nine-band diagonal loads 1 there, so 1/diag stays finite):
 // that is the truth at the array's edges, and on a rank's extended block of
 // a row-partitioned level (K7) the artificial edge whose error the center
@@ -177,7 +251,7 @@ inline size_t smooth_smem_bytes(int nsweeps, size_t elem, int planes) {
 // other color, so it updates in place; a nine-point pass also reads its
 // own color at the corners, so it computes every update of the pass first
 // and writes them after a barrier.
-template <typename T, int FORM>
+template <typename T, int FORM, bool OPEN = false>
 __device__ void smooth_tile(const SmoothArgs<T>& a) {
   extern __shared__ __align__(16) unsigned char mg_smem[];
   constexpr int NCOEF = FORM == FORM_FROM_V ? 2 : FORM == FORM_FIVE ? 4 : 9;
@@ -198,7 +272,12 @@ __device__ void smooth_tile(const SmoothArgs<T>& a) {
     const bool in = gi >= 0 && gi < a.rows && gj >= 0 && gj < a.cols;
     const size_t g = in ? static_cast<size_t>(gi) * a.cols + gj : 0;
     T u = T(0), rhs = T(0);
-    if (in) {
+    if constexpr (OPEN) {
+      if (in)
+        rhs = delta_open_at(a.hi, a.lo, a.d, a.v1, a.v2, a.rows, a.cols, gi,
+                            gj, a.n, a.two_rnu, a.r_h)
+                  .rhs;
+    } else if (in) {
       rhs = a.rhs[g];
       if (a.load_mode == LOAD_U) {
         u = a.u[g];
@@ -287,6 +366,15 @@ __device__ void smooth_tile(const SmoothArgs<T>& a) {
     const bool in = gi < a.rows && gj < a.cols;
     const size_t g = static_cast<size_t>(gi) * a.cols + gj;
     if (in) a.u_out[g] = su[idx];
+    if constexpr (OPEN) {
+      if (in) {
+        const Pair<T> x =
+            accumulate_at(a.hi, a.lo, a.d, a.rows, a.cols, gi, gj);
+        a.hi_out[g] = x.hi;
+        a.lo_out[g] = x.lo;
+        a.rhs_out[g] = srhs[idx];
+      }
+    }
     if (a.res_mode == RES_NONE) continue;
     T res = T(0);
     if (in) {

@@ -1,48 +1,38 @@
-// K1: the delta step's opening -- state accumulation and delta rhs in one
-// pass.
+// K1 and K8: the delta step's opening.
 //
-// Replaces the TPU kernel hpcclassmultigridproject_tpu/ops/pallas/
+// K1 replaces the TPU kernel hpcclassmultigridproject_tpu/ops/pallas/
 // delta_step.py (_kernel, launched by _fused_open at :131, through
 // fused_accumulate_open).  Per node it folds the pending correction d into
 // the float32 state pair (hi, lo) by TwoSum with a Fast2Sum renormalization,
 // then forms the difference-form delta rhs of the new pair,
 //   rhs = -2 r nu lap(hi' + lo') - r h (v1 D_i + v2 D_j),
 // masked to the open interior, with the operation order of
-// mg/delta.py::_accumulate and ::delta_rhs.
+// mg/delta.py::_accumulate and ::delta_rhs (mg::delta_open_at, common.cuh).
 //
-// What bounds it on the H100: device-memory traffic, 5 arrays read and 3
+// What bounds K1 on the H100: device-memory traffic, 5 arrays read and 3
 // written, with a few dozen flops per node.  One thread per output node; a
 // neighbour's (hi', lo') is a pointwise function of that neighbour's
 // (hi, lo, d), so each thread recomputes it from the loads of the four
 // neighbours, which L1 and L2 serve, and no shared memory is needed.
 // TwoSum is exact only under IEEE ordering: the library is built without
 // fast math and with -fmad=false.
+//
+// K8, the whole-step opening, replaces _kernel_open_smooth (launched by
+// _fused_open_smooth at :329, through fused_open_presmooth): K1 and the top
+// level's zero-init pre-smooth block (K2) with its trailing residual, full
+// or row-decimated, in one pass.  It is K2's smoothing block,
+// mg::smooth_tile, instantiated with OPEN: the window loads u = 0 and fills
+// its rhs with delta_open_at at every window cell (neighbours read from global
+// memory, as K1 reads them), so the window's rhs is exact to its edge, and
+// the tile's write-back also writes (hi', lo', rhs_delta).  Bound: 5 arrays
+// read, 4 written plus the residual (half an array when row-decimated),
+// against K1 + K2's 8 + 4.5; the price is the opening recomputed at the
+// window's halo cells, about 2x the tile.  Every expression is K1's or
+// K2's, so K8 equals K1 followed by K2 to the bit.
 
 #include "common.cuh"
 
 namespace {
-
-template <typename T>
-struct Pair {
-  T hi, lo;
-};
-
-// (hi, lo) + d at node (i, j), or (0, 0) past the array.
-template <typename T>
-__device__ __forceinline__ Pair<T> accumulate_at(const T* hi, const T* lo,
-                                                 const T* d, int rows,
-                                                 int cols, int i, int j) {
-  if (i < 0 || i >= rows || j < 0 || j >= cols) return {T(0), T(0)};
-  const size_t g = static_cast<size_t>(i) * cols + j;
-  const T h = hi[g], l = lo[g], x = d[g];
-  const T t = h + x;
-  const T bv = t - h;
-  const T err = (h - (t - bv)) + (x - bv);
-  const T lo2 = l + err;
-  const T hi2 = t + lo2;
-  const T lo3 = lo2 - (hi2 - t);
-  return {hi2, lo3};
-}
 
 template <typename T>
 __global__ void delta_open_kernel(const T* hi, const T* lo, const T* d,
@@ -52,28 +42,12 @@ __global__ void delta_open_kernel(const T* hi, const T* lo, const T* d,
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= rows || j >= cols) return;
-  const Pair<T> x = accumulate_at(hi, lo, d, rows, cols, i, j);
-  const Pair<T> up = accumulate_at(hi, lo, d, rows, cols, i - 1, j);
-  const Pair<T> dn = accumulate_at(hi, lo, d, rows, cols, i + 1, j);
-  const Pair<T> lf = accumulate_at(hi, lo, d, rows, cols, i, j - 1);
-  const Pair<T> rt = accumulate_at(hi, lo, d, rows, cols, i, j + 1);
-
-  T lap = (up.hi - x.hi) + (dn.hi - x.hi) + (lf.hi - x.hi) + (rt.hi - x.hi);
-  T di = dn.hi - up.hi;
-  T dj = rt.hi - lf.hi;
-  const T lap_l =
-      (up.lo - x.lo) + (dn.lo - x.lo) + (lf.lo - x.lo) + (rt.lo - x.lo);
-  const T di_l = dn.lo - up.lo;
-  const T dj_l = rt.lo - lf.lo;
-  lap = lap + lap_l;
-  di = di + di_l;
-  dj = dj + dj_l;
-
+  const mg::Opened<T> o =
+      mg::delta_open_at(hi, lo, d, v1, v2, rows, cols, i, j, n, two_rnu, r_h);
   const size_t g = static_cast<size_t>(i) * cols + j;
-  const T m = mg::interior_at<T>(i, j, n);
-  rhs_out[g] = (-(two_rnu * lap) - r_h * (v1[g] * di + v2[g] * dj)) * m;
-  hi_out[g] = x.hi;
-  lo_out[g] = x.lo;
+  rhs_out[g] = o.rhs;
+  hi_out[g] = o.hi;
+  lo_out[g] = o.lo;
 }
 
 template <typename T>
@@ -89,19 +63,67 @@ int delta_open(const T* hi, const T* lo, const T* d, const T* v1, const T* v2,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+__global__ void __launch_bounds__(mg::SMOOTH_THREADS)
+    open_smooth_kernel(mg::SmoothArgs<T> a) {
+  mg::smooth_tile<T, mg::FORM_FROM_V, true>(a);
+}
+
+template <typename T>
+int open_smooth(const T* hi, const T* lo, const T* d, const T* v1,
+                const T* v2, T* hi_out, T* lo_out, T* rhs_out, T* u_out,
+                T* res_out, int rows, int cols, int n, int nsweeps, double rr,
+                double hh, double nu, double diag, double inv_diag,
+                double two_rnu, double r_h, int res_rows_dec,
+                cudaStream_t stream) {
+  mg::SmoothArgs<T> a{};
+  a.hi = hi;
+  a.lo = lo;
+  a.d = d;
+  a.v1 = v1;
+  a.v2 = v2;
+  a.hi_out = hi_out;
+  a.lo_out = lo_out;
+  a.rhs_out = rhs_out;
+  a.u_out = u_out;
+  a.res_out = res_out;
+  a.rows = a.dom_rows = rows;
+  a.cols = a.dom_cols = a.res_cols = cols;
+  a.n = n;
+  a.nsweeps = nsweeps;
+  a.load_mode = mg::LOAD_ZERO;
+  a.res_mode = res_rows_dec ? mg::RES_ROWS_DEC : mg::RES_FULL;
+  a.res_rows = res_rows_dec ? rows / 2 : rows;
+  mg::set_constants(a, rr, hh, nu, diag, inv_diag);
+  a.two_rnu = static_cast<T>(two_rnu);
+  a.r_h = static_cast<T>(r_h);
+  return static_cast<int>(mg::launch_smooth<mg::FORM_FROM_V>(
+      open_smooth_kernel<T>, a, stream));
+}
+
 }  // namespace
 
-#define MG_DELTA_OPEN_ENTRY(NAME, T)                                          \
-  extern "C" int NAME(const T* hi, const T* lo, const T* d, const T* v1,     \
-                      const T* v2, T* hi_out, T* lo_out, T* rhs_out,         \
-                      int rows, int cols, int n, double two_rnu, double r_h, \
-                      cudaStream_t stream) {                                 \
+#define MG_DELTA_OPEN_ENTRIES(SUFFIX, T)                                      \
+  extern "C" int mg_delta_open_##SUFFIX(                                     \
+      const T* hi, const T* lo, const T* d, const T* v1, const T* v2,        \
+      T* hi_out, T* lo_out, T* rhs_out, int rows, int cols, int n,           \
+      double two_rnu, double r_h, cudaStream_t stream) {                     \
     return delta_open<T>(hi, lo, d, v1, v2, hi_out, lo_out, rhs_out, rows,   \
                          cols, n, two_rnu, r_h, stream);                     \
+  }                                                                          \
+  extern "C" int mg_open_smooth_##SUFFIX(                                    \
+      const T* hi, const T* lo, const T* d, const T* v1, const T* v2,        \
+      T* hi_out, T* lo_out, T* rhs_out, T* u_out, T* res_out, int rows,      \
+      int cols, int n, int nsweeps, double rr, double hh, double nu,         \
+      double diag, double inv_diag, double two_rnu, double r_h,              \
+      int res_rows_dec, cudaStream_t stream) {                               \
+    return open_smooth<T>(hi, lo, d, v1, v2, hi_out, lo_out, rhs_out, u_out, \
+                          res_out, rows, cols, n, nsweeps, rr, hh, nu, diag, \
+                          inv_diag, two_rnu, r_h, res_rows_dec, stream);     \
   }
 
-MG_DELTA_OPEN_ENTRY(mg_delta_open_f32, float)
-MG_DELTA_OPEN_ENTRY(mg_delta_open_f64, double)
+MG_DELTA_OPEN_ENTRIES(f32, float)
+MG_DELTA_OPEN_ENTRIES(f64, double)
 
 extern "C" const char* mg_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -2,13 +2,18 @@
 port of the JAX package's `mg/cycle.py` on one device.
 
 The arrangement is the JAX package's fused one (its Pallas backend):
-every smoothing block is one launch of the level form's smoother kernel
+under red–black GS every smoothing block is one launch of the level form's
+smoother kernel
 (K2 from_v, K5 five-band, K6 nine-band; `ops/cuda/smoother.py`), whose
 pre-smooth emits the residual (row-decimated under injection) and whose
 post-smooth folds in the prolonged correction.  A zero-iterate V-cycle
 over from_v levels from n <= 512 down to a dense coarse solve runs as the
 coarse tower (K3, dense solve, K4).  Each kernel wrapper launches its CUDA
 kernel for CUDA tensors and runs its plain PyTorch version for CPU tensors.
+The weighted-Jacobi and Chebyshev smoothers have no kernel, in the JAX
+package either: their blocks are `niter` plain applications and a
+residual on either device, and the coarse GS solve and the FMG bottom
+iterate the configured smoother.
 
 PyTorch has no on-device while loop, so the adaptive solvers
 (`mg_solve`, `coarse_solve_gs`) are host loops that read one norm per
@@ -37,6 +42,7 @@ from hpcclassmultigridproject_tpu_torch.ops.cuda.tower import (
     tower_vcycle,
 )
 from hpcclassmultigridproject_tpu_torch.ops.padded import (
+    chebyshev_smooth,
     interior_norm,
     prolong_bilinear,
     rb_gauss_seidel,
@@ -44,6 +50,7 @@ from hpcclassmultigridproject_tpu_torch.ops.padded import (
     restrict_full_weighting,
     restrict_inject,
     restrict_inject_rows_decimated,
+    weighted_jacobi,
 )
 from hpcclassmultigridproject_tpu_torch.parallel import blocks
 from hpcclassmultigridproject_tpu_torch.parallel.distributed import (
@@ -56,6 +63,20 @@ from hpcclassmultigridproject_tpu_torch.parallel.rows_halo import (
 )
 
 _NOT_PORTED = "not ported yet (ROADMAP queue 1, item {})"
+
+
+def _get_smoother(cfg: SolverConfig):
+    """One plain sweep of the configured smoother, (level, u, rhs) -> u."""
+    if cfg.smoother == "rbgs":
+        return rb_gauss_seidel
+    if cfg.smoother == "jacobi":
+        return lambda level, u, rhs: weighted_jacobi(level, u, rhs,
+                                                     cfg.jacobi_omega)
+    if cfg.smoother == "chebyshev":
+        return lambda level, u, rhs: chebyshev_smooth(
+            level, u, rhs, cfg.cheby_degree, cfg.cheby_lower,
+            cfg.cheby_upper)
+    raise ValueError(f"unknown smoother {cfg.smoother!r}")
 
 
 def _part(shardings, lvl: int):
@@ -96,18 +117,19 @@ def _restrict(cfg: SolverConfig, res, coarse_level):
 
 
 def coarse_solve_gs(level, u, rhs, cfg: SolverConfig):
-    """Coarsest-level solve by red–black GS sweeps until the absolute
-    residual norm is at most `coarse_tol` or `coarse_maxiter` sweeps ran:
-    check before each sweep, with a placeholder residual of 1 at the
-    start (the JAX package's semantics).  A host loop: each sweep reads one
-    norm.  `u` None starts from zero."""
+    """Coarsest-level solve by sweeps of the configured smoother until the
+    absolute residual norm is at most `coarse_tol` or `coarse_maxiter`
+    sweeps ran: check before each sweep, with a placeholder residual of 1
+    at the start (the JAX package's semantics).  A host loop: each sweep
+    reads one norm.  `u` None starts from zero."""
+    smoother = _get_smoother(cfg)
     if u is None:
         u = torch.zeros_like(rhs)
     res = torch.ones((), dtype=torch.promote_types(rhs.dtype, torch.float32),
                      device=rhs.device)
     it = 0
     while it < cfg.coarse_maxiter and bool(res > cfg.coarse_tol):
-        u = rb_gauss_seidel(level, u, rhs)
+        u = smoother(level, u, rhs)
         res = interior_norm(residual(level, u, rhs))
         it += 1
     return u
@@ -139,10 +161,25 @@ def _coarse_solve(level, u, rhs, cfg: SolverConfig, part=None):
 def _smooth_block(cfg: SolverConfig, level, u, rhs, want_residual: bool,
                   part=None, zero_init: bool = False, corr=None,
                   residual_rows_decimated: bool = False):
-    """One smoothing block: the level form's kernel on a whole level; on a
-    partitioned one, the correction added first, then the deep-halo
-    exchange and K7 per block, or on a block thinner than the halo
-    red–black sweeps with a one-row exchange per colour pass."""
+    """One smoothing block: under red–black GS the level form's kernel on a
+    whole level; on a partitioned one, the correction added first, then
+    the deep-halo exchange and K7 per block, or on a block thinner than
+    the halo red–black sweeps with a one-row exchange per colour pass.
+    Another smoother runs `niter` plain sweeps and the residual (its even
+    rows with `residual_rows_decimated`) on a whole level
+    (`parallel.distributed_run` refuses it on partitioned ones)."""
+    if cfg.smoother != "rbgs":
+        smoother = _get_smoother(cfg)
+        if zero_init:
+            u = torch.zeros_like(rhs)
+        elif corr is not None:
+            u = u + corr
+        for _ in range(cfg.niter):
+            u = smoother(level, u, rhs)
+        if not want_residual:
+            return u, None
+        res = residual(level, u, rhs)
+        return u, res[::2].contiguous() if residual_rows_decimated else res
     if part is None:
         return fused_rb_sweeps(level, u, rhs, cfg.niter, want_residual,
                                zero_init=zero_init, corr=corr,

@@ -18,6 +18,9 @@ block ops (the TwoSum needs no halo, the delta rhs a one-row halo of hi
 and lo), not K1, as the JAX package's sharded fine level does; the norms,
 the certificates and the epilogue run in their block forms
 (parallel/blocks.py), and `fine_hi` is cut like level 0.
+
+Under `_FUSE_OPEN_SMOOTH` an eligible run opens each step with K8, the
+whole-step opening (`step_open_smooth`).
 """
 
 from __future__ import annotations
@@ -26,13 +29,30 @@ import torch
 
 from hpcclassmultigridproject_tpu_torch.config import SolverConfig
 from hpcclassmultigridproject_tpu_torch.core.layout import interior_mask, shift
-from hpcclassmultigridproject_tpu_torch.mg.cycle import mg_cycle
+from hpcclassmultigridproject_tpu_torch.mg.cycle import _smooth_block, mg_cycle
 from hpcclassmultigridproject_tpu_torch.ops.cuda.delta_step import (
     fused_accumulate_open,
+    fused_open_presmooth,
 )
-from hpcclassmultigridproject_tpu_torch.ops.padded import as_dtype
+from hpcclassmultigridproject_tpu_torch.ops.padded import (
+    as_dtype,
+    prolong_bilinear,
+    restrict_inject_rows_decimated,
+)
 from hpcclassmultigridproject_tpu_torch.parallel import blocks
 from hpcclassmultigridproject_tpu_torch.parallel.rows_halo import extend
+
+# Whole-step opening: fold the top level's zero-init pre-smooth block, with
+# its row-decimated residual, into the opening, so one kernel (K8,
+# ops/cuda/delta_step.py::fused_open_presmooth) does the accumulate, the
+# delta rhs and the pre-smooth in one pass over device memory; the separate
+# kernels (K1, then K2) read (rhs_δ, v1, v2) again, and launch twice.  It
+# applies to one V-cycle per step under injection and red–black GS, on an
+# unpartitioned from_v fine level with a coarser level below it; rhs_δ is
+# still written, for the post-smooth and the certificate norm.  Off by
+# default, as in the JAX package: whether it pays is decided by measured
+# walls, not by the saved traffic alone.
+_FUSE_OPEN_SMOOTH = False
 
 
 def difference_form_constants(level) -> tuple[float, float]:
@@ -101,6 +121,33 @@ def _certify_hi(fine_hi, hi2, lo2, d, acc_dtype, part=None):
     return rel.to(torch.float32)
 
 
+def _open_smooth_eligible(levels, cfg: SolverConfig, part) -> bool:
+    """The JAX package's gate for the whole-step opening, item for item."""
+    return (_FUSE_OPEN_SMOOTH
+            and levels[0].form == "from_v"
+            and part is None
+            and cfg.num_cycles == 1
+            and cfg.cycle_shape == 1
+            and cfg.restriction == "inject"
+            and cfg.smoother == "rbgs"
+            and len(levels) > 1)
+
+
+def step_open_smooth(levels, cfg: SolverConfig, hi, lo, d_pend):
+    """One delta step whose opening is K8: the top level of its single
+    V-cycle written out, the recursion below it run by `mg_cycle` at
+    level 1 (the tower where eligible).  Returns (hi', lo', rhs_δ, δ,
+    rhs_δ − A δ)."""
+    fine = levels[0]
+    hi, lo, rhs_d, u1, r0 = fused_open_presmooth(
+        fine, hi, lo, d_pend, cfg.niter, residual_rows_decimated=True)
+    rhs_c = restrict_inject_rows_decimated(r0, levels[1].padded)
+    u_c = mg_cycle(levels, None, rhs_c, cfg, lvl=1, u_is_zero=True)
+    corr = prolong_bilinear(u_c, fine.padded)
+    d, r = _smooth_block(cfg, fine, u1, rhs_d, True, corr=corr)
+    return hi, lo, rhs_d, d, r
+
+
 def timestepper_delta(levels, fine_hi, u0: torch.Tensor, num_steps: int,
                       cfg: SolverConfig, shardings=None):
     """`num_steps` delta-form CN steps from the padded high-dtype state u0
@@ -115,24 +162,29 @@ def timestepper_delta(levels, fine_hi, u0: torch.Tensor, num_steps: int,
     d_pend = torch.zeros_like(hi)
     seg = cfg.certify_every
     nseg = num_steps // seg if seg and num_steps >= seg else 0
+    open_smooth = _open_smooth_eligible(levels, cfg, part)
     rels, conv, certs = [], [], []
     for t in range(num_steps):
         # invariant: u_t = hi + lo + d_pend; the opening folds d_pend in
-        if part is None:
-            hi, lo, rhs_d = fused_accumulate_open(fine, hi, lo, d_pend)
+        if open_smooth:
+            hi, lo, rhs_d, d, r = step_open_smooth(levels, cfg, hi, lo,
+                                                   d_pend)
         else:
-            hi, lo = _accumulate(hi, lo, d_pend)
-            rhs_d = _delta_rhs(fine, part, hi, lo)
-        res0 = torch.clamp_min(blocks.interior_norm(rhs_d, part), tiny)
-        d = None
-        for k in range(cfg.num_cycles):
-            if k == cfg.num_cycles - 1:
-                d, r = mg_cycle(levels, d, rhs_d, cfg,
-                                want_final_residual=True, u_is_zero=k == 0,
-                                shardings=shardings)
+            if part is None:
+                hi, lo, rhs_d = fused_accumulate_open(fine, hi, lo, d_pend)
             else:
-                d = mg_cycle(levels, d, rhs_d, cfg, u_is_zero=k == 0,
-                             shardings=shardings)
+                hi, lo = _accumulate(hi, lo, d_pend)
+                rhs_d = _delta_rhs(fine, part, hi, lo)
+            d = None
+            for k in range(cfg.num_cycles):
+                if k == cfg.num_cycles - 1:
+                    d, r = mg_cycle(levels, d, rhs_d, cfg,
+                                    want_final_residual=True,
+                                    u_is_zero=k == 0, shardings=shardings)
+                else:
+                    d = mg_cycle(levels, d, rhs_d, cfg, u_is_zero=k == 0,
+                                 shardings=shardings)
+        res0 = torch.clamp_min(blocks.interior_norm(rhs_d, part), tiny)
         rel = blocks.interior_norm(r, part) / res0
         rels.append(rel.to(torch.float32))
         conv.append(rel <= cfg.tol)

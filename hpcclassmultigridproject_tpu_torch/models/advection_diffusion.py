@@ -30,20 +30,20 @@ class AdvectionDiffusion:
 
     >>> model = AdvectionDiffusion(ProblemConfig(n=1024), SolverConfig(
     ...     refine_dtype=torch.float64, cycle_mode="fixed", num_cycles=1,
-    ...     coarse_mode="dense", delta_form=True, certify_every=10),
-    ...     device="cuda")
+    ...     coarse_mode="dense", delta_form=True, certify_every=10))
     >>> uT, stats = model.run()
 
     Every stepper of `mg/timestepper.py` runs, and either coarse operator;
     `parallel.distributed_run(model, mesh)` runs the model row-partitioned
     over ranks.
-    On a CUDA device the path runs the hand-written kernels; on the CPU it
-    runs their plain PyTorch versions.  `device="cuda"` without a card
-    raises.
+    It runs on the card (`device="cuda"`, the default) through the
+    hand-written kernels, and on the CPU (`device="cpu"`) through their
+    plain PyTorch versions; without a card `device="cuda"` raises, with no
+    move to the CPU.
     """
 
     def __init__(self, problem: ProblemConfig, solver: SolverConfig, *,
-                 device, mesh=None):
+                 device="cuda", mesh=None):
         if mesh is not None:
             raise NotImplementedError(
                 "a model built sharded over a mesh needs the on-device "
@@ -124,6 +124,16 @@ class AdvectionDiffusion:
     def step(self, u: torch.Tensor):
         """One CN step from a padded state; returns (u_next, stats)."""
         return timestep(self.levels, u, self.solver, self.fine_hi)
+
+    def run_chunk(self, u_padded: torch.Tensor, nsteps: int):
+        """`nsteps` CN steps from a padded state (checkpointed runs and
+        trajectory dumps); returns (u padded, per-step stats)."""
+        return timestepper(self.levels, u_padded, nsteps, self.solver,
+                           self.fine_hi)
+
+    def pad(self, u_logical: torch.Tensor) -> torch.Tensor:
+        """Embed a logical (n+1)^2 field into the padded layout."""
+        return pad_field(u_logical)
 
     def crop(self, u_padded: torch.Tensor) -> torch.Tensor:
         """The logical (n+1)^2 field of a padded state."""

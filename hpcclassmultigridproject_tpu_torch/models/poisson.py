@@ -65,12 +65,13 @@ def build_poisson_hierarchy(n: int, num_levels: int, *, dtype: torch.dtype,
 class Poisson:
     """−∆u = f solver on one device.
 
-    >>> m = Poisson(n=128, f=lambda x, y: torch.ones_like(x), device="cuda")
+    >>> m = Poisson(n=128, f=lambda x, y: torch.ones_like(x))
     >>> u, stats = m.solve()            # multigrid
     >>> u, stats = m.solve(method="gs") # red–black GS alone
 
     `f` takes the node coordinates x, y as torch tensors in the solver's
-    dtype and returns f on them; the default is f ≡ 1.
+    dtype and returns f on them; the default is f ≡ 1.  It runs on the
+    card (`device="cuda"`, the default) or, asked for, on the CPU.
     """
 
     # The JAX package's defaults: full weighting and the dense coarse solve
@@ -79,7 +80,7 @@ class Poisson:
     DEFAULT_SOLVER = SolverConfig(restriction="full", coarse_mode="dense")
 
     def __init__(self, n: int, f=None, solver: SolverConfig = DEFAULT_SOLVER,
-                 *, device):
+                 *, device="cuda"):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' but torch sees no CUDA device")

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their routing.
 
-Each kernel module (delta_step, smoother, tower) holds its wrappers and
-the kernels' plain PyTorch versions.  The wrapper launches the kernel for CUDA
+Each kernel module (delta_step, smoother, tower, probe) holds its wrappers
+and the kernels' plain PyTorch versions.  The wrapper launches the kernel for CUDA
 tensors and runs the plain version for CPU tensors; there is no other
 route and no fallback.  Each launch adds one to its entry of `LAUNCHES`,
 so a run can show which kernels carried it.
@@ -17,8 +17,12 @@ import contextlib
 import torch
 
 # Launch counts per kernel, one per wrapper call that launched it.
-LAUNCHES = {"delta_open": 0, "smooth": 0, "smooth5": 0, "smooth9": 0,
-            "smooth_rows": 0, "tower_descent": 0, "tower_ascent": 0}
+LAUNCHES = {"delta_open": 0, "open_presmooth": 0, "smooth": 0, "smooth5": 0,
+            "smooth9": 0, "smooth_rows": 0, "tower_descent": 0,
+            "tower_ascent": 0, "probe_stride2_rows": 0,
+            "probe_dot_decimate": 0, "probe_interleave_rows": 0,
+            "probe_flatten": 0, "probe_dot_decimate_rows": 0,
+            "probe_dot_prolong_rows": 0}
 
 _plain_on_cuda = False
 

@@ -29,13 +29,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SMOOTH_ARGS = [_P] * 7 + [_I] * 5 + [_D] * 5 + [_I, _P]
+# entry points built for float32 (_f32) and float64 (_f64)
 _SIGNATURES = {
     "mg_delta_open": [_P] * 8 + [_I] * 3 + [_D] * 2 + [_P],
+    "mg_open_smooth": [_P] * 10 + [_I] * 4 + [_D] * 7 + [_I, _P],
     "mg_smooth": _SMOOTH_ARGS,
     "mg_smooth5": [_P] * 9 + [_I] * 3 + [_D] * 2 + [_I, _P],
     "mg_smooth9": [_P] * 14 + [_I] * 3 + [_I, _P],
     "mg_tower_descend": [_P] * 5 + [_I] * 6 + [_D] * 5 + [_P],
     "mg_tower_ascend": [_P, _I, _I] + [_P] * 5 + [_I] * 4 + [_D] * 5 + [_P],
+}
+# float32-only entry points, named without a suffix (csrc/probe.cu)
+_F32_SIGNATURES = {
+    "mg_probe_stride2_rows": [_P, _P, _I, _I, _P],
+    "mg_probe_interleave_rows": [_P, _P, _I, _I, _P],
+    "mg_probe_flatten": [_P, _P, _I, _P],
+    "mg_probe_dot": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 
@@ -80,18 +89,23 @@ def build() -> pathlib.Path:
 def library() -> ctypes.CDLL:
     """The built kernel library, with argument types set on every entry."""
     lib = ctypes.CDLL(str(build()))
-    for base, argtypes in _SIGNATURES.items():
-        for suffix in ("f32", "f64"):
-            fn = getattr(lib, f"{base}_{suffix}")
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+    names = {f"{base}_{suffix}": argtypes
+             for base, argtypes in _SIGNATURES.items()
+             for suffix in ("f32", "f64")}
+    for name, argtypes in {**names, **_F32_SIGNATURES}.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     lib.mg_error_string.argtypes = [ctypes.c_int]
     lib.mg_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def entry(base: str, dtype_itemsize: int):
-    """The C entry point `base` for float32 (4) or float64 (8)."""
+def entry(base: str, dtype_itemsize: int | None = None):
+    """The C entry point `base` for float32 (4) or float64 (8), or a
+    float32-only entry point (no itemsize)."""
+    if dtype_itemsize is None:
+        return getattr(library(), base)
     return getattr(library(), f"{base}_{'f32' if dtype_itemsize == 4 else 'f64'}")
 
 

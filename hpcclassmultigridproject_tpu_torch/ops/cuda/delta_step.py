@@ -1,8 +1,13 @@
-"""K1: the delta step's opening, `csrc/delta_step.cu`.
+"""K1 and K8: the delta step's opening, `csrc/delta_step.cu`.
 
-Folds the pending correction d into the float32 state pair (hi, lo) by
+K1 folds the pending correction d into the float32 state pair (hi, lo) by
 TwoSum and forms the next step's difference-form delta rhs, in one pass.
 Replaces the JAX package's `ops/pallas/delta_step.py::fused_accumulate_open`.
+
+K8, the whole-step opening, adds the top level's zero-init pre-smooth
+block and its trailing residual (full or row-decimated) to the same pass.
+Replaces `ops/pallas/delta_step.py::fused_open_presmooth`; the delta
+stepper reaches it only under `mg/delta.py::_FUSE_OPEN_SMOOTH`.
 """
 
 from __future__ import annotations
@@ -11,6 +16,10 @@ import torch
 
 from hpcclassmultigridproject_tpu_torch.ops import cuda
 from hpcclassmultigridproject_tpu_torch.ops.cuda import _build
+from hpcclassmultigridproject_tpu_torch.ops.cuda.smoother import (
+    cn_constants,
+    fused_rb_sweeps_plain,
+)
 
 
 def fused_accumulate_open_plain(level, hi, lo, d):
@@ -45,3 +54,47 @@ def fused_accumulate_open(level, hi, lo, d):
     _build.check(err, "delta_open kernel")
     cuda.LAUNCHES["delta_open"] += 1
     return hi2, lo2, rhs
+
+
+def fused_open_presmooth_plain(level, hi, lo, d, nsweeps: int,
+                               residual_rows_decimated: bool = False):
+    """The plain PyTorch version: `fused_accumulate_open_plain`, then
+    `fused_rb_sweeps_plain` from zero on its rhs, with the residual."""
+    hi2, lo2, rhs = fused_accumulate_open_plain(level, hi, lo, d)
+    u1, r0 = fused_rb_sweeps_plain(
+        level, None, rhs, nsweeps, want_residual=True, zero_init=True,
+        residual_rows_decimated=residual_rows_decimated)
+    return hi2, lo2, rhs, u1, r0
+
+
+def fused_open_presmooth(level, hi, lo, d, nsweeps: int,
+                         residual_rows_decimated: bool = False):
+    """The whole-step opening: returns (hi', lo', rhs_δ, u1, r0), where
+    (hi', lo', rhs_δ) are `fused_accumulate_open`'s, u1 is `nsweeps`
+    red–black sweeps of A u = rhs_δ from zero, and r0 = rhs_δ − A u1 (its
+    even rows only, shape (rows/2, cols), with `residual_rows_decimated`).
+    From_v levels on one device.  CUDA tensors launch the kernel, CPU
+    tensors run the plain version."""
+    if level.form != "from_v" or level.row_off:
+        raise ValueError("the whole-step opening takes a whole from_v level")
+    if not cuda.use_kernel(hi, lo, d, level.v1, level.v2):
+        return fused_open_presmooth_plain(level, hi, lo, d, nsweeps,
+                                          residual_rows_decimated)
+    from hpcclassmultigridproject_tpu_torch.mg import delta
+
+    cuda.check_inputs(level.padded, hi.dtype, hi=hi, lo=lo, d=d, v1=level.v1,
+                      v2=level.v2)
+    rows, cols = level.padded
+    hi2, lo2, rhs, u1 = (torch.empty_like(hi) for _ in range(4))
+    r0 = torch.empty((rows // 2 if residual_rows_decimated else rows, cols),
+                     dtype=hi.dtype, device=hi.device)
+    err = _build.entry("mg_open_smooth", hi.element_size())(
+        hi.data_ptr(), lo.data_ptr(), d.data_ptr(), level.v1.data_ptr(),
+        level.v2.data_ptr(), hi2.data_ptr(), lo2.data_ptr(), rhs.data_ptr(),
+        u1.data_ptr(), r0.data_ptr(), rows, cols, level.n, nsweeps,
+        *cn_constants(level), *delta.difference_form_constants(level),
+        int(residual_rows_decimated),
+        torch.cuda.current_stream(hi.device).cuda_stream)
+    _build.check(err, "open_presmooth kernel")
+    cuda.LAUNCHES["open_presmooth"] += 1
+    return hi2, lo2, rhs, u1, r0

@@ -140,11 +140,68 @@ def rb_gauss_seidel(level, u, rhs, c: Coefs | None = None) -> torch.Tensor:
     neighbours share the node's colour and are read at their values from
     before the pass."""
     c = coefs(level) if c is None else c
-    inv_diag = (as_dtype(1.0 / level.diag_a, u.dtype) if c.diag is None
-                else 1.0 / c.diag)
+    inv_diag = _inv_diagonal(c, u.dtype)
     red = color_mask(u.shape, 0, device=u.device, row_off=level.row_off)
     u = torch.where(red, (rhs - neighbor_sum(c, u)) * inv_diag, u)
     u = torch.where(~red, (rhs - neighbor_sum(c, u)) * inv_diag, u)
+    return u
+
+
+def _inv_diagonal(c: Coefs, dtype: torch.dtype):
+    """1/diag: 1/diag_a rounded to dtype, or the reciprocal array."""
+    return as_dtype(1.0 / c.diag_a, dtype) if c.diag is None else 1.0 / c.diag
+
+
+def weighted_jacobi(level, u, rhs, omega: float = 1.0,
+                    c: Coefs | None = None) -> torch.Tensor:
+    """One weighted-Jacobi sweep, (1 − ω)·u + ω·(rhs − Σ)/diag."""
+    c = coefs(level) if c is None else c
+    jac = (rhs - neighbor_sum(c, u)) * _inv_diagonal(c, u.dtype)
+    return (1.0 - omega) * u + omega * jac
+
+
+def gershgorin_bound(level, c: Coefs | None = None) -> torch.Tensor:
+    """Gershgorin bound on the spectrum of D⁻¹A: 1 + max Σ_j|a_ij| / |d_i|
+    (|d_i|, so a positive ν cannot flip the bound's sign)."""
+    c = coefs(level) if c is None else c
+    rowsum = c.aa.abs() + c.bb.abs() + c.cc.abs() + c.dd.abs()
+    if c.corners is not None:
+        ne, nw, se, sw = c.corners
+        rowsum = rowsum + ne.abs() + nw.abs() + se.abs() + sw.abs()
+    diag = abs(c.diag_a) if c.diag is None else c.diag.abs()
+    return 1.0 + torch.max(rowsum / diag)
+
+
+def chebyshev_smooth(level, u, rhs, degree: int = 3,
+                     lower_frac: float = 1.0 / 30.0, upper_frac: float = 1.1,
+                     c: Coefs | None = None) -> torch.Tensor:
+    """Degree-`degree` Chebyshev smoother on the Jacobi-preconditioned
+    system D⁻¹A over [max(lower_frac·λ̂, 2 − λ̂), upper_frac·λ̂], λ̂ the
+    Gershgorin bound (the lower end is Gershgorin's own lower bound where
+    the operator is diagonally dominant), by the three-term recurrence on
+    the residual."""
+    c = coefs(level) if c is None else c
+    lam = gershgorin_bound(level, c).to(u.dtype)
+    lmax = upper_frac * lam
+    lmin = torch.maximum(lower_frac * lam, 2.0 - lam)
+    theta = 0.5 * (lmax + lmin)
+    delta = 0.5 * (lmax - lmin)
+    sigma = theta / delta
+    # a tensor, so `inv_diag / theta` is one division (a Python float over
+    # a tensor is taken as a reciprocal and a product)
+    inv_diag = (torch.tensor(1.0 / c.diag_a, dtype=u.dtype, device=u.device)
+                if c.diag is None else 1.0 / c.diag)
+
+    r = residual(level, u, rhs, c)
+    d = (inv_diag / theta) * r
+    u = u + d
+    rho = 1.0 / sigma
+    for _ in range(degree - 1):
+        rho_new = 1.0 / (2.0 * sigma - rho)
+        r = residual(level, u, rhs, c)
+        d = (rho_new * rho) * d + (2.0 * rho_new / delta) * (inv_diag * r)
+        u = u + d
+        rho = rho_new
     return u
 
 

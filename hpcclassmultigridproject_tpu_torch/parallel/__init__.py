@@ -52,8 +52,8 @@ def distributed_run(model, mesh: Mesh | None = None, min_local: int = 64,
     `layout` "auto" and "rows" mean rows: every level of the port has a
     kernel and a plain version, so the JAX package's TPU-only choice of
     "2d" has no counterpart, and "2d" raises.  A partitioned Galerkin
-    level and FMG over partitioned levels raise too, before any
-    collective."""
+    level, FMG and the Jacobi and Chebyshev smoothers over partitioned
+    levels raise too, before any collective."""
     from hpcclassmultigridproject_tpu_torch.core.layout import crop_field
     from hpcclassmultigridproject_tpu_torch.mg.cycle import refuse_sharded_fmg
     from hpcclassmultigridproject_tpu_torch.mg.timestepper import timestepper
@@ -68,6 +68,10 @@ def distributed_run(model, mesh: Mesh | None = None, min_local: int = 64,
            for level, part in zip(levels, shardings)):
         raise NotImplementedError(
             f"a partitioned Galerkin (nine-band) level: "
+            f"{_NOT_PORTED.format(14)}")
+    if cfg.smoother != "rbgs" and any(p is not None for p in shardings):
+        raise NotImplementedError(
+            f"smoother={cfg.smoother!r} over partitioned levels: "
             f"{_NOT_PORTED.format(14)}")
     if cfg.cycle_mode == "fmg":
         refuse_sharded_fmg(shardings)
