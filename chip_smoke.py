@@ -8,7 +8,8 @@ raising on failure:
 
 1. device: the card's name, the device count, and nvidia-smi's name and
    power limit;
-2. build: nvcc builds every kernel of the port from csrc/;
+2. build: nvcc builds every kernel of the port from csrc/, and ptxas'
+   registers, shared memory and spills of each entry are printed;
 3. kernels: each kernel (K1 opening, K2 smoother in both flag sets of the
    main path, K3/K4 tower, K5 five-band and K6 nine-band smoothers in the
    flag sets of their paths, K7 on every shape the distributed path's
@@ -16,7 +17,11 @@ raising on failure:
    modes) against its plain PyTorch version on the card, at the paths'
    shapes, in float32 (within 4 ulp of the field's max-abs) and float64
    (within 1e-13), with kernel and plain times and the bound of the byte
-   and operation model (utils/profiling.py); the four K7 blocks of level
+   and operation model (utils/profiling.py); K2 also in all six of its
+   flag sets on every level of the n=1024 hierarchy and at nsweeps 1 on
+   the gsbench level (2056x2176), with misaligned arrays and at nsweeps
+   20, K7 in all four of its on its 40 shapes, each bit-identical to its
+   plain version; the four K7 blocks of level
    0, stitched, against K2 on the whole field; and K8 against K1 then K2;
 4. main path: the n=1024, 100-step delta-form run through
    AdvectionDiffusion, with every certificate <= 1e-6, the center value,
@@ -104,6 +109,24 @@ CENTER_POISSON = 0.07367129792055582      # u[512, 512], f64, tol 1e-10
 TOL = 1e-6
 DIST_WORLD, DIST_MIN_LOCAL, NCCL_STEPS = 4, 64, 10
 GSBENCH_N, GSBENCH_SWEEPS = 2048, 500  # the reference's GS microbenchmark
+# K2's flag sets (the C entry's ZERO_INIT / ADD_CORR / u starts, WANT_RES,
+# RES_ROWS_DEC): pre- and post-smooth of the main path first, gsbench's last
+FROM_V_FLAG_SETS = {
+    "zero_init, res_rows_dec": dict(zero_init=True, want_residual=True,
+                                    residual_rows_decimated=True),
+    "corr, residual": dict(corr="corr", want_residual=True),
+    "zero_init, residual": dict(zero_init=True, want_residual=True),
+    "corr": dict(corr="corr"),
+    "u, residual": dict(want_residual=True),
+    "u": {},
+}
+# K7's: the distributed path's two first (timed), then without the residual
+K7_FLAG_SETS = {
+    "zero_init, residual": dict(zero_init=True, want_residual=True),
+    "u, residual": dict(want_residual=True),
+    "zero_init": dict(zero_init=True),
+    "u": {},
+}
 
 
 def require(ok: bool, what: str) -> None:
@@ -155,7 +178,7 @@ def phase_build() -> None:
     print(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)}: "
           f"{time.perf_counter() - t0:.1f} s -> {lib.name}")
     for line in lib.with_suffix(".log").read_text().splitlines():
-        if "Compiling entry" in line or "Used" in line:
+        if any(k in line for k in ("Compiling entry", "spill", "Used")):
             print(f"[build]   {line.strip()}")
 
 
@@ -268,19 +291,65 @@ def _smooth_rows_cases(levels, f):
                       for x in (u, rhs))
             assert lv.padded[0] == b - a and (b - a) in (local + 2 * h,
                                                          local, 3 * h)
-            for flags, kw in (("zero_init, residual", dict(zero_init=True)),
-                              ("u, residual", {})):
+            for flags, kw in K7_FLAG_SETS.items():
                 cases[f"smooth_rows ({what}, level {lvl}, rank {rank}, "
                       f"row_off {lv.row_off}, {flags})"] = (
                     lambda lv=lv, uu=uu, rr=rr, kw=kw:
-                        smoother.fused_rb_sweeps_rows(lv, uu, rr, 3, True,
-                                                      **kw),
+                        smoother.fused_rb_sweeps_rows(lv, uu, rr, 3, **kw),
                     lambda lv=lv, uu=uu, rr=rr, kw=kw:
-                        smoother.fused_rb_sweeps_plain(lv, uu, rr, 3, True,
-                                                       **kw),
+                        smoother.fused_rb_sweeps_plain(lv, uu, rr, 3, **kw),
                     lv.padded,
-                    profiling.smooth_cost(lv, uu.element_size(), 3,
-                                          read_u=not kw, want_residual=True))
+                    profiling.smooth_cost(
+                        lv, uu.element_size(), 3,
+                        read_u=not kw.get("zero_init", False),
+                        want_residual=kw.get("want_residual", False)))
+    return cases
+
+
+def _from_v_checks(levels, f, gs_level, g):
+    """K2 against its plain version in every flag set (FROM_V_FLAG_SETS) on
+    each level of the main path's hierarchy at nsweeps 3, and on the
+    gsbench level (n=2048) at nsweeps 1; then on the 72x128 level with its
+    arrays one value off a pair's alignment (the block's FV_SINGLES
+    instance), and at nsweeps 20 (a chain of two launches): {name:
+    (kernel, plain version, shape)}.  `g(scale)` makes a field of the
+    gsbench level."""
+    from hpcclassmultigridproject_tpu_torch.ops.cuda import smoother
+
+    cases = {}
+    shapes = [(lv, 3, lambda s, i=i: f(s, i)) for i, lv in enumerate(levels)]
+    for level, ns, field in shapes + [(gs_level, 1, g)]:
+        u, corr, rhs = field(1.0), field(1e-2), field(1.0)
+        for flags, kw in FROM_V_FLAG_SETS.items():
+            kw = {k: corr if v == "corr" else v for k, v in kw.items()}
+            cases[f"smooth check ({flags}, nsweeps {ns}) at "
+                  f"{level.padded}"] = (
+                lambda level=level, ns=ns, u=u, rhs=rhs, kw=kw:
+                    smoother.fused_rb_sweeps(level, u, rhs, ns, **kw),
+                lambda level=level, ns=ns, u=u, rhs=rhs, kw=kw:
+                    smoother.fused_rb_sweeps_plain(level, u, rhs, ns, **kw),
+                level.padded)
+
+    def one_off(x):
+        """x in a buffer that starts one value before it."""
+        buf = torch.zeros(x.numel() + 1, dtype=x.dtype, device=x.device)
+        buf[1:] = x.reshape(-1)
+        return buf[1:].view(x.shape)
+
+    lvl = len(levels) - 2
+    level = levels[lvl]
+    u, corr, rhs = f(1.0, lvl), f(1e-2, lvl), f(1.0, lvl)
+    for name, ns, args in (
+            ("arrays one value off alignment", 3,
+             (one_off(u), one_off(rhs), dict(corr=one_off(corr)))),
+            ("nsweeps 20, two launches", 20, (u, rhs, dict(corr=corr)))):
+        uu, rr, kw = args
+        cases[f"smooth check (corr, residual, {name}) at {level.padded}"] = (
+            lambda ns=ns, uu=uu, rr=rr, kw=kw: smoother.fused_rb_sweeps(
+                level, uu, rr, ns, True, **kw),
+            lambda ns=ns, uu=uu, rr=rr, kw=kw: smoother.fused_rb_sweeps_plain(
+                level, uu, rr, ns, True, **kw),
+            level.padded)
     return cases
 
 
@@ -346,8 +415,14 @@ def phase_kernels(device, n: int) -> dict:
     dtype (a kernel with several flag sets: the largest difference and the
     mean times and bounds).  Kernel and plain ms are the card's time per
     call (`utils.timing.device_ms`)."""
+    from hpcclassmultigridproject_tpu_torch.core.problem import (
+        rotating_velocity,
+    )
     from hpcclassmultigridproject_tpu_torch.mg.cycle import coarse_solve_dense
-    from hpcclassmultigridproject_tpu_torch.mg.levels import build_hierarchy
+    from hpcclassmultigridproject_tpu_torch.mg.levels import (
+        build_fine_level,
+        build_hierarchy,
+    )
     from hpcclassmultigridproject_tpu_torch.models.poisson import (
         build_poisson_hierarchy,
     )
@@ -424,18 +499,35 @@ def phase_kernels(device, n: int) -> dict:
                                  ("full residual", False))},
             **_smooth_cases("smooth5", poisson, f, 0),
             **_smooth_cases("smooth9", galerkin, f, 1),
-            **_smooth_rows_cases(levels, f),
         }
+        # K7 timed in the distributed path's flag sets; K2 and K7 checked
+        # in all of theirs, and K2 on every level and the gsbench level
+        gv1, gv2 = rotating_velocity(GSBENCH_N, dtype=dtype, device="cpu")
+        gs_level = build_fine_level(gv1, gv2, (1.0 / GSBENCH_N) / 10, -4e-4,
+                                    dtype=dtype, device=device)
+        checks = _from_v_checks(levels, f, gs_level, lambda scale: _field(
+            rng, gs_level.padded, gs_level.n, dtype, device, scale))
+        for name, case in _smooth_rows_cases(levels, f).items():
+            if "residual" in name:
+                cases[name] = case
+            else:
+                checks[name] = case[:3]
         _stitched_rows(levels, u, rhs, dtype)
         _k8_against_k1_k2(fine, hi, lo, d, dtype)
-        for name, (kern, plain, shape, cost) in cases.items():
+        exact_from_v = []
+        for name, (kern, plain, shape, *timed) in {**cases, **checks}.items():
             got, want = _flatten(kern()), _flatten(plain())
             torch.cuda.synchronize()
             err, bound, exact = _compare(name, got, want, dtype)
             line = (f"[kernels] {name} {str(dtype)[6:]} at {shape}: "
                     f"max|kernel - plain| {err:.3g} (bound {bound:.3g}), "
                     f"bit-identical {exact}")
-            if dtype == torch.float32:
+            if name.startswith("smooth ") or name.startswith("smooth_rows"):
+                require(exact, f"{name}: K2/K7 not bit-identical to the "
+                        "plain version")
+                exact_from_v.append(exact)
+            if dtype == torch.float32 and timed:
+                cost = timed[0]
                 ms = device_ms(kern, 200)
                 plain_ms = device_ms(plain, 20)
                 issued = time_ms(kern, 200)
@@ -447,6 +539,9 @@ def phase_kernels(device, n: int) -> dict:
                          "MFLOP)")
                 out[name] = (err, ms, plain_ms, bound_ms, bound_by)
             print(line)
+        print(f"[kernels] K2 and K7 ({str(dtype)[6:]}): bit-identical to "
+              f"their plain versions in {sum(exact_from_v)} of "
+              f"{len(exact_from_v)} cases")
     k1, k2_pre = out["delta_open"][1], out["smooth pre (zero_init, "
                                            "res_rows_dec)"][1]
     k8 = out["open_presmooth (res_rows_dec)"][1]

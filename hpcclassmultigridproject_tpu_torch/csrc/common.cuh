@@ -17,7 +17,7 @@
 
 namespace mg {
 
-// Output tile of one smoothing block, and its thread count.
+// Output tile of one smooth_tile block, and its thread count.
 constexpr int TILE_H = 32;
 constexpr int TILE_W = 32;
 constexpr int SMOOTH_THREADS = 256;
@@ -40,7 +40,8 @@ enum ResMode {
 
 // Where a smoothing block takes the stencil coefficients from.
 enum CoefForm {
-  FORM_FROM_V = 0,  // recomputed from (v1, v2): the CN levels (K2, K3, K4)
+  FORM_FROM_V = 0,  // recomputed from (v1, v2): the CN levels (K3, K4, K8;
+                    // K2 and K7 take smooth_from_v below)
   FORM_FIVE = 1,    // stored aa, bb, cc, dd; scalar diagonal (K5)
   FORM_NINE = 2,    // stored aa..dd, ne, nw, se, sw and diag (K6)
 };
@@ -413,6 +414,266 @@ cudaError_t launch_smooth(void (*kernel)(SmoothArgs<T>), const SmoothArgs<T>& a,
   const dim3 grid((a.dom_cols + TILE_W - 1) / TILE_W,
                   (a.dom_rows + TILE_H - 1) / TILE_H);
   kernel<<<grid, SMOOTH_THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The from_v smoothing block of K2 and K7 (mg_smooth): the cascade of
+// smooth_tile with the CN coefficients recomputed from (v1, v2), redesigned
+// for Hopper.  What bounds smooth_tile is instruction issue, not bytes: at
+// every window cell each color pass recomputes its window index (a
+// division), its parity, its masks and its four coefficients, and reads its
+// neighbours through bounds tests; the window is 2.07x the 32x32 tile; and a
+// color pass touches every second word of a row.  This block:
+//
+//  - has a window of fixed shape, FV_WIN_H x FV_WIN_W = 64 x 64, whose
+//    halo follows nsweeps: hr = 2*nsweeps+1 rows and hc = hr rounded up to
+//    FV_COL_ALIGN columns on each side, so the output tile is
+//    (64 - 2 hr) x (64 - 2 hc): 50 x 48 at nsweeps 3 (the window 1.71x
+//    the tile), 58 x 56 at nsweeps 1;
+//  - stores the window as two planes, its even and its odd columns (32
+//    cells a row each).  In a row one plane holds the red cells and the
+//    other the black, so a color pass reads and writes whole warps of
+//    consecutive words: no bank conflict.  A zero border (row -1 and
+//    FV_WIN_H, pair -1 and FV_PAIRS) gives a cell whose neighbour lies past
+//    the window 0 there, with no bounds test;
+//  - maps threads to cells once: warp g owns window rows g, g+16, g+32 and
+//    g+48, lane k the pair of columns (2k, 2k+1) of each.  The thread
+//    loads its pairs (two values at a time where the rows are aligned),
+//    forms their rhs and coefficients once, and keeps them in registers
+//    (FV_ROWS x 2 x 5 values), so a color pass is, per cell, four shared
+//    loads, the neighbour sum, the update and one shared store.  A warp's
+//    rows share a parity, so which column of its pairs is red is fixed per
+//    warp, and a pass branches on it once;
+//  - runs two blocks of 512 threads per SM in float32 (64 registers).
+//
+// Every expression keeps the operation order of smooth_tile (coefs_at,
+// cc*up + dd*dn + aa*lf + bb*rt, (rhs - nb)*inv, rhs - diag*u - nb), and
+// the validity argument of smooth_tile holds unchanged: each side's halo
+// is at least 2*nsweeps+1 cells, and a cell whose neighbour lies past the
+// window reads 0 there.  The from_v mask is 0 past the array, as there.
+constexpr int FV_WIN_H = 64;
+constexpr int FV_WIN_W = 64;
+constexpr int FV_COL_ALIGN = 4;
+constexpr int FV_PAIRS = FV_WIN_W / 2;  // one warp's lanes
+constexpr int FV_WARPS = 16;
+constexpr int FV_THREADS = FV_WARPS * FV_PAIRS;
+constexpr int FV_ROWS = FV_WIN_H / FV_WARPS;  // window rows a thread owns
+constexpr int FV_STRIDE = FV_PAIRS + 2;       // a plane row, with its border
+static_assert(FV_PAIRS == 32 && FV_WARPS % 2 == 0 && FV_WIN_H % FV_WARPS == 0,
+              "a warp owns one half-row; a thread's rows share a parity");
+
+// Halo of the from_v block on each side: rows, and columns (rounded up).
+__host__ __device__ constexpr int fv_halo_rows(int nsweeps) {
+  return 2 * nsweeps + 1;
+}
+__host__ __device__ constexpr int fv_halo_cols(int nsweeps) {
+  return (2 * nsweeps + FV_COL_ALIGN) / FV_COL_ALIGN * FV_COL_ALIGN;
+}
+
+// Blocks per SM the register budget is set for: two in float32 (64
+// registers a thread); in float64 the coefficient registers double.
+template <typename T>
+constexpr int fv_min_blocks() {
+  return sizeof(T) == 4 ? 2 : 1;
+}
+
+// A cell's rhs and coefficients, formed once a launch.
+template <typename T>
+struct FvCell {
+  T rhs, aa, bb, cc, dd;
+};
+
+// Two adjacent values: one load or store where they are aligned as a pair.
+template <typename T>
+struct FvPair;
+template <>
+struct FvPair<float> {
+  using type = float2;
+};
+template <>
+struct FvPair<double> {
+  using type = double2;
+};
+
+// How the block moves a thread's two values of a row: as one aligned pair
+// (every row of every array starts aligned to a pair), or one by one.
+enum FvAccess { FV_SINGLES = 0, FV_PAIRED = 1 };
+
+// (p[at], p[at + 1]), each 0 where it lies past the array (!in0, !in1).
+// FV_PAIRED: the two are one aligned pair, inside or past the array alike.
+template <int ACCESS, typename T>
+__device__ __forceinline__ void fv_load(const T* p, size_t at, bool in0,
+                                        bool in1, T& x, T& y) {
+  if constexpr (ACCESS == FV_PAIRED) {
+    using T2 = typename FvPair<T>::type;
+    const T2 v = in0 ? *reinterpret_cast<const T2*>(p + at) : T2{T(0), T(0)};
+    x = v.x;
+    y = v.y;
+  } else {
+    x = in0 ? p[at] : T(0);
+    y = in1 ? p[at + 1] : T(0);
+  }
+}
+
+template <int ACCESS, typename T>
+__device__ __forceinline__ void fv_store(T* p, size_t at, bool in0, bool in1,
+                                         T x, T y) {
+  if constexpr (ACCESS == FV_PAIRED) {
+    if (in0) *reinterpret_cast<typename FvPair<T>::type*>(p + at) = {x, y};
+  } else {
+    if (in0) p[at] = x;
+    if (in1) p[at + 1] = y;
+  }
+}
+
+// One color pass over the thread's cells of one column parity: they lie
+// in `self` (the plane of that parity), whose rows above and below hold
+// the other color, and their left and right neighbours in `other`, at
+// offsets `lf` and `lf + 1` from the thread's first cell `cell`.
+template <typename T>
+__device__ __forceinline__ void fv_pass(T* self, const T* __restrict__ other,
+                                        const FvCell<T> (&c)[FV_ROWS],
+                                        int cell, int lf, T inv) {
+#pragma unroll
+  for (int j = 0; j < FV_ROWS; ++j) {
+    const int at = cell + j * FV_WARPS * FV_STRIDE;
+    const int side = lf + j * FV_WARPS * FV_STRIDE;
+    const T nb = c[j].cc * self[at - FV_STRIDE] +
+                 c[j].dd * self[at + FV_STRIDE] + c[j].aa * other[side] +
+                 c[j].bb * other[side + 1];
+    self[at] = (c[j].rhs - nb) * inv;
+  }
+}
+
+template <typename T, int ACCESS>
+__device__ void smooth_from_v(const SmoothArgs<T>& a) {
+  __shared__ T plane[2][(FV_WIN_H + 2) * FV_STRIDE];  // even, odd columns
+  const int hr = fv_halo_rows(a.nsweeps), hc = fv_halo_cols(a.nsweeps);
+  const int gi0 = static_cast<int>(blockIdx.y) * (FV_WIN_H - 2 * hr) - hr;
+  const int gj0 = static_cast<int>(blockIdx.x) * (FV_WIN_W - 2 * hc) - hc;
+  const int k = threadIdx.x % FV_PAIRS, g = threadIdx.x / FV_PAIRS;
+  const int gj = gj0 + 2 * k;  // the thread's columns: gj and gj + 1
+  const int cell = (g + 1) * FV_STRIDE + k + 1;
+  // the odd column of the thread's pairs is red: rows of g's parity
+  const bool odd_red = (gi0 + gj0 + g) & 1;
+
+  for (int q = threadIdx.x; q < 2 * (FV_WIN_H + 2); q += FV_THREADS) {
+    T* row = plane[q & 1] + (q >> 1) * FV_STRIDE;
+    row[0] = row[FV_STRIDE - 1] = T(0);
+  }
+  for (int q = threadIdx.x; q < 2 * FV_STRIDE; q += FV_THREADS) {
+    plane[q & 1][q >> 1] = plane[q & 1][(FV_WIN_H + 1) * FV_STRIDE + (q >> 1)] =
+        T(0);
+  }
+
+  // Every global load of the thread is issued before any is used, so
+  // they are in flight together: rhs, v1, v2, u and corr land in the five
+  // slots of the cell, which the coefficients then take over.
+  const bool col_in0 = gj >= 0 && gj < a.cols;
+  const bool col_in1 = gj + 1 >= 0 && gj + 1 < a.cols;
+  FvCell<T> c0[FV_ROWS], c1[FV_ROWS];  // columns gj, gj + 1
+#pragma unroll
+  for (int j = 0; j < FV_ROWS; ++j) {
+    const int gi = gi0 + g + j * FV_WARPS;
+    const bool row_in = gi >= 0 && gi < a.rows;
+    const bool in0 = row_in && col_in0, in1 = row_in && col_in1;
+    const size_t at = row_in ? static_cast<size_t>(gi) * a.cols + gj : 0;
+    fv_load<ACCESS>(a.rhs, at, in0, in1, c0[j].rhs, c1[j].rhs);
+    fv_load<ACCESS>(a.v1, at, in0, in1, c0[j].aa, c1[j].aa);
+    fv_load<ACCESS>(a.v2, at, in0, in1, c0[j].bb, c1[j].bb);
+    const bool load_u = a.load_mode != LOAD_ZERO;
+    const bool load_corr = a.load_mode == LOAD_U_CORR;
+    fv_load<ACCESS>(a.u, at, in0 && load_u, in1 && load_u, c0[j].cc,
+                   c1[j].cc);
+    fv_load<ACCESS>(a.corr, at, in0 && load_corr, in1 && load_corr, c0[j].dd,
+                   c1[j].dd);
+  }
+  // the interior mask at (gi + row_off, gj), 0 past the array
+  const bool col_int0 = col_in0 && gj >= 1 && gj <= a.n - 1;
+  const bool col_int1 = col_in1 && gj + 1 >= 1 && gj + 1 <= a.n - 1;
+#pragma unroll
+  for (int j = 0; j < FV_ROWS; ++j) {
+    const int gi = gi0 + g + j * FV_WARPS, row = gi + a.row_off;
+    const bool row_int = gi >= 0 && gi < a.rows && row >= 1 && row <= a.n - 1;
+    auto form = [&](FvCell<T>& x, bool col_int, T* to) {
+      *to = a.load_mode == LOAD_U_CORR ? x.cc + x.dd : x.cc;
+      const Coefs<T> co = coefs_at(x.aa, x.bb,
+                                   row_int && col_int ? T(1) : T(0), a.rr,
+                                   a.hh, a.nu);
+      x = {x.rhs, co.aa, co.bb, co.cc, co.dd};
+    };
+    form(c0[j], col_int0, &plane[0][cell + j * FV_WARPS * FV_STRIDE]);
+    form(c1[j], col_int1, &plane[1][cell + j * FV_WARPS * FV_STRIDE]);
+  }
+  __syncthreads();
+
+  // an even-column cell's left neighbour is odd pair k - 1, an odd-column
+  // cell's even pair k
+  for (int s = 0; s < a.nsweeps; ++s) {
+    for (int color = 0; color < 2; ++color) {
+      if (odd_red != (color == 1)) {
+        fv_pass(plane[1], plane[0], c1, cell, cell, a.inv_diag);
+      } else {
+        fv_pass(plane[0], plane[1], c0, cell, cell - 1, a.inv_diag);
+      }
+      __syncthreads();
+    }
+  }
+
+  // write back the tile (window rows [hr, FV_WIN_H - hr), columns [hc,
+  // FV_WIN_W - hc): a thread's pair lies inside or outside it whole) and
+  // the residual
+  if (2 * k < hc || 2 * k >= FV_WIN_W - hc) return;
+  const auto residual = [&](const FvCell<T>& co, const T* self,
+                            const T* other, int at, int side) {
+    return co.rhs - a.diag * self[at] -
+           (co.cc * self[at - FV_STRIDE] + co.dd * self[at + FV_STRIDE] +
+            co.aa * other[side] + co.bb * other[side + 1]);
+  };
+#pragma unroll
+  for (int j = 0; j < FV_ROWS; ++j) {
+    const int r = g + j * FV_WARPS, gi = gi0 + r;
+    if (r < hr || r >= FV_WIN_H - hr || gi >= a.rows) continue;
+    const int at = cell + j * FV_WARPS * FV_STRIDE;
+    const size_t out = static_cast<size_t>(gi) * a.cols + gj;
+    fv_store<ACCESS>(a.u_out, out, col_in0, col_in1, plane[0][at],
+                    plane[1][at]);
+    // the residual where it is written: every row, or the even rows alone
+    if (a.res_mode == RES_NONE ||
+        (a.res_mode == RES_ROWS_DEC && ((gi & 1) || (gi >> 1) >= a.res_rows)))
+      continue;
+    const T res0 = residual(c0[j], plane[0], plane[1], at, at - 1);
+    const T res1 = residual(c1[j], plane[1], plane[0], at, at);
+    fv_store<ACCESS>(a.res_out,
+                    a.res_mode == RES_FULL
+                        ? out
+                        : static_cast<size_t>(gi >> 1) * a.cols + gj,
+                    col_in0, col_in1, res0, res1);
+  }
+}
+
+// Launch the from_v block over a.rows x a.cols, one block per tile, with
+// `paired` (smooth_from_v<T, FV_PAIRED>) where every row of every array
+// starts aligned to a pair of values (the window's columns start even),
+// else with `singles` (smooth_from_v<T, FV_SINGLES>).  An nsweeps whose
+// halo leaves no tile is refused with cudaErrorInvalidValue; returns the
+// launch error.
+template <typename T>
+cudaError_t launch_smooth_from_v(void (*paired)(SmoothArgs<T>),
+                                 void (*singles)(SmoothArgs<T>),
+                                 const SmoothArgs<T>& a, cudaStream_t stream) {
+  if (a.nsweeps < 0) return cudaErrorInvalidValue;
+  const int th = FV_WIN_H - 2 * fv_halo_rows(a.nsweeps);
+  const int tw = FV_WIN_W - 2 * fv_halo_cols(a.nsweeps);
+  if (th < 2 || tw < 2) return cudaErrorInvalidValue;
+  const T* arrays[] = {a.u, a.corr, a.rhs, a.v1, a.v2, a.u_out, a.res_out};
+  bool aligned = a.cols % 2 == 0;
+  for (const T* x : arrays)
+    aligned = aligned && reinterpret_cast<size_t>(x) % (2 * sizeof(T)) == 0;
+  const dim3 grid((a.cols + tw - 1) / tw, (a.rows + th - 1) / th);
+  void (*kernel)(SmoothArgs<T>) = aligned ? paired : singles;
+  kernel<<<grid, FV_THREADS, 0, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -22,23 +22,31 @@
 // one row per color pass.  The block's start and h are even, so the
 // block's row parity is the global one and red stays red.
 //
-// What bounds it on the H100: device-memory traffic.  A plain version
-// reads and writes the field once per color pass and per elementwise op;
-// this kernel reads (u [+ corr], rhs, coefficients) once and writes u and
-// the residual once.  The TPU kernel cut the grid into row bands with a row
-// halo; a Hopper block's shared memory holds far less than the TPU's VMEM,
-// so here each block owns a 32x32 tile and carries the halo on all four
-// sides (smooth_tile in common.cuh).  At nsweeps = 3 the 46x46 window takes
-// 4 planes in K2 (34 KB in float32), 6 in K5 (51 KB; 102 KB in float64)
-// and 12 in K6 (u, rhs, 9 coefficient planes and the pass's pending
-// updates: 102 KB in float32, 203 KB in float64, under the 227 KB a block
-// may have, at one block per SM in float64).  Keeping K6's bands in shared
-// memory instead of reading them through the read-only cache on each pass
-// keeps the kernel one simple loop nest; its occupancy is the price.  The
-// halo is recomputed work: about 2x the tile's cells per pass, paid in
-// shared-memory arithmetic instead of traffic.  The residual's even rows
-// can be written alone (res_rows_dec), the row half of the injection that
-// follows.
+// Each kernel reads (u [+ corr], rhs, coefficients) once and writes u and
+// the residual once, where a plain version reads and writes the field once
+// per color pass and per elementwise op.  The TPU kernel cut the grid into
+// row bands with a row halo; a Hopper block's shared memory holds far less
+// than the TPU's VMEM, so here each block owns a tile and carries the halo
+// on all four sides.  The residual's even rows can be written alone
+// (res_rows_dec), the row half of the injection that follows.
+//
+// K2 and K7 (smooth_from_v in common.cuh) are bound by instruction issue
+// once their bytes are read once: their block forms each cell's
+// coefficients once a launch, in registers, and runs the color passes on a
+// 64x64 window stored as its even and odd columns (50x48 tile at nsweeps
+// 3), two blocks of 512 threads per SM in float32, moving pairs of values
+// as one access where the rows are aligned (smooth_v_kernel's FV_PAIRED
+// instance; FV_SINGLES otherwise).  It takes nsweeps up to 13 a launch
+// (the wrapper runs more as several launches).
+//
+// K5 and K6 are smooth_tile's 32x32 tile in 256 threads.  At nsweeps = 3
+// the 46x46 window takes 6 planes in K5 (51 KB; 102 KB in float64) and 12
+// in K6 (u, rhs, 9 coefficient planes and the pass's pending updates: 102
+// KB in float32, 203 KB in float64, under the 227 KB a block may have, at
+// one block per SM in float64).  Keeping K6's bands in shared memory
+// instead of reading them through the read-only cache on each pass keeps
+// the kernel one simple loop nest; its occupancy is the price.  Their halo
+// is recomputed work, about 2x the tile's cells per pass.
 
 #include "common.cuh"
 
@@ -48,6 +56,12 @@ template <typename T, int FORM>
 __global__ void __launch_bounds__(mg::SMOOTH_THREADS)
     smooth_kernel(mg::SmoothArgs<T> a) {
   mg::smooth_tile<T, FORM>(a);
+}
+
+template <typename T, int ACCESS>
+__global__ void __launch_bounds__(mg::FV_THREADS, mg::fv_min_blocks<T>())
+    smooth_v_kernel(mg::SmoothArgs<T> a) {
+  mg::smooth_from_v<T, ACCESS>(a);
 }
 
 constexpr int ZERO_INIT = 1, ADD_CORR = 2, WANT_RES = 4, RES_ROWS_DEC = 8;
@@ -89,8 +103,9 @@ int smooth(const T* u, const T* corr, const T* rhs, const T* v1, const T* v2,
   a.n = n;
   a.row_off = row_off;
   mg::set_constants(a, rr, hh, nu, diag, inv_diag);
-  return static_cast<int>(mg::launch_smooth<mg::FORM_FROM_V>(
-      smooth_kernel<T, mg::FORM_FROM_V>, a, stream));
+  return static_cast<int>(
+      mg::launch_smooth_from_v(smooth_v_kernel<T, mg::FV_PAIRED>,
+                               smooth_v_kernel<T, mg::FV_SINGLES>, a, stream));
 }
 
 template <typename T>

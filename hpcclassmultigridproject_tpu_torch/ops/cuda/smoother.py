@@ -34,6 +34,12 @@ from hpcclassmultigridproject_tpu_torch.ops.padded import (
 # flag bits of the C entry points (csrc/smoother.cu)
 _ZERO_INIT, _ADD_CORR, _WANT_RES, _RES_ROWS_DEC = 1, 2, 4, 8
 
+# The most sweeps one launch of K2/K7's block takes: its 64x64 window
+# (csrc/common.cuh, FV_WIN_H x FV_WIN_W) must keep a tile inside a halo of
+# 2·nsweeps+1 rows and as many columns rounded up to 4.  The wrapper runs
+# more as a chain of launches (`in_launches`).
+FROM_V_MAX_SWEEPS = 13
+
 # per form: (C entry point, launch counter, stored fields it reads)
 _FORMS = {
     "from_v": ("mg_smooth", "smooth", ("v1", "v2")),
@@ -81,7 +87,8 @@ def fused_rb_sweeps(level, u, rhs, nsweeps: int, want_residual: bool = False,
     only, shape (rows/2, cols), the row half of an injection.  CUDA tensors
     launch the level form's kernel (K2, K5 or K6), CPU tensors run the
     plain version.  A window too large for a block's shared memory (K6 in
-    float64 past nsweeps 3) is refused by the launch, and raises."""
+    float64 past nsweeps 3) is refused by the launch, and raises; K2 takes
+    any nsweeps, past `FROM_V_MAX_SWEEPS` as a chain of launches."""
     if zero_init and corr is not None:
         raise ValueError("zero_init and corr are exclusive")
     if residual_rows_decimated and not want_residual:
@@ -114,6 +121,18 @@ def fused_rb_sweeps_rows(level, u, rhs, nsweeps: int,
                    False, ("mg_smooth", "smooth_rows", ("v1", "v2")))
 
 
+def in_launches(u, corr, nsweeps: int, launch):
+    """`nsweeps` sweeps as launches of at most `FROM_V_MAX_SWEEPS` each:
+    `launch(u, corr, k, last)` runs k sweeps from u (+ corr) and returns
+    (u, residual); every launch but the last skips the residual.  Each
+    launch matches the global-barrier schedule exactly, so the chain equals
+    one launch of `nsweeps` to the bit."""
+    while nsweeps > FROM_V_MAX_SWEEPS:
+        u, _ = launch(u, corr, FROM_V_MAX_SWEEPS, False)
+        corr, nsweeps = None, nsweeps - FROM_V_MAX_SWEEPS
+    return launch(u, corr, nsweeps, True)
+
+
 def _launch(level, u, rhs, nsweeps, want_residual, zero_init, corr,
             residual_rows_decimated, form):
     """Launch `form`'s (entry point, counter, stored fields) kernel, or run
@@ -130,29 +149,40 @@ def _launch(level, u, rhs, nsweeps, want_residual, zero_init, corr,
                    if t is not None})
     cuda.check_inputs(level.padded, rhs.dtype, **fields)
     rows, cols = level.padded
-    u_out = torch.empty_like(rhs)
-    res = None
-    if want_residual:
-        res_rows = rows // 2 if residual_rows_decimated else rows
-        res = torch.empty((res_rows, cols), dtype=rhs.dtype,
-                          device=rhs.device)
-    flags = ((_ZERO_INIT if zero_init else 0)
-             | (_ADD_CORR if corr is not None else 0)
-             | (_WANT_RES if want_residual else 0)
-             | (_RES_ROWS_DEC if residual_rows_decimated else 0))
-    ptr = lambda t: None if t is None else t.data_ptr()
-    head = (ptr(u), ptr(corr), rhs.data_ptr(), *(t.data_ptr() for t in stored),
-            u_out.data_ptr(), ptr(res), rows, cols)
     stream = torch.cuda.current_stream(rhs.device).cuda_stream
     fn = _build.entry(entry, rhs.element_size())
+    ptr = lambda t: None if t is None else t.data_ptr()
+
+    def launch(u, corr, nsweeps, last):
+        res_out = want_residual and last
+        u_out = torch.empty_like(rhs)
+        res = None
+        if res_out:
+            res_rows = rows // 2 if residual_rows_decimated else rows
+            res = torch.empty((res_rows, cols), dtype=rhs.dtype,
+                              device=rhs.device)
+        flags = ((_ZERO_INIT if u is None else 0)
+                 | (_ADD_CORR if corr is not None else 0)
+                 | (_WANT_RES if res_out else 0)
+                 | (_RES_ROWS_DEC if res_out and residual_rows_decimated
+                    else 0))
+        head = (ptr(u), ptr(corr), rhs.data_ptr(),
+                *(t.data_ptr() for t in stored), u_out.data_ptr(), ptr(res),
+                rows, cols)
+        if level.form == "from_v":
+            err = fn(*head, level.n, level.row_off, nsweeps,
+                     *cn_constants(level), flags, stream)
+        elif level.form == "five":
+            err = fn(*head, nsweeps, level.diag_a, 1.0 / level.diag_a, flags,
+                     stream)
+        else:
+            err = fn(*head, nsweeps, flags, stream)
+        _build.check(err, f"{counter} kernel")
+        return u_out, res
+
     if level.form == "from_v":
-        err = fn(*head, level.n, level.row_off, nsweeps, *cn_constants(level),
-                 flags, stream)
-    elif level.form == "five":
-        err = fn(*head, nsweeps, level.diag_a, 1.0 / level.diag_a, flags,
-                 stream)
+        out = in_launches(u, corr, nsweeps, launch)
     else:
-        err = fn(*head, nsweeps, flags, stream)
-    _build.check(err, f"{counter} kernel")
+        out = launch(u, corr, nsweeps, True)
     cuda.LAUNCHES[counter] += 1
-    return u_out, res
+    return out

@@ -1,0 +1,158 @@
+"""K2 and K7 of two trees of the PyTorch/CUDA port, timed in turns on one
+card.
+
+    python3 scripts/torch_smooth_turns.py --parent DIR [--order pccp]
+
+DIR holds a copy of another commit of the repository (for example the
+parent, unpacked with `git archive`).  Each turn is a fresh process that
+imports `hpcclassmultigridproject_tpu_torch` from one tree (`p`: DIR, `c`:
+this checkout), builds that tree's kernels, and prints one JSON line with
+the card's time per call (`utils.timing.device_ms`, float32):
+
+- K2 pre-smooth (zero_init, res_rows_dec) and post-smooth (corr, residual)
+  at n=1024 (1032x1152), nsweeps 3, the main path's two calls;
+- K7: the mean over the 40 block shapes and residual flag sets of the
+  distributed path at W=4 (chip_smoke.py's cases);
+- K2 at nsweeps 1 on the gsbench level, n=2048 (2056x2176);
+- the CLI's `gsbench --n 2048 --sweeps 500 --backend pallas`, µs a sweep
+  as the host issues it;
+- the main path (AdvectionDiffusion, n=1024, 100 delta-form steps): the
+  SHA-256 of its uT's bytes.
+
+Then a summary: per tree, the median of its turns, and whether every
+turn's uT is the same to the bit.  The order defaults to parent, change,
+change, parent, so drift of the card or the host shows.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import hashlib
+import importlib.util
+import io
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+
+HERE = pathlib.Path(__file__).resolve().parents[1]
+KEYS = ("k2_pre_ms", "k2_post_ms", "k7_mean_ms", "k2_gs2048_ms",
+        "gsbench_us_per_sweep")
+
+
+def _chip_smoke():
+    """This checkout's chip_smoke.py as a module (its helpers import the
+    package lazily, so they use the tree first on sys.path)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def measure(root: str) -> dict:
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    import hpcclassmultigridproject_tpu_torch as pkg
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig, cli
+    from hpcclassmultigridproject_tpu_torch.core.problem import (
+        rotating_velocity,
+    )
+    from hpcclassmultigridproject_tpu_torch.mg.levels import (
+        build_fine_level,
+        build_hierarchy,
+    )
+    from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+    from hpcclassmultigridproject_tpu_torch.ops.cuda import _build, smoother
+    from hpcclassmultigridproject_tpu_torch.utils.timing import device_ms
+
+    assert pathlib.Path(pkg.__file__).resolve().is_relative_to(
+        pathlib.Path(root).resolve()), pkg.__file__
+    smoke = _chip_smoke()
+    _build.library()
+    dev = torch.device("cuda", 0)
+    n, dt = 1024, torch.float32
+    rng = np.random.default_rng(2024)
+    vel = np.random.default_rng(7).standard_normal((2, n + 1, n + 1))
+    levels = build_hierarchy(
+        vel[0], vel[1], 0.1 / n, -4e-4,
+        smoke.delta_config().resolved_num_levels(n), dtype=dt, device=dev,
+        coarse_mode="dense")
+    fine = levels[0]
+    f = lambda scale=1.0, lvl=0: smoke._field(
+        rng, levels[lvl].padded, levels[lvl].n, dt, dev, scale)
+    u, corr, rhs = f(), f(1e-2), f()
+    out = {"root": root, "k2_pre_ms": device_ms(
+        lambda: smoother.fused_rb_sweeps(fine, None, rhs, 3, True,
+                                         zero_init=True,
+                                         residual_rows_decimated=True), 200),
+        "k2_post_ms": device_ms(
+            lambda: smoother.fused_rb_sweeps(fine, u, rhs, 3, True,
+                                             corr=corr), 200)}
+    rows = smoke._smooth_rows_cases(levels, f)
+    out["k7_mean_ms"] = statistics.mean(
+        device_ms(kern, 200) for name, (kern, *_) in rows.items()
+        if "residual" in name)
+    v1, v2 = rotating_velocity(2048, dtype=dt, device="cpu")
+    gs = build_fine_level(v1, v2, (1.0 / 2048) / 10, -4e-4, dtype=dt,
+                          device=dev)
+    ones = torch.ones(gs.padded, dtype=dt, device=dev)
+    zeros = torch.zeros_like(ones)
+    out["k2_gs2048_ms"] = device_ms(
+        lambda: smoother.fused_rb_sweeps(gs, ones, zeros, 1), 200)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["gsbench", "--n", "2048", "--sweeps", "500", "--backend",
+                  "pallas"])
+    out["gsbench_us_per_sweep"] = json.loads(
+        buf.getvalue().splitlines()[-1])["us_per_sweep"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = AdvectionDiffusion(ProblemConfig(n=n, num_steps=100),
+                               smoke.delta_config(certify_every=10),
+                               device=dev)
+    uT, _ = model.run(warn=False)
+    out["main_uT_sha256"] = hashlib.sha256(
+        uT.cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", required=True)
+    ap.add_argument("--order", default="pccp")
+    ap.add_argument("--measure", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.measure:
+        print(json.dumps(measure(args.measure)), flush=True)
+        return
+    roots = {"p": str(pathlib.Path(args.parent).resolve()), "c": str(HERE)}
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"[turns] card: {smi}; order {args.order}", flush=True)
+    runs = {"p": [], "c": []}
+    for turn in args.order:
+        proc = subprocess.run(
+            [sys.executable, __file__, "--parent", args.parent, "--measure",
+             roots[turn]], capture_output=True, text=True)
+        if proc.returncode != 0:
+            sys.exit(f"turn {turn} failed:\n{proc.stderr}")
+        rec = json.loads(proc.stdout.splitlines()[-1])
+        runs[turn].append(rec)
+        print(f"[turns] {turn}: " + ", ".join(
+            f"{k} {rec[k]:.5f}" for k in KEYS), flush=True)
+    summary = {tree: {k: statistics.median(r[k] for r in recs) for k in KEYS}
+               for tree, recs in runs.items() if recs}
+    hashes = {r["main_uT_sha256"] for recs in runs.values() for r in recs}
+    print(f"[turns] main path uT the same to the bit in every turn: "
+          f"{len(hashes) == 1}", flush=True)
+    print(json.dumps({"card": smi, "order": args.order, "median": summary,
+                      "main_uT_bit_equal": len(hashes) == 1}))
+
+
+if __name__ == "__main__":
+    main()
