@@ -9,7 +9,9 @@ raising on failure:
 1. device: the card's name, the device count, and nvidia-smi's name and
    power limit;
 2. build: nvcc builds every kernel of the port from csrc/, and ptxas'
-   registers, shared memory and spills of each entry are printed;
+   registers, shared memory and spills of each entry are printed; the
+   tower's kernels must read nothing through the read-only path (no
+   LDG...CONSTANT in their SASS, by cuobjdump);
 3. kernels: each kernel (K1 opening, K2 smoother in both flag sets of the
    main path, K3/K4 tower, K5 five-band and K6 nine-band smoothers in the
    flag sets of their paths, K7 on every shape the distributed path's
@@ -21,7 +23,10 @@ raising on failure:
    flag sets on every level of the n=1024 hierarchy and at nsweeps 1 on
    the gsbench level (2056x2176), with misaligned arrays and at nsweeps
    20, K7 in all four of its on its 40 shapes, each bit-identical to its
-   plain version; the four K7 blocks of level
+   plain version; K3 and K4 (one cooperative launch each) bit-identical
+   from level 1 and level 3 of n=1024 and level 1 of n=256 at nsweeps 1, 3
+   and 14, each called 20 times with every result equal to the first, with
+   the grid each launch chose; the four K7 blocks of level
    0, stitched, against K2 on the whole field; and K8 against K1 then K2;
 4. main path: the n=1024, 100-step delta-form run through
    AdvectionDiffusion, with every certificate <= 1e-6, the center value,
@@ -66,6 +71,8 @@ from __future__ import annotations
 import json
 import os
 import pathlib
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -108,6 +115,11 @@ CENTER_REFINED = 4.604193170120696e-05    # refined, fixed, one cycle
 CENTER_POISSON = 0.07367129792055582      # u[512, 512], f64, tol 1e-10
 TOL = 1e-6
 DIST_WORLD, DIST_MIN_LOCAL, NCCL_STEPS = 4, 64, 10
+TOWER_SWEEPS, TOWER_REPEATS = (1, 3, 14), 20  # 14: a chain of two links
+# the host calls that launch a kernel, as torch.profiler names them
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                "cuLaunchKernelEx", "cudaLaunchCooperativeKernel",
+                "cudaLaunchCooperativeKernelExC", "cuLaunchCooperativeKernel")
 GSBENCH_N, GSBENCH_SWEEPS = 2048, 500  # the reference's GS microbenchmark
 # K2's flag sets (the C entry's ZERO_INIT / ADD_CORR / u starts, WANT_RES,
 # RES_ROWS_DEC): pre- and post-smooth of the main path first, gsbench's last
@@ -180,6 +192,35 @@ def phase_build() -> None:
     for line in lib.with_suffix(".log").read_text().splitlines():
         if any(k in line for k in ("Compiling entry", "spill", "Used")):
             print(f"[build]   {line.strip()}")
+    loads = _constant_loads(lib)
+    if loads is None:
+        print("[build] cuobjdump not found: SASS not read")
+        return
+    for name, count in sorted(loads.items()):
+        if "descend_kernel" in name or "ascend_kernel" in name:
+            print(f"[build] SASS {name}: {count} LDG...CONSTANT")
+            require(count == 0, f"{name} reads through the read-only path, "
+                    "which does not see an earlier level phase's writes")
+
+
+def _constant_loads(lib) -> dict | None:
+    """{kernel: count of read-only-path global loads (LDG...CONSTANT)} in
+    the library's SASS, or None without cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.isfile(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            kernel = found.group(1)
+            counts[kernel] = 0
+        elif kernel and re.search(r"LDG\.E[.\w]*CONSTANT", line):
+            counts[kernel] += 1
+    return counts
 
 
 def _field(rng, shape, n, dtype, device, scale=1.0):
@@ -353,6 +394,39 @@ def _from_v_checks(levels, f, gs_level, g):
     return cases
 
 
+def _tower_checks(hierarchies, field):
+    """K3 and K4 against their plain versions from each (levels, s) of
+    `hierarchies` at every nsweeps of TOWER_SWEEPS; the ascent from the
+    coarse solution of the plain descent: {name: (kernel, plain version,
+    shape)}.  `field(levels, lvl)` makes an rhs of levels[lvl]."""
+    from hpcclassmultigridproject_tpu_torch.mg.cycle import coarse_solve_dense
+    from hpcclassmultigridproject_tpu_torch.ops.cuda import tower
+
+    cases = {}
+    for levels, s in hierarchies:
+        rhs = field(levels, s)
+        for ns in TOWER_SWEEPS:
+            u_mids, rhs_mids, bottom = tower.tower_descend_plain(levels, s,
+                                                                 rhs, ns)
+            v = coarse_solve_dense(levels[-1], bottom)
+            at = f"(n={levels[0].n}, s={s}, nsweeps {ns}) at {levels[s].padded}"
+            args = (s, rhs, ns)
+            cases[f"tower_descent check {at}"] = (
+                lambda levels=levels, args=args: tower.tower_descend(
+                    levels, *args),
+                lambda levels=levels, args=args: tower.tower_descend_plain(
+                    levels, *args),
+                levels[s].padded)
+            args = (s, v, u_mids, rhs_mids, ns)
+            cases[f"tower_ascent check {at}"] = (
+                lambda levels=levels, args=args: tower.tower_ascend(
+                    levels, *args),
+                lambda levels=levels, args=args: tower.tower_ascend_plain(
+                    levels, *args),
+                levels[s].padded)
+    return cases
+
+
 def _stitched_rows(levels, u, rhs, dtype):
     """The W K7 blocks of level 0 (halos cut from the whole field, as the
     exchange delivers them) stitched, against K2 on the whole field."""
@@ -435,6 +509,7 @@ def phase_kernels(device, n: int) -> dict:
     from hpcclassmultigridproject_tpu_torch.utils.timing import device_ms
 
     out = {}
+    small_n = 256
     for dtype in (torch.float64, torch.float32):
         rng = np.random.default_rng(2024)
         vel = np.random.default_rng(7).standard_normal((2, n + 1, n + 1))
@@ -512,9 +587,19 @@ def phase_kernels(device, n: int) -> dict:
                 cases[name] = case
             else:
                 checks[name] = case[:3]
+        small_vel = np.random.default_rng(7).standard_normal(
+            (2, small_n + 1, small_n + 1))
+        small = build_hierarchy(
+            small_vel[0], small_vel[1], 0.1 / small_n, -4e-4,
+            delta_config().resolved_num_levels(small_n), dtype=dtype,
+            device=device, coarse_mode="dense")
+        checks.update(_tower_checks(
+            [(levels, 1), (levels, 3), (small, 1)],
+            lambda lv, lvl: _field(rng, lv[lvl].padded, lv[lvl].n, dtype,
+                                   device)))
         _stitched_rows(levels, u, rhs, dtype)
         _k8_against_k1_k2(fine, hi, lo, d, dtype)
-        exact_from_v = []
+        exact_from_v, exact_tower = [], []
         for name, (kern, plain, shape, *timed) in {**cases, **checks}.items():
             got, want = _flatten(kern()), _flatten(plain())
             torch.cuda.synchronize()
@@ -526,6 +611,19 @@ def phase_kernels(device, n: int) -> dict:
                 require(exact, f"{name}: K2/K7 not bit-identical to the "
                         "plain version")
                 exact_from_v.append(exact)
+            if name.startswith("tower"):
+                half = name.split(" ")[0].split("_")[1]
+                line += (f"; grid (blocks/SM, SMs, blocks) "
+                         f"{tower.GRID[half, dtype]}")
+                require(exact, f"{name}: K3/K4 not bit-identical to the "
+                        "plain version")
+                # a race across the grid barrier shows as a call that
+                # differs from another on the same inputs
+                same = all(torch.equal(a, b) for _ in range(TOWER_REPEATS - 1)
+                           for a, b in zip(_flatten(kern()), got))
+                torch.cuda.synchronize()
+                require(same, f"{name}: a repeated call differs")
+                exact_tower.append(exact and same)
             if dtype == torch.float32 and timed:
                 cost = timed[0]
                 ms = device_ms(kern, 200)
@@ -542,6 +640,10 @@ def phase_kernels(device, n: int) -> dict:
         print(f"[kernels] K2 and K7 ({str(dtype)[6:]}): bit-identical to "
               f"their plain versions in {sum(exact_from_v)} of "
               f"{len(exact_from_v)} cases")
+        print(f"[kernels] K3 and K4 ({str(dtype)[6:]}): bit-identical to "
+              f"their plain versions, and each of {TOWER_REPEATS} calls "
+              f"equal to the first, in {sum(exact_tower)} of "
+              f"{len(exact_tower)} cases")
     k1, k2_pre = out["delta_open"][1], out["smooth pre (zero_init, "
                                            "res_rows_dec)"][1]
     k8 = out["open_presmooth (res_rows_dec)"][1]
@@ -922,10 +1024,11 @@ def phase_distributed(n: int, steps: int, uT_single) -> int:
     return res["plain"]["counts"]["smooth_rows"]
 
 
-def _profiled_run(run) -> tuple[float, float, int]:
+def _profiled_run(run) -> tuple[float, float, int, int]:
     """One call of `run` under torch.profiler: (its wall in s, the card's
     busy ms -- the union of the intervals of its kernels, copies and
-    memsets --, and its kernel launch calls)."""
+    memsets --, its kernel launch calls, and how many of those were
+    cooperative launches)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -943,9 +1046,10 @@ def _profiled_run(run) -> tuple[float, float, int]:
         if b > reach:
             busy_us += b - max(a, reach)
             reach = b
-    launches = sum(e.name in ("cudaLaunchKernel", "cuLaunchKernel",
-                              "cudaLaunchKernelExC") for e in events)
-    return wall, busy_us / 1e3, launches
+    launches = sum(e.name in LAUNCH_CALLS for e in events)
+    cooperative = sum(e.name in LAUNCH_CALLS and "Cooperative" in e.name
+                      for e in events)
+    return wall, busy_us / 1e3, launches, cooperative
 
 
 def phase_open_smooth(device, n: int, steps: int, uT_main):
@@ -987,12 +1091,12 @@ def phase_open_smooth(device, n: int, steps: int, uT_main):
         delta._FUSE_OPEN_SMOOTH = old
     for fused, label in ((False, "K1 + K2 opening"), (True, "K8 opening")):
         median = statistics.median(walls[fused])
-        wall, busy, launches = profiled[fused]
+        wall, busy, launches, cooperative = profiled[fused]
         print(f"[open-smooth] {label}: wall per run in turns {median:.4f} s "
               f"(median of 6, {walls[fused]}); one profiled run {wall:.4f} "
               f"s, the card busy {busy:.2f} ms of it, idle "
               f"{1 - busy / 1e3 / median:.1%} of the median wall, "
-              f"{launches} kernel launch calls")
+              f"{launches} kernel launch calls ({cooperative} cooperative)")
     return counts
 
 

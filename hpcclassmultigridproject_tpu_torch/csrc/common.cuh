@@ -28,6 +28,7 @@ enum LoadMode {
   LOAD_U = 1,          // u
   LOAD_U_CORR = 2,     // u + corr (the prolonged correction, post-smooth)
   LOAD_U_PROLONG = 3,  // u + bilinear prolongation of a coarser field
+                       // (the tower's ascent, smooth_from_v<FV_PROLONG>)
 };
 
 // What it writes of the trailing residual rhs - A u.
@@ -35,13 +36,15 @@ enum ResMode {
   RES_NONE = 0,
   RES_FULL = 1,      // (rows, cols)
   RES_ROWS_DEC = 2,  // even global rows only, (rows / 2, cols)
-  RES_INJECT = 3,    // coarse[I, J] = res[2I, 2J], 0 past the fine array
+  RES_INJECT = 3,    // coarse[I, J] = res[2I, 2J] (the tower's descent,
+                     // smooth_from_v<FV_INJECT>; tower.cu's zero_past
+                     // writes the coarse cells past the fine array)
 };
 
 // Where a smoothing block takes the stencil coefficients from.
 enum CoefForm {
-  FORM_FROM_V = 0,  // recomputed from (v1, v2): the CN levels (K3, K4, K8;
-                    // K2 and K7 take smooth_from_v below)
+  FORM_FROM_V = 0,  // recomputed from (v1, v2): the CN levels (K8; K2, K3,
+                    // K4 and K7 take smooth_from_v below)
   FORM_FIVE = 1,    // stored aa, bb, cc, dd; scalar diagonal (K5)
   FORM_NINE = 2,    // stored aa..dd, ne, nw, se, sw and diag (K6)
 };
@@ -71,8 +74,6 @@ struct SmoothArgs {
   int row_off;      // FORM_FROM_V: global row of array row 0 (K7's block
                     // of a row-partitioned level; 0 on a whole level)
   int src_rows, src_cols, res_rows, res_cols;
-  int dom_rows, dom_cols;  // extent the tiles cover: the array, or more
-                           // where RES_INJECT has coarse cells past it
   int load_mode, res_mode;
   T rr, hh, nu, diag, inv_diag;  // constants, rounded to T on the host
                                  // (FORM_NINE reads none of them)
@@ -199,21 +200,28 @@ __device__ __forceinline__ T at_or_zero(const T* x, int rows, int cols, int i,
   return (i < rows && j < cols) ? x[static_cast<size_t>(i) * cols + j] : T(0);
 }
 
-// Bilinear prolongation of the coarse field c at fine node (i, j): rows
-// first, then columns, as ops/padded.py::prolong_bilinear interleaves them.
+// Bilinear prolongation of the coarse field c at the fine nodes (i, j) and
+// (i, j + 1), j even: rows first, then columns, as
+// ops/padded.py::prolong_bilinear interleaves them (an odd row's odd
+// column is half the sum of its even neighbour's value and the next
+// column's row average).
 template <typename T>
-__device__ __forceinline__ T prolong_at(const T* c, int rows_c, int cols_c,
-                                        int i, int j) {
+__device__ __forceinline__ void prolong_pair(const T* c, int rows_c,
+                                             int cols_c, int i, int j, T& p0,
+                                             T& p1) {
   const int I = i >> 1, J = j >> 1;
   const T half = T(0.5);
   const T c00 = at_or_zero(c, rows_c, cols_c, I, J);
-  if (!(i & 1) && !(j & 1)) return c00;
-  const T c10 = at_or_zero(c, rows_c, cols_c, I + 1, J);
-  if (!(j & 1)) return half * (c00 + c10);
   const T c01 = at_or_zero(c, rows_c, cols_c, I, J + 1);
-  if (!(i & 1)) return half * (c00 + c01);
+  if (!(i & 1)) {
+    p0 = c00;
+    p1 = half * (c00 + c01);
+    return;
+  }
+  const T c10 = at_or_zero(c, rows_c, cols_c, I + 1, J);
   const T c11 = at_or_zero(c, rows_c, cols_c, I + 1, J + 1);
-  return half * (half * (c00 + c10) + half * (c01 + c11));
+  p0 = half * (c00 + c10);
+  p1 = half * (p0 + half * (c01 + c11));
 }
 
 // Shared-memory planes of one smoothing block's window: u and rhs, the
@@ -284,8 +292,6 @@ __device__ void smooth_tile(const SmoothArgs<T>& a) {
         u = a.u[g];
       } else if (a.load_mode == LOAD_U_CORR) {
         u = a.u[g] + a.corr[g];
-      } else if (a.load_mode == LOAD_U_PROLONG) {
-        u = a.u[g] + prolong_at(a.src, a.src_rows, a.src_cols, gi, gj);
       }
     }
     su[k] = u;
@@ -388,15 +394,11 @@ __device__ void smooth_tile(const SmoothArgs<T>& a) {
     } else if (a.res_mode == RES_ROWS_DEC) {
       if (in && !(gi & 1))
         a.res_out[static_cast<size_t>(gi >> 1) * a.cols + gj] = res;
-    } else if (a.res_mode == RES_INJECT) {
-      const int I = gi >> 1, J = gj >> 1;
-      if (!(gi & 1) && !(gj & 1) && I < a.res_rows && J < a.res_cols)
-        a.res_out[static_cast<size_t>(I) * a.res_cols + J] = res;
     }
   }
 }
 
-// Launch one smoothing pass over the tiles of a.dom_rows x a.dom_cols with
+// Launch one smoothing pass over the tiles of a.rows x a.cols with
 // `kernel`, a __global__ wrapper of smooth_tile<T, FORM>.  Returns the
 // launch error (a window past the 227 KB of shared memory a block may
 // have is refused here, by cudaFuncSetAttribute).
@@ -411,16 +413,18 @@ cudaError_t launch_smooth(void (*kernel)(SmoothArgs<T>), const SmoothArgs<T>& a,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((a.dom_cols + TILE_W - 1) / TILE_W,
-                  (a.dom_rows + TILE_H - 1) / TILE_H);
+  const dim3 grid((a.cols + TILE_W - 1) / TILE_W,
+                  (a.rows + TILE_H - 1) / TILE_H);
   kernel<<<grid, SMOOTH_THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// The from_v smoothing block of K2 and K7 (mg_smooth): the cascade of
-// smooth_tile with the CN coefficients recomputed from (v1, v2), redesigned
-// for Hopper.  What bounds smooth_tile is instruction issue, not bytes: at
+// The from_v smoothing block of K2 and K7 (mg_smooth), and of every level
+// of the tower (K3, K4: tower.cu, with their transfers as compile-time
+// variants): the cascade of smooth_tile with the CN coefficients
+// recomputed from (v1, v2), redesigned for Hopper.  What bounds smooth_tile
+// is instruction issue, not bytes: at
 // every window cell each color pass recomputes its window index (a
 // division), its parity, its masks and its four coefficients, and reads its
 // neighbours through bounds tests; the window is 2.07x the 32x32 tile; and a
@@ -463,13 +467,28 @@ constexpr int FV_STRIDE = FV_PAIRS + 2;       // a plane row, with its border
 static_assert(FV_PAIRS == 32 && FV_WARPS % 2 == 0 && FV_WIN_H % FV_WARPS == 0,
               "a warp owns one half-row; a thread's rows share a parity");
 
-// Halo of the from_v block on each side: rows, and columns (rounded up).
+// Halo of the from_v block on each side: rows, and columns (rounded up),
+// and the output tile they leave in the window.
 __host__ __device__ constexpr int fv_halo_rows(int nsweeps) {
   return 2 * nsweeps + 1;
 }
 __host__ __device__ constexpr int fv_halo_cols(int nsweeps) {
   return (2 * nsweeps + FV_COL_ALIGN) / FV_COL_ALIGN * FV_COL_ALIGN;
 }
+__host__ __device__ constexpr int fv_tile_rows(int nsweeps) {
+  return FV_WIN_H - 2 * fv_halo_rows(nsweeps);
+}
+__host__ __device__ constexpr int fv_tile_cols(int nsweeps) {
+  return FV_WIN_W - 2 * fv_halo_cols(nsweeps);
+}
+
+// The most sweeps one run of the block takes (a tile of at least 2 x 2
+// left); more run as a chain of runs, each from the last one's iterate.
+constexpr int FV_MAX_SWEEPS = 13;
+static_assert(fv_tile_rows(FV_MAX_SWEEPS) >= 2 &&
+                  fv_tile_cols(FV_MAX_SWEEPS) >= 2 &&
+                  fv_tile_cols(FV_MAX_SWEEPS + 1) < 2,
+              "FV_MAX_SWEEPS is the last nsweeps that leaves a tile");
 
 // Blocks per SM the register budget is set for: two in float32 (64
 // registers a thread); in float64 the coefficient registers double.
@@ -546,12 +565,38 @@ __device__ __forceinline__ void fv_pass(T* self, const T* __restrict__ other,
   }
 }
 
-template <typename T, int ACCESS>
-__device__ void smooth_from_v(const SmoothArgs<T>& a) {
+// What a from_v block does besides smoothing, fixed at compile time so that
+// K2 and K7 carry none of the tower's code: nothing (K2, K7); the descent's
+// injection of the residual into the next coarser rhs (K3, RES_INJECT); or
+// the ascent's bilinear prolongation of the coarser solution, added to u as
+// it is loaded (K4, LOAD_U_PROLONG).
+enum FvXfer { FV_SMOOTH = 0, FV_INJECT = 1, FV_PROLONG = 2 };
+
+// What changes between the runs of the block on one level: the iterate it
+// starts from and the one it writes, the sweeps, the load and residual
+// modes, under SmoothArgs' names.  The tower changes them from link to link
+// of a level chained past FV_MAX_SWEEPS; K2 and K7 pass their SmoothArgs.
+template <typename T>
+struct FvRun {
+  const T* u;
+  T* u_out;
+  int nsweeps, load_mode, res_mode;
+};
+
+// One run of the block on tile (ty, tx) of the level `a`, with the iterate,
+// sweeps and modes of `run` (a's own for K2 and K7, an FvRun for a link of
+// the tower).  Every global array the tower writes in one level phase and
+// reads in a later one (the coarser rhs, the coarser solution, a chain's
+// iterate) is read by plain loads: nothing here takes the read-only path
+// (no __ldg, no const __restrict__ on a global pointer), whose cache does
+// not see those writes.
+template <typename T, int ACCESS, int XFER = FV_SMOOTH, typename Run>
+__device__ void smooth_from_v(const SmoothArgs<T>& a, const Run& run, int ty,
+                              int tx) {
   __shared__ T plane[2][(FV_WIN_H + 2) * FV_STRIDE];  // even, odd columns
-  const int hr = fv_halo_rows(a.nsweeps), hc = fv_halo_cols(a.nsweeps);
-  const int gi0 = static_cast<int>(blockIdx.y) * (FV_WIN_H - 2 * hr) - hr;
-  const int gj0 = static_cast<int>(blockIdx.x) * (FV_WIN_W - 2 * hc) - hc;
+  const int hr = fv_halo_rows(run.nsweeps), hc = fv_halo_cols(run.nsweeps);
+  const int gi0 = ty * (FV_WIN_H - 2 * hr) - hr;
+  const int gj0 = tx * (FV_WIN_W - 2 * hc) - hc;
   const int k = threadIdx.x % FV_PAIRS, g = threadIdx.x / FV_PAIRS;
   const int gj = gj0 + 2 * k;  // the thread's columns: gj and gj + 1
   const int cell = (g + 1) * FV_STRIDE + k + 1;
@@ -568,8 +613,9 @@ __device__ void smooth_from_v(const SmoothArgs<T>& a) {
   }
 
   // Every global load of the thread is issued before any is used, so
-  // they are in flight together: rhs, v1, v2, u and corr land in the five
-  // slots of the cell, which the coefficients then take over.
+  // they are in flight together: rhs, v1, v2, u and corr (or the
+  // prolongation) land in the five slots of the cell, which the
+  // coefficients then take over.
   const bool col_in0 = gj >= 0 && gj < a.cols;
   const bool col_in1 = gj + 1 >= 0 && gj + 1 < a.cols;
   FvCell<T> c0[FV_ROWS], c1[FV_ROWS];  // columns gj, gj + 1
@@ -582,13 +628,26 @@ __device__ void smooth_from_v(const SmoothArgs<T>& a) {
     fv_load<ACCESS>(a.rhs, at, in0, in1, c0[j].rhs, c1[j].rhs);
     fv_load<ACCESS>(a.v1, at, in0, in1, c0[j].aa, c1[j].aa);
     fv_load<ACCESS>(a.v2, at, in0, in1, c0[j].bb, c1[j].bb);
-    const bool load_u = a.load_mode != LOAD_ZERO;
-    const bool load_corr = a.load_mode == LOAD_U_CORR;
-    fv_load<ACCESS>(a.u, at, in0 && load_u, in1 && load_u, c0[j].cc,
+    const bool load_u = run.load_mode != LOAD_ZERO;
+    fv_load<ACCESS>(run.u, at, in0 && load_u, in1 && load_u, c0[j].cc,
                    c1[j].cc);
-    fv_load<ACCESS>(a.corr, at, in0 && load_corr, in1 && load_corr, c0[j].dd,
-                   c1[j].dd);
+    if constexpr (XFER == FV_SMOOTH) {
+      const bool load_corr = run.load_mode == LOAD_U_CORR;
+      fv_load<ACCESS>(a.corr, at, in0 && load_corr, in1 && load_corr,
+                     c0[j].dd, c1[j].dd);
+    } else if constexpr (XFER == FV_PROLONG) {
+      // 0 past the array, as u is there (in1 implies in0: gj is even)
+      c0[j].dd = c1[j].dd = T(0);
+      if (in0 && run.load_mode == LOAD_U_PROLONG) {
+        prolong_pair(a.src, a.src_rows, a.src_cols, gi, gj, c0[j].dd,
+                     c1[j].dd);
+        if (!in1) c1[j].dd = T(0);
+      }
+    }
   }
+  // u + corr (K2, K7) or u + the prolongation (K4), in that order
+  const bool add = XFER == FV_PROLONG ? run.load_mode == LOAD_U_PROLONG
+                   : XFER == FV_SMOOTH && run.load_mode == LOAD_U_CORR;
   // the interior mask at (gi + row_off, gj), 0 past the array
   const bool col_int0 = col_in0 && gj >= 1 && gj <= a.n - 1;
   const bool col_int1 = col_in1 && gj + 1 >= 1 && gj + 1 <= a.n - 1;
@@ -597,7 +656,7 @@ __device__ void smooth_from_v(const SmoothArgs<T>& a) {
     const int gi = gi0 + g + j * FV_WARPS, row = gi + a.row_off;
     const bool row_int = gi >= 0 && gi < a.rows && row >= 1 && row <= a.n - 1;
     auto form = [&](FvCell<T>& x, bool col_int, T* to) {
-      *to = a.load_mode == LOAD_U_CORR ? x.cc + x.dd : x.cc;
+      *to = add ? x.cc + x.dd : x.cc;
       const Coefs<T> co = coefs_at(x.aa, x.bb,
                                    row_int && col_int ? T(1) : T(0), a.rr,
                                    a.hh, a.nu);
@@ -610,7 +669,7 @@ __device__ void smooth_from_v(const SmoothArgs<T>& a) {
 
   // an even-column cell's left neighbour is odd pair k - 1, an odd-column
   // cell's even pair k
-  for (int s = 0; s < a.nsweeps; ++s) {
+  for (int s = 0; s < run.nsweeps; ++s) {
     for (int color = 0; color < 2; ++color) {
       if (odd_red != (color == 1)) {
         fv_pass(plane[1], plane[0], c1, cell, cell, a.inv_diag);
@@ -623,7 +682,7 @@ __device__ void smooth_from_v(const SmoothArgs<T>& a) {
 
   // write back the tile (window rows [hr, FV_WIN_H - hr), columns [hc,
   // FV_WIN_W - hc): a thread's pair lies inside or outside it whole) and
-  // the residual
+  // the residual where it is written
   if (2 * k < hc || 2 * k >= FV_WIN_W - hc) return;
   const auto residual = [&](const FvCell<T>& co, const T* self,
                             const T* other, int at, int side) {
@@ -637,19 +696,31 @@ __device__ void smooth_from_v(const SmoothArgs<T>& a) {
     if (r < hr || r >= FV_WIN_H - hr || gi >= a.rows) continue;
     const int at = cell + j * FV_WARPS * FV_STRIDE;
     const size_t out = static_cast<size_t>(gi) * a.cols + gj;
-    fv_store<ACCESS>(a.u_out, out, col_in0, col_in1, plane[0][at],
+    fv_store<ACCESS>(run.u_out, out, col_in0, col_in1, plane[0][at],
                     plane[1][at]);
-    // the residual where it is written: every row, or the even rows alone
-    if (a.res_mode == RES_NONE ||
-        (a.res_mode == RES_ROWS_DEC && ((gi & 1) || (gi >> 1) >= a.res_rows)))
-      continue;
-    const T res0 = residual(c0[j], plane[0], plane[1], at, at - 1);
-    const T res1 = residual(c1[j], plane[1], plane[0], at, at);
-    fv_store<ACCESS>(a.res_out,
-                    a.res_mode == RES_FULL
-                        ? out
-                        : static_cast<size_t>(gi >> 1) * a.cols + gj,
-                    col_in0, col_in1, res0, res1);
+    if constexpr (XFER == FV_INJECT) {
+      // at even (gi, gj) alone, into coarse cell (gi/2, gj/2): neighbouring
+      // lanes write neighbouring cells
+      const int I = gi >> 1, J = gj >> 1;
+      if (run.res_mode != RES_INJECT || (gi & 1) || !col_in0 ||
+          I >= a.res_rows || J >= a.res_cols)
+        continue;
+      a.res_out[static_cast<size_t>(I) * a.res_cols + J] =
+          residual(c0[j], plane[0], plane[1], at, at - 1);
+    } else if constexpr (XFER == FV_SMOOTH) {
+      // every row, or the even rows alone
+      if (run.res_mode == RES_NONE ||
+          (run.res_mode == RES_ROWS_DEC &&
+           ((gi & 1) || (gi >> 1) >= a.res_rows)))
+        continue;
+      const T res0 = residual(c0[j], plane[0], plane[1], at, at - 1);
+      const T res1 = residual(c1[j], plane[1], plane[0], at, at);
+      fv_store<ACCESS>(a.res_out,
+                      run.res_mode == RES_FULL
+                          ? out
+                          : static_cast<size_t>(gi >> 1) * a.cols + gj,
+                      col_in0, col_in1, res0, res1);
+    }
   }
 }
 
@@ -664,8 +735,7 @@ cudaError_t launch_smooth_from_v(void (*paired)(SmoothArgs<T>),
                                  void (*singles)(SmoothArgs<T>),
                                  const SmoothArgs<T>& a, cudaStream_t stream) {
   if (a.nsweeps < 0) return cudaErrorInvalidValue;
-  const int th = FV_WIN_H - 2 * fv_halo_rows(a.nsweeps);
-  const int tw = FV_WIN_W - 2 * fv_halo_cols(a.nsweeps);
+  const int th = fv_tile_rows(a.nsweeps), tw = fv_tile_cols(a.nsweeps);
   if (th < 2 || tw < 2) return cudaErrorInvalidValue;
   const T* arrays[] = {a.u, a.corr, a.rhs, a.v1, a.v2, a.u_out, a.res_out};
   bool aligned = a.cols % 2 == 0;

@@ -87,8 +87,8 @@ int open_smooth(const T* hi, const T* lo, const T* d, const T* v1,
   a.rhs_out = rhs_out;
   a.u_out = u_out;
   a.res_out = res_out;
-  a.rows = a.dom_rows = rows;
-  a.cols = a.dom_cols = a.res_cols = cols;
+  a.rows = rows;
+  a.cols = a.res_cols = cols;
   a.n = n;
   a.nsweeps = nsweeps;
   a.load_mode = mg::LOAD_ZERO;

@@ -61,7 +61,7 @@ __global__ void __launch_bounds__(mg::SMOOTH_THREADS)
 template <typename T, int ACCESS>
 __global__ void __launch_bounds__(mg::FV_THREADS, mg::fv_min_blocks<T>())
     smooth_v_kernel(mg::SmoothArgs<T> a) {
-  mg::smooth_from_v<T, ACCESS>(a);
+  mg::smooth_from_v<T, ACCESS>(a, a, blockIdx.y, blockIdx.x);
 }
 
 constexpr int ZERO_INIT = 1, ADD_CORR = 2, WANT_RES = 4, RES_ROWS_DEC = 8;
@@ -78,8 +78,8 @@ mg::SmoothArgs<T> smooth_args(const T* u, const T* corr, const T* rhs,
   a.rhs = rhs;
   a.u_out = u_out;
   a.res_out = res_out;
-  a.rows = a.dom_rows = rows;
-  a.cols = a.dom_cols = a.res_cols = cols;
+  a.rows = rows;
+  a.cols = a.res_cols = cols;
   a.nsweeps = nsweeps;
   a.load_mode = (flags & ZERO_INIT)  ? mg::LOAD_ZERO
                 : (flags & ADD_CORR) ? mg::LOAD_U_CORR

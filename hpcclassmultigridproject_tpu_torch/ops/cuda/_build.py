@@ -29,6 +29,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SMOOTH_ARGS = [_P] * 7 + [_I] * 5 + [_D] * 5 + [_I, _P]
+# the tower's per-level pointers, shapes and constants as three arrays, the
+# level count, nsweeps, scratch, the (blocks/SM, SMs, grid) out-array, stream
+_TOWER_ARGS = [_P] * 3 + [_I] * 2 + [_P] * 3
 # entry points built for float32 (_f32) and float64 (_f64)
 _SIGNATURES = {
     "mg_delta_open": [_P] * 8 + [_I] * 3 + [_D] * 2 + [_P],
@@ -36,8 +39,8 @@ _SIGNATURES = {
     "mg_smooth": _SMOOTH_ARGS,
     "mg_smooth5": [_P] * 9 + [_I] * 3 + [_D] * 2 + [_I, _P],
     "mg_smooth9": [_P] * 14 + [_I] * 3 + [_I, _P],
-    "mg_tower_descend": [_P] * 5 + [_I] * 6 + [_D] * 5 + [_P],
-    "mg_tower_ascend": [_P, _I, _I] + [_P] * 5 + [_I] * 4 + [_D] * 5 + [_P],
+    "mg_tower_descend": _TOWER_ARGS,
+    "mg_tower_ascend": _TOWER_ARGS,
 }
 # float32-only entry points, named without a suffix (csrc/probe.cu)
 _F32_SIGNATURES = {

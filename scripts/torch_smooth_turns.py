@@ -1,5 +1,5 @@
-"""K2 and K7 of two trees of the PyTorch/CUDA port, timed in turns on one
-card.
+"""K2, K7, K3 and K4 of two trees of the PyTorch/CUDA port, and the main
+path, timed in turns on one card.
 
     python3 scripts/torch_smooth_turns.py --parent DIR [--order pccp]
 
@@ -14,10 +14,15 @@ the card's time per call (`utils.timing.device_ms`, float32):
 - K7: the mean over the 40 block shapes and residual flag sets of the
   distributed path at W=4 (chip_smoke.py's cases);
 - K2 at nsweeps 1 on the gsbench level, n=2048 (2056x2176);
+- K3 (tower descent) and K4 (tower ascent) from level 1 of n=1024
+  (levels 512 .. 64 onto the dense 32), nsweeps 3, the main path's calls;
 - the CLI's `gsbench --n 2048 --sweeps 500 --backend pallas`, µs a sweep
   as the host issues it;
 - the main path (AdvectionDiffusion, n=1024, 100 delta-form steps): the
-  SHA-256 of its uT's bytes.
+  SHA-256 of its uT's bytes, its wall (host clock to a synchronize, median
+  of 3 after a warm-up), and the kernel launch calls of one run under
+  torch.profiler (chip_smoke.py's `_profiled_run`, cooperative launches
+  counted).
 
 Then a summary: per tree, the median of its turns, and whether every
 turn's uT is the same to the bit.  The order defaults to parent, change,
@@ -36,10 +41,12 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import time
 
 HERE = pathlib.Path(__file__).resolve().parents[1]
 KEYS = ("k2_pre_ms", "k2_post_ms", "k7_mean_ms", "k2_gs2048_ms",
-        "gsbench_us_per_sweep")
+        "gsbench_us_per_sweep", "k3_ms", "k4_ms", "main_wall_s",
+        "main_busy_ms", "main_launch_calls")
 
 
 def _chip_smoke():
@@ -66,8 +73,13 @@ def measure(root: str) -> dict:
         build_fine_level,
         build_hierarchy,
     )
+    from hpcclassmultigridproject_tpu_torch.mg.cycle import coarse_solve_dense
     from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
-    from hpcclassmultigridproject_tpu_torch.ops.cuda import _build, smoother
+    from hpcclassmultigridproject_tpu_torch.ops.cuda import (
+        _build,
+        smoother,
+        tower,
+    )
     from hpcclassmultigridproject_tpu_torch.utils.timing import device_ms
 
     assert pathlib.Path(pkg.__file__).resolve().is_relative_to(
@@ -104,6 +116,13 @@ def measure(root: str) -> dict:
     zeros = torch.zeros_like(ones)
     out["k2_gs2048_ms"] = device_ms(
         lambda: smoother.fused_rb_sweeps(gs, ones, zeros, 1), 200)
+    rhs1 = f(lvl=1)
+    u_mids, rhs_mids, bottom = tower.tower_descend_plain(levels, 1, rhs1, 3)
+    v = coarse_solve_dense(levels[-1], bottom)
+    out["k3_ms"] = device_ms(
+        lambda: tower.tower_descend(levels, 1, rhs1, 3), 200)
+    out["k4_ms"] = device_ms(
+        lambda: tower.tower_ascend(levels, 1, v, u_mids, rhs_mids, 3), 200)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         cli.main(["gsbench", "--n", "2048", "--sweeps", "500", "--backend",
@@ -117,6 +136,17 @@ def measure(root: str) -> dict:
     uT, _ = model.run(warn=False)
     out["main_uT_sha256"] = hashlib.sha256(
         uT.cpu().numpy().tobytes()).hexdigest()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        model.run(warn=False)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    out["main_wall_s"] = statistics.median(walls)
+    _, busy_ms, launches, _ = smoke._profiled_run(
+        lambda: model.run(warn=False))
+    out["main_launch_calls"] = launches
+    out["main_busy_ms"] = busy_ms
     return out
 
 

@@ -1,5 +1,6 @@
-"""PyTorch port: the tiling of K2 and K7's from_v smoothing block
-(`csrc/common.cuh::smooth_from_v`), emulated on the CPU.
+"""PyTorch port: the tiling of the from_v smoothing block
+(`csrc/common.cuh::smooth_from_v`) that K2, K7 and every level of the
+coarse tower (K3, K4: `csrc/tower.cu`) launch, emulated on the CPU.
 
 The kernel cannot run here, but its schedule can: every 64x64 window
 smoothed alone (its halo from nsweeps as the launcher computes it, reads
@@ -11,6 +12,13 @@ equal it to the bit: each cell's update is the plain version's expression,
 and a halo of 2·nsweeps+1 cells keeps every wrong value out of the tile.
 An undersized halo, a wrong parity or a tile grid that misses a cell fails
 here before any chip call.
+
+The tower's schedule is emulated the same way, level by level: its
+descent injects each tile's residual at even nodes into the coarser rhs
+and writes 0 to the coarse cells past the fine array (every coarse cell
+exactly once), its ascent adds the per-point prolongation as the window is
+loaded, and a level past FV_MAX_SWEEPS runs as a chain of links; both are
+held bit for bit to `tower_descend_plain` and `tower_ascend_plain`.
 """
 
 import dataclasses
@@ -21,11 +29,17 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from hpcclassmultigridproject_tpu_torch.mg.cycle import coarse_solve_dense
 from hpcclassmultigridproject_tpu_torch.mg.levels import (
     build_fine_level,
+    build_hierarchy,
     level_rows,
 )
-from hpcclassmultigridproject_tpu_torch.ops.cuda import _build, smoother
+from hpcclassmultigridproject_tpu_torch.ops.cuda import (
+    _build,
+    smoother,
+    tower,
+)
 from hpcclassmultigridproject_tpu_torch.ops.padded import (
     Coefs,
     as_dtype,
@@ -211,7 +225,8 @@ def test_the_window_keeps_a_tile_up_to_the_wrappers_limit():
 
 
 def test_k2_and_k7_take_the_from_v_block():
-    """mg_smooth launches smooth_from_v; K3, K4, K5, K6 and K8 keep
+    """mg_smooth launches smooth_from_v, and so do the tower's two kernels
+    (K3, K4), each in one cooperative launch; K5, K6 and K8 keep
     smooth_tile."""
     smoother_cu = (_build.CSRC / "smoother.cu").read_text()
     body = smoother_cu[smoother_cu.index("int smooth(const T* u"):
@@ -220,9 +235,158 @@ def test_k2_and_k7_take_the_from_v_block():
     assert "smooth_v_kernel<T, mg::FV_PAIRED>" in body
     assert "smooth_v_kernel<T, mg::FV_SINGLES>" in body
     assert "smooth_tile" not in body and "FORM_FROM_V" not in body
-    assert "mg::smooth_from_v<T, ACCESS>(a);" in smoother_cu
+    assert "mg::smooth_from_v<T, ACCESS>(" in smoother_cu
     assert "mg::FORM_FIVE>(" in smoother_cu and "mg::FORM_NINE>(" in smoother_cu
-    for other in ("tower.cu", "delta_step.cu"):
-        text = (_build.CSRC / other).read_text()
-        assert "mg::smooth_tile<T, mg::FORM_FROM_V" in text
-        assert "smooth_from_v" not in text
+    tower_cu = (_build.CSRC / "tower.cu").read_text()
+    assert "mg::smooth_from_v<T, ACCESS, XFER>(" in tower_cu
+    assert "run_link<T, ACCESS, mg::FV_INJECT>" in tower_cu
+    assert "run_link<T, ACCESS, mg::FV_PROLONG>" in tower_cu
+    assert "cudaLaunchCooperativeKernel(" in tower_cu
+    assert "<<<" not in tower_cu and "smooth_tile" not in tower_cu
+    delta_cu = (_build.CSRC / "delta_step.cu").read_text()
+    assert "mg::smooth_tile<T, mg::FORM_FROM_V" in delta_cu
+    assert "smooth_from_v" not in delta_cu
+
+
+# ---------------------------------------------------------------------------
+# The coarse tower (K3, K4) on the from_v block
+
+
+def _links(nsweeps):
+    """The sweeps of each link of a tower level, as csrc/tower.cu chains
+    them (tower_links, link_sweeps) with the source's FV_MAX_SWEEPS."""
+    m = int(re.search(r"constexpr int FV_MAX_SWEEPS = (\d+);",
+                      _source()).group(1))
+    links = (nsweeps - 1) // m + 1 if nsweeps > m else 1
+    return [m] * (links - 1) + [nsweeps - (links - 1) * m]
+
+
+def _hierarchy():
+    """n=256: levels 256, 128, 64 and the dense coarse level 32."""
+    vel = np.random.default_rng(7).standard_normal((2, 257, 257))
+    return build_hierarchy(vel[0], vel[1], 0.1 / 256, -4e-4, 4, dtype=DT,
+                           device="cpu", coarse_mode="dense")
+
+
+def _inject(res, coarse_shape, nsweeps):
+    """The descent's coarse rhs as the kernel writes it: each tile of the
+    last link (tile size at `nsweeps`) writes res[2I, 2J] at its even
+    nodes, then zero_past writes 0 to every cell whose fine node lies past
+    the array.  Every coarse cell must be written exactly once."""
+    rows, cols = res.shape
+    rows_c, cols_c = coarse_shape
+    _, _, th, tw = _tile(nsweeps)
+    out = torch.full(coarse_shape, float("nan"), dtype=DT)
+    writes = torch.zeros(coarse_shape, dtype=torch.int64)
+    for i0 in range(0, rows, th):
+        for j0 in range(0, cols, tw):
+            gi = torch.arange(i0, min(i0 + th, rows))
+            gj = torch.arange(j0, min(j0 + tw, cols))
+            gi, gj = gi[gi % 2 == 0], gj[gj % 2 == 0]
+            gi, gj = gi[gi // 2 < rows_c], gj[gj // 2 < cols_c]
+            out[gi[:, None] // 2, gj[None, :] // 2] = res[gi[:, None],
+                                                          gj[None, :]]
+            writes[gi[:, None] // 2, gj[None, :] // 2] += 1
+    r0, c0 = min((rows + 1) // 2, rows_c), min((cols + 1) // 2, cols_c)
+    for at in ((slice(r0, None), slice(None)), (slice(None, r0),
+                                                slice(c0, None))):
+        out[at] = 0.0
+        writes[at] += 1
+    assert bool((writes == 1).all())
+    return out
+
+
+def _prolong(c, shape):
+    """The ascent's prolongation as the kernel forms it at a thread's two
+    columns (common.cuh::prolong_pair), for the whole fine array."""
+    rows, cols = shape
+    cp = F.pad(c, (0, 2, 0, 2))  # reads past the coarse array are 0
+    i = torch.arange(rows)[:, None]
+    I, J = i // 2, torch.arange(0, cols, 2)[None, :] // 2
+    c00, c01, c10, c11 = cp[I, J], cp[I, J + 1], cp[I + 1, J], cp[I + 1,
+                                                                 J + 1]
+    even = i % 2 == 0
+    p0 = torch.where(even, c00, 0.5 * (c00 + c10))
+    p1 = torch.where(even, 0.5 * (c00 + c01), 0.5 * (p0 + 0.5 * (c01 + c11)))
+    return torch.stack([p0, p1], dim=2).reshape(rows, cols)
+
+
+def _emulate_tower_descend(levels, s, rhs, nsweeps):
+    sub = levels[s:]
+    u_mids, rhs_l = [], [rhs]
+    for level, coarse in zip(sub[:-1], sub[1:]):
+        links = _links(nsweeps)
+        u = None
+        for k, ns in enumerate(links):
+            last = k == len(links) - 1
+            u, res = _emulate(level, u, None, rhs_l[-1], ns, last, False)
+        u_mids.append(u)
+        rhs_l.append(_inject(res, coarse.padded, links[-1]))
+    return u_mids, rhs_l[:-1], rhs_l[-1]
+
+
+def _emulate_tower_ascend(levels, s, v, u_mids, rhs_mids, nsweeps):
+    mids = levels[s:-1]
+    for i in range(len(mids) - 1, -1, -1):
+        corr, u = _prolong(v, mids[i].padded), u_mids[i]
+        for ns in _links(nsweeps):
+            u, _ = _emulate(mids[i], u, corr, rhs_mids[i], ns, False, False)
+            corr = None
+        v = u
+    return v
+
+
+TOWER_CASES = [(1, 1), (1, 3), (1, 14), (2, 3)]
+
+
+@pytest.mark.parametrize("s, nsweeps", TOWER_CASES)
+def test_tower_descent_tiles_equal_the_plain_version(s, nsweeps):
+    """K3's schedule from level s of n=256 (s=1: levels 128 and 64 onto
+    the coarse 32; nsweeps 14 chains a link of 13 and one of 1)."""
+    levels = _hierarchy()
+    _, _, rhs = _inputs(levels[s].padded, seed=s + nsweeps)
+    got = _emulate_tower_descend(levels, s, rhs, nsweeps)
+    want = tower.tower_descend_plain(levels, s, rhs, nsweeps)
+    flat = lambda r: [*r[0], *r[1], r[2]]
+    assert len(flat(got)) == len(flat(want)) == 2 * (3 - s) + 1
+    for g, w in zip(flat(got), flat(want)):
+        assert g.shape == w.shape and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("s, nsweeps", TOWER_CASES)
+def test_tower_ascent_tiles_equal_the_plain_version(s, nsweeps):
+    """K4's schedule from the coarse solution of the plain descent: the
+    per-point prolongation added on load, then the (chained) cascade."""
+    levels = _hierarchy()
+    _, _, rhs = _inputs(levels[s].padded, seed=s + nsweeps)
+    u_mids, rhs_mids, bottom = tower.tower_descend_plain(levels, s, rhs,
+                                                         nsweeps)
+    v = coarse_solve_dense(levels[-1], bottom)
+    got = _emulate_tower_ascend(levels, s, v, u_mids, rhs_mids, nsweeps)
+    want = tower.tower_ascend_plain(levels, s, v, u_mids, rhs_mids, nsweeps)
+    assert torch.equal(got, want)
+
+
+def test_tower_links_chain_as_the_wrapper_chains_k2():
+    """A tower level chains its links as `in_launches` chains K2's
+    launches: FV_MAX_SWEEPS equals the wrapper's FROM_V_MAX_SWEEPS, and
+    the links' sweeps are those of in_launches' calls for every nsweeps."""
+    for nsweeps in range(0, 45):
+        calls = []
+        smoother.in_launches(None, None, nsweeps,
+                             lambda u, c, k, last: calls.append(k) or (u, c))
+        assert _links(nsweeps) == calls
+    assert _links(smoother.FROM_V_MAX_SWEEPS) == [smoother.FROM_V_MAX_SWEEPS]
+
+
+def test_tower_outputs_are_views_of_one_allocation():
+    """The wrappers allocate a launch's outputs once: aligned, contiguous
+    views of the level shapes."""
+    levels = _hierarchy()
+    shapes = [l.padded for l in levels]
+    views = tower._carve(shapes, torch.empty(0, dtype=DT))
+    base = views[0].data_ptr()
+    assert [tuple(v.shape) for v in views] == shapes
+    assert all(v.is_contiguous() for v in views)
+    assert all((v.data_ptr() - base) % (2 * DT.itemsize) == 0 for v in views)
+    assert len({v.untyped_storage().data_ptr() for v in views}) == 1
