@@ -49,11 +49,17 @@ raising on failure:
     K2 post-smooth, K3, K4; no K1): launch counts, certificates, the
     center, uT against phase 4's, and both paths' walls in turns;
 11. cli: the port's CLI in subprocesses: the main configuration's `run`,
-    the same checkpointed, `gsbench` at n=2048 with both backends, and
+    the same checkpointed (its chunks' stats stitched: converged, every
+    certificate <= 1e-6), `gsbench` at n=2048 with both backends, and
     `profile` of the main configuration;
 12. probe: P's six kernels (ops/cuda/probe.py) against the JAX probe
-    script's checks and their plain versions, with torch.matmul's time
-    beside the three products.
+    script's checks and bit for bit against their plain versions; the
+    product kernel on dense operands (the three probe shapes, an unaligned
+    one, two staging passes) bit for bit against its fixed order repeated
+    in PyTorch and within k 2^-24 (|a| @ |b|) of the float64 product;
+    flatten into a buffer of its own (no alias of x); with the library
+    call's time beside each (torch.matmul for the products, a copy for
+    flatten).
 
 Each path phase (4, 6, 7, 8, 9, 10) resets the launch counts just before
 the run it reads, checks every count, and runs the same path once more
@@ -1134,8 +1140,10 @@ def phase_cli(n: int, steps: int) -> None:
                        "--checkpoint-every", "25")
         kept = sorted(os.listdir(ck))
     print(f"[cli] checkpointed run: {ckpt}; directory {kept}")
-    require(abs(ckpt["center_uT"] - CENTER_1024) <= 1e-9,
-            f"cli checkpointed run: {ckpt}")
+    require(abs(ckpt["center_uT"] - CENTER_1024) <= 1e-9
+            and ckpt["converged"] and ckpt["max_rel_residual"] <= TOL
+            and ckpt["max_cycles"] == run["max_cycles"],
+            f"cli checkpointed run (its stitched stats): {ckpt}")
     rows_cols = torch.empty(padded_shape(GSBENCH_N), device="meta")
     gs_level = Level(v1=rows_cols, v2=rows_cols, a_inv=None, n=GSBENCH_N,
                      h=1.0 / GSBENCH_N, dt=0.0, nu=0.0, diag_a=1.0,
@@ -1161,12 +1169,73 @@ def phase_cli(n: int, steps: int) -> None:
           f"{json.dumps(summary['phase_share'])}")
 
 
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+# the product kernel's dense cases beyond probe.DOT_SHAPES: two passes of
+# the 16-byte staging (k = 512)
+DOT_EXTRA_SHAPES = {"two passes": (64, 512, 128)}
+
+
+def _probe_dot_dense(probe) -> None:
+    """The product kernel on dense seeded operands at the three probe
+    shapes, one that no tile divides and one of two staging passes: bit for
+    bit against its fixed order repeated in PyTorch
+    (`probe.dot_in_kernel_order`), and within k 2^-24 (|a| @ |b|) of the
+    float64 product.  Launched after the counted run."""
+    for shape, (m, k, n) in {**probe.DOT_SHAPES, **DOT_EXTRA_SHAPES}.items():
+        a, b = (torch.from_numpy(v).cuda()
+                for v in probe.dense_operands(m, k, n))
+        got = probe.dot(a, b, "probe_dot_decimate")
+        want = probe.dot_in_kernel_order(a, b)
+        torch.cuda.synchronize()
+        err = (got.double() - a.double() @ b.double()).abs()
+        ratio = float((err / probe.dot_error_bound(a, b)).max())
+        print(f"[probe] dot ({m},{k})@({k},{n}) dense: bit-identical to "
+              f"its order in torch {_bits_equal(got, want)}, max|err| "
+              f"{float(err.max()):.3g}, at most {ratio:.4f} of the bound "
+              f"k 2^-24 (|a|@|b|)")
+        require(_bits_equal(got, want),
+                f"probe dot {shape}: differs from dot_in_kernel_order")
+        require(ratio <= 1.0, f"probe dot {shape}: past the float32 bound")
+
+
+def _probe_flatten_copy(probe) -> None:
+    """flatten writes a buffer of its own, bit for bit: at the probe's
+    shape, at a count with a scalar tail, and from an unaligned view."""
+    x = torch.from_numpy(probe.probe_operands()["x"]).cuda()
+    tail = torch.arange(35, dtype=torch.float32, device="cuda").reshape(5, 7)
+    shifted = torch.empty(x.numel() + 1, device="cuda")[1:].view(x.shape)
+    shifted.copy_(x)
+    for what, src in (("probe", x), ("tail", tail), ("unaligned", shifted)):
+        before = src.clone()
+        out = probe.flatten(src)
+        library = probe.flatten_plain(src)
+        torch.cuda.synchronize()
+        require(_bits_equal(out, src.reshape(-1, 1)),
+                f"probe flatten ({what}): values differ")
+        for o in (out, library):
+            require(o.untyped_storage().data_ptr()
+                    != src.untyped_storage().data_ptr(),
+                    f"probe flatten ({what}): the output aliases x")
+        out.fill_(7.0)
+        require(_bits_equal(src, before),
+                f"probe flatten ({what}): writing the output changed x")
+    print("[probe] flatten: bit-identical at the probe's shape, with a "
+          "scalar tail and from an unaligned view; the kernel's and the "
+          "library call's outputs share no storage with x")
+
+
 def phase_probe() -> dict:
     """P's six kernels once each between a reset and a read of the launch
-    counts, held to the JAX probe script's checks and to their plain
-    versions; then timed.  Returns {counter: (max-abs difference from the
-    expectation, kernel ms, plain ms, bound ms, bound_by, library ms,
-    launches)}."""
+    counts, held to the JAX probe script's checks and bit for bit to their
+    plain versions (the products: each output one product or one rounding
+    of a sum of two exact products, the same in any order); then the
+    product kernel on dense operands and flatten's copy; then timed.
+    Returns {counter: (max-abs difference from the expectation, kernel ms,
+    plain ms, bound ms, bound_by, library ms, launches)}."""
     from hpcclassmultigridproject_tpu_torch.ops import cuda
     from hpcclassmultigridproject_tpu_torch.ops.cuda import probe
     from hpcclassmultigridproject_tpu_torch.utils import profiling
@@ -1177,15 +1246,15 @@ def phase_probe() -> dict:
     print(f"[probe] launches in one run: {counts}")
     require(counts == {f"probe_{p}": 1 for p in PROBES},
             f"probe: launch counts {counts}")
-    timed = probe.run_probes("cuda", reps=200)
     ops = probe.probe_operands()
+    _probe_dot_dense(probe)
+    _probe_flatten_copy(probe)
+    timed = probe.run_probes("cuda", reps=200)
     out = {}
-    for rec, again, (name, (_, _, _, _, exact)) in zip(
-            checked, timed, probe.probes().items()):
+    for rec, again, name in zip(checked, timed, probe.probes()):
         require(rec["passed"] and again["passed"], f"probe {name}: FAIL")
-        if exact:  # an index map equals its plain version exactly
-            require(rec["bit_identical"] and again["bit_identical"],
-                    f"probe {name}: differs from its plain version")
+        require(rec["bit_identical"] and again["bit_identical"],
+                f"probe {name}: differs from its plain version")
         bound_ms, bound_by = profiling.bound_ms(
             *profiling.probe_cost(name, ops), 4)
         print(f"[probe] PASS {name}: max|kernel - expected| "

@@ -127,6 +127,39 @@ def _build_model(args):
     return AdvectionDiffusion(problem, solver, device=args.device)
 
 
+def _run_chunked(model, args):
+    """A checkpointed (`--checkpoint-dir`) or dump-series (`--dump-every`)
+    run; returns (uT, the stats of the chunks this process ran, stitched),
+    the stats None when it ran none."""
+    from hpcclassmultigridproject_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+        run_with_checkpoints,
+        stitch_stats,
+    )
+    from hpcclassmultigridproject_tpu_torch.utils.io import save_field_txt
+
+    chunks = []
+    if args.checkpoint_dir:
+        mgr = CheckpointManager(args.checkpoint_dir, model.problem)
+        uT, _ = run_with_checkpoints(model, mgr, every=args.checkpoint_every,
+                                     on_chunk=chunks.append)
+        return uT, stitch_stats(chunks)
+    # trajectory capture for `viz --animate`: run in dump_every-step
+    # chunks, writing a numbered dump series next to --dump
+    if not args.dump:
+        raise SystemExit("--dump-every requires --dump PREFIX")
+    base = args.dump[:-4] if args.dump.endswith(".txt") else args.dump
+    u, step = model.u0, 0
+    save_field_txt(f"{base}.step0000.txt", model.crop(u))
+    while step < model.problem.num_steps:
+        chunk = min(args.dump_every, model.problem.num_steps - step)
+        u, stats = model.run_chunk(u, chunk)
+        chunks.append(stats)
+        step += chunk
+        save_field_txt(f"{base}.step{step:04d}.txt", model.crop(u))
+    return model.crop(u), stitch_stats(chunks)
+
+
 def cmd_run(args) -> int:
     from hpcclassmultigridproject_tpu_torch.utils.io import (
         as_numpy,
@@ -136,31 +169,8 @@ def cmd_run(args) -> int:
 
     model = _build_model(args)
 
-    if args.checkpoint_dir:
-        from hpcclassmultigridproject_tpu_torch.utils.checkpoint import (
-            CheckpointManager,
-            run_with_checkpoints,
-        )
-
-        mgr = CheckpointManager(args.checkpoint_dir, model.problem)
-        uT, steps = run_with_checkpoints(model, mgr,
-                                         every=args.checkpoint_every)
-        stats = None
-        timing = {"best_s": None}
-    elif args.dump_every:
-        # trajectory capture for `viz --animate`: run in dump_every-step
-        # chunks, writing a numbered dump series next to --dump
-        if not args.dump:
-            raise SystemExit("--dump-every requires --dump PREFIX")
-        base = args.dump[:-4] if args.dump.endswith(".txt") else args.dump
-        u, step = model.u0, 0
-        save_field_txt(f"{base}.step0000.txt", model.crop(u))
-        while step < model.problem.num_steps:
-            chunk = min(args.dump_every, model.problem.num_steps - step)
-            u, _ = model.run_chunk(u, chunk)
-            step += chunk
-            save_field_txt(f"{base}.step{step:04d}.txt", model.crop(u))
-        uT, stats = model.crop(u), None
+    if args.checkpoint_dir or args.dump_every:
+        uT, stats = _run_chunked(model, args)
         timing = {"best_s": None}
     else:
         # warn=False inside the timed region (the warning check copies the

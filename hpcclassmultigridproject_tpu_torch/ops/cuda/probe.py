@@ -72,11 +72,17 @@ def interleave_rows(x):
 
 
 def flatten_plain(x):
-    return x.reshape(-1, 1)
+    """x's values in a fresh (R*C, 1) buffer: what the TPU kernel computes.
+    `run_probe` gives its pallas_call no `input_output_aliases`
+    (scripts/mosaic_probe_tpu.py:39-46), so `k_flatten` (:94-100) writes
+    x's values into an output of its own; a view (`x.reshape(-1, 1)`) is
+    another function, one that launches nothing."""
+    return x.reshape(-1, 1).clone()
 
 
 def flatten(x):
-    """x.reshape(R*C, 1)."""
+    """x.reshape(R*C, 1) as a copy: writing to the result leaves x as it
+    was."""
     if not cuda.use_kernel(x):
         return flatten_plain(x)
     _check(x=x)
@@ -89,9 +95,61 @@ def dot_plain(a, b):
     return torch.matmul(a, b)
 
 
+# Lanes that split k for each output of the product kernel (csrc/probe.cu,
+# DOT_G).
+DOT_LANES = 8
+
+
+def dot_in_kernel_order(a, b):
+    """a @ b summed in the product kernel's fixed order, so that its result
+    can be held to the kernel's bit for bit: with L = ceil(k / 8), lane g
+    sums a[:, q] * b[q, :] for q in [g L, (g+1) L) in increasing q from +0
+    (each product rounded, then added: no FMA), and the eight partial sums
+    combine as ((s0 + s4) + (s2 + s6)) + ((s1 + s5) + (s3 + s7)).  Past k
+    a lane adds +0 products, as the kernel's zero-filled tile does."""
+    (m, k), n = a.shape, b.shape[1]
+    lanes = DOT_LANES
+    span = -(-k // lanes)
+    q = torch.arange(lanes, device=a.device)[:, None] * span + torch.arange(
+        span, device=a.device)            # (lanes, span): lane g's range
+    inside = q < k
+    q = torch.where(inside, q, 0)
+    a_q = torch.where(inside, a[:, q], 0.0)          # (m, lanes, span)
+    b_q = torch.where(inside[..., None], b[q], 0.0)  # (lanes, span, n)
+    s = torch.zeros((lanes, m, n), dtype=a.dtype, device=a.device)
+    for j in range(span):
+        s = s + a_q[:, :, j].T[:, :, None] * b_q[:, j][:, None, :]
+    for d in (4, 2, 1):  # the shuffle tree: lane g adds lane g ^ d
+        s = s[:d] + s[d:2 * d]
+    return s[0]
+
+
+def dot_error_bound(a, b):
+    """The elementwise bound |fl(a @ b) - a @ b| <= k 2^-24 (|a| @ |b|) of a
+    float32 product summed in any order, in float64."""
+    a64, b64 = a.double(), b.double()
+    return a.shape[1] * 2.0 ** -24 * (a64.abs() @ b64.abs())
+
+
+# The three product probes' shapes (m, k, n), and one that no tile divides.
+DOT_SHAPES = {"dot_decimate": (R, C, C // 2),
+              "dot_decimate_rows": (R // 2, R, C),
+              "dot_prolong_rows": (2 * R, R, C),
+              "unaligned": (65, 257, 129)}
+
+
+def dense_operands(m: int, k: int, n: int, seed: int = 0):
+    """Dense float32 factors a (m, k), b (k, n) ~ N(0, 1) from `seed`."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((m, k)).astype(np.float32),
+            rng.standard_normal((k, n)).astype(np.float32))
+
+
 def dot(a, b, counter: str):
-    """a @ b by the kernel's own per-thread dot loop (never cuBLAS); one of
-    the three product probes, counted under `counter`."""
+    """a @ b by the kernel's own arithmetic (never cuBLAS): operands staged
+    in shared memory, k split over eight lanes an output in the fixed order
+    of `dot_in_kernel_order`; one of the three product probes, counted under
+    `counter`."""
     if not cuda.use_kernel(a, b):
         return dot_plain(a, b)
     _check(a=a, b=b)
@@ -150,9 +208,9 @@ def run_probes(device="cuda", reps: int = 100) -> list[dict]:
     library_ms, each the card's time per call over `reps` calls
     (`utils.timing.device_ms`); None otherwise (on the CPU the kernel route
     is the plain version).  Each plain version is PyTorch's own form of the
-    probe (a strided copy, stack and reshape, a reshape, torch.matmul), so
-    library_ms times it again on its own: the call a user would make in
-    place of the kernel."""
+    probe (a strided copy, stack and reshape, a reshape into a fresh buffer
+    with `clone`, torch.matmul), so library_ms times it again on its own:
+    the call a user would make in place of the kernel."""
     from hpcclassmultigridproject_tpu_torch.utils.timing import device_ms
 
     device = torch.device(device)

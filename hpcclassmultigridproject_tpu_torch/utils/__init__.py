@@ -4,6 +4,7 @@ port of the JAX package's `utils/`."""
 from hpcclassmultigridproject_tpu_torch.utils.checkpoint import (
     CheckpointManager,
     run_with_checkpoints,
+    stitch_stats,
 )
 from hpcclassmultigridproject_tpu_torch.utils.io import (
     field_difference_norm,
@@ -22,6 +23,7 @@ from hpcclassmultigridproject_tpu_torch.utils.timing import (
 __all__ = [
     "CheckpointManager",
     "run_with_checkpoints",
+    "stitch_stats",
     "field_difference_norm",
     "load_field",
     "load_field_txt",

@@ -74,10 +74,28 @@ class CheckpointManager:
             self._path(s).unlink()
 
 
-def run_with_checkpoints(model, mgr: CheckpointManager, every: int = 10):
+def stitch_stats(chunks: list[dict]) -> dict | None:
+    """One run's per-step stats from those of its consecutive chunks
+    (`run_chunk`'s), or None without chunks.  A per-step array joins along
+    the step axis.  A scalar is the last chunk's: the delta form's
+    `final_rel_residual_hi` certifies a chunk's last step, so the last
+    chunk's certifies the run's.  Under `certify_every` the delta form
+    certifies every k-th step of each chunk, counted from the chunk's
+    start: with chunks a multiple of k long, the steps of an unchunked
+    run."""
+    if not chunks:
+        return None
+    return {k: torch.cat([c[k] for c in chunks]) if v.ndim else v
+            for k, v in chunks[-1].items()}
+
+
+def run_with_checkpoints(model, mgr: CheckpointManager, every: int = 10,
+                         on_chunk=None):
     """Drive a model in `every`-step chunks, checkpointing the logical field
     after each chunk and resuming from the latest snapshot if one exists.
-    Returns (uT, steps done).  Each chunk ends in a copy to the host."""
+    Returns (uT, steps done).  Each chunk ends in a copy to the host;
+    `on_chunk`, if given, is called with each chunk's stats (for
+    `stitch_stats`)."""
     total = model.problem.num_steps
     latest = mgr.load_latest()
     if latest is None:
@@ -88,7 +106,9 @@ def run_with_checkpoints(model, mgr: CheckpointManager, every: int = 10):
                                       device=model.u0.device))
     while step < total:
         chunk = min(every, total - step)
-        u, _stats = model.run_chunk(u, chunk)
+        u, stats = model.run_chunk(u, chunk)
+        if on_chunk is not None:
+            on_chunk(stats)
         step += chunk
         mgr.save(step, model.crop(u))
     return model.crop(u), step

@@ -1,7 +1,8 @@
 """PyTorch port: the CLI (`hpcclassmultigridproject_tpu_torch.cli`) against
 the JAX package's on the same arguments, on the CPU (`--device cpu`), at
-n=32 in float64: the same printed JSON keys, and `center_uT` within 1e-12
-(the f64 run bound of tests/test_golden.py).
+n=32 in float64: the same printed JSON keys (a chunked run: the JAX keys
+and the stats the port stitches from its chunks), and `center_uT` within
+1e-12 (the f64 run bound of tests/test_golden.py).
 """
 
 import glob
@@ -71,10 +72,36 @@ def test_run_checkpointed_matches_jax(capsys, tmp_path):
                      argv + ["--checkpoint-dir", str(tmp_path / "j")])
     (tout,) = _lines(capsys, t_main,
                      argv + ["--checkpoint-dir", str(tmp_path / "t")] + CPU)
-    assert set(tout) == set(jout) and tout["seconds"] is None
+    assert set(jout) <= set(tout) and tout["seconds"] is None
     assert tout["center_uT"] == pytest.approx(jout["center_uT"], abs=1e-12)
     assert sorted(os.listdir(tmp_path / "t")) == sorted(
         os.listdir(tmp_path / "j"))
+    # the port stitches the chunks' stats: its extra keys are the unchunked
+    # port run's (the JAX package prints none for a checkpointed run)
+    (straight,) = _lines(capsys, t_main, ["run", *BASE, "--steps", "5"] + CPU)
+    extra = set(tout) - set(jout)
+    assert extra == {"max_cycles", "max_rel_residual", "converged"}
+    assert {k: tout[k] for k in extra} == {k: straight[k] for k in extra}
+
+
+@pytest.mark.parametrize("chunking", [
+    ["--checkpoint-every", "2"], ["--dump-every", "2"]],
+    ids=["checkpoint", "dump_every"])
+@pytest.mark.parametrize("case", ["run", "delta"])
+def test_chunked_runs_print_the_unchunked_stats(capsys, tmp_path, case,
+                                                chunking):
+    """max_cycles, converged equal, max_rel_residual within 1e-14 (the
+    delta form folds each chunk's last correction into its high-dtype
+    state) of the same run unchunked."""
+    where = (["--checkpoint-dir", str(tmp_path / "ck")]
+             if chunking[0] == "--checkpoint-every"
+             else ["--dump", str(tmp_path / "uT.txt")])
+    (straight,) = _lines(capsys, t_main, RUNS[case] + CPU)
+    (chunked,) = _lines(capsys, t_main, RUNS[case] + chunking + where + CPU)
+    assert chunked["max_cycles"] == straight["max_cycles"]
+    assert chunked["converged"] == straight["converged"]
+    assert chunked["max_rel_residual"] == pytest.approx(
+        straight["max_rel_residual"], rel=0, abs=1e-14)
 
 
 def test_run_dump_and_diff(capsys, tmp_path):

@@ -1,10 +1,13 @@
 """PyTorch port: P, the Hopper feature probe (`ops/cuda/probe.py`), on
-the CPU.  The JAX probe (scripts/mosaic_probe_tpu.py) compiles Mosaic
-kernels and cannot run here, so the six plain versions are held to the
-numpy expectations that script checks (:64, :77, :89, :100, :115, :134):
-equality for the index maps, atol 1e-6 for the products.  The CUDA kernels
-are held to the same checks, and to their plain versions, on the card by
-chip_smoke.py.
+the CPU.  The six plain versions are held to the numpy expectations that
+the JAX probe (scripts/mosaic_probe_tpu.py) checks (:64, :77, :89, :100,
+:115, :134): equality for the index maps, atol 1e-6 for the products; the
+JAX probe's own Pallas kernels run here in interpret mode, and
+tests/test_torch_probe_pallas.py holds the plain versions to them.  The
+products' plain version and the product kernel's order
+(`dot_in_kernel_order`) are held to float64 within the float32 bound
+k 2^-24 (|a| @ |b|) on dense operands.  The CUDA kernels are held to the
+same checks, and to their plain versions, on the card by chip_smoke.py.
 """
 
 import numpy as np
@@ -104,3 +107,72 @@ def test_probe_wrappers_refuse_bad_inputs(monkeypatch):
         probe.flatten(torch.zeros((4, 4)).t())
     with pytest.raises(ValueError, match="@"):
         probe.dot(torch.zeros((4, 3)), torch.zeros((4, 4)), "probe_dot")
+
+
+@pytest.mark.parametrize("shape", list(probe.DOT_SHAPES))
+@pytest.mark.parametrize("fn", [probe.dot_plain, probe.dot_in_kernel_order],
+                         ids=["plain", "kernel_order"])
+def test_dot_within_the_float32_bound(fn, shape):
+    """Dense seeded operands at the three probe shapes and one that no tile
+    divides, against numpy in float64: |err| <= k 2^-24 (|a| @ |b|)."""
+    m, k, n = probe.DOT_SHAPES[shape]
+    a, b = probe.dense_operands(m, k, n)
+    got = fn(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    exact = a.astype(np.float64) @ b.astype(np.float64)
+    bound = k * 2.0 ** -24 * (np.abs(a).astype(np.float64)
+                              @ np.abs(b).astype(np.float64))
+    assert np.all(np.abs(got.numpy() - exact) <= bound)
+    np.testing.assert_array_equal(
+        probe.dot_error_bound(torch.from_numpy(a), torch.from_numpy(b))
+        .numpy(), bound)
+
+
+@pytest.mark.parametrize("m,k,n", [(3, 5, 7), (4, 33, 3), (2, 70, 2)])
+def test_kernel_order_is_the_documented_one(m, k, n):
+    """csrc/probe.cu's order, in float32 scalars: lane g sums its
+    contiguous range of k in order from +0, then
+    ((s0 + s4) + (s2 + s6)) + ((s1 + s5) + (s3 + s7))."""
+    a, b = probe.dense_operands(m, k, n, seed=5)
+    span = -(-k // 8)
+    want = np.zeros((m, n), np.float32)
+    for i in range(m):
+        for j in range(n):
+            s = [np.float32(0.0)] * 8
+            for g in range(8):
+                for q in range(g * span, min((g + 1) * span, k)):
+                    s[g] = np.float32(s[g] + np.float32(a[i, q] * b[q, j]))
+            want[i, j] = ((s[0] + s[4]) + (s[2] + s[6])) + (
+                (s[1] + s[5]) + (s[3] + s[7]))
+    got = probe.dot_in_kernel_order(torch.from_numpy(a), torch.from_numpy(b))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("name", ["dot_decimate", "dot_decimate_rows",
+                                  "dot_prolong_rows"])
+def test_kernel_order_is_exact_on_the_probe_operands(name):
+    """One product or one rounding of a sum of two exact products an
+    output: any order gives the plain version's result to the bit."""
+    ops = probe.probe_operands()
+    _, plain, names, expect, _ = probe.probes()[name]
+    args = [torch.from_numpy(ops[k]) for k in names]
+    got = probe.dot_in_kernel_order(*args)
+    assert torch.equal(got, plain(*args))
+    np.testing.assert_array_equal(got.numpy(), expect(ops))
+
+
+@pytest.mark.parametrize("fn", [probe.flatten, probe.flatten_plain],
+                         ids=["wrapper", "plain"])
+def test_flatten_writes_a_buffer_of_its_own(fn):
+    """The TPU kernel writes x's values into an output of its own (no
+    input_output_aliases, scripts/mosaic_probe_tpu.py:39-46): the result
+    shares no storage with x, and writing to it leaves x as it was."""
+    x = torch.from_numpy(probe.probe_operands()["x"])
+    before = x.clone()
+    out = fn(x)
+    assert out.shape == (probe.R * probe.C, 1)
+    assert torch.equal(out[:, 0], x.reshape(-1))
+    assert (out.untyped_storage().data_ptr()
+            != x.untyped_storage().data_ptr())
+    out.fill_(7.0)
+    assert torch.equal(x, before)

@@ -7,6 +7,7 @@ either package resumes in the other to atol 1e-12 (the f64 run bound of
 tests/test_golden.py).
 """
 
+import argparse
 import dataclasses
 
 import jax.numpy as jnp
@@ -24,6 +25,9 @@ from hpcclassmultigridproject_tpu.utils import (
     run_with_checkpoints as j_run_with_checkpoints,
 )
 from hpcclassmultigridproject_tpu.utils import time_run as j_time_run
+from hpcclassmultigridproject_tpu.utils.io import (
+    load_field_txt as j_load_field_txt,
+)
 from hpcclassmultigridproject_tpu.utils.profiling import (
     _phase_counts as j_phase_counts,
 )
@@ -39,8 +43,10 @@ from hpcclassmultigridproject_tpu_torch.utils import (
     run_with_checkpoints,
     save_field,
     save_field_txt,
+    stitch_stats,
     time_run,
 )
+from hpcclassmultigridproject_tpu_torch import cli
 from hpcclassmultigridproject_tpu_torch.utils import profiling
 
 N, STEPS = 32, 8
@@ -73,11 +79,65 @@ def test_field_io_roundtrip(tmp_path):
     f = torch.from_numpy(np.random.default_rng(0).random((17, 17)))
     save_field_txt(tmp_path / "uT.txt", f)
     back = load_field_txt(tmp_path / "uT.txt")
-    np.testing.assert_allclose(back, f.numpy(), atol=1e-6)  # %f: 6 places
+    np.testing.assert_array_equal(back, f.numpy())  # %.17g: exact
     save_field(tmp_path / "uT.npy", f)
     assert np.array_equal(load_field(tmp_path / "uT.npy"), f.numpy())
     assert field_difference_norm(f, f.numpy()) == 0.0
     assert field_difference_norm(f, f + 1.0) == pytest.approx(17.0)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_txt_dump_round_trips_exactly(tmp_path, dtype):
+    """Every value reads back to itself (%.9g for float32, %.17g for
+    float64), in the port and in the JAX package's reader; the dump is
+    still dense tab-separated rows."""
+    f = np.random.default_rng(1).standard_normal((33, 33)).astype(dtype)
+    f[3, 4], f[5, 6] = np.finfo(dtype).tiny, np.finfo(dtype).max
+    save_field_txt(tmp_path / "uT.txt", torch.from_numpy(f))
+    for load in (load_field_txt, j_load_field_txt):
+        back = load(tmp_path / "uT.txt")
+        assert back.shape == (33, 33)
+        np.testing.assert_array_equal(back.astype(dtype), f)
+    first = (tmp_path / "uT.txt").read_text().splitlines()[0]
+    assert len(first.split("\t")) == 33
+
+
+def test_txt_dump_keeps_the_center(tmp_path):
+    """The main path's center, 4.60419316843316e-5, survives the dump (the
+    JAX package's %f wrote 0.000046)."""
+    u = torch.zeros((65, 65), dtype=torch.float64)
+    u[32, 32] = 4.60419316843316e-5
+    save_field_txt(tmp_path / "uT.txt", u)
+    assert load_field_txt(tmp_path / "uT.txt")[32, 32] == 4.60419316843316e-5
+    assert j_load_field_txt(tmp_path / "uT.txt")[32, 32] == 4.60419316843316e-5
+
+
+def _triplet_dump(path, field) -> None:
+    """The C++ reference's dump (multigrid.cpp:269-275): one `i\tj\tvalue`
+    line a node."""
+    with open(path, "w") as fh:
+        for i in range(field.shape[0]):
+            for j in range(field.shape[1]):
+                fh.write(f"{i}\t{j}\t{field[i, j]:.17g}\n")
+
+
+def test_cli_diff_reads_a_triplet_dump(tmp_path, capsys):
+    f = np.random.default_rng(2).random((9, 9))
+    _triplet_dump(tmp_path / "ref.txt", f)
+    save_field_txt(tmp_path / "port.txt", torch.from_numpy(f))
+    np.testing.assert_array_equal(load_field_txt(tmp_path / "ref.txt"), f)
+    assert cli.main(["diff", str(tmp_path / "ref.txt"),
+                     str(tmp_path / "port.txt")]) == 0
+    assert capsys.readouterr().out.strip() == '{"frobenius_norm": 0.0}'
+    # a 3x3 field is dense rows, not triplets
+    small = np.arange(9.0).reshape(3, 3)
+    save_field_txt(tmp_path / "small.txt", small)
+    np.testing.assert_array_equal(load_field_txt(tmp_path / "small.txt"),
+                                  small)
+    (tmp_path / "bad.txt").write_text("0\t0\t1\n0\t1\t2\n0.5\t0\t3\n"
+                                      "1\t1\t4\n")
+    with pytest.raises(ValueError, match="triplets"):
+        load_field_txt(tmp_path / "bad.txt")
 
 
 def test_time_run_keys_match_jax():
@@ -158,6 +218,65 @@ def test_port_checkpoint_resumes_in_jax(tmp_path):
     assert steps == STEPS
     np.testing.assert_allclose(np.asarray(uT), tuT.numpy(), rtol=0,
                                atol=1e-12)
+
+
+# chunked runs' configurations: plain (adaptive) and the delta form
+CHUNKED = {
+    "plain": dict(),
+    "delta": dict(refine_dtype=torch.float64, cycle_mode="fixed",
+                  num_cycles=1, coarse_mode="dense", delta_form=True,
+                  certify_every=2),
+}
+
+
+@pytest.mark.parametrize("chunking", ["checkpoint", "dump_series"])
+@pytest.mark.parametrize("case", sorted(CHUNKED))
+def test_chunked_run_stitches_the_unchunked_stats(tmp_path, case, chunking):
+    """A run in chunks of 4 steps (`run_with_checkpoints`, or the CLI's
+    `--dump-every` loop) returns the unchunked run's stats, key by key.
+    The plain form: every key equal.  The delta form: a chunk's end folds
+    the pending correction into the high-dtype state (its epilogue, uT
+    within 1e-14 of the unchunked run's), so after a boundary the
+    residuals agree to atol 1e-14 and not to the bit; the counts and flags
+    are equal; `final_rel_residual_hi` is the last chunk's; the
+    certificates fall on every second step of each chunk, and chunks of 4
+    put them on the unchunked run's steps."""
+    model = AdvectionDiffusion(ProblemConfig(n=N, num_steps=STEPS),
+                               SolverConfig(dtype=torch.float64, num_levels=3,
+                                            **CHUNKED[case]), device="cpu")
+    uT, want = model.run(warn=False)
+    chunks = []
+    if chunking == "checkpoint":
+        got_uT, _ = run_with_checkpoints(
+            model, CheckpointManager(tmp_path / "ck", model.problem),
+            every=4, on_chunk=chunks.append)
+        got = stitch_stats(chunks)
+    else:
+        args = argparse.Namespace(checkpoint_dir=None, dump_every=4,
+                                  dump=str(tmp_path / "uT.txt"))
+        got_uT, got = cli._run_chunked(model, args)
+    np.testing.assert_allclose(got_uT.numpy(), uT.numpy(), rtol=0,
+                               atol=1e-14)
+    assert set(got) == set(want)
+    for key, w in want.items():
+        g = got[key]
+        assert g.shape == w.shape and g.dtype == w.dtype, key
+        if case == "plain" or not w.is_floating_point():
+            assert torch.equal(g, w), key
+        else:
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                       atol=1e-14, err_msg=key)
+
+
+def test_stitch_stats_joins_steps_and_keeps_the_last_scalar():
+    one = {"rel_residual": torch.tensor([1.0, 2.0]),
+           "final_rel_residual_hi": torch.tensor(5.0)}
+    two = {"rel_residual": torch.tensor([3.0]),
+           "final_rel_residual_hi": torch.tensor(6.0)}
+    got = stitch_stats([one, two])
+    assert torch.equal(got["rel_residual"], torch.tensor([1.0, 2.0, 3.0]))
+    assert torch.equal(got["final_rel_residual_hi"], torch.tensor(6.0))
+    assert stitch_stats([]) is None
 
 
 def test_run_chunk_and_pad():
