@@ -13,21 +13,25 @@ raising on failure:
    tower's kernels must read nothing through the read-only path (no
    LDG...CONSTANT in their SASS, by cuobjdump);
 3. kernels: each kernel (K1 opening, K2 smoother in both flag sets of the
-   main path, K3/K4 tower, K5 five-band and K6 nine-band smoothers in the
-   flag sets of their paths, K7 on every shape the distributed path's
-   two schedules launch at W=4, K8 whole-step opening in both residual
-   modes) against its plain PyTorch version on the card, at the paths'
-   shapes, in float32 (within 4 ulp of the field's max-abs) and float64
-   (within 1e-13), with kernel and plain times and the bound of the byte
-   and operation model (utils/profiling.py); K2 also in all six of its
-   flag sets on every level of the n=1024 hierarchy and at nsweeps 1 on
-   the gsbench level (2056x2176), with misaligned arrays and at nsweeps
-   20, K7 in all four of its on its 40 shapes, each bit-identical to its
-   plain version; K3 and K4 (one cooperative launch each) bit-identical
-   from level 1 and level 3 of n=1024 and level 1 of n=256 at nsweeps 1, 3
-   and 14, each called 20 times with every result equal to the first, with
-   the grid each launch chose; the four K7 blocks of level
-   0, stitched, against K2 on the whole field; and K8 against K1 then K2;
+   main path, K3/K4 tower, K5 five-band and K6 nine-band smoothers on
+   every smoothed level of their paths in the four flag sets of those
+   paths, K7 on every shape the distributed path's two schedules launch
+   at W=4, K8 whole-step opening in both residual modes) against its plain
+   PyTorch version on the card, at the paths' shapes, in float32 (within 4
+   ulp of the field's max-abs) and float64 (within 1e-13), with kernel and
+   plain times and the bound of the byte and operation model
+   (utils/profiling.py); K2 also in all six of its flag sets on every
+   level of the n=1024 hierarchy and at nsweeps 1 on the gsbench level
+   (2056x2176), with misaligned arrays and at nsweeps 20, K7 in all four
+   of its on its 40 shapes, K5 and K6 with misaligned arrays and at
+   nsweeps 14 (a chain of two launches), K6 at nsweeps 4, each
+   bit-identical to its plain version; K3 and K4 (one cooperative launch
+   each) bit-identical from level 1 and level 3 of n=1024 and level 1 of
+   n=256 at nsweeps 1, 3 and 14, each called 20 times with every result
+   equal to the first, with the grid each launch chose; the four K7 blocks
+   of level 0, stitched, against K2 on the whole field; and K8 against K1
+   then K2; then K5's and K6's time, bound and launches at each level of
+   a run of their paths;
 4. main path: the n=1024, 100-step delta-form run through
    AdvectionDiffusion, with every certificate <= 1e-6, the center value,
    the launch count of every kernel, and the same run through the plain
@@ -261,30 +265,97 @@ def _compare(name, got, want, dtype):
     return err, bound, exact
 
 
-def _smooth_cases(tag, level, f, lvl):
-    """K5 or K6 on `level` in the flag sets of its paths: {name: (kernel,
-    plain version, shape, (bytes, flops))}."""
+# K5's and K6's flag sets: the four of their paths
+BAND_FLAG_SETS = {
+    "zero_init, residual": dict(want_residual=True, zero_init=True),
+    "zero_init, res_rows_dec": dict(want_residual=True, zero_init=True,
+                                    residual_rows_decimated=True),
+    "corr": dict(corr="corr"),
+    "u, residual": dict(want_residual=True),
+}
+# the smoothed levels of the Poisson path (K5) and the nine-band levels of
+# the Galerkin path (K6) at n=1024, and the f32 Poisson default's cycles
+POISSON_LEVELS, GALERKIN_LEVELS = range(5), range(1, 5)
+POISSON_F32_CYCLES = 50
+
+
+def _path_flags(tag: str, lvl: int) -> tuple[str, str]:
+    """The flag sets K5 (`smooth5`) or K6 (`smooth9`) runs at level lvl of
+    its path, each once a cycle or step (mg/cycle.py::mg_cycle): Poisson
+    pre-smooths level 0 from u and a coarser level from zero with the full
+    residual, the Galerkin delta path from zero with the residual's even
+    rows; both post-smooth with the correction."""
+    if tag == "smooth9":
+        return ("zero_init, res_rows_dec", "corr")
+    return ("u, residual" if lvl == 0 else "zero_init, residual", "corr")
+
+
+def _band_cases(tag, levels, f, lvls):
+    """K5 (`smooth5`) or K6 (`smooth9`) on levels[lvl] for each lvl of
+    `lvls` in every flag set of BAND_FLAG_SETS, nsweeps 3: {name: (kernel,
+    plain version, shape, (bytes, flops))}.  `f(scale, lvl)` makes a field
+    of level lvl's shape."""
     from hpcclassmultigridproject_tpu_torch.ops.cuda import smoother
     from hpcclassmultigridproject_tpu_torch.utils import profiling
 
-    u, corr, rhs = f(lvl=lvl), f(1e-2, lvl), f(lvl=lvl)
-    flag_sets = {
-        "zero_init, residual": dict(want_residual=True, zero_init=True),
-        "zero_init, res_rows_dec": dict(want_residual=True, zero_init=True,
-                                        residual_rows_decimated=True),
-        "corr": dict(corr=corr),
-        "u, residual": dict(want_residual=True),
-    }
-    itemsize = rhs.element_size()
-    return {f"{tag} ({name})": (
-        lambda kw=kw: smoother.fused_rb_sweeps(level, u, rhs, 3, **kw),
-        lambda kw=kw: smoother.fused_rb_sweeps_plain(level, u, rhs, 3, **kw),
-        level.padded,
-        profiling.smooth_cost(
-            level, itemsize, 3, read_u=not kw.get("zero_init", False),
-            corr="corr" in kw, want_residual=kw.get("want_residual", False),
-            res_dec=kw.get("residual_rows_decimated", False)))
-        for name, kw in flag_sets.items()}
+    cases = {}
+    for lvl in lvls:
+        level = levels[lvl]
+        u, corr, rhs = f(1.0, lvl), f(1e-2, lvl), f(1.0, lvl)
+        for name, kw in BAND_FLAG_SETS.items():
+            kw = {k: corr if v == "corr" else v for k, v in kw.items()}
+            cases[f"{tag} (level {lvl}, {name})"] = (
+                lambda level=level, u=u, rhs=rhs, kw=kw:
+                    smoother.fused_rb_sweeps(level, u, rhs, 3, **kw),
+                lambda level=level, u=u, rhs=rhs, kw=kw:
+                    smoother.fused_rb_sweeps_plain(level, u, rhs, 3, **kw),
+                level.padded,
+                profiling.smooth_cost(
+                    level, rhs.element_size(), 3,
+                    read_u=not kw.get("zero_init", False), corr="corr" in kw,
+                    want_residual=kw.get("want_residual", False),
+                    res_dec=kw.get("residual_rows_decimated", False)))
+    return cases
+
+
+def _one_off(x):
+    """x in a buffer that starts one value before it: no row of it is
+    aligned to a pair of values."""
+    buf = torch.zeros(x.numel() + 1, dtype=x.dtype, device=x.device)
+    buf[1:] = x.reshape(-1)
+    return buf[1:].view(x.shape)
+
+
+def _band_checks(poisson, galerkin, f):
+    """K5 and K6 past their paths' calls: on their 72x128 level with
+    arrays one value off alignment (the block's FV_SINGLES instance) and at
+    nsweeps 14 (a chain of two launches), and K6 at nsweeps 4 on 520x640
+    (one launch; its float64 window refused that before the from_v
+    block): {name: (kernel, plain version, shape)}, all from u + corr with
+    the full residual."""
+    from hpcclassmultigridproject_tpu_torch.ops.cuda import smoother
+
+    cases = {}
+    for tag, levels in (("smooth5", poisson), ("smooth9", galerkin)):
+        runs = [(4, 3, "arrays one value off alignment", True),
+                (4, 14, "nsweeps 14, two launches", False)]
+        if tag == "smooth9":
+            runs.append((1, 4, "nsweeps 4", False))
+        for lvl, ns, what, off in runs:
+            level = levels[lvl]
+            u, corr, rhs = f(1.0, lvl), f(1e-2, lvl), f(1.0, lvl)
+            if off:
+                u, corr, rhs = _one_off(u), _one_off(corr), _one_off(rhs)
+            name = f"{tag} check (corr, residual, {what}) at {level.padded}"
+            cases[name] = (
+                lambda level=level, ns=ns, u=u, rhs=rhs, corr=corr:
+                    smoother.fused_rb_sweeps(level, u, rhs, ns, True,
+                                             corr=corr),
+                lambda level=level, ns=ns, u=u, rhs=rhs, corr=corr:
+                    smoother.fused_rb_sweeps_plain(level, u, rhs, ns, True,
+                                                   corr=corr),
+                level.padded)
+    return cases
 
 
 def _rank_views(levels, world: int, rank: int):
@@ -377,18 +448,12 @@ def _from_v_checks(levels, f, gs_level, g):
                     smoother.fused_rb_sweeps_plain(level, u, rhs, ns, **kw),
                 level.padded)
 
-    def one_off(x):
-        """x in a buffer that starts one value before it."""
-        buf = torch.zeros(x.numel() + 1, dtype=x.dtype, device=x.device)
-        buf[1:] = x.reshape(-1)
-        return buf[1:].view(x.shape)
-
     lvl = len(levels) - 2
     level = levels[lvl]
     u, corr, rhs = f(1.0, lvl), f(1e-2, lvl), f(1.0, lvl)
     for name, ns, args in (
             ("arrays one value off alignment", 3,
-             (one_off(u), one_off(rhs), dict(corr=one_off(corr)))),
+             (_one_off(u), _one_off(rhs), dict(corr=_one_off(corr)))),
             ("nsweeps 20, two launches", 20, (u, rhs, dict(corr=corr)))):
         uu, rr, kw = args
         cases[f"smooth check (corr, residual, {name}) at {level.padded}"] = (
@@ -488,6 +553,26 @@ def _k8_against_k1_k2(fine, hi, lo, d, dtype) -> None:
               f"(bound {bound:.3g}), bit-identical {exact}")
 
 
+def _band_levels(out: dict, levels) -> None:
+    """K5's and K6's float32 time, bound and launches at each level of a
+    run of their paths (Poisson f32, 50 cycles; Galerkin, 100 steps): the
+    level's pre- and post-smooth, each launched once a cycle or step."""
+    for tag, label, lvls, runs in (
+            ("smooth5", "K5, Poisson f32", POISSON_LEVELS, POISSON_F32_CYCLES),
+            ("smooth9", "K6, Galerkin", GALERKIN_LEVELS, MAIN_STEPS)):
+        for lvl in lvls:
+            rows = [out[f"{tag} (level {lvl}, {flags})"]
+                    for flags in _path_flags(tag, lvl)]
+            ms, bound = (statistics.mean(r[i] for r in rows) for i in (1, 3))
+            print(f"[kernels] {label} level {lvl} {levels[lvl].padded}: "
+                  f"{2 * runs} launches a run; kernel {ms:.4f} ms (pre "
+                  f"{rows[0][1]:.4f}, post {rows[1][1]:.4f}), bound "
+                  f"{bound:.4f} ms, plain "
+                  f"{statistics.mean(r[2] for r in rows):.4f} ms; launches "
+                  f"x (kernel - bound) "
+                  f"{2 * runs * (ms - bound):.3f} ms")
+
+
 def phase_kernels(device, n: int) -> dict:
     """Each kernel against its plain version at its paths' shapes for n,
     in float64 then float32; returns {counter: (max-abs difference, kernel
@@ -524,9 +609,10 @@ def phase_kernels(device, n: int) -> dict:
             vel[0], vel[1], 0.1 / n, -4e-4, num_levels, dtype=dtype,
             device=device, coarse_mode="dense")
         galerkin = build_hierarchy(
-            vel[0], vel[1], 0.1 / n, -4e-4, 2, dtype=dtype, device=device,
-            coarse_operator="galerkin")[1]
-        poisson = build_poisson_hierarchy(n, 1, dtype=dtype, device=device)[0]
+            vel[0], vel[1], 0.1 / n, -4e-4, num_levels, dtype=dtype,
+            device=device, coarse_operator="galerkin")
+        poisson = build_poisson_hierarchy(n, len(POISSON_LEVELS), dtype=dtype,
+                                          device=device)
         fine = levels[0]
         isz = torch.empty((), dtype=dtype).element_size()
         f = lambda scale=1.0, lvl=0: _field(
@@ -578,8 +664,8 @@ def phase_kernels(device, n: int) -> dict:
                 fine.padded, profiling.open_smooth_cost(fine, isz, 3, dec))
                for mode, dec in (("res_rows_dec", True),
                                  ("full residual", False))},
-            **_smooth_cases("smooth5", poisson, f, 0),
-            **_smooth_cases("smooth9", galerkin, f, 1),
+            **_band_cases("smooth5", poisson, f, POISSON_LEVELS),
+            **_band_cases("smooth9", galerkin, f, GALERKIN_LEVELS),
         }
         # K7 timed in the distributed path's flag sets; K2 and K7 checked
         # in all of theirs, and K2 on every level and the gsbench level
@@ -588,6 +674,7 @@ def phase_kernels(device, n: int) -> dict:
                                     dtype=dtype, device=device)
         checks = _from_v_checks(levels, f, gs_level, lambda scale: _field(
             rng, gs_level.padded, gs_level.n, dtype, device, scale))
+        checks.update(_band_checks(poisson, galerkin, f))
         for name, case in _smooth_rows_cases(levels, f).items():
             if "residual" in name:
                 cases[name] = case
@@ -605,7 +692,7 @@ def phase_kernels(device, n: int) -> dict:
                                    device)))
         _stitched_rows(levels, u, rhs, dtype)
         _k8_against_k1_k2(fine, hi, lo, d, dtype)
-        exact_from_v, exact_tower = [], []
+        exact_from_v, exact_bands, exact_tower = [], [], []
         for name, (kern, plain, shape, *timed) in {**cases, **checks}.items():
             got, want = _flatten(kern()), _flatten(plain())
             torch.cuda.synchronize()
@@ -617,6 +704,10 @@ def phase_kernels(device, n: int) -> dict:
                 require(exact, f"{name}: K2/K7 not bit-identical to the "
                         "plain version")
                 exact_from_v.append(exact)
+            if name.startswith("smooth5") or name.startswith("smooth9"):
+                require(exact, f"{name}: K5/K6 not bit-identical to the "
+                        "plain version")
+                exact_bands.append(exact)
             if name.startswith("tower"):
                 half = name.split(" ")[0].split("_")[1]
                 line += (f"; grid (blocks/SM, SMs, blocks) "
@@ -646,6 +737,9 @@ def phase_kernels(device, n: int) -> dict:
         print(f"[kernels] K2 and K7 ({str(dtype)[6:]}): bit-identical to "
               f"their plain versions in {sum(exact_from_v)} of "
               f"{len(exact_from_v)} cases")
+        print(f"[kernels] K5 and K6 ({str(dtype)[6:]}): bit-identical to "
+              f"their plain versions in {sum(exact_bands)} of "
+              f"{len(exact_bands)} cases")
         print(f"[kernels] K3 and K4 ({str(dtype)[6:]}): bit-identical to "
               f"their plain versions, and each of {TOWER_REPEATS} calls "
               f"equal to the first, in {sum(exact_tower)} of "
@@ -656,8 +750,14 @@ def phase_kernels(device, n: int) -> dict:
     print(f"[kernels] price of the whole-step opening (float32, at "
           f"{levels[0].padded}): K8 {k8:.4f} ms against K1 + K2 pre-smooth "
           f"{k1:.4f} + {k2_pre:.4f} = {k1 + k2_pre:.4f} ms")
+    _band_levels(out, levels)
     merged = {}
     for name, numbers in out.items():
+        found = re.match(r"(smooth[59]) \(level (\d+), (.*)\)$", name)
+        if found and found.group(3) not in _path_flags(found.group(1),
+                                                       int(found.group(2))):
+            continue  # K5, K6: their paths' calls alone, each launched
+            # once a cycle or step, so the mean is launch-weighted
         merged.setdefault(name.split(" ")[0], []).append(numbers)
     return {key: (max(r[0] for r in rows),
                   statistics.mean(r[1] for r in rows),
@@ -762,7 +862,7 @@ def phase_galerkin(device, n: int, steps: int):
 def phase_poisson(device, n: int):
     """Poisson(n) in float64 to tol 1e-10 (7 cycles, the center value), and
     in its float32 default, which stalls at 50 cycles without converging,
-    as the JAX package's does."""
+    as the JAX package's does.  Returns the float32 run's launch counts."""
     from hpcclassmultigridproject_tpu_torch import SolverConfig
     from hpcclassmultigridproject_tpu_torch.models import Poisson
 
@@ -793,8 +893,8 @@ def phase_poisson(device, n: int):
             require(conv, f"{tag}: did not converge")
             require(abs(center - CENTER_POISSON) <= 1e-11,
                     f"{tag}: center off by {abs(center - CENTER_POISSON):.3g}")
-            counts = got
         else:
+            counts = got
             require(not conv, f"{tag}: converged, unlike the JAX package")
             print(f"[{tag}] does not converge in float32, as the JAX "
                   "package's float32 default does not")

@@ -1,8 +1,9 @@
 // Device code shared by the port's kernels: the CN coefficient recompute,
 // the delta step's opening at one node (K1, K8), the red-black Gauss-Seidel
-// cascade on a shared-memory window (for the three coefficient sources:
-// recomputed from (v1, v2), five stored bands, nine stored bands with a
-// varying diagonal), and the per-point bilinear prolongation.
+// cascade on a shared-memory window (K8's 32x32 tile, and the from_v block
+// of K2-K7 with its three coefficient sources: recomputed from (v1, v2),
+// five stored bands, nine stored bands with a varying diagonal), and the
+// per-point bilinear prolongation.
 //
 // Every expression keeps the operation order of the JAX package's Pallas
 // kernels and of the port's plain PyTorch versions (ops/padded.py), and the
@@ -17,7 +18,7 @@
 
 namespace mg {
 
-// Output tile of one smooth_tile block, and its thread count.
+// Output tile of one smooth_tile block (K8), and its thread count.
 constexpr int TILE_H = 32;
 constexpr int TILE_W = 32;
 constexpr int SMOOTH_THREADS = 256;
@@ -41,15 +42,16 @@ enum ResMode {
                      // writes the coarse cells past the fine array)
 };
 
-// Where a smoothing block takes the stencil coefficients from.
+// Where a from_v block takes the stencil coefficients from (smooth_from_v's
+// FORM, a compile-time variant).
 enum CoefForm {
-  FORM_FROM_V = 0,  // recomputed from (v1, v2): the CN levels (K8; K2, K3,
-                    // K4 and K7 take smooth_from_v below)
+  FORM_FROM_V = 0,  // recomputed from (v1, v2): the CN levels (K2, K3, K4,
+                    // K7; K8's smooth_tile too)
   FORM_FIVE = 1,    // stored aa, bb, cc, dd; scalar diagonal (K5)
   FORM_NINE = 2,    // stored aa..dd, ne, nw, se, sw and diag (K6)
 };
 
-// Stored planes: FORM_FIVE reads bands[0..3] = aa, bb, cc, dd; FORM_NINE
+// Stored arrays: FORM_FIVE reads bands[0..3] = aa, bb, cc, dd; FORM_NINE
 // also bands[4..7] = ne, nw, se, sw and bands[8] = diag.
 constexpr int MAX_BANDS = 9;
 
@@ -58,8 +60,8 @@ struct SmoothArgs {
   const T* u;       // LOAD_U, LOAD_U_CORR, LOAD_U_PROLONG
   const T* corr;    // LOAD_U_CORR
   const T* src;     // LOAD_U_PROLONG: the coarser field, (src_rows, src_cols)
-  const T* rhs;     // unless OPEN
-  const T* hi;      // OPEN: the state pair and the pending correction
+  const T* rhs;     // all but K8
+  const T* hi;      // K8: the state pair and the pending correction
   const T* lo;
   const T* d;
   const T* v1;      // FORM_FROM_V
@@ -67,7 +69,7 @@ struct SmoothArgs {
   const T* bands[MAX_BANDS];  // FORM_FIVE, FORM_NINE
   T* u_out;         // (rows, cols)
   T* res_out;       // (res_rows, res_cols), unless RES_NONE
-  T* hi_out;        // OPEN: (hi', lo', rhs_delta) at the tile's cells
+  T* hi_out;        // K8: (hi', lo', rhs_delta) at the tile's cells
   T* lo_out;
   T* rhs_out;
   int rows, cols, n, nsweeps;
@@ -77,7 +79,7 @@ struct SmoothArgs {
   int load_mode, res_mode;
   T rr, hh, nu, diag, inv_diag;  // constants, rounded to T on the host
                                  // (FORM_NINE reads none of them)
-  T two_rnu, r_h;                // OPEN: 2 r nu and r h, likewise
+  T two_rnu, r_h;                // K8: 2 r nu and r h, likewise
 };
 
 template <typename T>
@@ -178,22 +180,6 @@ __device__ __forceinline__ T nb_at(const T* s, int r, int c, int wh, int ww,
   return k.cc * up + k.dd * dn + k.aa * lf + k.bb * rt;
 }
 
-// The nine-point neighbour sum: nb_at plus ne*u_NE + nw*u_NW + se*u_SE +
-// sw*u_SW, in the operation order of ops/padded.py::neighbor_sum.
-template <typename T>
-__device__ __forceinline__ T nb9_at(const T* s, int r, int c, int wh, int ww,
-                                    const Coefs<T>& k, T ne, T nw, T se,
-                                    T sw) {
-  const int idx = r * ww + c;
-  const bool has_up = r > 0, has_dn = r < wh - 1;
-  const bool has_lf = c > 0, has_rt = c < ww - 1;
-  const T ur = has_up && has_rt ? s[idx - ww + 1] : T(0);
-  const T ul = has_up && has_lf ? s[idx - ww - 1] : T(0);
-  const T dr = has_dn && has_rt ? s[idx + ww + 1] : T(0);
-  const T dl = has_dn && has_lf ? s[idx + ww - 1] : T(0);
-  return nb_at(s, r, c, wh, ww, k) + ne * ur + nw * ul + se * dr + sw * dl;
-}
-
 template <typename T>
 __device__ __forceinline__ T at_or_zero(const T* x, int rows, int cols, int i,
                                         int j) {
@@ -224,53 +210,38 @@ __device__ __forceinline__ void prolong_pair(const T* c, int rows_c,
   p1 = half * (p0 + half * (c01 + c11));
 }
 
-// Shared-memory planes of one smoothing block's window: u and rhs, the
-// coefficient source, and for FORM_NINE one plane of pending updates.
-template <int FORM>
-constexpr int smooth_planes() {
-  return FORM == FORM_FROM_V ? 4 : FORM == FORM_FIVE ? 6 : 12;
-}
+// Shared-memory planes of K8's window: u, rhs, v1 and v2.
+constexpr int SMOOTH_PLANES = 4;
 
-inline size_t smooth_smem_bytes(int nsweeps, size_t elem, int planes) {
+inline size_t smooth_smem_bytes(int nsweeps, size_t elem) {
   const int halo = 2 * nsweeps + 1;
-  return planes * static_cast<size_t>(TILE_H + 2 * halo) * (TILE_W + 2 * halo) *
-         elem;
+  return SMOOTH_PLANES * static_cast<size_t>(TILE_H + 2 * halo) *
+         (TILE_W + 2 * halo) * elem;
 }
 
-// One block: `nsweeps` red-black sweeps and the trailing residual for one
-// TILE_H x TILE_W output tile.  The block loads a window with a halo of
-// 2*nsweeps+1 cells on every side, runs all 2*nsweeps color passes in
-// shared memory, and writes the tile.  A window cell whose neighbour lies
-// past the window reads 0 there; the error that makes moves in one cell per
-// pass (corners included: the nine-point stencil also has radius 1), so
-// after the cascade and the residual it has not reached the tile, which
-// therefore holds exactly what a global barrier between colors would give.
-// With OPEN (K8, a compile-time flag, so the other kernels carry none of
-// it) the window starts from u = 0 and the rhs of every window cell is the
-// delta opening, computed from global memory (its neighbours too), so the
-// window's rhs is exact to its edge and the argument holds unchanged; the
-// write-back also writes (hi', lo', rhs_delta) at the tile's cells.  Cells
-// past the array are 0 and stay 0, since their coefficients and rhs
-// are 0 (and a nine-band diagonal loads 1 there, so 1/diag stays finite):
-// that is the truth at the array's edges, and on a rank's extended block of
-// a row-partitioned level (K7) the artificial edge whose error the center
-// rows never see.  Red is (i+j) even in array indices, which are the
-// global ones on a whole level and on a block whose row_off is even (the
-// wrapper refuses an odd one).  A five-point color pass reads only the
-// other color, so it updates in place; a nine-point pass also reads its
-// own color at the corners, so it computes every update of the pass first
-// and writes them after a barrier.
-template <typename T, int FORM, bool OPEN = false>
+// K8's block (delta_step.cu): the delta opening, then `nsweeps` red-black
+// sweeps from u = 0 and the trailing residual, for one TILE_H x TILE_W
+// output tile of a from_v level.  The block loads a window with a halo of
+// 2*nsweeps+1 cells on every side, whose rhs at every window cell is the
+// delta opening computed from global memory (its neighbours too), so the
+// window's rhs is exact to its edge; it runs all 2*nsweeps color passes in
+// shared memory and writes the tile, with (hi', lo', rhs_delta) at the
+// tile's cells.  A window cell whose neighbour lies past the window reads
+// 0 there; the error that makes moves in one cell per pass, so after the
+// cascade and the residual it has not reached the tile, which therefore
+// holds exactly what a global barrier between colors would give.  Cells
+// past the array are 0 and stay 0, since their coefficients and rhs are 0.
+// Red is (i+j) even.  A color pass reads only the other color, so it
+// updates in place.
+template <typename T>
 __device__ void smooth_tile(const SmoothArgs<T>& a) {
   extern __shared__ __align__(16) unsigned char mg_smem[];
-  constexpr int NCOEF = FORM == FORM_FROM_V ? 2 : FORM == FORM_FIVE ? 4 : 9;
   const int halo = 2 * a.nsweeps + 1;
   const int wh = TILE_H + 2 * halo, ww = TILE_W + 2 * halo;
   const int wsize = wh * ww;
   T* su = reinterpret_cast<T*>(mg_smem);
   T* srhs = su + wsize;
-  T* sco = srhs + wsize;  // NCOEF coefficient planes: v1, v2 or the bands
-  T* spend = sco + NCOEF * wsize;  // FORM_NINE: the pass's pending updates
+  T* sv = srhs + wsize;  // v1, then v2
   const int ti0 = blockIdx.y * TILE_H, tj0 = blockIdx.x * TILE_W;
   const int gi0 = ti0 - halo, gj0 = tj0 - halo;
   const int tid = threadIdx.x, nth = blockDim.x;
@@ -280,61 +251,25 @@ __device__ void smooth_tile(const SmoothArgs<T>& a) {
     const int gi = gi0 + r, gj = gj0 + c;
     const bool in = gi >= 0 && gi < a.rows && gj >= 0 && gj < a.cols;
     const size_t g = in ? static_cast<size_t>(gi) * a.cols + gj : 0;
-    T u = T(0), rhs = T(0);
-    if constexpr (OPEN) {
-      if (in)
-        rhs = delta_open_at(a.hi, a.lo, a.d, a.v1, a.v2, a.rows, a.cols, gi,
-                            gj, a.n, a.two_rnu, a.r_h)
-                  .rhs;
-    } else if (in) {
-      rhs = a.rhs[g];
-      if (a.load_mode == LOAD_U) {
-        u = a.u[g];
-      } else if (a.load_mode == LOAD_U_CORR) {
-        u = a.u[g] + a.corr[g];
-      }
-    }
-    su[k] = u;
+    T rhs = T(0);
+    if (in)
+      rhs = delta_open_at(a.hi, a.lo, a.d, a.v1, a.v2, a.rows, a.cols, gi, gj,
+                          a.n, a.two_rnu, a.r_h)
+                .rhs;
+    su[k] = T(0);
     srhs[k] = rhs;
-    if (FORM == FORM_FROM_V) {
-      sco[k] = in ? a.v1[g] : T(0);
-      sco[wsize + k] = in ? a.v2[g] : T(0);
-    } else {
-      for (int q = 0; q < NCOEF; ++q) {
-        // the nine-band diagonal is 1 past the array, as outside the
-        // interior, or 0/0 would poison the cascade through the corners
-        const T fill = (FORM == FORM_NINE && q == 8) ? T(1) : T(0);
-        sco[q * wsize + k] = in ? a.bands[q][g] : fill;
-      }
-    }
+    sv[k] = in ? a.v1[g] : T(0);
+    sv[wsize + k] = in ? a.v2[g] : T(0);
   }
   __syncthreads();
 
-  // the stencil at window cell idx (array (gi, gj)): its four edge bands.
-  // The from_v interior mask reads the global row gi + row_off, and is 0
-  // past the array: on a K7 block the rows past it can be interior rows
-  // of the grid, whose cells must stay 0 there as the plain version's
-  // zero fill keeps them (on a whole level they lie outside the interior)
+  // the stencil at window cell idx (array (gi, gj)): its four edge bands,
+  // the interior mask 0 past the array
   auto coefs = [&](int idx, int gi, int gj) {
-    if (FORM == FORM_FROM_V) {
-      const bool in = gi >= 0 && gi < a.rows && gj >= 0 && gj < a.cols;
-      return coefs_at(sco[idx], sco[wsize + idx],
-                      in ? interior_at<T>(gi + a.row_off, gj, a.n) : T(0),
-                      a.rr, a.hh, a.nu);
-    }
-    Coefs<T> k;
-    k.aa = sco[idx];
-    k.bb = sco[wsize + idx];
-    k.cc = sco[2 * wsize + idx];
-    k.dd = sco[3 * wsize + idx];
-    return k;
-  };
-  // the neighbour sum of su at window cell (r, c)
-  auto nb = [&](int r, int c, int idx, const Coefs<T>& k) {
-    if (FORM != FORM_NINE) return nb_at(su, r, c, wh, ww, k);
-    return nb9_at(su, r, c, wh, ww, k, sco[4 * wsize + idx],
-                  sco[5 * wsize + idx], sco[6 * wsize + idx],
-                  sco[7 * wsize + idx]);
+    const bool in = gi >= 0 && gi < a.rows && gj >= 0 && gj < a.cols;
+    return coefs_at(sv[idx], sv[wsize + idx],
+                    in ? interior_at<T>(gi, gj, a.n) : T(0), a.rr, a.hh,
+                    a.nu);
   };
 
   const int half = (ww + 1) / 2;  // cells of one color in a window row, at most
@@ -346,67 +281,40 @@ __device__ void smooth_tile(const SmoothArgs<T>& a) {
       if (c >= ww) continue;
       const int idx = r * ww + c;
       const Coefs<T> co = coefs(idx, gi0 + r, gj0 + c);
-      const T inv = FORM == FORM_NINE ? T(1) / sco[8 * wsize + idx]
-                                      : a.inv_diag;
-      const T upd = (srhs[idx] - nb(r, c, idx, co)) * inv;
-      if (FORM == FORM_NINE) {
-        spend[idx] = upd;
-      } else {
-        su[idx] = upd;
-      }
+      su[idx] = (srhs[idx] - nb_at(su, r, c, wh, ww, co)) * a.inv_diag;
     }
     __syncthreads();
-    if (FORM == FORM_NINE) {
-      for (int k = tid; k < wh * half; k += nth) {
-        const int r = k / half;
-        const int c = 2 * (k - r * half) + ((gi0 + r + gj0 + color) & 1);
-        if (c < ww) su[r * ww + c] = spend[r * ww + c];
-      }
-      __syncthreads();
-    }
   }
 
   for (int k = tid; k < TILE_H * TILE_W; k += nth) {
     const int tr = k / TILE_W, tc = k - tr * TILE_W;
     const int gi = ti0 + tr, gj = tj0 + tc;
     const int r = tr + halo, c = tc + halo, idx = r * ww + c;
-    const bool in = gi < a.rows && gj < a.cols;
+    if (gi >= a.rows || gj >= a.cols) continue;
     const size_t g = static_cast<size_t>(gi) * a.cols + gj;
-    if (in) a.u_out[g] = su[idx];
-    if constexpr (OPEN) {
-      if (in) {
-        const Pair<T> x =
-            accumulate_at(a.hi, a.lo, a.d, a.rows, a.cols, gi, gj);
-        a.hi_out[g] = x.hi;
-        a.lo_out[g] = x.lo;
-        a.rhs_out[g] = srhs[idx];
-      }
-    }
-    if (a.res_mode == RES_NONE) continue;
-    T res = T(0);
-    if (in) {
-      const Coefs<T> co = coefs(idx, gi, gj);
-      const T diag = FORM == FORM_NINE ? sco[8 * wsize + idx] : a.diag;
-      res = srhs[idx] - diag * su[idx] - nb(r, c, idx, co);
-    }
+    a.u_out[g] = su[idx];
+    const Pair<T> x = accumulate_at(a.hi, a.lo, a.d, a.rows, a.cols, gi, gj);
+    a.hi_out[g] = x.hi;
+    a.lo_out[g] = x.lo;
+    a.rhs_out[g] = srhs[idx];
+    const T res = srhs[idx] - a.diag * su[idx] -
+                  nb_at(su, r, c, wh, ww, coefs(idx, gi, gj));
     if (a.res_mode == RES_FULL) {
-      if (in) a.res_out[g] = res;
-    } else if (a.res_mode == RES_ROWS_DEC) {
-      if (in && !(gi & 1))
-        a.res_out[static_cast<size_t>(gi >> 1) * a.cols + gj] = res;
+      a.res_out[g] = res;
+    } else if (!(gi & 1)) {  // RES_ROWS_DEC
+      a.res_out[static_cast<size_t>(gi >> 1) * a.cols + gj] = res;
     }
   }
 }
 
-// Launch one smoothing pass over the tiles of a.rows x a.cols with
-// `kernel`, a __global__ wrapper of smooth_tile<T, FORM>.  Returns the
-// launch error (a window past the 227 KB of shared memory a block may
-// have is refused here, by cudaFuncSetAttribute).
-template <int FORM, typename T>
+// Launch K8 over the tiles of a.rows x a.cols with `kernel`, a __global__
+// wrapper of smooth_tile<T>.  Returns the launch error (a window past the
+// 227 KB of shared memory a block may have is refused here, by
+// cudaFuncSetAttribute).
+template <typename T>
 cudaError_t launch_smooth(void (*kernel)(SmoothArgs<T>), const SmoothArgs<T>& a,
                           cudaStream_t stream) {
-  const size_t smem =
-      smooth_smem_bytes(a.nsweeps, sizeof(T), smooth_planes<FORM>());
+  const size_t smem = smooth_smem_bytes(a.nsweeps, sizeof(T));
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -420,15 +328,16 @@ cudaError_t launch_smooth(void (*kernel)(SmoothArgs<T>), const SmoothArgs<T>& a,
 }
 
 // ---------------------------------------------------------------------------
-// The from_v smoothing block of K2 and K7 (mg_smooth), and of every level
-// of the tower (K3, K4: tower.cu, with their transfers as compile-time
-// variants): the cascade of smooth_tile with the CN coefficients
-// recomputed from (v1, v2), redesigned for Hopper.  What bounds smooth_tile
-// is instruction issue, not bytes: at
-// every window cell each color pass recomputes its window index (a
-// division), its parity, its masks and its four coefficients, and reads its
-// neighbours through bounds tests; the window is 2.07x the 32x32 tile; and a
-// color pass touches every second word of a row.  This block:
+// The from_v smoothing block: K2 and K7 (mg_smooth), every level of the
+// tower (K3, K4: tower.cu, with their transfers as compile-time variants),
+// and with its coefficients loaded from stored bands in place of their
+// recompute from (v1, v2), K5 (mg_smooth5, FORM_FIVE) and K6 (mg_smooth9,
+// FORM_NINE).  It replaced the cascade of a 32x32 tile (smooth_tile, now
+// K8's alone), which is bound by instruction issue, not bytes: at every
+// window cell each color pass recomputes its window index (a division),
+// its parity, its masks and its coefficients, and reads its neighbours
+// through bounds tests; its window is 2.07x the tile; and a color pass
+// touches every second word of a row.  This block:
 //
 //  - has a window of fixed shape, FV_WIN_H x FV_WIN_W = 64 x 64, whose
 //    halo follows nsweeps: hr = 2*nsweeps+1 rows and hc = hr rounded up to
@@ -443,19 +352,35 @@ cudaError_t launch_smooth(void (*kernel)(SmoothArgs<T>), const SmoothArgs<T>& a,
 //    the window 0 there, with no bounds test;
 //  - maps threads to cells once: warp g owns window rows g, g+16, g+32 and
 //    g+48, lane k the pair of columns (2k, 2k+1) of each.  The thread
-//    loads its pairs (two values at a time where the rows are aligned),
-//    forms their rhs and coefficients once, and keeps them in registers
-//    (FV_ROWS x 2 x 5 values), so a color pass is, per cell, four shared
-//    loads, the neighbour sum, the update and one shared store.  A warp's
-//    rows share a parity, so which column of its pairs is red is fixed per
-//    warp, and a pass branches on it once;
-//  - runs two blocks of 512 threads per SM in float32 (64 registers).
+//    issues the global loads of its pairs (two values at a time where the
+//    rows are aligned) together, five a cell, before it uses any, forms
+//    their rhs and edge coefficients once, and keeps them in registers
+//    (FV_ROWS x 2 x 5 values), so a five-point color pass is, per cell,
+//    four shared loads, the neighbour sum, the update and one shared
+//    store.  A warp's rows share a parity, so which column of its pairs is
+//    red is fixed per warp, and a pass branches on it once;
+//  - in FORM_NINE (K6) also keeps each cell's corner bands and 1/diag,
+//    formed once a launch as T(1) / diag, in dynamic shared memory, one
+//    word a thread in a row (FV_NINE_WORDS a cell), where registers cannot
+//    hold them in float64.  A nine-point pass reads the corners, which
+//    share the cell's color and are updated in the same pass, at their
+//    values from before it: every thread forms its cells' updates into
+//    registers, the block meets at a barrier, then stores them.  The
+//    diagonal itself is read once more at the residual;
+//  - runs two blocks of 512 threads per SM in float32 (64 registers, no
+//    spill) and one in float64.
 //
-// Every expression keeps the operation order of smooth_tile (coefs_at,
-// cc*up + dd*dn + aa*lf + bb*rt, (rhs - nb)*inv, rhs - diag*u - nb), and
-// the validity argument of smooth_tile holds unchanged: each side's halo
-// is at least 2*nsweeps+1 cells, and a cell whose neighbour lies past the
-// window reads 0 there.  The from_v mask is 0 past the array, as there.
+// Every expression keeps the operation order of the plain versions
+// (coefs_at; cc*up + dd*dn + aa*lf + bb*rt, then + ne*ur + nw*ul + se*dr +
+// sw*dl on a nine-band level; (rhs - nb)*inv; rhs - diag*u - nb).  The
+// window holds exactly what a global barrier between colors would give:
+// each side's halo is at least 2*nsweeps+1 cells, a cell whose neighbour
+// lies past the window reads 0 there, and the error that makes moves one
+// cell a pass (corners included: the nine-point stencil has radius 1 too),
+// so after the cascade and the residual it has not reached the tile.  Cells
+// past the array are 0 and stay 0: the from_v mask, the stored bands and
+// the rhs are 0 there, and a nine-band diagonal is 1 there, so 1/diag stays
+// finite.
 constexpr int FV_WIN_H = 64;
 constexpr int FV_WIN_W = 64;
 constexpr int FV_COL_ALIGN = 4;
@@ -565,6 +490,49 @@ __device__ __forceinline__ void fv_pass(T* self, const T* __restrict__ other,
   }
 }
 
+// FORM_NINE keeps each cell's corner bands (ne, nw, se, sw) and 1/diag in
+// dynamic shared memory: word q of the thread's cell in row j and column
+// parity p at ((q * FV_ROWS + j) * 2 + p) * FV_THREADS + threadIdx.x, so a
+// warp reads 32 consecutive words.
+constexpr int FV_NINE_WORDS = 5;
+constexpr int FV_NINE_Q = FV_ROWS * 2 * FV_THREADS;  // word q to word q + 1
+template <typename T>
+constexpr size_t fv_nine_smem_bytes() {
+  return static_cast<size_t>(FV_NINE_WORDS) * FV_NINE_Q * sizeof(T);
+}
+
+// The nine-point neighbour sum of the cell at `at` of `self` (left
+// neighbour other[side]), whose corner words start at `x`.
+template <typename T>
+__device__ __forceinline__ T fv_nb9(const T* self, const T* other,
+                                    const FvCell<T>& c, const T* x, int at,
+                                    int side) {
+  return c.cc * self[at - FV_STRIDE] + c.dd * self[at + FV_STRIDE] +
+         c.aa * other[side] + c.bb * other[side + 1] +
+         x[0] * other[side + 1 - FV_STRIDE] +
+         x[FV_NINE_Q] * other[side - FV_STRIDE] +
+         x[2 * FV_NINE_Q] * other[side + 1 + FV_STRIDE] +
+         x[3 * FV_NINE_Q] * other[side + FV_STRIDE];
+}
+
+// fv_pass on a nine-band level: the updates of the thread's cells of one
+// column parity (whose row-0 words start at `x`), all read before any is
+// stored, into `upd`; the caller stores them after a barrier.
+template <typename T>
+__device__ __forceinline__ void fv_pass9(const T* self, const T* other,
+                                         const FvCell<T> (&c)[FV_ROWS],
+                                         const T* x, int cell, int lf,
+                                         T (&upd)[FV_ROWS]) {
+#pragma unroll
+  for (int j = 0; j < FV_ROWS; ++j) {
+    const int at = cell + j * FV_WARPS * FV_STRIDE;
+    const int side = lf + j * FV_WARPS * FV_STRIDE;
+    const T* xj = x + j * 2 * FV_THREADS;
+    upd[j] = (c[j].rhs - fv_nb9(self, other, c[j], xj, at, side)) *
+             xj[4 * FV_NINE_Q];
+  }
+}
+
 // What a from_v block does besides smoothing, fixed at compile time so that
 // K2 and K7 carry none of the tower's code: nothing (K2, K7); the descent's
 // injection of the residual into the next coarser rhs (K3, RES_INJECT); or
@@ -584,16 +552,20 @@ struct FvRun {
 };
 
 // One run of the block on tile (ty, tx) of the level `a`, with the iterate,
-// sweeps and modes of `run` (a's own for K2 and K7, an FvRun for a link of
-// the tower).  Every global array the tower writes in one level phase and
-// reads in a later one (the coarser rhs, the coarser solution, a chain's
-// iterate) is read by plain loads: nothing here takes the read-only path
-// (no __ldg, no const __restrict__ on a global pointer), whose cache does
-// not see those writes.
-template <typename T, int ACCESS, int XFER = FV_SMOOTH, typename Run>
+// sweeps and modes of `run` (a's own for K2, K5, K6 and K7, an FvRun for a
+// link of the tower), and the coefficients of FORM.  Every global array the
+// tower writes in one level phase and reads in a later one (the coarser
+// rhs, the coarser solution, a chain's iterate) is read by plain loads:
+// nothing here takes the read-only path (no __ldg, no const __restrict__ on
+// a global pointer), whose cache does not see those writes.
+template <typename T, int ACCESS, int XFER = FV_SMOOTH, int FORM = FORM_FROM_V,
+          typename Run>
 __device__ void smooth_from_v(const SmoothArgs<T>& a, const Run& run, int ty,
                               int tx) {
+  static_assert(FORM == FORM_FROM_V || XFER == FV_SMOOTH,
+                "the tower's transfers run on from_v levels");
   __shared__ T plane[2][(FV_WIN_H + 2) * FV_STRIDE];  // even, odd columns
+  extern __shared__ __align__(16) unsigned char mg_smem[];  // FORM_NINE
   const int hr = fv_halo_rows(run.nsweeps), hc = fv_halo_cols(run.nsweeps);
   const int gi0 = ty * (FV_WIN_H - 2 * hr) - hr;
   const int gj0 = tx * (FV_WIN_W - 2 * hc) - hc;
@@ -602,6 +574,11 @@ __device__ void smooth_from_v(const SmoothArgs<T>& a, const Run& run, int ty,
   const int cell = (g + 1) * FV_STRIDE + k + 1;
   // the odd column of the thread's pairs is red: rows of g's parity
   const bool odd_red = (gi0 + gj0 + g) & 1;
+  // FORM_NINE: the corner words of the thread's cell in row j, parity p
+  const auto nine = [&](int j, int p) {
+    return reinterpret_cast<T*>(mg_smem) + (j * 2 + p) * FV_THREADS +
+           threadIdx.x;
+  };
 
   for (int q = threadIdx.x; q < 2 * (FV_WIN_H + 2); q += FV_THREADS) {
     T* row = plane[q & 1] + (q >> 1) * FV_STRIDE;
@@ -612,12 +589,37 @@ __device__ void smooth_from_v(const SmoothArgs<T>& a, const Run& run, int ty,
         T(0);
   }
 
-  // Every global load of the thread is issued before any is used, so
-  // they are in flight together: rhs, v1, v2, u and corr (or the
-  // prolongation) land in the five slots of the cell, which the
-  // coefficients then take over.
+  // The thread's global loads are issued before any is used, so they are
+  // in flight together: rhs, v1, v2, u and corr (or the prolongation) land
+  // in the five slots of the cell, which the coefficients then take over.
+  // The band forms land rhs, aa, bb, u and corr there, and once u + corr
+  // is in the plane, the cc and dd bands take the slots u and corr held:
+  // seven loads a cell in flight at once spill at the 64 registers of two
+  // blocks an SM in float32, and measured slower.  FORM_NINE first loads
+  // the corners and the diagonal (1 past the array) into shared memory,
+  // with 1/diag.
   const bool col_in0 = gj >= 0 && gj < a.cols;
   const bool col_in1 = gj + 1 >= 0 && gj + 1 < a.cols;
+  if constexpr (FORM == FORM_NINE) {
+#pragma unroll
+    for (int j = 0; j < FV_ROWS; ++j) {
+      const int gi = gi0 + g + j * FV_WARPS;
+      const bool row_in = gi >= 0 && gi < a.rows;
+      const bool in0 = row_in && col_in0, in1 = row_in && col_in1;
+      const size_t at = row_in ? static_cast<size_t>(gi) * a.cols + gj : 0;
+      T e0[FV_NINE_WORDS], e1[FV_NINE_WORDS];
+#pragma unroll
+      for (int q = 0; q < FV_NINE_WORDS; ++q)
+        fv_load<ACCESS>(a.bands[4 + q], at, in0, in1, e0[q], e1[q]);
+      e0[4] = T(1) / (in0 ? e0[4] : T(1));
+      e1[4] = T(1) / (in1 ? e1[4] : T(1));
+#pragma unroll
+      for (int q = 0; q < FV_NINE_WORDS; ++q) {
+        nine(j, 0)[q * FV_NINE_Q] = e0[q];
+        nine(j, 1)[q * FV_NINE_Q] = e1[q];
+      }
+    }
+  }
   FvCell<T> c0[FV_ROWS], c1[FV_ROWS];  // columns gj, gj + 1
 #pragma unroll
   for (int j = 0; j < FV_ROWS; ++j) {
@@ -626,44 +628,76 @@ __device__ void smooth_from_v(const SmoothArgs<T>& a, const Run& run, int ty,
     const bool in0 = row_in && col_in0, in1 = row_in && col_in1;
     const size_t at = row_in ? static_cast<size_t>(gi) * a.cols + gj : 0;
     fv_load<ACCESS>(a.rhs, at, in0, in1, c0[j].rhs, c1[j].rhs);
-    fv_load<ACCESS>(a.v1, at, in0, in1, c0[j].aa, c1[j].aa);
-    fv_load<ACCESS>(a.v2, at, in0, in1, c0[j].bb, c1[j].bb);
     const bool load_u = run.load_mode != LOAD_ZERO;
-    fv_load<ACCESS>(run.u, at, in0 && load_u, in1 && load_u, c0[j].cc,
-                   c1[j].cc);
-    if constexpr (XFER == FV_SMOOTH) {
+    if constexpr (FORM == FORM_FROM_V) {
+      fv_load<ACCESS>(a.v1, at, in0, in1, c0[j].aa, c1[j].aa);
+      fv_load<ACCESS>(a.v2, at, in0, in1, c0[j].bb, c1[j].bb);
+      fv_load<ACCESS>(run.u, at, in0 && load_u, in1 && load_u, c0[j].cc,
+                     c1[j].cc);
+      if constexpr (XFER == FV_SMOOTH) {
+        const bool load_corr = run.load_mode == LOAD_U_CORR;
+        fv_load<ACCESS>(a.corr, at, in0 && load_corr, in1 && load_corr,
+                       c0[j].dd, c1[j].dd);
+      } else if constexpr (XFER == FV_PROLONG) {
+        // 0 past the array, as u is there (in1 implies in0: gj is even)
+        c0[j].dd = c1[j].dd = T(0);
+        if (in0 && run.load_mode == LOAD_U_PROLONG) {
+          prolong_pair(a.src, a.src_rows, a.src_cols, gi, gj, c0[j].dd,
+                       c1[j].dd);
+          if (!in1) c1[j].dd = T(0);
+        }
+      }
+    } else {
+      fv_load<ACCESS>(a.bands[0], at, in0, in1, c0[j].aa, c1[j].aa);
+      fv_load<ACCESS>(a.bands[1], at, in0, in1, c0[j].bb, c1[j].bb);
       const bool load_corr = run.load_mode == LOAD_U_CORR;
+      fv_load<ACCESS>(run.u, at, in0 && load_u, in1 && load_u, c0[j].cc,
+                     c1[j].cc);
       fv_load<ACCESS>(a.corr, at, in0 && load_corr, in1 && load_corr,
                      c0[j].dd, c1[j].dd);
-    } else if constexpr (XFER == FV_PROLONG) {
-      // 0 past the array, as u is there (in1 implies in0: gj is even)
-      c0[j].dd = c1[j].dd = T(0);
-      if (in0 && run.load_mode == LOAD_U_PROLONG) {
-        prolong_pair(a.src, a.src_rows, a.src_cols, gi, gj, c0[j].dd,
-                     c1[j].dd);
-        if (!in1) c1[j].dd = T(0);
-      }
     }
   }
-  // u + corr (K2, K7) or u + the prolongation (K4), in that order
-  const bool add = XFER == FV_PROLONG ? run.load_mode == LOAD_U_PROLONG
-                   : XFER == FV_SMOOTH && run.load_mode == LOAD_U_CORR;
-  // the interior mask at (gi + row_off, gj), 0 past the array
-  const bool col_int0 = col_in0 && gj >= 1 && gj <= a.n - 1;
-  const bool col_int1 = col_in1 && gj + 1 >= 1 && gj + 1 <= a.n - 1;
+  if constexpr (FORM == FORM_FROM_V) {
+    // u + corr (K2, K7) or u + the prolongation (K4), in that order
+    const bool add = XFER == FV_PROLONG ? run.load_mode == LOAD_U_PROLONG
+                     : XFER == FV_SMOOTH && run.load_mode == LOAD_U_CORR;
+    // the interior mask at (gi + row_off, gj), 0 past the array
+    const bool col_int0 = col_in0 && gj >= 1 && gj <= a.n - 1;
+    const bool col_int1 = col_in1 && gj + 1 >= 1 && gj + 1 <= a.n - 1;
 #pragma unroll
-  for (int j = 0; j < FV_ROWS; ++j) {
-    const int gi = gi0 + g + j * FV_WARPS, row = gi + a.row_off;
-    const bool row_int = gi >= 0 && gi < a.rows && row >= 1 && row <= a.n - 1;
-    auto form = [&](FvCell<T>& x, bool col_int, T* to) {
-      *to = add ? x.cc + x.dd : x.cc;
-      const Coefs<T> co = coefs_at(x.aa, x.bb,
-                                   row_int && col_int ? T(1) : T(0), a.rr,
-                                   a.hh, a.nu);
-      x = {x.rhs, co.aa, co.bb, co.cc, co.dd};
-    };
-    form(c0[j], col_int0, &plane[0][cell + j * FV_WARPS * FV_STRIDE]);
-    form(c1[j], col_int1, &plane[1][cell + j * FV_WARPS * FV_STRIDE]);
+    for (int j = 0; j < FV_ROWS; ++j) {
+      const int gi = gi0 + g + j * FV_WARPS, row = gi + a.row_off;
+      const bool row_int =
+          gi >= 0 && gi < a.rows && row >= 1 && row <= a.n - 1;
+      auto form = [&](FvCell<T>& x, bool col_int, T* to) {
+        *to = add ? x.cc + x.dd : x.cc;
+        const Coefs<T> co = coefs_at(x.aa, x.bb,
+                                     row_int && col_int ? T(1) : T(0), a.rr,
+                                     a.hh, a.nu);
+        x = {x.rhs, co.aa, co.bb, co.cc, co.dd};
+      };
+      form(c0[j], col_int0, &plane[0][cell + j * FV_WARPS * FV_STRIDE]);
+      form(c1[j], col_int1, &plane[1][cell + j * FV_WARPS * FV_STRIDE]);
+    }
+  } else {
+    const bool add = run.load_mode == LOAD_U_CORR;  // u + corr
+#pragma unroll
+    for (int j = 0; j < FV_ROWS; ++j) {
+      plane[0][cell + j * FV_WARPS * FV_STRIDE] =
+          add ? c0[j].cc + c0[j].dd : c0[j].cc;
+      plane[1][cell + j * FV_WARPS * FV_STRIDE] =
+          add ? c1[j].cc + c1[j].dd : c1[j].cc;
+    }
+    // then the cc and dd bands into the slots u and corr held
+#pragma unroll
+    for (int j = 0; j < FV_ROWS; ++j) {
+      const int gi = gi0 + g + j * FV_WARPS;
+      const bool row_in = gi >= 0 && gi < a.rows;
+      const bool in0 = row_in && col_in0, in1 = row_in && col_in1;
+      const size_t at = row_in ? static_cast<size_t>(gi) * a.cols + gj : 0;
+      fv_load<ACCESS>(a.bands[2], at, in0, in1, c0[j].cc, c1[j].cc);
+      fv_load<ACCESS>(a.bands[3], at, in0, in1, c0[j].dd, c1[j].dd);
+    }
   }
   __syncthreads();
 
@@ -671,7 +705,22 @@ __device__ void smooth_from_v(const SmoothArgs<T>& a, const Run& run, int ty,
   // cell's even pair k
   for (int s = 0; s < run.nsweeps; ++s) {
     for (int color = 0; color < 2; ++color) {
-      if (odd_red != (color == 1)) {
+      if constexpr (FORM == FORM_NINE) {
+        // the corners share the pass's color: form every update, meet,
+        // then store
+        const bool odd = odd_red != (color == 1);
+        T upd[FV_ROWS];
+        if (odd) {
+          fv_pass9(plane[1], plane[0], c1, nine(0, 1), cell, cell, upd);
+        } else {
+          fv_pass9(plane[0], plane[1], c0, nine(0, 0), cell, cell - 1, upd);
+        }
+        __syncthreads();
+        T* self = plane[odd ? 1 : 0];
+#pragma unroll
+        for (int j = 0; j < FV_ROWS; ++j)
+          self[cell + j * FV_WARPS * FV_STRIDE] = upd[j];
+      } else if (odd_red != (color == 1)) {
         fv_pass(plane[1], plane[0], c1, cell, cell, a.inv_diag);
       } else {
         fv_pass(plane[0], plane[1], c0, cell, cell - 1, a.inv_diag);
@@ -690,6 +739,20 @@ __device__ void smooth_from_v(const SmoothArgs<T>& a, const Run& run, int ty,
            (co.cc * self[at - FV_STRIDE] + co.dd * self[at + FV_STRIDE] +
             co.aa * other[side] + co.bb * other[side + 1]);
   };
+  // FORM_NINE: the diagonal of the thread's rows, read again for the
+  // residual, all rows' loads issued first
+  [[maybe_unused]] T diag0[FV_ROWS], diag1[FV_ROWS];
+  if constexpr (FORM == FORM_NINE) {
+    const bool load = run.res_mode != RES_NONE;
+#pragma unroll
+    for (int j = 0; j < FV_ROWS; ++j) {
+      const int gi = gi0 + g + j * FV_WARPS;
+      const bool row_in = load && gi >= 0 && gi < a.rows;
+      const size_t at = row_in ? static_cast<size_t>(gi) * a.cols + gj : 0;
+      fv_load<ACCESS>(a.bands[8], at, row_in && col_in0, row_in && col_in1,
+                      diag0[j], diag1[j]);
+    }
+  }
 #pragma unroll
   for (int j = 0; j < FV_ROWS; ++j) {
     const int r = g + j * FV_WARPS, gi = gi0 + r;
@@ -713,8 +776,16 @@ __device__ void smooth_from_v(const SmoothArgs<T>& a, const Run& run, int ty,
           (run.res_mode == RES_ROWS_DEC &&
            ((gi & 1) || (gi >> 1) >= a.res_rows)))
         continue;
-      const T res0 = residual(c0[j], plane[0], plane[1], at, at - 1);
-      const T res1 = residual(c1[j], plane[1], plane[0], at, at);
+      T res0, res1;
+      if constexpr (FORM == FORM_NINE) {
+        res0 = c0[j].rhs - diag0[j] * plane[0][at] -
+               fv_nb9(plane[0], plane[1], c0[j], nine(j, 0), at, at - 1);
+        res1 = c1[j].rhs - diag1[j] * plane[1][at] -
+               fv_nb9(plane[1], plane[0], c1[j], nine(j, 1), at, at);
+      } else {
+        res0 = residual(c0[j], plane[0], plane[1], at, at - 1);
+        res1 = residual(c1[j], plane[1], plane[0], at, at);
+      }
       fv_store<ACCESS>(a.res_out,
                       run.res_mode == RES_FULL
                           ? out
@@ -725,15 +796,19 @@ __device__ void smooth_from_v(const SmoothArgs<T>& a, const Run& run, int ty,
 }
 
 // Launch the from_v block over a.rows x a.cols, one block per tile, with
-// `paired` (smooth_from_v<T, FV_PAIRED>) where every row of every array
-// starts aligned to a pair of values (the window's columns start even),
-// else with `singles` (smooth_from_v<T, FV_SINGLES>).  An nsweeps whose
-// halo leaves no tile is refused with cudaErrorInvalidValue; returns the
-// launch error.
+// `paired` (smooth_from_v<T, FV_PAIRED, ...>) where every row of every
+// array starts aligned to a pair of values (the window's columns start
+// even), else with `singles` (smooth_from_v<T, FV_SINGLES, ...>), and
+// `smem` bytes of dynamic shared memory (FORM_NINE's corner words).  A
+// block's static and dynamic shared memory together pass 48 KB only under
+// cudaFuncAttributeMaxDynamicSharedMemorySize, so it is set whenever the
+// block takes dynamic memory.  An nsweeps whose halo leaves no tile is
+// refused with cudaErrorInvalidValue; returns the launch error.
 template <typename T>
 cudaError_t launch_smooth_from_v(void (*paired)(SmoothArgs<T>),
                                  void (*singles)(SmoothArgs<T>),
-                                 const SmoothArgs<T>& a, cudaStream_t stream) {
+                                 const SmoothArgs<T>& a, cudaStream_t stream,
+                                 size_t smem = 0) {
   if (a.nsweeps < 0) return cudaErrorInvalidValue;
   const int th = fv_tile_rows(a.nsweeps), tw = fv_tile_cols(a.nsweeps);
   if (th < 2 || tw < 2) return cudaErrorInvalidValue;
@@ -741,9 +816,21 @@ cudaError_t launch_smooth_from_v(void (*paired)(SmoothArgs<T>),
   bool aligned = a.cols % 2 == 0;
   for (const T* x : arrays)
     aligned = aligned && reinterpret_cast<size_t>(x) % (2 * sizeof(T)) == 0;
+  for (const T* x : a.bands)
+    aligned = aligned && reinterpret_cast<size_t>(x) % (2 * sizeof(T)) == 0;
   const dim3 grid((a.cols + tw - 1) / tw, (a.rows + th - 1) / th);
   void (*kernel)(SmoothArgs<T>) = aligned ? paired : singles;
-  kernel<<<grid, FV_THREADS, 0, stream>>>(a);
+  if (smem > 0) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, FV_THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -20,11 +20,12 @@
 // K8, the whole-step opening, replaces _kernel_open_smooth (launched by
 // _fused_open_smooth at :329, through fused_open_presmooth): K1 and the top
 // level's zero-init pre-smooth block (K2) with its trailing residual, full
-// or row-decimated, in one pass.  It is K2's smoothing block,
-// mg::smooth_tile, instantiated with OPEN: the window loads u = 0 and fills
-// its rhs with delta_open_at at every window cell (neighbours read from global
-// memory, as K1 reads them), so the window's rhs is exact to its edge, and
-// the tile's write-back also writes (hi', lo', rhs_delta).  Bound: 5 arrays
+// or row-decimated, in one pass.  It is mg::smooth_tile, the 32x32-tile
+// smoothing block K2 ran before its redesign, which K8 alone still
+// launches: the window loads u = 0 and fills its rhs with delta_open_at at
+// every window cell (neighbours read from global memory, as K1 reads
+// them), so the window's rhs is exact to its edge, and the tile's
+// write-back also writes (hi', lo', rhs_delta).  Bound: 5 arrays
 // read, 4 written plus the residual (half an array when row-decimated),
 // against K1 + K2's 8 + 4.5; the price is the opening recomputed at the
 // window's halo cells, about 2x the tile.  Every expression is K1's or
@@ -66,7 +67,7 @@ int delta_open(const T* hi, const T* lo, const T* d, const T* v1, const T* v2,
 template <typename T>
 __global__ void __launch_bounds__(mg::SMOOTH_THREADS)
     open_smooth_kernel(mg::SmoothArgs<T> a) {
-  mg::smooth_tile<T, mg::FORM_FROM_V, true>(a);
+  mg::smooth_tile<T>(a);
 }
 
 template <typename T>
@@ -97,8 +98,8 @@ int open_smooth(const T* hi, const T* lo, const T* d, const T* v1,
   mg::set_constants(a, rr, hh, nu, diag, inv_diag);
   a.two_rnu = static_cast<T>(two_rnu);
   a.r_h = static_cast<T>(r_h);
-  return static_cast<int>(mg::launch_smooth<mg::FORM_FROM_V>(
-      open_smooth_kernel<T>, a, stream));
+  return static_cast<int>(
+      mg::launch_smooth(open_smooth_kernel<T>, a, stream));
 }
 
 }  // namespace

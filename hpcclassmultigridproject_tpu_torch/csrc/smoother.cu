@@ -30,38 +30,39 @@
 // on all four sides.  The residual's even rows can be written alone
 // (res_rows_dec), the row half of the injection that follows.
 //
-// K2 and K7 (smooth_from_v in common.cuh) are bound by instruction issue
-// once their bytes are read once: their block forms each cell's
-// coefficients once a launch, in registers, and runs the color passes on a
-// 64x64 window stored as its even and odd columns (50x48 tile at nsweeps
-// 3), two blocks of 512 threads per SM in float32, moving pairs of values
-// as one access where the rows are aligned (smooth_v_kernel's FV_PAIRED
-// instance; FV_SINGLES otherwise).  It takes nsweeps up to 13 a launch
-// (the wrapper runs more as several launches).
-//
-// K5 and K6 are smooth_tile's 32x32 tile in 256 threads.  At nsweeps = 3
-// the 46x46 window takes 6 planes in K5 (51 KB; 102 KB in float64) and 12
-// in K6 (u, rhs, 9 coefficient planes and the pass's pending updates: 102
-// KB in float32, 203 KB in float64, under the 227 KB a block may have, at
-// one block per SM in float64).  Keeping K6's bands in shared memory
-// instead of reading them through the read-only cache on each pass keeps
-// the kernel one simple loop nest; its occupancy is the price.  Their halo
-// is recomputed work, about 2x the tile's cells per pass.
+// All four launch one block, common.cuh::smooth_from_v, bound by
+// instruction issue once its bytes are read once: it runs the color passes
+// on a 64x64 window stored as its even and odd columns (50x48 tile at
+// nsweeps 3), 512 threads that each own a column pair in four rows and
+// issue their global loads together before using any, forming each cell's
+// rhs and edge coefficients once a launch in registers, two blocks per SM
+// in float32 (64 registers, no spill) and one in float64, moving pairs of
+// values as one access where the rows are aligned (an FV_PAIRED instance;
+// FV_SINGLES otherwise).  The
+// coefficient source is a compile-time variant: K2 and K7 recompute them
+// from (v1, v2) (smooth_v_kernel), K5 and K6 load the stored bands
+// (smooth_bands_kernel, FORM_FIVE and FORM_NINE).  K6 also keeps each
+// cell's four corner bands and its 1/diag, formed once a launch, in 80 KB
+// of dynamic shared memory (160 KB in float64), and forms a pass's updates
+// into registers before it stores them, since the corners it reads share
+// the pass's color.  A launch takes nsweeps up to 13 (the wrapper runs more
+// as several launches, each exact, so any nsweeps runs).
 
 #include "common.cuh"
 
 namespace {
 
-template <typename T, int FORM>
-__global__ void __launch_bounds__(mg::SMOOTH_THREADS)
-    smooth_kernel(mg::SmoothArgs<T> a) {
-  mg::smooth_tile<T, FORM>(a);
-}
-
 template <typename T, int ACCESS>
 __global__ void __launch_bounds__(mg::FV_THREADS, mg::fv_min_blocks<T>())
     smooth_v_kernel(mg::SmoothArgs<T> a) {
   mg::smooth_from_v<T, ACCESS>(a, a, blockIdx.y, blockIdx.x);
+}
+
+template <typename T, int ACCESS, int FORM>
+__global__ void __launch_bounds__(mg::FV_THREADS, mg::fv_min_blocks<T>())
+    smooth_bands_kernel(mg::SmoothArgs<T> a) {
+  mg::smooth_from_v<T, ACCESS, mg::FV_SMOOTH, FORM>(a, a, blockIdx.y,
+                                                    blockIdx.x);
 }
 
 constexpr int ZERO_INIT = 1, ADD_CORR = 2, WANT_RES = 4, RES_ROWS_DEC = 8;
@@ -119,8 +120,9 @@ int smooth5(const T* u, const T* corr, const T* rhs, const T* aa,
   for (int q = 0; q < 4; ++q) a.bands[q] = bands[q];
   a.diag = static_cast<T>(diag);
   a.inv_diag = static_cast<T>(inv_diag);
-  return static_cast<int>(mg::launch_smooth<mg::FORM_FIVE>(
-      smooth_kernel<T, mg::FORM_FIVE>, a, stream));
+  return static_cast<int>(mg::launch_smooth_from_v(
+      smooth_bands_kernel<T, mg::FV_PAIRED, mg::FORM_FIVE>,
+      smooth_bands_kernel<T, mg::FV_SINGLES, mg::FORM_FIVE>, a, stream));
 }
 
 template <typename T>
@@ -133,8 +135,10 @@ int smooth9(const T* u, const T* corr, const T* rhs, const T* aa,
       smooth_args(u, corr, rhs, u_out, res_out, rows, cols, nsweeps, flags);
   const T* bands[9] = {aa, bb, cc, dd, ne, nw, se, sw, diag};
   for (int q = 0; q < 9; ++q) a.bands[q] = bands[q];
-  return static_cast<int>(mg::launch_smooth<mg::FORM_NINE>(
-      smooth_kernel<T, mg::FORM_NINE>, a, stream));
+  return static_cast<int>(mg::launch_smooth_from_v(
+      smooth_bands_kernel<T, mg::FV_PAIRED, mg::FORM_NINE>,
+      smooth_bands_kernel<T, mg::FV_SINGLES, mg::FORM_NINE>, a, stream,
+      mg::fv_nine_smem_bytes<T>()));
 }
 
 }  // namespace

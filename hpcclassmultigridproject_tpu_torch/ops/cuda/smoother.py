@@ -11,6 +11,9 @@ become three kernels picked by the level's form (mg/levels.py):
 - K6 (`smooth9`): nine-band (Galerkin) levels, stored aa..dd, ne..sw and
   the varying diagonal;
 
+all three on one block (`csrc/common.cuh::smooth_from_v`, its coefficient
+source a compile-time variant),
+
 and its sharded form (`_fused(with_row_off=True)`):
 
 - K7 (`smooth_rows`, `fused_rb_sweeps_rows`): K2 on a rank's block of a
@@ -34,10 +37,10 @@ from hpcclassmultigridproject_tpu_torch.ops.padded import (
 # flag bits of the C entry points (csrc/smoother.cu)
 _ZERO_INIT, _ADD_CORR, _WANT_RES, _RES_ROWS_DEC = 1, 2, 4, 8
 
-# The most sweeps one launch of K2/K7's block takes: its 64x64 window
-# (csrc/common.cuh, FV_WIN_H x FV_WIN_W) must keep a tile inside a halo of
-# 2·nsweeps+1 rows and as many columns rounded up to 4.  The wrapper runs
-# more as a chain of launches (`in_launches`).
+# The most sweeps one launch of the from_v block (K2, K5, K6, K7) takes: its
+# 64x64 window (csrc/common.cuh, FV_WIN_H x FV_WIN_W) must keep a tile
+# inside a halo of 2·nsweeps+1 rows and as many columns rounded up to 4.
+# The wrapper runs more as a chain of launches (`in_launches`).
 FROM_V_MAX_SWEEPS = 13
 
 # per form: (C entry point, launch counter, stored fields it reads)
@@ -86,9 +89,8 @@ def fused_rb_sweeps(level, u, rhs, nsweeps: int, want_residual: bool = False,
     u + corr.  `residual_rows_decimated`: return the residual's even rows
     only, shape (rows/2, cols), the row half of an injection.  CUDA tensors
     launch the level form's kernel (K2, K5 or K6), CPU tensors run the
-    plain version.  A window too large for a block's shared memory (K6 in
-    float64 past nsweeps 3) is refused by the launch, and raises; K2 takes
-    any nsweeps, past `FROM_V_MAX_SWEEPS` as a chain of launches."""
+    plain version.  Every form takes any nsweeps, past `FROM_V_MAX_SWEEPS`
+    as a chain of launches, one count in `LAUNCHES`."""
     if zero_init and corr is not None:
         raise ValueError("zero_init and corr are exclusive")
     if residual_rows_decimated and not want_residual:
@@ -180,9 +182,6 @@ def _launch(level, u, rhs, nsweeps, want_residual, zero_init, corr,
         _build.check(err, f"{counter} kernel")
         return u_out, res
 
-    if level.form == "from_v":
-        out = in_launches(u, corr, nsweeps, launch)
-    else:
-        out = launch(u, corr, nsweeps, True)
+    out = in_launches(u, corr, nsweeps, launch)
     cuda.LAUNCHES[counter] += 1
     return out

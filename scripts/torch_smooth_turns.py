@@ -1,5 +1,5 @@
-"""K2, K7, K3 and K4 of two trees of the PyTorch/CUDA port, and the main
-path, timed in turns on one card.
+"""K2, K7, K3, K4, K5 and K6 of two trees of the PyTorch/CUDA port, and the
+main, Galerkin and Poisson paths, timed in turns on one card.
 
     python3 scripts/torch_smooth_turns.py --parent DIR [--order pccp]
 
@@ -16,17 +16,25 @@ the card's time per call (`utils.timing.device_ms`, float32):
 - K2 at nsweeps 1 on the gsbench level, n=2048 (2056x2176);
 - K3 (tower descent) and K4 (tower ascent) from level 1 of n=1024
   (levels 512 .. 64 onto the dense 32), nsweeps 3, the main path's calls;
+- K5 at each smoothed level of the Poisson path (n=1024: 1032x1152 ..
+  72x128, `k5_l0_ms` .. `k5_l4_ms`) and K6 at each nine-band level of the
+  Galerkin path (520x640 .. 72x128, `k6_l1_ms` .. `k6_l4_ms`), nsweeps 3:
+  the mean of the level's pre- and post-smooth calls, each launched once a
+  cycle or step (chip_smoke.py's `_band_cases` and `_path_flags`);
 - the CLI's `gsbench --n 2048 --sweeps 500 --backend pallas`, µs a sweep
   as the host issues it;
 - the main path (AdvectionDiffusion, n=1024, 100 delta-form steps): the
   SHA-256 of its uT's bytes, its wall (host clock to a synchronize, median
   of 3 after a warm-up), and the kernel launch calls of one run under
   torch.profiler (chip_smoke.py's `_profiled_run`, cooperative launches
-  counted).
+  counted);
+- the same for the Galerkin path (the main path with Galerkin coarse
+  levels, K6), the Poisson float32 default (n=1024, 50 cycles, K5) and
+  Poisson in float64 to tol 1e-10 (7 cycles, K5).
 
 Then a summary: per tree, the median of its turns, and whether every
-turn's uT is the same to the bit.  The order defaults to parent, change,
-change, parent, so drift of the card or the host shows.
+turn's output of each path is the same to the bit.  The order defaults to
+parent, change, change, parent, so drift of the card or the host shows.
 """
 
 from __future__ import annotations
@@ -45,8 +53,14 @@ import time
 
 HERE = pathlib.Path(__file__).resolve().parents[1]
 KEYS = ("k2_pre_ms", "k2_post_ms", "k7_mean_ms", "k2_gs2048_ms",
-        "gsbench_us_per_sweep", "k3_ms", "k4_ms", "main_wall_s",
-        "main_busy_ms", "main_launch_calls")
+        "gsbench_us_per_sweep", "k3_ms", "k4_ms",
+        *(f"k5_l{lvl}_ms" for lvl in range(5)),
+        *(f"k6_l{lvl}_ms" for lvl in range(1, 5)),
+        *(f"{path}_{key}"
+          for path in ("main", "galerkin", "poisson32", "poisson64")
+          for key in ("wall_s", "busy_ms", "launch_calls")))
+HASHES = ("main_uT_sha256", "galerkin_uT_sha256", "poisson32_u_sha256",
+          "poisson64_u_sha256")
 
 
 def _chip_smoke():
@@ -65,7 +79,11 @@ def measure(root: str) -> dict:
     import torch
 
     import hpcclassmultigridproject_tpu_torch as pkg
-    from hpcclassmultigridproject_tpu_torch import ProblemConfig, cli
+    from hpcclassmultigridproject_tpu_torch import (
+        ProblemConfig,
+        SolverConfig,
+        cli,
+    )
     from hpcclassmultigridproject_tpu_torch.core.problem import (
         rotating_velocity,
     )
@@ -74,7 +92,13 @@ def measure(root: str) -> dict:
         build_hierarchy,
     )
     from hpcclassmultigridproject_tpu_torch.mg.cycle import coarse_solve_dense
-    from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+    from hpcclassmultigridproject_tpu_torch.models import (
+        AdvectionDiffusion,
+        Poisson,
+    )
+    from hpcclassmultigridproject_tpu_torch.models.poisson import (
+        build_poisson_hierarchy,
+    )
     from hpcclassmultigridproject_tpu_torch.ops.cuda import (
         _build,
         smoother,
@@ -123,6 +147,19 @@ def measure(root: str) -> dict:
         lambda: tower.tower_descend(levels, 1, rhs1, 3), 200)
     out["k4_ms"] = device_ms(
         lambda: tower.tower_ascend(levels, 1, v, u_mids, rhs_mids, 3), 200)
+    galerkin = build_hierarchy(
+        vel[0], vel[1], 0.1 / n, -4e-4, len(levels), dtype=dt, device=dev,
+        coarse_operator="galerkin")
+    poisson = build_poisson_hierarchy(n, len(smoke.POISSON_LEVELS),
+                                      dtype=dt, device=dev)
+    for tag, key, hier, lvls in (
+            ("smooth5", "k5", poisson, smoke.POISSON_LEVELS),
+            ("smooth9", "k6", galerkin, smoke.GALERKIN_LEVELS)):
+        cases = smoke._band_cases(tag, hier, f, lvls)
+        for lvl in lvls:
+            out[f"{key}_l{lvl}_ms"] = statistics.mean(
+                device_ms(cases[f"{tag} (level {lvl}, {flags})"][0], 200)
+                for flags in smoke._path_flags(tag, lvl))
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         cli.main(["gsbench", "--n", "2048", "--sweeps", "500", "--backend",
@@ -130,24 +167,41 @@ def measure(root: str) -> dict:
     out["gsbench_us_per_sweep"] = json.loads(
         buf.getvalue().splitlines()[-1])["us_per_sweep"]
     torch.backends.cuda.matmul.allow_tf32 = False
-    model = AdvectionDiffusion(ProblemConfig(n=n, num_steps=100),
-                               smoke.delta_config(certify_every=10),
-                               device=dev)
-    uT, _ = model.run(warn=False)
-    out["main_uT_sha256"] = hashlib.sha256(
-        uT.cpu().numpy().tobytes()).hexdigest()
+    for path, extra in (("main", {}),
+                        ("galerkin", dict(coarse_operator="galerkin"))):
+        model = AdvectionDiffusion(
+            ProblemConfig(n=n, num_steps=100),
+            smoke.delta_config(certify_every=10, **extra), device=dev)
+        _path(out, path, "uT", lambda: model.run(warn=False)[0], smoke)
+    f64 = SolverConfig(dtype=torch.float64, tol=1e-10, restriction="full",
+                       coarse_mode="dense")
+    for path, solver in (("poisson64", f64), ("poisson32",
+                                              Poisson.DEFAULT_SOLVER)):
+        model = Poisson(n=n, solver=solver, device=dev)
+        _path(out, path, "u", lambda: model.solve()[0], smoke)
+    return out
+
+
+def _sha(x) -> str:
+    return hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()
+
+
+def _path(out: dict, path: str, name: str, run, smoke) -> None:
+    """One path's output SHA-256 (its first run), wall (median of 3 after
+    it), and one profiled run's device busy ms and launch calls."""
+    import torch
+
+    out[f"{path}_{name}_sha256"] = _sha(run())
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
-        model.run(warn=False)
+        run()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    out["main_wall_s"] = statistics.median(walls)
-    _, busy_ms, launches, _ = smoke._profiled_run(
-        lambda: model.run(warn=False))
-    out["main_launch_calls"] = launches
-    out["main_busy_ms"] = busy_ms
-    return out
+    out[f"{path}_wall_s"] = statistics.median(walls)
+    _, busy_ms, launches, _ = smoke._profiled_run(run)
+    out[f"{path}_launch_calls"] = launches
+    out[f"{path}_busy_ms"] = busy_ms
 
 
 def main() -> None:
@@ -177,11 +231,12 @@ def main() -> None:
             f"{k} {rec[k]:.5f}" for k in KEYS), flush=True)
     summary = {tree: {k: statistics.median(r[k] for r in recs) for k in KEYS}
                for tree, recs in runs.items() if recs}
-    hashes = {r["main_uT_sha256"] for recs in runs.values() for r in recs}
-    print(f"[turns] main path uT the same to the bit in every turn: "
-          f"{len(hashes) == 1}", flush=True)
+    equal = {h: len({r[h] for recs in runs.values() for r in recs}) == 1
+             for h in HASHES}
+    print(f"[turns] each path's output the same to the bit in every turn: "
+          f"{equal}", flush=True)
     print(json.dumps({"card": smi, "order": args.order, "median": summary,
-                      "main_uT_bit_equal": len(hashes) == 1}))
+                      "bit_equal": equal}))
 
 
 if __name__ == "__main__":

@@ -242,16 +242,21 @@ def test_c_entry_points_match_the_ctypes_tables():
 
 def test_k1_and_k8_share_the_opening():
     """K1 and K8 both form the rhs with mg::delta_open_at (common.cuh); K8
-    alone instantiates smooth_tile's opening, a compile-time flag, so K5 and
-    K6 (smooth_tile) and K2-K4 and K7 (smooth_from_v) compile without it."""
+    alone instantiates smooth_tile, whose window takes its rhs from that
+    opening, so K2-K7 (smooth_from_v) compile without it."""
     source = (_build.CSRC / "delta_step.cu").read_text()
     common = (_build.CSRC / "common.cuh").read_text()
     assert "mg::delta_open_at(" in source
-    assert "smooth_tile<T, mg::FORM_FROM_V, true>" in source
-    assert "if constexpr (OPEN)" in common and "delta_open_at(" in common
+    assert "mg::smooth_tile<T>(a);" in source
+    tile = common[common.index("__device__ void smooth_tile("):
+                  common.index("cudaError_t launch_smooth(")]
+    assert "delta_open_at(" in tile
+    assert "delta_open_at(" not in common[common.index(
+        "__device__ void smooth_from_v("):]
     smoother_cu = (_build.CSRC / "smoother.cu").read_text()
     tower_cu = (_build.CSRC / "tower.cu").read_text()
-    assert "smooth_tile<" in smoother_cu and "smooth_from_v<" in tower_cu
+    assert "smooth_tile" not in smoother_cu and "smooth_tile" not in tower_cu
+    assert "smooth_from_v<" in smoother_cu and "smooth_from_v<" in tower_cu
     for text in (smoother_cu, tower_cu):
         assert ", true>" not in text and "delta_open_at" not in text
     assert pathlib.Path(_build.CSRC / "probe.cu").is_file()

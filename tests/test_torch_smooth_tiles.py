@@ -1,11 +1,15 @@
 """PyTorch port: the tiling of the from_v smoothing block
-(`csrc/common.cuh::smooth_from_v`) that K2, K7 and every level of the
-coarse tower (K3, K4: `csrc/tower.cu`) launch, emulated on the CPU.
+(`csrc/common.cuh::smooth_from_v`) that K2, K5, K6, K7 and every level of
+the coarse tower (K3, K4: `csrc/tower.cu`) launch, emulated on the CPU.
 
 The kernel cannot run here, but its schedule can: every 64x64 window
 smoothed alone (its halo from nsweeps as the launcher computes it, reads
-past the window 0, cells past the array 0 with coefficients 0, red by the
-array's parity), then the tiles stitched.  The window's shape and column
+past the window 0, cells past the array 0 with coefficients 0 and a
+nine-band diagonal of 1, red by the array's parity), then the tiles
+stitched.  Its coefficients are the level's: recomputed from (v1, v2)
+(K2, K7), or the stored bands and scalar diagonal (K5), or also the
+corners, read at their values from before the pass, and the varying
+diagonal (K6).  The window's shape and column
 alignment are read from the CUDA source.  The result is held to
 `fused_rb_sweeps_plain` (the global-barrier schedule) in float64, and must
 equal it to the bit: each cell's update is the plain version's expression,
@@ -31,10 +35,13 @@ import torch.nn.functional as F
 
 from hpcclassmultigridproject_tpu_torch.mg.cycle import coarse_solve_dense
 from hpcclassmultigridproject_tpu_torch.mg.levels import (
+    BANDS,
+    CORNERS,
     build_fine_level,
     build_hierarchy,
     level_rows,
 )
+from hpcclassmultigridproject_tpu_torch.models.poisson import poisson_level
 from hpcclassmultigridproject_tpu_torch.ops.cuda import (
     _build,
     smoother,
@@ -90,17 +97,27 @@ def _emulate(level, u, corr, rhs, nsweeps, want_residual, rows_dec):
     if corr is not None:
         u0 = u0 + corr
     c = coefs(level)
-    pad = lambda x: F.pad(x, (hc, nx * tw + hc - cols, hr, ny * th + hr - rows))
-    fields = [pad(x) for x in (u0, rhs, c.aa, c.bb, c.cc, c.dd)]
-    inv = as_dtype(1.0 / level.diag_a, DT)
-    diag = as_dtype(level.diag_a, DT)
+    nine = c.corners is not None
+    pad = lambda x, fill=0.0: F.pad(
+        x, (hc, nx * tw + hc - cols, hr, ny * th + hr - rows), value=fill)
+    fields = [pad(x) for x in (u0, rhs, c.aa, c.bb, c.cc, c.dd,
+                               *(c.corners or ()))]
+    # the nine-band diagonal is 1 past the array, as outside the interior
+    diag_f = pad(c.diag, 1.0) if nine else None
     u_out = torch.empty(ny * th, nx * tw, dtype=DT)
     res_out = torch.empty_like(u_out)
     for by in range(ny):
         for bx in range(nx):
-            uw, rw, aa, bb, cc, dd = (
-                x[by * th:by * th + wh, bx * tw:bx * tw + ww] for x in fields)
-            cw = Coefs(aa, bb, cc, dd, None, None, level.diag_a)
+            at = (slice(by * th, by * th + wh), slice(bx * tw, bx * tw + ww))
+            uw, rw, aa, bb, cc, dd, *corners = (x[at] for x in fields)
+            if nine:
+                diag = diag_f[at]
+                inv = 1.0 / diag
+            else:
+                diag = as_dtype(level.diag_a, DT)
+                inv = as_dtype(1.0 / level.diag_a, DT)
+            cw = Coefs(aa, bb, cc, dd, tuple(corners) or None,
+                       diag if nine else None, level.diag_a)
             gi = torch.arange(wh)[:, None] + by * th - hr
             gj = torch.arange(ww)[None, :] + bx * tw - hc
             red = (gi + gj) % 2 == 0
@@ -206,6 +223,101 @@ def test_a_chain_of_launches_equals_one_schedule():
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+# K5 and K6: the same block with the level's stored bands
+
+# chip_smoke.py's four flag sets of K5 and K6 (BAND_FLAG_SETS)
+BAND_FLAG_SETS = {
+    "zero_init, residual": dict(zero_init=True),
+    "zero_init, res_rows_dec": dict(zero_init=True, rows_dec=True),
+    "corr": dict(corr=True, residual=False),
+    "u, residual": {},
+}
+
+
+def _band_level(form, kind):
+    """A five-band Poisson level at n=64, or the nine-band Galerkin R·A·P
+    level at n=64 below a CN level at n=128 (both 72x128: 2x3 windows at
+    nsweeps 3); "single tile" cuts every stored array to 40x40."""
+    if form == "five":
+        level = poisson_level(64, 1.0 / 64, dtype=DT, device="cpu")
+    else:
+        vel = np.random.default_rng(7).standard_normal((2, 129, 129))
+        level = build_hierarchy(vel[0], vel[1], 0.1 / 128, -4e-4, 2,
+                                dtype=DT, device="cpu",
+                                coarse_operator="galerkin")[1]
+    assert level.form == form and level.padded == (72, 128)
+    if kind == "single tile":
+        names = (*BANDS, *CORNERS, "diag") if form == "nine" else BANDS
+        level = dataclasses.replace(level, **{
+            k: getattr(level, k)[:40, :40].contiguous() for k in names})
+    return level
+
+
+@pytest.mark.parametrize("flags", list(BAND_FLAG_SETS))
+@pytest.mark.parametrize("nsweeps", [1, 3])
+@pytest.mark.parametrize("kind", ["level", "single tile"])
+@pytest.mark.parametrize("form", ["five", "nine"])
+def test_band_windows_equal_the_plain_version(form, kind, nsweeps, flags):
+    """K5 and K6: the stitched windows of a Poisson and a Galerkin level,
+    and of a level that is a single tile, bit for bit against the plain
+    version in every flag set of their paths."""
+    level = _band_level(form, kind)
+    if kind == "single tile":
+        _, _, th, tw = _tile(nsweeps)
+        assert level.padded[0] <= th and level.padded[1] <= tw
+    f = BAND_FLAG_SETS[flags]
+    u, corr, rhs = _inputs(level.padded, seed=nsweeps)
+    zero, corr = f.get("zero_init", False), corr if f.get("corr") else None
+    rows_dec, want_res = f.get("rows_dec", False), f.get("residual", True)
+    got = _emulate(level, None if zero else u, corr, rhs, nsweeps, want_res,
+                   rows_dec)
+    want = smoother.fused_rb_sweeps_plain(
+        level, u, rhs, nsweeps, want_res, zero_init=zero, corr=corr,
+        residual_rows_decimated=rows_dec)
+    assert torch.equal(got[0], want[0])
+    if want_res:
+        assert got[1].shape == want[1].shape and torch.equal(got[1], want[1])
+    else:
+        assert got[1] is None and want[1] is None
+
+
+@pytest.mark.parametrize("form", ["five", "nine"])
+def test_a_chain_of_band_launches_equals_one_schedule(form):
+    """K5 and K6 take any nsweeps as K2 does: 20 sweeps from u + corr as a
+    chain of FROM_V_MAX_SWEEPS and the rest, equal to the plain
+    version's."""
+    level = _band_level(form, "single tile")
+    u, corr, rhs = _inputs(level.padded, seed=13)
+    calls = []
+
+    def launch(u, corr, k, last):
+        calls.append((k, last))
+        return _emulate(level, u, corr, rhs, k, last, False)
+
+    got = smoother.in_launches(u, corr, 20, launch)
+    want = smoother.fused_rb_sweeps_plain(level, u, rhs, 20, True, corr=corr)
+    assert calls == [(smoother.FROM_V_MAX_SWEEPS, False),
+                     (20 - smoother.FROM_V_MAX_SWEEPS, True)]
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_k6_corner_words_fit_the_blocks_shared_memory():
+    """K6's block: the static column planes plus the dynamic corner words
+    (FV_NINE_WORDS a cell) fit the 232,448 bytes a block may have in
+    float64, and two blocks an SM's 233,472 in float32 (1 KB of each
+    block's reserved), the occupancy its register budget is set for."""
+    source = _source()
+    const = dict(re.findall(r"constexpr int (FV_\w+) = (\d+);", source))
+    wh, ww, _ = _window()
+    rows, threads = wh // int(const["FV_WARPS"]), ww // 2 * int(
+        const["FV_WARPS"])
+    planes = 2 * (wh + 2) * (ww // 2 + 2)
+    words = int(const["FV_NINE_WORDS"]) * rows * 2 * threads
+    assert "return sizeof(T) == 4 ? 2 : 1;" in source  # fv_min_blocks
+    assert (planes + words) * 8 <= 232448
+    assert 2 * ((planes + words) * 4 + 1024) <= 233472
+
+
 def test_the_window_keeps_a_tile_up_to_the_wrappers_limit():
     """The source's window and halo rules against the wrapper's
     FROM_V_MAX_SWEEPS: a tile of at least 2x2 (even sides, so the colours
@@ -225,9 +337,10 @@ def test_the_window_keeps_a_tile_up_to_the_wrappers_limit():
 
 
 def test_k2_and_k7_take_the_from_v_block():
-    """mg_smooth launches smooth_from_v, and so do the tower's two kernels
-    (K3, K4), each in one cooperative launch; K5, K6 and K8 keep
-    smooth_tile."""
+    """mg_smooth launches smooth_from_v, and so do mg_smooth5 and
+    mg_smooth9 (K5, K6: the coefficient source a compile-time variant) and
+    the tower's two kernels (K3, K4), each in one cooperative launch; only
+    K8 instantiates smooth_tile."""
     smoother_cu = (_build.CSRC / "smoother.cu").read_text()
     body = smoother_cu[smoother_cu.index("int smooth(const T* u"):
                        smoother_cu.index("int smooth5(")]
@@ -236,7 +349,19 @@ def test_k2_and_k7_take_the_from_v_block():
     assert "smooth_v_kernel<T, mg::FV_SINGLES>" in body
     assert "smooth_tile" not in body and "FORM_FROM_V" not in body
     assert "mg::smooth_from_v<T, ACCESS>(" in smoother_cu
-    assert "mg::FORM_FIVE>(" in smoother_cu and "mg::FORM_NINE>(" in smoother_cu
+    assert ("mg::smooth_from_v<T, ACCESS, mg::FV_SMOOTH, FORM>("
+            in smoother_cu)
+    for entry, form in (("int smooth5(", "FORM_FIVE"),
+                        ("int smooth9(", "FORM_NINE")):
+        start = smoother_cu.index(entry)
+        body = smoother_cu[start:smoother_cu.index("\n}\n", start)]
+        assert "mg::launch_smooth_from_v(" in body
+        for access in ("FV_PAIRED", "FV_SINGLES"):
+            assert f"smooth_bands_kernel<T, mg::{access}, mg::{form}>" in body
+    assert "mg::fv_nine_smem_bytes<T>()" in smoother_cu
+    assert "smooth_tile" not in smoother_cu
+    tile = _tile_block()
+    assert "FORM_FIVE" not in tile and "FORM_NINE" not in tile
     tower_cu = (_build.CSRC / "tower.cu").read_text()
     assert "mg::smooth_from_v<T, ACCESS, XFER>(" in tower_cu
     assert "run_link<T, ACCESS, mg::FV_INJECT>" in tower_cu
@@ -244,8 +369,16 @@ def test_k2_and_k7_take_the_from_v_block():
     assert "cudaLaunchCooperativeKernel(" in tower_cu
     assert "<<<" not in tower_cu and "smooth_tile" not in tower_cu
     delta_cu = (_build.CSRC / "delta_step.cu").read_text()
-    assert "mg::smooth_tile<T, mg::FORM_FROM_V" in delta_cu
+    assert "mg::smooth_tile<T>(a);" in delta_cu
     assert "smooth_from_v" not in delta_cu
+
+
+def _tile_block():
+    """common.cuh's smooth_tile (K8's block), from its definition to the
+    end of its launcher."""
+    source = _source()
+    start = source.index("__device__ void smooth_tile(")
+    return source[start:source.index("cudaError_t launch_smooth(", start)]
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,8 @@ CUDA kernels themselves are held to these plain versions on the card by
 chip_smoke.py.
 
 K5 runs on a Poisson level, K6 on a real Galerkin R·A·P level, in every
-flag set of their paths, at nsweeps 1 and 3.  Tolerances: f64 atol 1e-13
+flag set of their paths, at nsweeps 1 and 3, and in f64 at 14 (past one
+launch of the port's block).  Tolerances: f64 atol 1e-13
 (tests/test_pallas.py); f32 atol 5e-7·max|x| (the few-ulp cross-program
 contract), with x the output field, or for a residual the rhs whose
 cancellation it is.
@@ -122,3 +123,24 @@ def test_banded_smoother_counts_no_launch_on_cpu():
     cuda.reset_launches()
     smoother.fused_rb_sweeps(tl, None, rhs, 3, True, zero_init=True)
     assert all(v == 0 for v in cuda.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("kind,form", [("poisson", "five"),
+                                       ("galerkin", "nine")])
+def test_banded_smoother_plain_matches_pallas_at_14_sweeps(kind, form):
+    """nsweeps 14, past the 13 one launch of the port's block takes (the
+    wrapper chains K5 and K6 there, as K2): the Pallas kernel runs it in one
+    call, and the port's plain version, which the chain equals, matches it
+    in f64 from u + corr with the residual."""
+    jl, tl = _levels(kind, jnp.float64)
+    assert tl.form == form
+    rng = np.random.default_rng(14)
+    u, rhs, corr = (_field(rng, jl.padded, jl.n, jnp.float64, s)
+                    for s in (1.0, 1.0, 1e-2))
+    want = psm.fused_rb_sweeps(jl, jnp.asarray(u), jnp.asarray(rhs), 14,
+                               want_residual=True, corr=jnp.asarray(corr))
+    got = smoother.fused_rb_sweeps(tl, torch.from_numpy(u),
+                                   torch.from_numpy(rhs), 14, True,
+                                   corr=torch.from_numpy(corr))
+    _close(got[0], want[0], jnp.float64, None)
+    _close(got[1], want[1], jnp.float64, None)
