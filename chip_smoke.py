@@ -29,9 +29,11 @@ raising on failure:
    each) bit-identical from level 1 and level 3 of n=1024 and level 1 of
    n=256 at nsweeps 1, 3 and 14, each called 20 times with every result
    equal to the first, with the grid each launch chose; the four K7 blocks
-   of level 0, stitched, against K2 on the whole field; and K8 against K1
-   then K2; then K5's and K6's time, bound and launches at each level of
-   a run of their paths;
+   of level 0, stitched, against K2 on the whole field; K8 bit for bit
+   against its plain version and against K1 then K2 at nsweeps 3 and 14
+   (K8 then a K2 link), in both residual modes, from aligned and from
+   misaligned arrays; then K5's and K6's time, bound and launches at each
+   level of a run of their paths;
 4. main path: the n=1024, 100-step delta-form run through
    AdvectionDiffusion, with every certificate <= 1e-6, the center value,
    the launch count of every kernel, and the same run through the plain
@@ -51,7 +53,8 @@ raising on failure:
    distributed_run must equal a 10-step single-device run;
 10. open-smooth: the main path with mg.delta._FUSE_OPEN_SMOOTH on (K8,
     K2 post-smooth, K3, K4; no K1): launch counts, certificates, the
-    center, uT against phase 4's, and both paths' walls in turns;
+    center, uT equal to phase 4's to the bit, and both paths' walls in
+    turns;
 11. cli: the port's CLI in subprocesses: the main configuration's `run`,
     the same checkpointed (its chunks' stats stitched: converged, every
     certificate <= 1e-6), `gsbench` at n=2048 with both backends, and
@@ -126,6 +129,7 @@ CENTER_POISSON = 0.07367129792055582      # u[512, 512], f64, tol 1e-10
 TOL = 1e-6
 DIST_WORLD, DIST_MIN_LOCAL, NCCL_STEPS = 4, 64, 10
 TOWER_SWEEPS, TOWER_REPEATS = (1, 3, 14), 20  # 14: a chain of two links
+K8_SWEEPS = (3, 14)  # 14: K8 of 13 sweeps, then a K2 link
 # the host calls that launch a kernel, as torch.profiler names them
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
                 "cuLaunchKernelEx", "cudaLaunchCooperativeKernel",
@@ -529,28 +533,46 @@ def _stitched_rows(levels, u, rhs, dtype):
           f"bit-identical {exact}")
 
 
-def _k8_against_k1_k2(fine, hi, lo, d, dtype) -> None:
-    """K8 against K1 followed by K2 from zero (both on the card), in both
-    residual modes: the same expressions in the same order, so bit-identity
-    is expected, and reported."""
+def _k8_checks(fine, hi, lo, d, dtype) -> int:
+    """K8 against its plain version and against K1 followed by K2 from zero
+    (both on the card) at each nsweeps of K8_SWEEPS, in both residual
+    modes, from aligned arrays (the block's FV_PAIRED instance) and from
+    arrays one value off a pair's alignment (FV_SINGLES): the same
+    expressions in the same order, so each must be bit-identical.  Returns
+    the number of cases."""
     from hpcclassmultigridproject_tpu_torch.ops.cuda import (
         delta_step,
         smoother,
     )
 
-    for dec in (True, False):
-        got = delta_step.fused_open_presmooth(fine, hi, lo, d, 3, dec)
-        hi2, lo2, rhs = delta_step.fused_accumulate_open(fine, hi, lo, d)
-        u1, r0 = smoother.fused_rb_sweeps(fine, None, rhs, 3, True,
-                                          zero_init=True,
-                                          residual_rows_decimated=dec)
-        torch.cuda.synchronize()
-        mode = "res_rows_dec" if dec else "full residual"
-        err, bound, exact = _compare(f"K8 vs K1, K2 ({mode})", got,
-                                     (hi2, lo2, rhs, u1, r0), dtype)
-        print(f"[kernels] open_presmooth ({mode}) {str(dtype)[6:]} against "
-              f"K1 then K2 on the card: max|K8 - (K1, K2)| {err:.3g} "
-              f"(bound {bound:.3g}), bit-identical {exact}")
+    cases = 0
+    for ns in K8_SWEEPS:
+        for dec in (True, False):
+            mode = "res_rows_dec" if dec else "full residual"
+            for what, args in (("aligned", (hi, lo, d)),
+                               ("one value off alignment",
+                                tuple(_one_off(x) for x in (hi, lo, d)))):
+                got = delta_step.fused_open_presmooth(fine, *args, ns, dec)
+                plain = delta_step.fused_open_presmooth_plain(fine, *args, ns,
+                                                              dec)
+                hi2, lo2, rhs = delta_step.fused_accumulate_open(fine, *args)
+                u1, r0 = smoother.fused_rb_sweeps(
+                    fine, None, rhs, ns, True, zero_init=True,
+                    residual_rows_decimated=dec)
+                torch.cuda.synchronize()
+                at = f"{mode}, nsweeps {ns}, {what}"
+                for against, want in (("plain", plain),
+                                      ("K1, K2", (hi2, lo2, rhs, u1, r0))):
+                    err, bound, exact = _compare(f"K8 vs {against} ({at})",
+                                                 got, want, dtype)
+                    print(f"[kernels] open_presmooth ({at}) "
+                          f"{str(dtype)[6:]} against {against} on the card:"
+                          f" max|K8 - {against}| {err:.3g} (bound "
+                          f"{bound:.3g}), bit-identical {exact}")
+                    require(exact, f"K8 ({at}) not bit-identical to "
+                            f"{against}")
+                cases += 1
+    return cases
 
 
 def _band_levels(out: dict, levels) -> None:
@@ -691,7 +713,7 @@ def phase_kernels(device, n: int) -> dict:
             lambda lv, lvl: _field(rng, lv[lvl].padded, lv[lvl].n, dtype,
                                    device)))
         _stitched_rows(levels, u, rhs, dtype)
-        _k8_against_k1_k2(fine, hi, lo, d, dtype)
+        k8_cases = _k8_checks(fine, hi, lo, d, dtype)
         exact_from_v, exact_bands, exact_tower = [], [], []
         for name, (kern, plain, shape, *timed) in {**cases, **checks}.items():
             got, want = _flatten(kern()), _flatten(plain())
@@ -704,6 +726,9 @@ def phase_kernels(device, n: int) -> dict:
                 require(exact, f"{name}: K2/K7 not bit-identical to the "
                         "plain version")
                 exact_from_v.append(exact)
+            if name.startswith("open_presmooth"):
+                require(exact, f"{name}: K8 not bit-identical to the plain "
+                        "version")
             if name.startswith("smooth5") or name.startswith("smooth9"):
                 require(exact, f"{name}: K5/K6 not bit-identical to the "
                         "plain version")
@@ -740,6 +765,9 @@ def phase_kernels(device, n: int) -> dict:
         print(f"[kernels] K5 and K6 ({str(dtype)[6:]}): bit-identical to "
               f"their plain versions in {sum(exact_bands)} of "
               f"{len(exact_bands)} cases")
+        print(f"[kernels] K8 ({str(dtype)[6:]}): bit-identical to its "
+              f"plain version and to K1 then K2 in {k8_cases} of {k8_cases} "
+              f"cases, and to its plain version at the path's call")
         print(f"[kernels] K3 and K4 ({str(dtype)[6:]}): bit-identical to "
               f"their plain versions, and each of {TOWER_REPEATS} calls "
               f"equal to the first, in {sum(exact_tower)} of "
@@ -1179,9 +1207,10 @@ def phase_open_smooth(device, n: int, steps: int, uT_main):
         _check_advection("open-smooth", n, steps, uT, stats, CENTER_1024,
                          True)
         du = float((uT - uT_main).abs().max())
-        print(f"[open-smooth] max|uT - uT(main path)| {du!r} (bound 1e-9, "
-              "0 expected)")
-        require(du <= 1e-9, f"open-smooth: uT off the main path's by {du:.3g}")
+        print(f"[open-smooth] max|uT - uT(main path)| {du!r}; equal to the "
+              f"bit: {torch.equal(uT, uT_main)}")
+        require(torch.equal(uT, uT_main),
+                f"open-smooth: uT off the main path's by {du:.3g}")
         walls = {False: [], True: []}
         for fused in (False, True, True, False) * 3:
             delta._FUSE_OPEN_SMOOTH = fused

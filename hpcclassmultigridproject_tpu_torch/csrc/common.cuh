@@ -1,15 +1,15 @@
 // Device code shared by the port's kernels: the CN coefficient recompute,
-// the delta step's opening at one node (K1, K8), the red-black Gauss-Seidel
-// cascade on a shared-memory window (K8's 32x32 tile, and the from_v block
-// of K2-K7 with its three coefficient sources: recomputed from (v1, v2),
-// five stored bands, nine stored bands with a varying diagonal), and the
+// the delta step's opening (K1, K8), the from_v red-black Gauss-Seidel block
+// on a shared-memory window with its three coefficient sources (recomputed
+// from (v1, v2), five stored bands, nine stored bands with a varying
+// diagonal) and its variants (the tower's transfers, K8's opening), and the
 // per-point bilinear prolongation.
 //
 // Every expression keeps the operation order of the JAX package's Pallas
 // kernels and of the port's plain PyTorch versions (ops/padded.py), and the
 // library is built with -fmad=false, so a kernel can be compared with its
 // plain version on the card to the bit or near it.  Never build this with
-// --use_fast_math: the TwoSum of delta_step.cu depends on IEEE ordering.
+// --use_fast_math: the TwoSum of the opening depends on IEEE ordering.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -18,14 +18,9 @@
 
 namespace mg {
 
-// Output tile of one smooth_tile block (K8), and its thread count.
-constexpr int TILE_H = 32;
-constexpr int TILE_W = 32;
-constexpr int SMOOTH_THREADS = 256;
-
 // How a smoothing block forms the starting iterate of each window cell.
 enum LoadMode {
-  LOAD_ZERO = 0,       // u = 0 (correction solves, the delta opening)
+  LOAD_ZERO = 0,       // u = 0 (correction solves, K8's pre-smooth)
   LOAD_U = 1,          // u
   LOAD_U_CORR = 2,     // u + corr (the prolonged correction, post-smooth)
   LOAD_U_PROLONG = 3,  // u + bilinear prolongation of a coarser field
@@ -46,7 +41,7 @@ enum ResMode {
 // FORM, a compile-time variant).
 enum CoefForm {
   FORM_FROM_V = 0,  // recomputed from (v1, v2): the CN levels (K2, K3, K4,
-                    // K7; K8's smooth_tile too)
+                    // K7, K8)
   FORM_FIVE = 1,    // stored aa, bb, cc, dd; scalar diagonal (K5)
   FORM_NINE = 2,    // stored aa..dd, ne, nw, se, sw and diag (K6)
 };
@@ -60,7 +55,7 @@ struct SmoothArgs {
   const T* u;       // LOAD_U, LOAD_U_CORR, LOAD_U_PROLONG
   const T* corr;    // LOAD_U_CORR
   const T* src;     // LOAD_U_PROLONG: the coarser field, (src_rows, src_cols)
-  const T* rhs;     // all but K8
+  const T* rhs;     // all but K8, which forms it
   const T* hi;      // K8: the state pair and the pending correction
   const T* lo;
   const T* d;
@@ -92,15 +87,10 @@ struct Pair {
   T hi, lo;
 };
 
-// (hi, lo) + d at node (i, j) by TwoSum with a Fast2Sum renormalization
-// (mg/delta.py::_accumulate), or (0, 0) past the array.
+// (h, l) + x by TwoSum with a Fast2Sum renormalization
+// (mg/delta.py::_accumulate): the accumulated pair (hi', lo').
 template <typename T>
-__device__ __forceinline__ Pair<T> accumulate_at(const T* hi, const T* lo,
-                                                 const T* d, int rows,
-                                                 int cols, int i, int j) {
-  if (i < 0 || i >= rows || j < 0 || j >= cols) return {T(0), T(0)};
-  const size_t g = static_cast<size_t>(i) * cols + j;
-  const T h = hi[g], l = lo[g], x = d[g];
+__device__ __forceinline__ Pair<T> accumulate(T h, T l, T x) {
   const T t = h + x;
   const T bv = t - h;
   const T err = (h - (t - bv)) + (x - bv);
@@ -110,18 +100,50 @@ __device__ __forceinline__ Pair<T> accumulate_at(const T* hi, const T* lo,
   return {hi2, lo3};
 }
 
+// accumulate at node (i, j) of the arrays, or (0, 0) past them.
+template <typename T>
+__device__ __forceinline__ Pair<T> accumulate_at(const T* hi, const T* lo,
+                                                 const T* d, int rows,
+                                                 int cols, int i, int j) {
+  if (i < 0 || i >= rows || j < 0 || j >= cols) return {T(0), T(0)};
+  const size_t g = static_cast<size_t>(i) * cols + j;
+  return accumulate(hi[g], lo[g], d[g]);
+}
+
+// lap, D_i and D_j of one member of the accumulated pair at a node, from
+// its value there (x) and at its four neighbours (mg/delta.py::_dform).
+template <typename T>
+struct DForm {
+  T lap, di, dj;
+};
+
+template <typename T>
+__device__ __forceinline__ DForm<T> dform(T x, T up, T dn, T lf, T rt) {
+  return {(up - x) + (dn - x) + (lf - x) + (rt - x), dn - up, rt - lf};
+}
+
+// The difference-form delta rhs at a node from the dform of hi' (h) and of
+// lo' (l),
+//   rhs = -2 r nu lap(hi' + lo') - r h (v1 D_i + v2 D_j),
+// times the interior mask m, in the operation order of
+// mg/delta.py::delta_rhs: the hi' terms plus the lo' terms, then the rest.
+// K1 and K8 both call dform and this, so their rhs agree to the bit.
+template <typename T>
+__device__ __forceinline__ T delta_rhs(const DForm<T>& h, const DForm<T>& l,
+                                       T v1, T v2, T m, T two_rnu, T r_h) {
+  const T lap = h.lap + l.lap, di = h.di + l.di, dj = h.dj + l.dj;
+  return (-(two_rnu * lap) - r_h * (v1 * di + v2 * dj)) * m;
+}
+
 template <typename T>
 struct Opened {
   T hi, lo, rhs;
 };
 
-// The delta step's opening at node (i, j) of the array: the accumulated
-// pair (hi', lo') and the difference-form delta rhs of the new pair,
-//   rhs = -2 r nu lap(hi' + lo') - r h (v1 D_i + v2 D_j),
-// masked to the open interior, in the operation order of
-// mg/delta.py::delta_rhs.  A neighbour's (hi', lo') is a pointwise function
-// of that neighbour's (hi, lo, d), so it is recomputed from their loads.
-// K1 and K8 both call this, so their rhs agree to the bit.
+// K1's opening at node (i, j) of the array: the accumulated pair and the
+// delta rhs, masked to the open interior.  A neighbour's (hi', lo') is a
+// pointwise function of that neighbour's (hi, lo, d), so it is recomputed
+// from their loads.
 template <typename T>
 __device__ __forceinline__ Opened<T> delta_open_at(
     const T* hi, const T* lo, const T* d, const T* v1, const T* v2, int rows,
@@ -131,22 +153,11 @@ __device__ __forceinline__ Opened<T> delta_open_at(
   const Pair<T> dn = accumulate_at(hi, lo, d, rows, cols, i + 1, j);
   const Pair<T> lf = accumulate_at(hi, lo, d, rows, cols, i, j - 1);
   const Pair<T> rt = accumulate_at(hi, lo, d, rows, cols, i, j + 1);
-
-  T lap = (up.hi - x.hi) + (dn.hi - x.hi) + (lf.hi - x.hi) + (rt.hi - x.hi);
-  T di = dn.hi - up.hi;
-  T dj = rt.hi - lf.hi;
-  const T lap_l =
-      (up.lo - x.lo) + (dn.lo - x.lo) + (lf.lo - x.lo) + (rt.lo - x.lo);
-  const T di_l = dn.lo - up.lo;
-  const T dj_l = rt.lo - lf.lo;
-  lap = lap + lap_l;
-  di = di + di_l;
-  dj = dj + dj_l;
-
   const size_t g = static_cast<size_t>(i) * cols + j;
-  const T m = interior_at<T>(i, j, n);
   return {x.hi, x.lo,
-          (-(two_rnu * lap) - r_h * (v1[g] * di + v2[g] * dj)) * m};
+          delta_rhs(dform(x.hi, up.hi, dn.hi, lf.hi, rt.hi),
+                    dform(x.lo, up.lo, dn.lo, lf.lo, rt.lo), v1[g], v2[g],
+                    interior_at<T>(i, j, n), two_rnu, r_h)};
 }
 
 template <typename T>
@@ -165,19 +176,6 @@ __device__ __forceinline__ Coefs<T> coefs_at(T v1, T v2, T m, T rr, T hh,
   k.cc = rr * (-v1 * hh + nu) * m;
   k.dd = rr * (v1 * hh + nu) * m;
   return k;
-}
-
-// cc*u_N + dd*u_S + aa*u_W + bb*u_E at window cell (r, c) of an (wh, ww)
-// window; reads past the window edge are 0.
-template <typename T>
-__device__ __forceinline__ T nb_at(const T* s, int r, int c, int wh, int ww,
-                                   const Coefs<T>& k) {
-  const int idx = r * ww + c;
-  const T up = r > 0 ? s[idx - ww] : T(0);
-  const T dn = r < wh - 1 ? s[idx + ww] : T(0);
-  const T lf = c > 0 ? s[idx - 1] : T(0);
-  const T rt = c < ww - 1 ? s[idx + 1] : T(0);
-  return k.cc * up + k.dd * dn + k.aa * lf + k.bb * rt;
 }
 
 template <typename T>
@@ -210,134 +208,17 @@ __device__ __forceinline__ void prolong_pair(const T* c, int rows_c,
   p1 = half * (p0 + half * (c01 + c11));
 }
 
-// Shared-memory planes of K8's window: u, rhs, v1 and v2.
-constexpr int SMOOTH_PLANES = 4;
-
-inline size_t smooth_smem_bytes(int nsweeps, size_t elem) {
-  const int halo = 2 * nsweeps + 1;
-  return SMOOTH_PLANES * static_cast<size_t>(TILE_H + 2 * halo) *
-         (TILE_W + 2 * halo) * elem;
-}
-
-// K8's block (delta_step.cu): the delta opening, then `nsweeps` red-black
-// sweeps from u = 0 and the trailing residual, for one TILE_H x TILE_W
-// output tile of a from_v level.  The block loads a window with a halo of
-// 2*nsweeps+1 cells on every side, whose rhs at every window cell is the
-// delta opening computed from global memory (its neighbours too), so the
-// window's rhs is exact to its edge; it runs all 2*nsweeps color passes in
-// shared memory and writes the tile, with (hi', lo', rhs_delta) at the
-// tile's cells.  A window cell whose neighbour lies past the window reads
-// 0 there; the error that makes moves in one cell per pass, so after the
-// cascade and the residual it has not reached the tile, which therefore
-// holds exactly what a global barrier between colors would give.  Cells
-// past the array are 0 and stay 0, since their coefficients and rhs are 0.
-// Red is (i+j) even.  A color pass reads only the other color, so it
-// updates in place.
-template <typename T>
-__device__ void smooth_tile(const SmoothArgs<T>& a) {
-  extern __shared__ __align__(16) unsigned char mg_smem[];
-  const int halo = 2 * a.nsweeps + 1;
-  const int wh = TILE_H + 2 * halo, ww = TILE_W + 2 * halo;
-  const int wsize = wh * ww;
-  T* su = reinterpret_cast<T*>(mg_smem);
-  T* srhs = su + wsize;
-  T* sv = srhs + wsize;  // v1, then v2
-  const int ti0 = blockIdx.y * TILE_H, tj0 = blockIdx.x * TILE_W;
-  const int gi0 = ti0 - halo, gj0 = tj0 - halo;
-  const int tid = threadIdx.x, nth = blockDim.x;
-
-  for (int k = tid; k < wsize; k += nth) {
-    const int r = k / ww, c = k - r * ww;
-    const int gi = gi0 + r, gj = gj0 + c;
-    const bool in = gi >= 0 && gi < a.rows && gj >= 0 && gj < a.cols;
-    const size_t g = in ? static_cast<size_t>(gi) * a.cols + gj : 0;
-    T rhs = T(0);
-    if (in)
-      rhs = delta_open_at(a.hi, a.lo, a.d, a.v1, a.v2, a.rows, a.cols, gi, gj,
-                          a.n, a.two_rnu, a.r_h)
-                .rhs;
-    su[k] = T(0);
-    srhs[k] = rhs;
-    sv[k] = in ? a.v1[g] : T(0);
-    sv[wsize + k] = in ? a.v2[g] : T(0);
-  }
-  __syncthreads();
-
-  // the stencil at window cell idx (array (gi, gj)): its four edge bands,
-  // the interior mask 0 past the array
-  auto coefs = [&](int idx, int gi, int gj) {
-    const bool in = gi >= 0 && gi < a.rows && gj >= 0 && gj < a.cols;
-    return coefs_at(sv[idx], sv[wsize + idx],
-                    in ? interior_at<T>(gi, gj, a.n) : T(0), a.rr, a.hh,
-                    a.nu);
-  };
-
-  const int half = (ww + 1) / 2;  // cells of one color in a window row, at most
-  for (int p = 0; p < 2 * a.nsweeps; ++p) {
-    const int color = p & 1;
-    for (int k = tid; k < wh * half; k += nth) {
-      const int r = k / half;
-      const int c = 2 * (k - r * half) + ((gi0 + r + gj0 + color) & 1);
-      if (c >= ww) continue;
-      const int idx = r * ww + c;
-      const Coefs<T> co = coefs(idx, gi0 + r, gj0 + c);
-      su[idx] = (srhs[idx] - nb_at(su, r, c, wh, ww, co)) * a.inv_diag;
-    }
-    __syncthreads();
-  }
-
-  for (int k = tid; k < TILE_H * TILE_W; k += nth) {
-    const int tr = k / TILE_W, tc = k - tr * TILE_W;
-    const int gi = ti0 + tr, gj = tj0 + tc;
-    const int r = tr + halo, c = tc + halo, idx = r * ww + c;
-    if (gi >= a.rows || gj >= a.cols) continue;
-    const size_t g = static_cast<size_t>(gi) * a.cols + gj;
-    a.u_out[g] = su[idx];
-    const Pair<T> x = accumulate_at(a.hi, a.lo, a.d, a.rows, a.cols, gi, gj);
-    a.hi_out[g] = x.hi;
-    a.lo_out[g] = x.lo;
-    a.rhs_out[g] = srhs[idx];
-    const T res = srhs[idx] - a.diag * su[idx] -
-                  nb_at(su, r, c, wh, ww, coefs(idx, gi, gj));
-    if (a.res_mode == RES_FULL) {
-      a.res_out[g] = res;
-    } else if (!(gi & 1)) {  // RES_ROWS_DEC
-      a.res_out[static_cast<size_t>(gi >> 1) * a.cols + gj] = res;
-    }
-  }
-}
-
-// Launch K8 over the tiles of a.rows x a.cols with `kernel`, a __global__
-// wrapper of smooth_tile<T>.  Returns the launch error (a window past the
-// 227 KB of shared memory a block may have is refused here, by
-// cudaFuncSetAttribute).
-template <typename T>
-cudaError_t launch_smooth(void (*kernel)(SmoothArgs<T>), const SmoothArgs<T>& a,
-                          cudaStream_t stream) {
-  const size_t smem = smooth_smem_bytes(a.nsweeps, sizeof(T));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((a.cols + TILE_W - 1) / TILE_W,
-                  (a.rows + TILE_H - 1) / TILE_H);
-  kernel<<<grid, SMOOTH_THREADS, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
 // The from_v smoothing block: K2 and K7 (mg_smooth), every level of the
 // tower (K3, K4: tower.cu, with their transfers as compile-time variants),
-// and with its coefficients loaded from stored bands in place of their
-// recompute from (v1, v2), K5 (mg_smooth5, FORM_FIVE) and K6 (mg_smooth9,
-// FORM_NINE).  It replaced the cascade of a 32x32 tile (smooth_tile, now
-// K8's alone), which is bound by instruction issue, not bytes: at every
-// window cell each color pass recomputes its window index (a division),
-// its parity, its masks and its coefficients, and reads its neighbours
-// through bounds tests; its window is 2.07x the tile; and a color pass
-// touches every second word of a row.  This block:
+// K8's whole-step opening (delta_step.cu, FV_OPEN: the opening forms the
+// rhs in the window), and with its coefficients loaded from stored bands in
+// place of their recompute from (v1, v2), K5 (mg_smooth5, FORM_FIVE) and K6
+// (mg_smooth9, FORM_NINE).  A red-black cascade on a shared-memory window
+// is bound by instruction issue once its bytes are read once: the block
+// forms no index, parity, mask or coefficient in a color pass, reads no
+// neighbour through a bounds test, and touches no shared word twice in a
+// warp's access.  It:
 //
 //  - has a window of fixed shape, FV_WIN_H x FV_WIN_W = 64 x 64, whose
 //    halo follows nsweeps: hr = 2*nsweeps+1 rows and hc = hr rounded up to
@@ -367,6 +248,14 @@ cudaError_t launch_smooth(void (*kernel)(SmoothArgs<T>), const SmoothArgs<T>& a,
 //    values from before it: every thread forms its cells' updates into
 //    registers, the block meets at a barrier, then stores them.  The
 //    diagonal itself is read once more at the residual;
+//  - in FV_OPEN (K8) loads hi, lo and d where the others load rhs, u and
+//    corr, folds each cell once and stores (hi', lo') at the tile's cells;
+//    the u planes then hold hi' of the window, whose lap, D_i and D_j each
+//    thread forms for its cells, then lo', whose terms complete each cell's
+//    rhs (0 past the window), then u = 0.  One plane pair serves both, so
+//    the block takes no dynamic memory and leaves the SM its L1: on the
+//    H100 a second, dynamic pair for lo' measured 1.4% slower, and 13%
+//    slower under the max-shared carveout that K6's launch asks for;
 //  - runs two blocks of 512 threads per SM in float32 (64 registers, no
 //    spill) and one in float64.
 //
@@ -377,9 +266,14 @@ cudaError_t launch_smooth(void (*kernel)(SmoothArgs<T>), const SmoothArgs<T>& a,
 // each side's halo is at least 2*nsweeps+1 cells, a cell whose neighbour
 // lies past the window reads 0 there, and the error that makes moves one
 // cell a pass (corners included: the nine-point stencil has radius 1 too),
-// so after the cascade and the residual it has not reached the tile.  Cells
-// past the array are 0 and stay 0: the from_v mask, the stored bands and
-// the rhs are 0 there, and a nine-band diagonal is 1 there, so 1/diag stays
+// so after the cascade and the residual it has not reached the tile.  In
+// FV_OPEN the rhs is wrong only at the window's edge cells, whose
+// neighbours past the window read 0 in the pair planes; from u = 0 the
+// error then reaches depth p after pass p and depth 2*nsweeps at the
+// residual, as before (the JAX kernel's own argument,
+// ops/pallas/delta_step.py::_kernel_open_smooth).  Cells past the array are
+// 0 and stay 0: the from_v mask, the stored bands, the rhs and an opened
+// pair are 0 there, and a nine-band diagonal is 1 there, so 1/diag stays
 // finite.
 constexpr int FV_WIN_H = 64;
 constexpr int FV_WIN_W = 64;
@@ -534,11 +428,21 @@ __device__ __forceinline__ void fv_pass9(const T* self, const T* other,
 }
 
 // What a from_v block does besides smoothing, fixed at compile time so that
-// K2 and K7 carry none of the tower's code: nothing (K2, K7); the descent's
-// injection of the residual into the next coarser rhs (K3, RES_INJECT); or
-// the ascent's bilinear prolongation of the coarser solution, added to u as
-// it is loaded (K4, LOAD_U_PROLONG).
-enum FvXfer { FV_SMOOTH = 0, FV_INJECT = 1, FV_PROLONG = 2 };
+// K2 and K7 carry none of the other kernels' code: nothing (K2, K7); the
+// descent's injection of the residual into the next coarser rhs (K3,
+// RES_INJECT); the ascent's bilinear prolongation of the coarser solution,
+// added to u as it is loaded (K4, LOAD_U_PROLONG); or the delta step's
+// opening, which forms the rhs the cascade from u = 0 then takes (K8).
+enum FvXfer { FV_SMOOTH = 0, FV_INJECT = 1, FV_PROLONG = 2, FV_OPEN = 3 };
+
+// FV_OPEN: dform of the pair member in the planes at the cell `at` of
+// `self`, whose left neighbour is other[side].
+template <typename T>
+__device__ __forceinline__ DForm<T> fv_dform(const T* self, const T* other,
+                                             int at, int side) {
+  return dform(self[at], self[at - FV_STRIDE], self[at + FV_STRIDE],
+               other[side], other[side + 1]);
+}
 
 // What changes between the runs of the block on one level: the iterate it
 // starts from and the one it writes, the sweeps, the load and residual
@@ -564,6 +468,8 @@ __device__ void smooth_from_v(const SmoothArgs<T>& a, const Run& run, int ty,
                               int tx) {
   static_assert(FORM == FORM_FROM_V || XFER == FV_SMOOTH,
                 "the tower's transfers run on from_v levels");
+  static_assert(XFER != FV_OPEN || FORM == FORM_FROM_V,
+                "the opening runs on from_v levels");
   __shared__ T plane[2][(FV_WIN_H + 2) * FV_STRIDE];  // even, odd columns
   extern __shared__ __align__(16) unsigned char mg_smem[];  // FORM_NINE
   const int hr = fv_halo_rows(run.nsweeps), hc = fv_halo_cols(run.nsweeps);
@@ -572,6 +478,9 @@ __device__ void smooth_from_v(const SmoothArgs<T>& a, const Run& run, int ty,
   const int k = threadIdx.x % FV_PAIRS, g = threadIdx.x / FV_PAIRS;
   const int gj = gj0 + 2 * k;  // the thread's columns: gj and gj + 1
   const int cell = (g + 1) * FV_STRIDE + k + 1;
+  // the tile's columns [hc, FV_WIN_W - hc) hold the thread's pair whole or
+  // none of it
+  const bool tile_pair = 2 * k >= hc && 2 * k < FV_WIN_W - hc;
   // the odd column of the thread's pairs is red: rows of g's parity
   const bool odd_red = (gi0 + gj0 + g) & 1;
   // FORM_NINE: the corner words of the thread's cell in row j, parity p
@@ -590,8 +499,9 @@ __device__ void smooth_from_v(const SmoothArgs<T>& a, const Run& run, int ty,
   }
 
   // The thread's global loads are issued before any is used, so they are
-  // in flight together: rhs, v1, v2, u and corr (or the prolongation) land
-  // in the five slots of the cell, which the coefficients then take over.
+  // in flight together: rhs, v1, v2, u and corr (or the prolongation; or
+  // FV_OPEN's hi, v1, v2, lo and d) land in the five slots of the cell,
+  // which the coefficients then take over.
   // The band forms land rhs, aa, bb, u and corr there, and once u + corr
   // is in the plane, the cc and dd bands take the slots u and corr held:
   // seven loads a cell in flight at once spill at the 64 registers of two
@@ -627,13 +537,19 @@ __device__ void smooth_from_v(const SmoothArgs<T>& a, const Run& run, int ty,
     const bool row_in = gi >= 0 && gi < a.rows;
     const bool in0 = row_in && col_in0, in1 = row_in && col_in1;
     const size_t at = row_in ? static_cast<size_t>(gi) * a.cols + gj : 0;
-    fv_load<ACCESS>(a.rhs, at, in0, in1, c0[j].rhs, c1[j].rhs);
+    fv_load<ACCESS>(XFER == FV_OPEN ? a.hi : a.rhs, at, in0, in1, c0[j].rhs,
+                    c1[j].rhs);
     const bool load_u = run.load_mode != LOAD_ZERO;
     if constexpr (FORM == FORM_FROM_V) {
       fv_load<ACCESS>(a.v1, at, in0, in1, c0[j].aa, c1[j].aa);
       fv_load<ACCESS>(a.v2, at, in0, in1, c0[j].bb, c1[j].bb);
-      fv_load<ACCESS>(run.u, at, in0 && load_u, in1 && load_u, c0[j].cc,
-                     c1[j].cc);
+      if constexpr (XFER == FV_OPEN) {
+        fv_load<ACCESS>(a.lo, at, in0, in1, c0[j].cc, c1[j].cc);
+        fv_load<ACCESS>(a.d, at, in0, in1, c0[j].dd, c1[j].dd);
+      } else {
+        fv_load<ACCESS>(run.u, at, in0 && load_u, in1 && load_u, c0[j].cc,
+                        c1[j].cc);
+      }
       if constexpr (XFER == FV_SMOOTH) {
         const bool load_corr = run.load_mode == LOAD_U_CORR;
         fv_load<ACCESS>(a.corr, at, in0 && load_corr, in1 && load_corr,
@@ -664,20 +580,81 @@ __device__ void smooth_from_v(const SmoothArgs<T>& a, const Run& run, int ty,
     // the interior mask at (gi + row_off, gj), 0 past the array
     const bool col_int0 = col_in0 && gj >= 1 && gj <= a.n - 1;
     const bool col_int1 = col_in1 && gj + 1 >= 1 && gj + 1 <= a.n - 1;
+    [[maybe_unused]] DForm<T> h0[FV_ROWS], h1[FV_ROWS];  // FV_OPEN: of hi'
+    if constexpr (XFER == FV_OPEN) {
+      // each cell's (hi', lo') once, to the arrays at the tile's cells; hi'
+      // into the window's planes, lo' into the cell's u slot
+#pragma unroll
+      for (int j = 0; j < FV_ROWS; ++j) {
+        const int r = g + j * FV_WARPS, gi = gi0 + r;
+        const int at = cell + j * FV_WARPS * FV_STRIDE;
+        const Pair<T> x0 = accumulate(c0[j].rhs, c0[j].cc, c0[j].dd);
+        const Pair<T> x1 = accumulate(c1[j].rhs, c1[j].cc, c1[j].dd);
+        plane[0][at] = x0.hi;
+        plane[1][at] = x1.hi;
+        c0[j].cc = x0.lo;
+        c1[j].cc = x1.lo;
+        if (tile_pair && r >= hr && r < FV_WIN_H - hr && gi < a.rows) {
+          const size_t out = static_cast<size_t>(gi) * a.cols + gj;
+          fv_store<ACCESS>(a.hi_out, out, col_in0, col_in1, x0.hi, x1.hi);
+          fv_store<ACCESS>(a.lo_out, out, col_in0, col_in1, x0.lo, x1.lo);
+        }
+      }
+      __syncthreads();
+      // the hi' terms of each cell's rhs, then lo' takes the planes
+#pragma unroll
+      for (int j = 0; j < FV_ROWS; ++j) {
+        const int at = cell + j * FV_WARPS * FV_STRIDE;
+        h0[j] = fv_dform(plane[0], plane[1], at, at - 1);
+        h1[j] = fv_dform(plane[1], plane[0], at, at);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < FV_ROWS; ++j) {
+        const int at = cell + j * FV_WARPS * FV_STRIDE;
+        plane[0][at] = c0[j].cc;
+        plane[1][at] = c1[j].cc;
+      }
+      __syncthreads();
+    }
 #pragma unroll
     for (int j = 0; j < FV_ROWS; ++j) {
       const int gi = gi0 + g + j * FV_WARPS, row = gi + a.row_off;
       const bool row_int =
           gi >= 0 && gi < a.rows && row >= 1 && row <= a.n - 1;
+      const int at = cell + j * FV_WARPS * FV_STRIDE;
+      if constexpr (XFER == FV_OPEN) {
+        // the rhs with the lo' terms, stored at the tile's cells
+        c0[j].rhs = delta_rhs(h0[j], fv_dform(plane[0], plane[1], at, at - 1),
+                              c0[j].aa, c0[j].bb,
+                              row_int && col_int0 ? T(1) : T(0), a.two_rnu,
+                              a.r_h);
+        c1[j].rhs = delta_rhs(h1[j], fv_dform(plane[1], plane[0], at, at),
+                              c1[j].aa, c1[j].bb,
+                              row_int && col_int1 ? T(1) : T(0), a.two_rnu,
+                              a.r_h);
+        const int r = gi - gi0;
+        if (tile_pair && r >= hr && r < FV_WIN_H - hr && gi < a.rows)
+          fv_store<ACCESS>(a.rhs_out, static_cast<size_t>(gi) * a.cols + gj,
+                           col_in0, col_in1, c0[j].rhs, c1[j].rhs);
+      }
+      // FV_OPEN writes u = 0 once every rhs has read its neighbours' lo'
       auto form = [&](FvCell<T>& x, bool col_int, T* to) {
-        *to = add ? x.cc + x.dd : x.cc;
+        if constexpr (XFER != FV_OPEN) *to = add ? x.cc + x.dd : x.cc;
         const Coefs<T> co = coefs_at(x.aa, x.bb,
                                      row_int && col_int ? T(1) : T(0), a.rr,
                                      a.hh, a.nu);
         x = {x.rhs, co.aa, co.bb, co.cc, co.dd};
       };
-      form(c0[j], col_int0, &plane[0][cell + j * FV_WARPS * FV_STRIDE]);
-      form(c1[j], col_int1, &plane[1][cell + j * FV_WARPS * FV_STRIDE]);
+      form(c0[j], col_int0, &plane[0][at]);
+      form(c1[j], col_int1, &plane[1][at]);
+    }
+    if constexpr (XFER == FV_OPEN) {
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < FV_ROWS; ++j)
+        plane[0][cell + j * FV_WARPS * FV_STRIDE] =
+            plane[1][cell + j * FV_WARPS * FV_STRIDE] = T(0);
     }
   } else {
     const bool add = run.load_mode == LOAD_U_CORR;  // u + corr
@@ -732,7 +709,7 @@ __device__ void smooth_from_v(const SmoothArgs<T>& a, const Run& run, int ty,
   // write back the tile (window rows [hr, FV_WIN_H - hr), columns [hc,
   // FV_WIN_W - hc): a thread's pair lies inside or outside it whole) and
   // the residual where it is written
-  if (2 * k < hc || 2 * k >= FV_WIN_W - hc) return;
+  if (!tile_pair) return;
   const auto residual = [&](const FvCell<T>& co, const T* self,
                             const T* other, int at, int side) {
     return co.rhs - a.diag * self[at] -
@@ -770,7 +747,7 @@ __device__ void smooth_from_v(const SmoothArgs<T>& a, const Run& run, int ty,
         continue;
       a.res_out[static_cast<size_t>(I) * a.res_cols + J] =
           residual(c0[j], plane[0], plane[1], at, at - 1);
-    } else if constexpr (XFER == FV_SMOOTH) {
+    } else if constexpr (XFER == FV_SMOOTH || XFER == FV_OPEN) {
       // every row, or the even rows alone
       if (run.res_mode == RES_NONE ||
           (run.res_mode == RES_ROWS_DEC &&
@@ -812,7 +789,9 @@ cudaError_t launch_smooth_from_v(void (*paired)(SmoothArgs<T>),
   if (a.nsweeps < 0) return cudaErrorInvalidValue;
   const int th = fv_tile_rows(a.nsweeps), tw = fv_tile_cols(a.nsweeps);
   if (th < 2 || tw < 2) return cudaErrorInvalidValue;
-  const T* arrays[] = {a.u, a.corr, a.rhs, a.v1, a.v2, a.u_out, a.res_out};
+  const T* arrays[] = {a.u,     a.corr,    a.rhs,    a.v1,     a.v2,
+                       a.hi,    a.lo,      a.d,      a.u_out,  a.res_out,
+                       a.hi_out, a.lo_out, a.rhs_out};
   bool aligned = a.cols % 2 == 0;
   for (const T* x : arrays)
     aligned = aligned && reinterpret_cast<size_t>(x) % (2 * sizeof(T)) == 0;

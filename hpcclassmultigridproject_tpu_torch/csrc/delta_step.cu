@@ -20,16 +20,18 @@
 // K8, the whole-step opening, replaces _kernel_open_smooth (launched by
 // _fused_open_smooth at :329, through fused_open_presmooth): K1 and the top
 // level's zero-init pre-smooth block (K2) with its trailing residual, full
-// or row-decimated, in one pass.  It is mg::smooth_tile, the 32x32-tile
-// smoothing block K2 ran before its redesign, which K8 alone still
-// launches: the window loads u = 0 and fills its rhs with delta_open_at at
-// every window cell (neighbours read from global memory, as K1 reads
-// them), so the window's rhs is exact to its edge, and the tile's
-// write-back also writes (hi', lo', rhs_delta).  Bound: 5 arrays
-// read, 4 written plus the residual (half an array when row-decimated),
-// against K1 + K2's 8 + 4.5; the price is the opening recomputed at the
-// window's halo cells, about 2x the tile.  Every expression is K1's or
-// K2's, so K8 equals K1 followed by K2 to the bit.
+// or row-decimated, in one pass.  It is the from_v block
+// (mg::smooth_from_v, common.cuh) with the opening as a compile-time
+// variant, FV_OPEN: each thread loads hi, lo, d, v1 and v2 of its cells
+// together, folds each cell once and stores (hi', lo') at the tile's
+// cells; the window's planes hold hi', then lo', and each cell's rhs is
+// formed from its neighbours there with K1's mg::dform and mg::delta_rhs;
+// then the cascade from u = 0 and the residual run as K2's.  Bound: 5
+// arrays read, 4 written plus the residual (half an array when
+// row-decimated), against K1 + K2's 8 + 4.5; the opening is computed once a
+// window cell, 1.71x the tile at nsweeps 3.  Every expression is K1's or
+// K2's, so K8 equals K1 followed by K2 to the bit.  A launch takes nsweeps
+// up to 13; the wrapper chains K2 launches from K8's iterate for more.
 
 #include "common.cuh"
 
@@ -64,19 +66,23 @@ int delta_open(const T* hi, const T* lo, const T* d, const T* v1, const T* v2,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-__global__ void __launch_bounds__(mg::SMOOTH_THREADS)
+template <typename T, int ACCESS>
+__global__ void __launch_bounds__(mg::FV_THREADS, mg::fv_min_blocks<T>())
     open_smooth_kernel(mg::SmoothArgs<T> a) {
-  mg::smooth_tile<T>(a);
+  mg::smooth_from_v<T, ACCESS, mg::FV_OPEN>(a, a, blockIdx.y, blockIdx.x);
 }
 
+// res_mode: mg::RES_NONE, RES_FULL or RES_ROWS_DEC.
 template <typename T>
 int open_smooth(const T* hi, const T* lo, const T* d, const T* v1,
                 const T* v2, T* hi_out, T* lo_out, T* rhs_out, T* u_out,
                 T* res_out, int rows, int cols, int n, int nsweeps, double rr,
                 double hh, double nu, double diag, double inv_diag,
-                double two_rnu, double r_h, int res_rows_dec,
+                double two_rnu, double r_h, int res_mode,
                 cudaStream_t stream) {
+  if (res_mode != mg::RES_NONE && res_mode != mg::RES_FULL &&
+      res_mode != mg::RES_ROWS_DEC)
+    return static_cast<int>(cudaErrorInvalidValue);
   mg::SmoothArgs<T> a{};
   a.hi = hi;
   a.lo = lo;
@@ -93,13 +99,14 @@ int open_smooth(const T* hi, const T* lo, const T* d, const T* v1,
   a.n = n;
   a.nsweeps = nsweeps;
   a.load_mode = mg::LOAD_ZERO;
-  a.res_mode = res_rows_dec ? mg::RES_ROWS_DEC : mg::RES_FULL;
-  a.res_rows = res_rows_dec ? rows / 2 : rows;
+  a.res_mode = res_mode;
+  a.res_rows = res_mode == mg::RES_ROWS_DEC ? rows / 2 : rows;
   mg::set_constants(a, rr, hh, nu, diag, inv_diag);
   a.two_rnu = static_cast<T>(two_rnu);
   a.r_h = static_cast<T>(r_h);
-  return static_cast<int>(
-      mg::launch_smooth(open_smooth_kernel<T>, a, stream));
+  return static_cast<int>(mg::launch_smooth_from_v(
+      open_smooth_kernel<T, mg::FV_PAIRED>,
+      open_smooth_kernel<T, mg::FV_SINGLES>, a, stream));
 }
 
 }  // namespace
@@ -117,10 +124,10 @@ int open_smooth(const T* hi, const T* lo, const T* d, const T* v1,
       T* hi_out, T* lo_out, T* rhs_out, T* u_out, T* res_out, int rows,      \
       int cols, int n, int nsweeps, double rr, double hh, double nu,         \
       double diag, double inv_diag, double two_rnu, double r_h,              \
-      int res_rows_dec, cudaStream_t stream) {                               \
+      int res_mode, cudaStream_t stream) {                                   \
     return open_smooth<T>(hi, lo, d, v1, v2, hi_out, lo_out, rhs_out, u_out, \
                           res_out, rows, cols, n, nsweeps, rr, hh, nu, diag, \
-                          inv_diag, two_rnu, r_h, res_rows_dec, stream);     \
+                          inv_diag, two_rnu, r_h, res_mode, stream);         \
   }
 
 MG_DELTA_OPEN_ENTRIES(f32, float)

@@ -150,6 +150,22 @@ def _launch(level, u, rhs, nsweeps, want_residual, zero_init, corr,
     fields.update({k: t for k, t in (("u", u), ("corr", corr))
                    if t is not None})
     cuda.check_inputs(level.padded, rhs.dtype, **fields)
+    out = in_launches(u, corr, nsweeps,
+                      launcher(level, rhs, want_residual,
+                               residual_rows_decimated, form))
+    cuda.LAUNCHES[counter] += 1
+    return out
+
+
+def launcher(level, rhs, want_residual: bool, residual_rows_decimated: bool,
+             form=None):
+    """`in_launches`' launch(u, corr, nsweeps, last) for CUDA tensors of the
+    level's shape: one launch of `form`'s kernel (the level form's by
+    default) on `rhs`, from u + corr (from zero where u is None), with the
+    residual on the last launch if `want_residual`.  Counts nothing: the
+    caller counts its call."""
+    entry, counter, names = form or _FORMS[level.form]
+    stored = [getattr(level, k) for k in names]
     rows, cols = level.padded
     stream = torch.cuda.current_stream(rhs.device).cuda_stream
     fn = _build.entry(entry, rhs.element_size())
@@ -182,6 +198,4 @@ def _launch(level, u, rhs, nsweeps, want_residual, zero_init, corr,
         _build.check(err, f"{counter} kernel")
         return u_out, res
 
-    out = in_launches(u, corr, nsweeps, launch)
-    cuda.LAUNCHES[counter] += 1
-    return out
+    return launch

@@ -1,5 +1,6 @@
-"""K2, K7, K3, K4, K5 and K6 of two trees of the PyTorch/CUDA port, and the
-main, Galerkin and Poisson paths, timed in turns on one card.
+"""K1, K2, K7, K3, K4, K5, K6 and K8 of two trees of the PyTorch/CUDA port,
+and the main, open-smooth, Galerkin and Poisson paths, timed in turns on
+one card.
 
     python3 scripts/torch_smooth_turns.py --parent DIR [--order pccp]
 
@@ -11,6 +12,9 @@ the card's time per call (`utils.timing.device_ms`, float32):
 
 - K2 pre-smooth (zero_init, res_rows_dec) and post-smooth (corr, residual)
   at n=1024 (1032x1152), nsweeps 3, the main path's two calls;
+- K1 (the opening) there, K1 then K2 pre-smooth as one timed call (the
+  main path's opening, `k1_k2pre_ms`), and K8 (the whole-step opening,
+  nsweeps 3) with the row-decimated and with the full residual;
 - K7: the mean over the 40 block shapes and residual flag sets of the
   distributed path at W=4 (chip_smoke.py's cases);
 - K2 at nsweeps 1 on the gsbench level, n=2048 (2056x2176);
@@ -28,9 +32,11 @@ the card's time per call (`utils.timing.device_ms`, float32):
   of 3 after a warm-up), and the kernel launch calls of one run under
   torch.profiler (chip_smoke.py's `_profiled_run`, cooperative launches
   counted);
-- the same for the Galerkin path (the main path with Galerkin coarse
-  levels, K6), the Poisson float32 default (n=1024, 50 cycles, K5) and
-  Poisson in float64 to tol 1e-10 (7 cycles, K5).
+- the same for the open-smooth path (the main path with
+  `mg.delta._FUSE_OPEN_SMOOTH` on: K8 opens each step), the Galerkin path
+  (the main path with Galerkin coarse levels, K6), the Poisson float32
+  default (n=1024, 50 cycles, K5) and Poisson in float64 to tol 1e-10 (7
+  cycles, K5).
 
 Then a summary: per tree, the median of its turns, and whether every
 turn's output of each path is the same to the bit.  The order defaults to
@@ -52,15 +58,16 @@ import sys
 import time
 
 HERE = pathlib.Path(__file__).resolve().parents[1]
-KEYS = ("k2_pre_ms", "k2_post_ms", "k7_mean_ms", "k2_gs2048_ms",
+KEYS = ("k2_pre_ms", "k2_post_ms", "k1_ms", "k1_k2pre_ms", "k8_dec_ms",
+        "k8_full_ms", "k7_mean_ms", "k2_gs2048_ms",
         "gsbench_us_per_sweep", "k3_ms", "k4_ms",
         *(f"k5_l{lvl}_ms" for lvl in range(5)),
         *(f"k6_l{lvl}_ms" for lvl in range(1, 5)),
         *(f"{path}_{key}"
-          for path in ("main", "galerkin", "poisson32", "poisson64")
+          for path in ("main", "open", "galerkin", "poisson32", "poisson64")
           for key in ("wall_s", "busy_ms", "launch_calls")))
-HASHES = ("main_uT_sha256", "galerkin_uT_sha256", "poisson32_u_sha256",
-          "poisson64_u_sha256")
+HASHES = ("main_uT_sha256", "open_uT_sha256", "galerkin_uT_sha256",
+          "poisson32_u_sha256", "poisson64_u_sha256")
 
 
 def _chip_smoke():
@@ -91,6 +98,7 @@ def measure(root: str) -> dict:
         build_fine_level,
         build_hierarchy,
     )
+    from hpcclassmultigridproject_tpu_torch.mg import delta
     from hpcclassmultigridproject_tpu_torch.mg.cycle import coarse_solve_dense
     from hpcclassmultigridproject_tpu_torch.models import (
         AdvectionDiffusion,
@@ -101,6 +109,7 @@ def measure(root: str) -> dict:
     )
     from hpcclassmultigridproject_tpu_torch.ops.cuda import (
         _build,
+        delta_step,
         smoother,
         tower,
     )
@@ -129,6 +138,21 @@ def measure(root: str) -> dict:
         "k2_post_ms": device_ms(
             lambda: smoother.fused_rb_sweeps(fine, u, rhs, 3, True,
                                              corr=corr), 200)}
+    hi, lo, d = f(), f(1e-8), f(1e-2)
+
+    def k1_k2pre():
+        opened = delta_step.fused_accumulate_open(fine, hi, lo, d)
+        return smoother.fused_rb_sweeps(fine, None, opened[2], 3, True,
+                                        zero_init=True,
+                                        residual_rows_decimated=True)
+
+    out["k1_ms"] = device_ms(
+        lambda: delta_step.fused_accumulate_open(fine, hi, lo, d), 200)
+    out["k1_k2pre_ms"] = device_ms(k1_k2pre, 200)
+    for key, dec in (("k8_dec_ms", True), ("k8_full_ms", False)):
+        out[key] = device_ms(
+            lambda dec=dec: delta_step.fused_open_presmooth(fine, hi, lo, d, 3,
+                                                            dec), 200)
     rows = smoke._smooth_rows_cases(levels, f)
     out["k7_mean_ms"] = statistics.mean(
         device_ms(kern, 200) for name, (kern, *_) in rows.items()
@@ -173,6 +197,13 @@ def measure(root: str) -> dict:
             ProblemConfig(n=n, num_steps=100),
             smoke.delta_config(certify_every=10, **extra), device=dev)
         _path(out, path, "uT", lambda: model.run(warn=False)[0], smoke)
+        if path == "main":
+            delta._FUSE_OPEN_SMOOTH = True
+            try:
+                _path(out, "open", "uT", lambda: model.run(warn=False)[0],
+                      smoke)
+            finally:
+                delta._FUSE_OPEN_SMOOTH = False
     f64 = SolverConfig(dtype=torch.float64, tol=1e-10, restriction="full",
                        coarse_mode="dense")
     for path, solver in (("poisson64", f64), ("poisson32",
@@ -233,6 +264,9 @@ def main() -> None:
                for tree, recs in runs.items() if recs}
     equal = {h: len({r[h] for recs in runs.values() for r in recs}) == 1
              for h in HASHES}
+    equal["open_uT_is_main_uT"] = all(
+        r["open_uT_sha256"] == r["main_uT_sha256"]
+        for recs in runs.values() for r in recs)
     print(f"[turns] each path's output the same to the bit in every turn: "
           f"{equal}", flush=True)
     print(json.dumps({"card": smi, "order": args.order, "median": summary,

@@ -14,8 +14,9 @@
 - the gate: configurations it refuses run the flag-off path.
 
 The CUDA kernel itself is held to the plain version on the card by
-chip_smoke.py; here the C entry points' arities are held to the ctypes
-tables.
+chip_smoke.py, and its window schedule on the CPU by
+tests/test_torch_smooth_tiles.py; here the C entry points' arities are
+held to the ctypes tables.
 """
 
 import functools
@@ -241,22 +242,38 @@ def test_c_entry_points_match_the_ctypes_tables():
 
 
 def test_k1_and_k8_share_the_opening():
-    """K1 and K8 both form the rhs with mg::delta_open_at (common.cuh); K8
-    alone instantiates smooth_tile, whose window takes its rhs from that
-    opening, so K2-K7 (smooth_from_v) compile without it."""
+    """K1 (mg::delta_open_at) and K8 (the from_v block's FV_OPEN variant)
+    fold with the one TwoSum (`accumulate`) and form the rhs with the one
+    pair of functions (`dform` of hi' and of lo', then `delta_rhs`) of
+    common.cuh, so their rhs agree to the bit; K2-K7 (smoother.cu,
+    tower.cu) instantiate no opening."""
     source = (_build.CSRC / "delta_step.cu").read_text()
     common = (_build.CSRC / "common.cuh").read_text()
     assert "mg::delta_open_at(" in source
-    assert "mg::smooth_tile<T>(a);" in source
-    tile = common[common.index("__device__ void smooth_tile("):
-                  common.index("cudaError_t launch_smooth(")]
-    assert "delta_open_at(" in tile
-    assert "delta_open_at(" not in common[common.index(
-        "__device__ void smooth_from_v("):]
+    assert "mg::smooth_from_v<T, ACCESS, mg::FV_OPEN>(" in source
+
+    def body(signature):
+        start = common.index(signature)
+        return common[start:common.index("\n}\n", start)]
+
+    assert common.count("const T bv = t - h;") == 1  # one TwoSum
+    assert common.count("(up - x) + (dn - x)") == 1  # one lap
+    assert common.count("-(two_rnu * lap)") == 1  # one rhs
+    assert "return accumulate(hi[g], lo[g], d[g]);" in body(
+        "Pair<T> accumulate_at(")
+    open_at = body("Opened<T> delta_open_at(")
+    assert "accumulate_at(" in open_at and "delta_rhs(dform(" in open_at
+    assert "return dform(" in body("DForm<T> fv_dform(")
+    block = body("__device__ void smooth_from_v(")
+    assert "accumulate(c0[j].rhs, c0[j].cc, c0[j].dd)" in block
+    assert "h0[j] = fv_dform(" in block and "h1[j] = fv_dform(" in block
+    assert "delta_rhs(h0[j], fv_dform(" in block
+    assert "delta_rhs(h1[j], fv_dform(" in block
+    assert "delta_open_at(" not in block
     smoother_cu = (_build.CSRC / "smoother.cu").read_text()
     tower_cu = (_build.CSRC / "tower.cu").read_text()
-    assert "smooth_tile" not in smoother_cu and "smooth_tile" not in tower_cu
     assert "smooth_from_v<" in smoother_cu and "smooth_from_v<" in tower_cu
     for text in (smoother_cu, tower_cu):
-        assert ", true>" not in text and "delta_open_at" not in text
+        assert "FV_OPEN" not in text and "delta_open_at" not in text
+        assert "smooth_tile" not in text
     assert pathlib.Path(_build.CSRC / "probe.cu").is_file()

@@ -23,6 +23,12 @@ and writes 0 to the coarse cells past the fine array (every coarse cell
 exactly once), its ascent adds the per-point prolongation as the window is
 loaded, and a level past FV_MAX_SWEEPS runs as a chain of links; both are
 held bit for bit to `tower_descend_plain` and `tower_ascend_plain`.
+
+So is K8's (`csrc/delta_step.cu`, the block's FV_OPEN variant): every
+window opened alone, its (hi', lo') from its own cells and 0 past it, its
+rhs from in-window neighbours only, then the cascade from zero; past
+FV_MAX_SWEEPS K2 links follow.  It is held bit for bit to
+`fused_open_presmooth_plain`, and a halo one row short must fail.
 """
 
 import dataclasses
@@ -33,6 +39,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from hpcclassmultigridproject_tpu_torch.mg import delta
 from hpcclassmultigridproject_tpu_torch.mg.cycle import coarse_solve_dense
 from hpcclassmultigridproject_tpu_torch.mg.levels import (
     BANDS,
@@ -44,6 +51,7 @@ from hpcclassmultigridproject_tpu_torch.mg.levels import (
 from hpcclassmultigridproject_tpu_torch.models.poisson import poisson_level
 from hpcclassmultigridproject_tpu_torch.ops.cuda import (
     _build,
+    delta_step,
     smoother,
     tower,
 )
@@ -85,6 +93,15 @@ def _tile(nsweeps):
     return hr, hc, wh - 2 * hr, ww - 2 * hc
 
 
+def _cascade(cw, uw, rw, red, diag, inv, nsweeps):
+    """`nsweeps` red-black sweeps and the residual on one window, reads past
+    it 0: (u, residual)."""
+    for _ in range(nsweeps):
+        uw = torch.where(red, (rw - neighbor_sum(cw, uw)) * inv, uw)
+        uw = torch.where(~red, (rw - neighbor_sum(cw, uw)) * inv, uw)
+    return uw, rw - diag * uw - neighbor_sum(cw, uw)
+
+
 def _emulate(level, u, corr, rhs, nsweeps, want_residual, rows_dec):
     """The block's schedule: (u, residual or None) after `nsweeps` sweeps
     from u (zeros if None) + corr."""
@@ -120,11 +137,8 @@ def _emulate(level, u, corr, rhs, nsweeps, want_residual, rows_dec):
                        diag if nine else None, level.diag_a)
             gi = torch.arange(wh)[:, None] + by * th - hr
             gj = torch.arange(ww)[None, :] + bx * tw - hc
-            red = (gi + gj) % 2 == 0
-            for _ in range(nsweeps):
-                uw = torch.where(red, (rw - neighbor_sum(cw, uw)) * inv, uw)
-                uw = torch.where(~red, (rw - neighbor_sum(cw, uw)) * inv, uw)
-            res = rw - diag * uw - neighbor_sum(cw, uw)
+            uw, res = _cascade(cw, uw, rw, (gi + gj) % 2 == 0, diag, inv,
+                               nsweeps)
             at = (slice(by * th, (by + 1) * th), slice(bx * tw, (bx + 1) * tw))
             u_out[at] = uw[hr:hr + th, hc:hc + tw]
             res_out[at] = res[hr:hr + th, hc:hc + tw]
@@ -338,16 +352,17 @@ def test_the_window_keeps_a_tile_up_to_the_wrappers_limit():
 
 def test_k2_and_k7_take_the_from_v_block():
     """mg_smooth launches smooth_from_v, and so do mg_smooth5 and
-    mg_smooth9 (K5, K6: the coefficient source a compile-time variant) and
-    the tower's two kernels (K3, K4), each in one cooperative launch; only
-    K8 instantiates smooth_tile."""
+    mg_smooth9 (K5, K6: the coefficient source a compile-time variant), the
+    tower's two kernels (K3, K4), each in one cooperative launch, and K8
+    (mg_open_smooth: the opening a compile-time variant); the 32x32
+    smooth_tile block is gone."""
     smoother_cu = (_build.CSRC / "smoother.cu").read_text()
     body = smoother_cu[smoother_cu.index("int smooth(const T* u"):
                        smoother_cu.index("int smooth5(")]
     assert "launch_smooth_from_v(" in body
     assert "smooth_v_kernel<T, mg::FV_PAIRED>" in body
     assert "smooth_v_kernel<T, mg::FV_SINGLES>" in body
-    assert "smooth_tile" not in body and "FORM_FROM_V" not in body
+    assert "FORM_FROM_V" not in body
     assert "mg::smooth_from_v<T, ACCESS>(" in smoother_cu
     assert ("mg::smooth_from_v<T, ACCESS, mg::FV_SMOOTH, FORM>("
             in smoother_cu)
@@ -359,26 +374,139 @@ def test_k2_and_k7_take_the_from_v_block():
         for access in ("FV_PAIRED", "FV_SINGLES"):
             assert f"smooth_bands_kernel<T, mg::{access}, mg::{form}>" in body
     assert "mg::fv_nine_smem_bytes<T>()" in smoother_cu
-    assert "smooth_tile" not in smoother_cu
-    tile = _tile_block()
-    assert "FORM_FIVE" not in tile and "FORM_NINE" not in tile
     tower_cu = (_build.CSRC / "tower.cu").read_text()
     assert "mg::smooth_from_v<T, ACCESS, XFER>(" in tower_cu
     assert "run_link<T, ACCESS, mg::FV_INJECT>" in tower_cu
     assert "run_link<T, ACCESS, mg::FV_PROLONG>" in tower_cu
     assert "cudaLaunchCooperativeKernel(" in tower_cu
-    assert "<<<" not in tower_cu and "smooth_tile" not in tower_cu
+    assert "<<<" not in tower_cu
     delta_cu = (_build.CSRC / "delta_step.cu").read_text()
-    assert "mg::smooth_tile<T>(a);" in delta_cu
-    assert "smooth_from_v" not in delta_cu
+    assert "mg::smooth_from_v<T, ACCESS, mg::FV_OPEN>(" in delta_cu
+    start = delta_cu.index("int open_smooth(")
+    body = delta_cu[start:delta_cu.index("\n}\n", start)]
+    assert "mg::launch_smooth_from_v(" in body
+    for access in ("FV_PAIRED", "FV_SINGLES"):
+        assert f"open_smooth_kernel<T, mg::{access}>" in body
+    for path in sorted(_build.CSRC.iterdir()):
+        text = path.read_text()
+        for gone in ("smooth_tile", "launch_smooth(", "smooth_smem_bytes",
+                     "TILE_H", "TILE_W", "SMOOTH_THREADS", "SMOOTH_PLANES"):
+            assert gone not in text, (path.name, gone)
 
 
-def _tile_block():
-    """common.cuh's smooth_tile (K8's block), from its definition to the
-    end of its launcher."""
-    source = _source()
-    start = source.index("__device__ void smooth_tile(")
-    return source[start:source.index("cudaError_t launch_smooth(", start)]
+# K8: the whole-step opening on the from_v block (FV_OPEN)
+
+
+def _emulate_open(level, hi, lo, d, nsweeps, want_residual, rows_dec,
+                  short=0):
+    """K8's schedule: (hi', lo', rhs, u, residual or None) after the opening
+    and `nsweeps` sweeps from zero, every window alone; `short` rows taken
+    off the halo (the tile growing by as many on each side)."""
+    wh, ww, _ = _window()
+    hr, hc, th, tw = _tile(nsweeps)
+    hr, th = hr - short, th + 2 * short
+    assert th >= 2 and tw >= 2
+    rows, cols = level.padded
+    ny, nx = -(-rows // th), -(-cols // tw)
+    c = coefs(level)
+    pad = lambda x: F.pad(x, (hc, nx * tw + hc - cols, hr,
+                              ny * th + hr - rows))
+    fields = [pad(x) for x in (hi, lo, d, level.v1, level.v2, c.aa, c.bb,
+                               c.cc, c.dd)]
+    two_rnu, r_h = (as_dtype(x, DT)
+                    for x in delta.difference_form_constants(level))
+    diag = as_dtype(level.diag_a, DT)
+    inv = as_dtype(1.0 / level.diag_a, DT)
+    outs = [torch.empty(ny * th, nx * tw, dtype=DT) for _ in range(5)]
+    for by in range(ny):
+        for bx in range(nx):
+            at = (slice(by * th, by * th + wh), slice(bx * tw, bx * tw + ww))
+            h, l, x, v1, v2, aa, bb, cc, dd = (f[at] for f in fields)
+            # (hi', lo') from the window's own cells, 0 past the array
+            hi2, lo2 = delta._accumulate(h, l, x)
+            gi = torch.arange(wh)[:, None] + by * th - hr
+            gj = torch.arange(ww)[None, :] + bx * tw - hc
+            m = ((gi >= 1) & (gi <= level.n - 1) & (gj >= 1)
+                 & (gj <= level.n - 1)).to(DT)
+            # the rhs from in-window neighbours, 0 past the window
+            lap, di, dj = delta._dform(hi2)
+            lap_l, di_l, dj_l = delta._dform(lo2)
+            lap, di, dj = lap + lap_l, di + di_l, dj + dj_l
+            rw = (-(two_rnu * lap) - r_h * (v1 * di + v2 * dj)) * m
+            cw = Coefs(aa, bb, cc, dd, None, None, level.diag_a)
+            uw, res = _cascade(cw, torch.zeros_like(rw), rw,
+                               (gi + gj) % 2 == 0, diag, inv, nsweeps)
+            tile = (slice(by * th, (by + 1) * th),
+                    slice(bx * tw, (bx + 1) * tw))
+            for out, w in zip(outs, (hi2, lo2, rw, uw, res)):
+                out[tile] = w[hr:hr + th, hc:hc + tw]
+    hi2, lo2, rhs, u, res = (o[:rows, :cols] for o in outs)
+    if rows_dec:
+        res = res[::2]
+    return hi2, lo2, rhs, u, res if want_residual else None
+
+
+def _open_inputs(shape, seed):
+    """hi, lo, d: random in every cell of the array."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(s * rng.standard_normal(shape))
+            for s in (1.0, 1e-9, 1e-2)]
+
+
+def _open_chain(level, hi, lo, d, nsweeps, rows_dec, calls):
+    """The wrapper's schedule (`delta_step.open_in_launches`) of emulated
+    launches: K8, then K2 links on its rhs."""
+    opened = []
+
+    def opening(k, last):
+        calls.append(("K8", k, last))
+        *pairs, u, res = _emulate_open(level, hi, lo, d, k, last, rows_dec)
+        opened.extend(pairs)
+        return u, res
+
+    def link(u, corr, k, last):
+        calls.append(("K2", k, last))
+        return _emulate(level, u, corr, opened[2], k, last, rows_dec)
+
+    u, res = delta_step.open_in_launches(nsweeps, opening, link)
+    return (*opened, u, res)
+
+
+@pytest.mark.parametrize("rows_dec", [True, False])
+@pytest.mark.parametrize("kind, nsweeps", [("n64", 1), ("n64", 3),
+                                           ("n64", 14), ("n128", 3)])
+def test_open_windows_equal_the_plain_version(kind, nsweeps, rows_dec):
+    """K8 on the 72x128 and 136x256 levels, whose ragged last tiles (no
+    tile width divides 128 or 256 at nsweeps 1 or 3) hold cells past the
+    array, bit for bit against `fused_open_presmooth_plain`; at nsweeps 14
+    as K8 of FROM_V_MAX_SWEEPS sweeps, then one K2 link with the
+    residual."""
+    level = _level(kind)
+    m = smoother.FROM_V_MAX_SWEEPS
+    _, _, th, tw = _tile(min(nsweeps, m))
+    assert level.padded[0] % th and (nsweeps > m or level.padded[1] % tw)
+    hi, lo, d = _open_inputs(level.padded, seed=nsweeps)
+    calls = []
+    got = _open_chain(level, hi, lo, d, nsweeps, rows_dec, calls)
+    want = delta_step.fused_open_presmooth_plain(level, hi, lo, d, nsweeps,
+                                                 rows_dec)
+    assert calls == ([("K8", nsweeps, True)] if nsweeps <= m else
+                     [("K8", m, False), ("K2", nsweeps - m, True)])
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+
+
+def test_open_window_one_row_short_fails():
+    """The halo is exactly what the opening needs: one row fewer lets the
+    wrong rhs at the window's edge reach the tile."""
+    level = _level("n64")
+    hi, lo, d = _open_inputs(level.padded, seed=3)
+    got = _emulate_open(level, hi, lo, d, 3, True, False, short=1)
+    want = delta_step.fused_open_presmooth_plain(level, hi, lo, d, 3)
+    assert [g.shape for g in got] == [w.shape for w in want]
+    assert not all(torch.equal(g, w) for g, w in zip(got, want))
+    exact = _emulate_open(level, hi, lo, d, 3, True, False)
+    assert all(torch.equal(g, w) for g, w in zip(exact, want))
 
 
 # ---------------------------------------------------------------------------
