@@ -64,9 +64,13 @@ raising on failure:
     product kernel on dense operands (the three probe shapes, an unaligned
     one, two staging passes) bit for bit against its fixed order repeated
     in PyTorch and within k 2^-24 (|a| @ |b|) of the float64 product;
-    flatten into a buffer of its own (no alias of x); with the library
-    call's time beside each (torch.matmul for the products, a copy for
-    flatten).
+    flatten into a buffer of its own (no alias of x); stride2_rows and
+    interleave_rows bit for bit against their plain versions at odd rows,
+    one and three rows, a misaligned view, the main path's fine level
+    (1032, 1152) and n=8192's (8200, 8320), launching nothing for an empty
+    input, and timed at the probe's shape and the two real ones beside
+    their bounds; with the library call's time beside each (torch.matmul
+    for the products, a copy for flatten).
 
 Each path phase (4, 6, 7, 8, 9, 10) resets the launch counts just before
 the run it reads, checks every count, and runs the same path once more
@@ -1357,12 +1361,61 @@ def _probe_flatten_copy(probe) -> None:
           "library call's outputs share no storage with x")
 
 
+def _probe_maps(probe, cuda) -> None:
+    """stride2_rows and interleave_rows bit for bit against their plain
+    versions at `probe.MAP_CHECKS`, and no launch for an empty input; then
+    each map's device time, its plain version's (the library call) and its
+    bound at `probe.MAP_SHAPES`.  Launched after the counted run."""
+    from hpcclassmultigridproject_tpu_torch.utils import profiling
+    from hpcclassmultigridproject_tpu_torch.utils.timing import device_ms
+
+    maps = ("stride2_rows", "interleave_rows")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for (rows, cols), offset in probe.MAP_CHECKS:
+        base = torch.randn(rows * cols + offset, generator=gen, device="cuda")
+        x = base[offset:].view(rows, cols)
+        for name in maps:
+            got = getattr(probe, name)(x)
+            want = getattr(probe, f"{name}_plain")(x)
+            torch.cuda.synchronize()
+            require(_bits_equal(got, want),
+                    f"probe {name} at ({rows}, {cols}) + {offset}: differs "
+                    "from its plain version")
+    before = dict(cuda.LAUNCHES)
+    for shape in ((0, 256), (5, 0)):
+        x = torch.empty(shape, device="cuda")
+        for name in maps:
+            got = getattr(probe, name)(x)
+            require(got.shape == getattr(probe, f"{name}_plain")(x).shape,
+                    f"probe {name} at {shape}: shape {tuple(got.shape)}")
+    torch.cuda.synchronize()
+    require(cuda.LAUNCHES == before, "probe maps: an empty input launched")
+    print(f"[probe] stride2_rows, interleave_rows: bit-identical to their "
+          f"plain versions at {list(probe.MAP_CHECKS)} (shape, x's "
+          f"offset in floats); no launch for (0, 256) or (5, 0)")
+    for rows, cols in probe.MAP_SHAPES:
+        x = torch.randn((rows, cols), generator=gen, device="cuda")
+        for name in maps:
+            kern, plain = getattr(probe, name), getattr(probe,
+                                                        f"{name}_plain")
+            ms = device_ms(lambda: kern(x), 200)
+            library = device_ms(lambda: plain(x), 200)
+            bound, bound_by = profiling.bound_ms(
+                *profiling.probe_cost(name, {"x": x}), 4)
+            print(f"[probe] {name} ({rows}, {cols}): kernel {ms:.5f} ms, "
+                  f"library call {library:.5f} ms, bound {bound:.5f} ms "
+                  f"({bound_by}), the kernel at {bound / ms:.1%} of its "
+                  f"bound, library call / kernel {library / ms:.2f}")
+        del x
+
+
 def phase_probe() -> dict:
     """P's six kernels once each between a reset and a read of the launch
     counts, held to the JAX probe script's checks and bit for bit to their
     plain versions (the products: each output one product or one rounding
     of a sum of two exact products, the same in any order); then the
-    product kernel on dense operands and flatten's copy; then timed.
+    product kernel on dense operands, flatten's copy and the two index maps
+    at more shapes; then timed.
     Returns {counter: (max-abs difference from the expectation, kernel ms,
     plain ms, bound ms, bound_by, library ms, launches)}."""
     from hpcclassmultigridproject_tpu_torch.ops import cuda
@@ -1378,6 +1431,7 @@ def phase_probe() -> dict:
     ops = probe.probe_operands()
     _probe_dot_dense(probe)
     _probe_flatten_copy(probe)
+    _probe_maps(probe, cuda)
     timed = probe.run_probes("cuda", reps=200)
     out = {}
     for rec, again, name in zip(checked, timed, probe.probes()):

@@ -12,38 +12,77 @@
 //   dot_prolong_rows   out = P @ x, P (2R, R), 1 and 0.5 weights
 //
 // On Hopper each is a kernel of its own (never cuBLAS: the probe is of the
-// kernel's own arithmetic).  What bounds them: launch latency; at the
-// probe's (64, 256) shape every array is under 128 KB.  The two index maps
-// give each output element one thread; flatten is a 16-byte copy into a
-// buffer of its own; the three products share dot_kernel, which stages its
-// operands in shared memory and splits k over eight lanes an output (its
-// note below).  The products' operands have one or two nonzeros per row,
-// so with -fmad=false and no TF32 every output is exact or one rounding of
-// a sum of two exact products, whatever the order of the sum.
+// kernel's own arithmetic).  At the probe's (64, 256) shape every array is
+// under 128 KB and the launch bounds them all; the two index maps are also
+// timed at the solver's fine levels, where bytes bind (map_kernel's note).
+// Flatten is a 16-byte copy into a buffer of its own; the three products
+// share dot_kernel, which stages its operands in shared memory and splits k
+// over eight lanes an output (its note below).  The products' operands have
+// one or two nonzeros per row, so with -fmad=false and no TF32 every output
+// is exact or one rounding of a sum of two exact products, whatever the
+// order of the sum.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
 #include <cstdint>
 
 namespace {
 
-__global__ void stride2_rows_kernel(const float* x, float* out, int rows_out,
-                                    int cols) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= rows_out || j >= cols) return;
-  out[static_cast<size_t>(i) * cols + j] =
-      x[static_cast<size_t>(2 * i) * cols + j];
+// The two index maps, one kernel: stride2_rows (out = x[::2, :], (R, C) ->
+// (ceil(R/2), C)) and interleave_rows (out[2i] = x[i], out[2i+1] = x[i] +
+// 1, (R, C) -> (2R, C)).  Bound by bytes: each reads its share of x once
+// and writes its output once, 4.76 MB and 14.27 MB at the main path's
+// 1032x1152 fine level, 273 MB and 819 MB at 8200x8320, past the 50 MB L2;
+// at the probe's 64x256, by the launch.
+//
+// An item is 16 bytes, a float4, where C % 4 == 0 and both pointers are
+// 16-byte aligned; else one float (the same kernel over C items a row).
+// Each thread moves one item: a block of 32 x 8 threads covers 32 items of
+// 8 rows, a warp one row's neighbours, so each access is coalesced, no
+// thread divides, and the hardware keeps the SMs full of blocks.  A row is
+// an output row of stride2_rows (it reads row 2i of x) and an input row of
+// interleave_rows, which loads each item once and stores it twice (the
+// value, and the value plus 1.0f: one IEEE add, torch's x + 1.0 in
+// float32).  Past MAP_MAX_GRID_Y block rows (the launch limit) a thread
+// takes a row again, gridDim.y x 8 further on; the row index is 32-bit
+// (rows < 2^31, so it cannot wrap), since with a 64-bit one nvcc unrolls
+// that loop into a few hundred instructions, slower at the small shapes.
+// A grid-stride walk of 1, 2 or 4 items a thread (all loads before the
+// stores, 8 blocks an SM), one item a thread on a 1-D grid, and the
+// streaming hints (__ldcs / __stcs) were measured against this design and
+// were slower or level on the H100 (PERF.md, section 6).
+constexpr int MAP_BLOCK_X = 32;
+constexpr int MAP_BLOCK_Y = 8;
+constexpr int MAP_MAX_GRID_Y = 65535;
+
+__device__ __forceinline__ float plus_one(float v) { return v + 1.0f; }
+
+__device__ __forceinline__ float4 plus_one(float4 v) {
+  return make_float4(v.x + 1.0f, v.y + 1.0f, v.z + 1.0f, v.w + 1.0f);
 }
 
-__global__ void interleave_rows_kernel(const float* x, float* out, int rows,
-                                       int cols) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;  // output row
-  if (i >= 2 * rows || j >= cols) return;
-  const float v = x[static_cast<size_t>(i >> 1) * cols + j];
-  out[static_cast<size_t>(i) * cols + j] = (i & 1) ? v + 1.0f : v;
+// rows: the rows walked (stride2_rows' output rows, interleave_rows' input
+// rows); w: items a row.
+template <typename T, bool INTERLEAVE>
+__global__ void __launch_bounds__(MAP_BLOCK_X * MAP_BLOCK_Y)
+    map_kernel(const T* __restrict__ x, T* __restrict__ out, int rows,
+               int w) {
+  const int j = blockIdx.x * MAP_BLOCK_X + threadIdx.x;
+  if (j >= w) return;
+  for (unsigned i = blockIdx.y * MAP_BLOCK_Y + threadIdx.y;
+       i < static_cast<unsigned>(rows); i += gridDim.y * MAP_BLOCK_Y) {
+    const size_t row = static_cast<size_t>(i) * w + j;       // row i, item j
+    const size_t even = 2 * static_cast<size_t>(i) * w + j;  // row 2i
+    if constexpr (INTERLEAVE) {
+      const T v = x[row];
+      out[even] = v;
+      out[even + w] = plus_one(v);
+    } else {
+      out[row] = x[even];
+    }
+  }
 }
 
 // flatten: a copy of x's count values into a buffer of their own (the TPU
@@ -250,26 +289,39 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-dim3 grid_for(int rows, int cols, dim3 block) {
-  return dim3((cols + block.x - 1) / block.x, (rows + block.y - 1) / block.y);
+// Launch map_kernel over `rows` rows of `cols` floats: the float4 instance
+// where C % 4 == 0 and both pointers are 16-byte aligned, else the float
+// one.  Nothing to do launches nothing.
+template <bool INTERLEAVE>
+int launch_map(const float* x, float* out, int rows, int cols,
+               cudaStream_t stream) {
+  if (rows <= 0 || cols <= 0) return 0;
+  const bool vec = cols % 4 == 0 && aligned16(x) && aligned16(out);
+  const int w = vec ? cols / 4 : cols;
+  const dim3 block(MAP_BLOCK_X, MAP_BLOCK_Y);
+  const dim3 grid((w - 1) / MAP_BLOCK_X + 1,
+                  std::min((rows - 1) / MAP_BLOCK_Y + 1, MAP_MAX_GRID_Y));
+  if (vec)
+    map_kernel<float4, INTERLEAVE><<<grid, block, 0, stream>>>(
+        reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(out),
+        rows, w);
+  else
+    map_kernel<float, INTERLEAVE><<<grid, block, 0, stream>>>(x, out, rows,
+                                                              w);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// rows are x's: stride2_rows walks its (rows + 1) / 2 output rows.
 extern "C" int mg_probe_stride2_rows(const float* x, float* out, int rows,
                                      int cols, cudaStream_t stream) {
-  const dim3 block(32, 8);
-  stride2_rows_kernel<<<grid_for(rows / 2, cols, block), block, 0, stream>>>(
-      x, out, rows / 2, cols);
-  return static_cast<int>(cudaGetLastError());
+  return launch_map<false>(x, out, (rows + 1) / 2, cols, stream);
 }
 
 extern "C" int mg_probe_interleave_rows(const float* x, float* out, int rows,
                                         int cols, cudaStream_t stream) {
-  const dim3 block(32, 8);
-  interleave_rows_kernel<<<grid_for(2 * rows, cols, block), block, 0,
-                           stream>>>(x, out, rows, cols);
-  return static_cast<int>(cudaGetLastError());
+  return launch_map<true>(x, out, rows, cols, stream);
 }
 
 extern "C" int mg_probe_flatten(const float* x, float* out, int count,

@@ -23,6 +23,16 @@ from hpcclassmultigridproject_tpu_torch.ops import cuda
 from hpcclassmultigridproject_tpu_torch.ops.cuda import _build
 
 R, C = 64, 256  # the JAX probe's shape
+# Where the two index maps are timed: the probe's shape, the main path's
+# fine level (core/layout.py::padded_shape(1024)) and n=8192's (273 MB,
+# past the card's 50 MB L2), where bytes bind.
+MAP_SHAPES = ((R, C), (1032, 1152), (8200, 8320))
+# ... and where they are held to their plain versions: (shape, offset of x
+# in floats past an aligned buffer).  Odd rows and columns, one and three
+# rows, a view one float off (the float, not the float4, item), and the
+# timed shapes.
+MAP_CHECKS = (((R, C), 0), ((65, 257), 0), ((1, 256), 0), ((3, 256), 0),
+              ((R, C), 1), ((1032, 1152), 0), ((8200, 8320), 0))
 
 
 def _launch(name: str, counter: str, out: torch.Tensor, *args) -> torch.Tensor:
@@ -45,12 +55,14 @@ def stride2_rows_plain(x):
 
 
 def stride2_rows(x):
-    """x[::2, :]."""
+    """x[::2, :]: the even rows, ceil(R / 2) of them."""
     if not cuda.use_kernel(x):
         return stride2_rows_plain(x)
     _check(x=x)
     rows, cols = x.shape
-    out = torch.empty((rows // 2, cols), dtype=x.dtype, device=x.device)
+    out = torch.empty(((rows + 1) // 2, cols), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
     return _launch("mg_probe_stride2_rows", "probe_stride2_rows", out,
                    x.data_ptr(), out.data_ptr(), rows, cols)
 
@@ -67,6 +79,8 @@ def interleave_rows(x):
     _check(x=x)
     rows, cols = x.shape
     out = torch.empty((2 * rows, cols), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
     return _launch("mg_probe_interleave_rows", "probe_interleave_rows", out,
                    x.data_ptr(), out.data_ptr(), rows, cols)
 

@@ -1,7 +1,7 @@
 """P's six probe kernels of two trees of the PyTorch/CUDA port, timed in
 turns on one card beside their library calls and an empty kernel.
 
-    python3 scripts/torch_probe_turns.py --parent DIR [--order pccp]
+    python3 scripts/torch_probe_turns.py --parent DIR [--order pccp] [--shapes]
 
 DIR holds a copy of another commit of the repository (for example the
 parent, unpacked with `git archive`).  Each turn is a fresh process that
@@ -20,7 +20,13 @@ the card's time per call (`utils.timing.device_ms`, 200 calls, float32):
   flags: the practical floor of these rows;
 - the main path (AdvectionDiffusion, n=1024, 100 delta-form steps): the
   SHA-256 of its uT's bytes and the kernel launch calls of one run under
-  torch.profiler (chip_smoke.py's `_profiled_run`).
+  torch.profiler (chip_smoke.py's `_profiled_run`);
+- with `--shapes`, the two index maps (stride2_rows, interleave_rows) and
+  their plain versions (the library call) also at this checkout's
+  `ops.cuda.probe.MAP_SHAPES`, the probe's shape and two of the solver's
+  fine levels, on x ~ N(0, 1) from seed 0, beside each shape's bound
+  (`utils.profiling.probe_cost`: each array read or written once, over
+  3.35 TB/s).
 
 Then a summary: per tree, the median of its turns, and whether every
 turn's uT is the same to the bit.  The order defaults to parent, change,
@@ -46,6 +52,7 @@ KEYS = tuple(f"{p}_ms" for p in PROBES) + (
     "empty_1x32_ms", "empty_256x256_ms", "main_launch_calls")
 LIBRARY_KEYS = tuple(f"{p}_library_ms" for p in PROBES) + (
     "flatten_view_ms",)
+MAPS = ("stride2_rows", "interleave_rows")
 EMPTY_SOURCE = """
 #include <cuda_runtime.h>
 __global__ void empty_kernel() {}
@@ -81,7 +88,33 @@ def _empty_kernel(build):
     return fn
 
 
-def measure(root: str) -> dict:
+def shape_keys(shapes) -> tuple:
+    return tuple(f"{m}_{r}x{c}_{what}_ms" for m in MAPS for r, c in shapes
+                 for what in ("kernel", "library", "bound"))
+
+
+def measure_shapes(probe, device_ms, profiling, shapes) -> dict:
+    """The two index maps' kernels (through the tree's wrappers) and plain
+    versions at `shapes`, with each shape's bound."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for rows, cols in shapes:
+        x = torch.randn((rows, cols), generator=gen, device="cuda")
+        for name in MAPS:
+            kern, plain = getattr(probe, name), getattr(probe,
+                                                        f"{name}_plain")
+            key = f"{name}_{rows}x{cols}"
+            out[f"{key}_kernel_ms"] = device_ms(lambda: kern(x), 200)
+            out[f"{key}_library_ms"] = device_ms(lambda: plain(x), 200)
+            out[f"{key}_bound_ms"] = profiling.bound_ms(
+                *profiling.probe_cost(name, {"x": x}), 4)[0]
+        del x
+    return out
+
+
+def measure(root: str, shapes) -> dict:
     sys.path.insert(0, root)
     import torch
 
@@ -89,6 +122,7 @@ def measure(root: str) -> dict:
     from hpcclassmultigridproject_tpu_torch import ProblemConfig
     from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
     from hpcclassmultigridproject_tpu_torch.ops.cuda import _build, probe
+    from hpcclassmultigridproject_tpu_torch.utils import profiling
     from hpcclassmultigridproject_tpu_torch.utils.timing import device_ms
 
     assert pathlib.Path(pkg.__file__).resolve().is_relative_to(
@@ -115,6 +149,7 @@ def measure(root: str) -> dict:
         out[f"{name}_library_ms"] = device_ms(
             lambda: library[name](*args), 200)
     out["flatten_view_ms"] = device_ms(lambda: x.reshape(-1, 1), 200)
+    out.update(measure_shapes(probe, device_ms, profiling, shapes))
     empty = _empty_kernel(_build)
     stream = torch.cuda.current_stream().cuda_stream
     for blocks, threads in ((1, 32), (256, 256)):
@@ -136,11 +171,22 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True)
     ap.add_argument("--order", default="pccp")
+    ap.add_argument("--shapes", action="store_true",
+                    help="also time the two index maps at MAP_SHAPES")
     ap.add_argument("--measure", help=argparse.SUPPRESS)
+    ap.add_argument("--map-shapes", default="[]", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.measure:
-        print(json.dumps(measure(args.measure)), flush=True)
+        print(json.dumps(measure(args.measure, json.loads(args.map_shapes))),
+              flush=True)
         return
+    shapes = []
+    if args.shapes:
+        sys.path.insert(0, str(HERE))
+        from hpcclassmultigridproject_tpu_torch.ops.cuda.probe import (
+            MAP_SHAPES)
+        shapes = [list(s) for s in MAP_SHAPES]
+    keys = KEYS + LIBRARY_KEYS + shape_keys(shapes)
     roots = {"p": str(pathlib.Path(args.parent).resolve()), "c": str(HERE)}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -150,15 +196,16 @@ def main() -> None:
     for turn in args.order:
         proc = subprocess.run(
             [sys.executable, __file__, "--parent", args.parent, "--measure",
-             roots[turn]], capture_output=True, text=True)
+             roots[turn], "--map-shapes", json.dumps(shapes)],
+            capture_output=True, text=True)
         if proc.returncode != 0:
             sys.exit(f"turn {turn} failed:\n{proc.stderr}")
         rec = json.loads(proc.stdout.splitlines()[-1])
         runs[turn].append(rec)
         print(f"[turns] {turn}: " + ", ".join(
-            f"{k} {rec[k]:.5f}" for k in KEYS + LIBRARY_KEYS), flush=True)
+            f"{k} {rec[k]:.5f}" for k in keys), flush=True)
     summary = {tree: {k: statistics.median(r[k] for r in recs)
-                      for k in KEYS + LIBRARY_KEYS}
+                      for k in keys}
                for tree, recs in runs.items() if recs}
     hashes = {r["main_uT_sha256"] for recs in runs.values() for r in recs}
     print(f"[turns] main path uT the same to the bit in every turn: "
