@@ -70,9 +70,30 @@ raising on failure:
     (1032, 1152) and n=8192's (8200, 8320), launching nothing for an empty
     input, and timed at the probe's shape and the two real ones beside
     their bounds; with the library call's time beside each (torch.matmul
-    for the products, a copy for flatten).
+    for the products, a copy for flatten);
+13. device build: (a) the main configuration built on the device
+    (device_build=True) beside the host build: both builds' seconds,
+    every level, the dense inverse, fine_hi and u0 against the host-built
+    model's at the JAX package's tolerances, the 100-step run certified,
+    its launch counts equal to phase 4's and its uT within rtol 1e-5 /
+    atol 1e-10 of phase 4's; (b) n=16384 on the one card with
+    device_build=None, which must pick the device and say so: build
+    seconds, peak MiB after the build and after the run, 10 steps with
+    certify_every=10 at the auto cycle count (and each smaller count, to
+    find the smallest that certifies), every certificate, the wall, and
+    levels 0, fine_hi and u0 on 24 seeded and edge rows against numpy
+    float64; (d) the explicit matrix (sparse/matrix.py): CSR SpMV on the
+    card (cuSPARSE) against the stencil at n=1024 level 0 in float64 and
+    on a Galerkin level (atol 1e-13), with both times.
 
-Each path phase (4, 6, 7, 8, 9, 10) resets the launch counts just before
+Phase 9 also builds the main path's model born row-partitioned over its
+W=4 ranks (AdvectionDiffusion(mesh=...), min_local=64; phase 13's (c)):
+its uT must equal, to the bit, distributed_run of the whole device-built
+model in the same spawn, with the certificates and K7 counts of the plain
+schedule, and each rank's peak MiB, build through run, lower than the
+whole-built model's.
+
+Each path phase (4, 6, 7, 8, 9, 10, 13) resets the launch counts just before
 the run it reads, checks every count, and runs the same path once more
 through the plain versions.
 
@@ -132,6 +153,12 @@ CENTER_REFINED = 4.604193170120696e-05    # refined, fixed, one cycle
 CENTER_POISSON = 0.07367129792055582      # u[512, 512], f64, tol 1e-10
 TOL = 1e-6
 DIST_WORLD, DIST_MIN_LOCAL, NCCL_STEPS = 4, 64, 10
+# phase 13: n=16384 on one card, built on the device (auto), 10 steps
+BIG_N, BIG_STEPS, BIG_ROWS = 16384, 10, 18
+# the JAX package's bounds of the device build against the host build
+# (tests/test_levels_device.py)
+BUILD_TOL = {torch.float32: (1e-6, 1e-7), torch.float64: (1e-14, 1e-15)}
+U0_TOL, A_INV_TOL, RUN_TOL = (1e-13, 1e-300), (1e-5, 1e-6), (1e-5, 1e-10)
 TOWER_SWEEPS, TOWER_REPEATS = (1, 3, 14), 20  # 14: a chain of two links
 K8_SWEEPS = (3, 14)  # 14: K8 of 13 sweeps, then a K2 link
 # the host calls that launch a kernel, as torch.profiler names them
@@ -1039,6 +1066,61 @@ def _dist_rank(n: int, steps: int) -> dict:
         uT, _, wall = run(False)
     out["plain versions"] = dict(uT=uT.cpu().numpy(), wall=wall)
     out["comm_ms"] = _collective_costs(model)
+    model = None  # freed before the two builds whose memory is compared
+    out["born"] = _born_partitioned_runs(n, steps)
+    return out
+
+
+def _born_partitioned_runs(n: int, steps: int) -> dict:
+    """Phase 13 (c), in phase 9's ranks: distributed_run of the main path's
+    model built whole on the device, then of the same model born
+    row-partitioned (this rank builds its rows only), each read from a
+    reset of the launch counts and the peak device memory before its build
+    to the end of its run."""
+    import gc
+
+    import torch.distributed as dist
+
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig
+    from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+    from hpcclassmultigridproject_tpu_torch.ops import cuda
+    from hpcclassmultigridproject_tpu_torch.parallel import (
+        distributed_run,
+        make_mesh,
+    )
+
+    problem = ProblemConfig(n=n, num_steps=steps)
+    builds = {
+        "whole device-built": lambda: AdvectionDiffusion(
+            problem, delta_config(certify_every=10, device_build=True),
+            device="cuda"),
+        "born row-partitioned": lambda: AdvectionDiffusion(
+            problem, delta_config(certify_every=10), device="cuda",
+            mesh=make_mesh(), min_local=DIST_MIN_LOCAL),
+    }
+    out = {}
+    for tag, build in builds.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        model = build()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        uT, stats = distributed_run(model, min_local=DIST_MIN_LOCAL)
+        torch.cuda.synchronize()
+        counts = dict(cuda.LAUNCHES)
+        peaks = [None] * dist.get_world_size()
+        dist.all_gather_object(peaks,
+                               torch.cuda.max_memory_allocated() - base)
+        out[tag] = dict(uT=uT.cpu().numpy(), counts=counts, build_s=build_s,
+                        peaks_mib=[b / 2**20 for b in peaks],
+                        level0_rows=model.levels[0].padded[0],
+                        stats={k: v.cpu().numpy() for k, v in stats.items()})
+        model = uT = stats = None
     return out
 
 
@@ -1126,6 +1208,7 @@ def phase_distributed(n: int, steps: int, uT_single) -> int:
     want = {"plain": {"smooth_rows": 6 * steps},
             "overlap": {"smooth_rows": 18 * steps}}
     comm = res.pop("comm_ms")
+    born = res.pop("born")
     print("[distributed] collectives per call, ms (rank 0, mean of 100, "
           "no kernel between them): " + ", ".join(
               f"{k} {v:.4f}" for k, v in comm.items()))
@@ -1151,6 +1234,7 @@ def phase_distributed(n: int, steps: int, uT_single) -> int:
             print(line)
         require(du <= 1e-9, f"distributed {tag}: uT off the single-device "
                 f"run by {du:.3g}")
+    _check_born_partitioned(born, n, steps, single)
     nccl = launch_local(_nccl_rank, 1, (n, NCCL_STEPS), backend="nccl",
                         device="cuda:0")
     print(f"[distributed] one NCCL rank ({nccl['backend']}, world "
@@ -1160,6 +1244,44 @@ def phase_distributed(n: int, steps: int, uT_single) -> int:
     require(nccl["backend"] == "nccl" and nccl["max_diff"] == 0.0
             and nccl["collectives_ok"], "the one-rank NCCL run")
     return res["plain"]["counts"]["smooth_rows"]
+
+
+def _check_born_partitioned(born: dict, n: int, steps: int, single) -> None:
+    """Phase 13 (c): the born row-partitioned run equal to the whole
+    device-built model's distributed run to the bit, both certified, with
+    the plain schedule's launch counts, and each rank's peak memory lower
+    born row-partitioned."""
+    expect = {"smooth_rows": 6 * steps, "tower_descent": steps,
+              "tower_ascent": steps}
+    rtol, atol = RUN_TOL
+    for tag, got in born.items():
+        counts = got["counts"]
+        du = float(np.abs(got["uT"] - single).max())
+        print(f"[distributed] {tag}: built in {got['build_s']:.3f} s (rank "
+              f"0), level 0 holds {got['level0_rows']} rows on rank 0; "
+              f"launches per rank {counts}; peak device memory per rank, "
+              f"build through run, {[round(m, 1) for m in got['peaks_mib']]}"
+              f" MiB; max|uT - uT_single(host build)| {du:.3g}")
+        require(counts == {k: expect.get(k, 0) for k in counts},
+                f"distributed {tag}: launch counts {counts}")
+        stats = {k: torch.from_numpy(v) for k, v in got["stats"].items()}
+        _check_advection(f"distributed {tag}", n, steps,
+                         torch.from_numpy(got["uT"]), stats, CENTER_1024,
+                         True)
+        require(np.allclose(got["uT"], single, rtol=rtol, atol=atol),
+                f"distributed {tag}: uT off the host-built run's")
+    whole = born["whole device-built"]
+    part = born["born row-partitioned"]
+    same = np.array_equal(part["uT"], whole["uT"])
+    print(f"[distributed] born row-partitioned uT equal to the whole "
+          f"device-built model's to the bit: {same} (max|diff| "
+          f"{float(np.abs(part['uT'] - whole['uT']).max())!r})")
+    require(same, "born row-partitioned uT differs from the whole build's")
+    require(part["level0_rows"] < whole["level0_rows"],
+            "born row-partitioned: rank 0 holds the whole level 0")
+    require(all(b < w for b, w in zip(part["peaks_mib"],
+                                      whole["peaks_mib"])),
+            "born row-partitioned: a rank's peak memory is not lower")
 
 
 def _profiled_run(run) -> tuple[float, float, int, int]:
@@ -1452,6 +1574,266 @@ def phase_probe() -> dict:
     return out
 
 
+def _within(got: torch.Tensor, want: torch.Tensor, tol) -> tuple[bool, float]:
+    """(|got − want| <= atol + rtol·|want| everywhere, max|got − want|)."""
+    rtol, atol = tol
+    got, want = got.double(), want.double().to(got.device)
+    return (tuple(got.shape) == tuple(want.shape)
+            and bool(torch.allclose(got, want, rtol=rtol, atol=atol)),
+            float((got - want).abs().max()))
+
+
+def _check_build(tag: str, dev, host) -> None:
+    """A device-built model's levels, dense inverse, fine_hi and u0
+    against the host-built model's, at the JAX package's tolerances."""
+    pairs = []
+    for lvl, (ld, lh) in enumerate(zip(dev.levels, host.levels)):
+        tol = BUILD_TOL[ld.v1.dtype]
+        pairs += [(f"level {lvl} {f}", getattr(ld, f), getattr(lh, f), tol)
+                  for f in ("v1", "v2")]
+    pairs.append(("a_inv", dev.levels[-1].a_inv, host.levels[-1].a_inv,
+                  A_INV_TOL))
+    pairs += [(f"fine_hi {f}", getattr(dev.fine_hi, f),
+               getattr(host.fine_hi, f), BUILD_TOL[torch.float64])
+              for f in ("v1", "v2")]
+    pairs.append(("u0", dev.u0, host.u0, U0_TOL))
+    worst = {}
+    for what, got, want, tol in pairs:
+        ok, err = _within(got, want, tol)
+        require(ok, f"{tag}: {what} off the host build by {err:.3g}")
+        worst[what] = (err, int((got != want).sum()))
+    print(f"[device build] {tag}: every field within the JAX package's "
+          "bounds of the host build; max|device - host| (elements not "
+          "equal to the bit): " + ", ".join(
+              f"{k} {e:.3g} ({d})" for k, (e, d) in worst.items()))
+
+
+def _np_rows(n: int, rows: np.ndarray, cols: int):
+    """Numpy float64 (v1, v2, u0) of the default problem on the given
+    global rows of the padded grid, 0 outside the logical grid (u0 also
+    on its boundary ring)."""
+    h = 1.0 / n
+    x = (rows.astype(np.float64) * h)[:, None]
+    y = (np.arange(cols, dtype=np.float64) * h)[None, :]
+    r, c = rows[:, None], np.arange(cols)[None, :]
+    inside = (r <= n) & (c <= n)
+    v1 = np.where(inside, -np.pi * np.sin(np.pi * x) * np.cos(np.pi * y), 0.0)
+    v2 = np.where(inside, np.pi * np.cos(np.pi * x) * np.sin(np.pi * y), 0.0)
+    interior = (r >= 1) & (r <= n - 1) & (c >= 1) & (c <= n - 1)
+    u0 = np.where(interior,
+                  np.exp(-100.0 * ((x - 0.2) ** 2 + (y - 0.4) ** 2)), 0.0)
+    return v1, v2, u0
+
+
+def _big_rows_check(model, n: int) -> None:
+    """Levels 0, fine_hi and u0 of the n=16384 model on BIG_ROWS seeded
+    rows and the edge rows against numpy float64 of just those rows."""
+    rows_total, cols = model.levels[0].padded
+    rng = np.random.default_rng(13)
+    rows = np.unique(np.concatenate([
+        rng.integers(0, rows_total, BIG_ROWS),
+        [0, 1, n - 1, n, n + 1, rows_total - 1]]))
+    v1, v2, u0 = _np_rows(n, rows, cols)
+    idx = torch.from_numpy(rows).to(model.device)
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32))
+    checks = [("level 0 v1", model.levels[0].v1, f32(v1),
+               BUILD_TOL[torch.float32]),
+              ("level 0 v2", model.levels[0].v2, f32(v2),
+               BUILD_TOL[torch.float32]),
+              ("fine_hi v1", model.fine_hi.v1, torch.from_numpy(v1),
+               BUILD_TOL[torch.float64]),
+              ("fine_hi v2", model.fine_hi.v2, torch.from_numpy(v2),
+               BUILD_TOL[torch.float64]),
+              ("u0", model.u0, torch.from_numpy(u0), U0_TOL)]
+    errs = []
+    for what, field, want, tol in checks:
+        ok, err = _within(field[idx], want, tol)
+        require(ok, f"device build n={n}: {what} off numpy by {err:.3g} on "
+                f"rows {rows.tolist()}")
+        errs.append(f"{what} {err:.3g}")
+    print(f"[device build] n={n}: {rows.size} rows {rows.tolist()} against "
+          f"numpy float64: max|diff| " + ", ".join(errs))
+
+
+def _big_run(model, cycles: int):
+    """One run of the n=16384 model at `cycles` V-cycles a step: (wall s,
+    uT, stats, launch counts)."""
+    import dataclasses
+
+    from hpcclassmultigridproject_tpu_torch.ops import cuda
+
+    model.solver = dataclasses.replace(model.solver, num_cycles=cycles)
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    uT, stats = model.run(warn=False)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, uT, stats, dict(cuda.LAUNCHES)
+
+
+def _certified(stats) -> tuple[bool, float, float, float]:
+    """(every certificate <= 1e-6, max f32 step certificate, max mid-run
+    f64 certificate, final f64 certificate)."""
+    rel = float(stats["rel_residual"].max())
+    hi = stats["rel_residual_hi_steps"]
+    mid = float(hi[hi >= 0].max()) if bool((hi >= 0).any()) else 0.0
+    final = float(stats["final_rel_residual_hi"])
+    return max(rel, mid, final) <= TOL, rel, mid, final
+
+
+def _phase_big(device) -> None:
+    """Phase 13 (b): n=16384 on the one card, auto build and auto cycles."""
+    import dataclasses
+    import gc
+    import warnings
+
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig
+    from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    problem = ProblemConfig(n=BIG_N, num_steps=BIG_STEPS)
+    solver = dataclasses.replace(delta_config(certify_every=10),
+                                 num_cycles=None)
+    with warnings.catch_warnings(record=True) as said:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        model = AdvectionDiffusion(problem, solver, device=device)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    notices = [str(w.message) for w in said if "device_build" in str(w.message)]
+    built_mib = torch.cuda.max_memory_allocated() / 2**20
+    print(f"[device build] n={BIG_N}: padded {model.levels[0].padded}, "
+          f"{model.num_levels} levels, built in {build_s:.3f} s, peak "
+          f"device memory after the build {built_mib:.1f} MiB; the notice: "
+          f"{notices}")
+    require(len(notices) == 1 and f"n={BIG_N}" in notices[0],
+            f"device build n={BIG_N}: auto did not say it picked the device")
+    _big_rows_check(model, BIG_N)
+    auto = model.solver.num_cycles
+    levels_k2 = sum(level.n > 512 for level in model.levels)
+    found = None
+    for cycles in range(1, 7):
+        if cycles > auto and found is not None:
+            break
+        wall, _, stats, counts = _big_run(model, cycles)
+        ok, rel, mid, final = _certified(stats)
+        print(f"[device build] n={BIG_N}, {BIG_STEPS} steps, {cycles} "
+              f"V-cycles a step{' (auto)' if cycles == auto else ''}: wall "
+              f"{wall:.3f} s (the first run at this count), max f32 step "
+              f"certificate {rel:.3e}, f64 mid-run {mid:.3e}, final f64 "
+              f"{final:.3e}: {'certified' if ok else 'NOT certified'}; "
+              f"launches {counts}")
+        want = {"delta_open": BIG_STEPS,
+                "smooth": 2 * levels_k2 * cycles * BIG_STEPS,
+                "tower_descent": cycles * BIG_STEPS,
+                "tower_ascent": cycles * BIG_STEPS}
+        require(counts == {k: want.get(k, 0) for k in counts},
+                f"device build n={BIG_N}: launch counts {counts}, expected "
+                f"{want}")
+        if ok and found is None:
+            found = cycles
+    require(found is not None, f"device build n={BIG_N}: no cycle count up "
+            "to 6 certifies")
+    cycles = auto if found <= auto else found
+    wall, uT, stats, _ = _big_run(model, cycles)
+    require(tuple(uT.shape) == (BIG_N + 1, BIG_N + 1)
+            and bool(torch.isfinite(uT).all()), f"n={BIG_N}: uT")
+    ok, rel, mid, final = _certified(stats)
+    print(f"[device build] n={BIG_N}: auto cycle count {auto}, the smallest "
+          f"that certifies {found}; the run at {cycles}: wall {wall:.3f} s "
+          f"(warm), certificates f32 {rel:.3e} / f64 mid-run {mid:.3e} / "
+          f"final {final:.3e}; peak device memory after the runs "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; center "
+          f"uT {float(uT[BIG_N // 2, BIG_N // 2])!r}")
+    require(ok, f"device build n={BIG_N}: the run at {cycles} cycles is not "
+            "certified")
+
+
+def _phase_spmv(device, n: int) -> None:
+    """Phase 13 (d): the explicit matrix on the card (cuSPARSE CSR) against
+    the stencil, at n's level 0 in float64 and on a Galerkin level."""
+    from hpcclassmultigridproject_tpu_torch.core.layout import interior_mask
+    from hpcclassmultigridproject_tpu_torch.core.problem import (
+        rotating_velocity,
+    )
+    from hpcclassmultigridproject_tpu_torch.mg.levels import build_hierarchy
+    from hpcclassmultigridproject_tpu_torch.ops import padded
+    from hpcclassmultigridproject_tpu_torch.sparse.galerkin import (
+        galerkin_coarse_level,
+    )
+    from hpcclassmultigridproject_tpu_torch.sparse.matrix import (
+        level_to_bcsr,
+        spmv_apply,
+    )
+
+    v1, v2 = rotating_velocity(n, dtype=torch.float64, device="cpu")
+    (fine,) = build_hierarchy(v1, v2, 0.1 / n, -4e-4, 1, dtype=torch.float64,
+                              device=device)
+    coarse = galerkin_coarse_level(fine, "full")
+    gen = torch.Generator(device=device).manual_seed(17)
+    for tag, level in (("level 0 (from_v)", fine),
+                       ("Galerkin level 1 (nine-band)", coarse)):
+        u = torch.randn(level.padded, generator=gen, dtype=torch.float64,
+                        device=device) * interior_mask(
+            level.n, level.padded, dtype=torch.float64, device=device)
+        t0 = time.perf_counter()
+        mat = level_to_bcsr(level)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        err = float((spmv_apply(mat, level, u)
+                     - padded.apply_A(level, u)).abs().max())
+        spmv_ms = time_ms(lambda: spmv_apply(mat, level, u), 50)
+        stencil_ms = time_ms(lambda: padded.apply_A(level, u), 50)
+        print(f"[device build] spmv, n={level.n} {tag}: CSR {mat.shape[0]} "
+              f"rows, {mat.values().numel()} entries, assembled in "
+              f"{build_s:.3f} s; max|SpMV - stencil| {err:.3g} (bound "
+              f"1e-13); ms per call (time_ms, mean of 50): SpMV "
+              f"{spmv_ms:.4f}, stencil apply_A {stencil_ms:.4f}")
+        require(err <= 1e-13, f"spmv {tag}: off the stencil by {err:.3g}")
+
+
+def phase_device_build(device, n: int, steps: int, uT_main,
+                       counts_main: dict) -> None:
+    """13. The device build: (a) the main configuration, (b) n=16384 on
+    one card, (d) the explicit matrix; (c) runs in phase 9's ranks."""
+    import dataclasses
+
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig
+    from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+
+    problem = ProblemConfig(n=n, num_steps=steps)
+    cfg = delta_config(certify_every=10)
+    seconds = {}
+    for tag, build in (("host", False), ("device", True), ("device again",
+                                                             True)):
+        t0 = time.perf_counter()
+        model = AdvectionDiffusion(
+            problem, dataclasses.replace(cfg, device_build=build),
+            device=device)
+        torch.cuda.synchronize()
+        seconds[tag] = time.perf_counter() - t0
+        if tag == "host":
+            host = model
+    dev = model
+    print(f"[device build] n={n}: model built in seconds (host build, "
+          f"device build, device build again): {seconds}")
+    _check_build(f"n={n}", dev, host)
+    host = None
+    uT, stats, counts = _drive("device build", lambda: dev.run(warn=False),
+                               counts_main, 1e-8)
+    _check_advection("device build", n, steps, uT, stats, CENTER_1024, True)
+    ok, err = _within(uT, uT_main, RUN_TOL)
+    print(f"[device build] max|uT - uT(main path, host build)| {err:.3g} "
+          f"(bound rtol {RUN_TOL[0]:g}, atol {RUN_TOL[1]:g}); equal to the "
+          f"bit: {torch.equal(uT, uT_main)}; launch counts equal to phase "
+          f"4's: {counts == counts_main}")
+    require(ok, f"device build: uT off the main path's by {err:.3g}")
+    dev = uT = stats = None
+    _phase_big(device)
+    _phase_spmv(device, n)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1465,6 +1847,7 @@ def main() -> None:
     phase_build()
     measured = phase_kernels(device, MAIN_N)
     counts, uT_main = phase_main_path(device, MAIN_N, MAIN_STEPS, CENTER_1024)
+    main_counts = dict(counts)
     phase_golden(device)
     counts["smooth9"] = phase_galerkin(device, MAIN_N, MAIN_STEPS)["smooth9"]
     counts["smooth5"] = phase_poisson(device, MAIN_N)["smooth5"]
@@ -1474,6 +1857,7 @@ def main() -> None:
         device, MAIN_N, MAIN_STEPS, uT_main)["open_presmooth"]
     phase_cli(MAIN_N, MAIN_STEPS)
     probes = phase_probe()
+    phase_device_build(device, MAIN_N, MAIN_STEPS, uT_main, main_counts)
     kernels = []
     for key, label, source, replaces in KERNELS:
         if key in probes:

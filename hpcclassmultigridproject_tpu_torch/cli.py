@@ -16,7 +16,7 @@ plain PyTorch versions.  `--backend` is validated for parity with the JAX
 package and otherwise unused by the solver: the route follows the device.
 The plots (`viz`, `plot-sweep`, `plot-scaling`) need matplotlib and import
 it only when they run.  The JAX package's `scaling` subcommand is not
-ported yet (ROADMAP queue 1, item 14).
+ported yet (ROADMAP queue 1: cli scaling).
 """
 
 from __future__ import annotations
@@ -74,10 +74,13 @@ def _solver_args(p: argparse.ArgumentParser) -> None:
                         "epilogue only)")
     p.add_argument("--device-build", dest="device_build", default=None,
                    action="store_true",
-                   help="build the model on the device (not ported yet: "
-                        "raises)")
+                   help="build the model on the device from the analytic "
+                        "fields (default: auto, the device at n >= 4096 "
+                        "with rediscretized levels; see "
+                        "SolverConfig.device_build)")
     p.add_argument("--host-build", dest="device_build", action="store_false",
-                   help="build the model on the host (the port's only build)")
+                   help="build the model in host numpy float64 and copy "
+                        "it to the device")
     p.add_argument("--sharded-overlap", action="store_true",
                    help="rows-partitioned smoothing: overlap the deep-halo "
                         "exchange with the interior kernel "

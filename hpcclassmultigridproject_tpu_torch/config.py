@@ -8,9 +8,8 @@ and GS coarse solves, rediscretized and Galerkin coarse operators, and the
 adaptive, fixed, FMG, refined and delta steppers; and each of them but FMG,
 the Galerkin operator and the Jacobi and Chebyshev smoothers
 row-partitioned over ranks (`parallel.distributed_run`, in either
-`sharded_overlap` schedule).  The on-device build raises
-`NotImplementedError` naming the ROADMAP item that will port it, so nothing
-silently runs a different algorithm from the one asked for.
+`sharded_overlap` schedule).  `device_build` picks the host or the device
+build of the model (models/advection_diffusion.py::use_device_build).
 """
 
 from __future__ import annotations
@@ -45,11 +44,6 @@ class ProblemConfig:
     @property
     def dt_(self) -> float:
         return self.dt if self.dt is not None else self.dx / 10.0
-
-
-# Configurations the port does not run yet, each with the ROADMAP queue-1
-# item that ports it.
-_NOT_PORTED = "not ported yet (ROADMAP queue 1, item {})"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,10 +106,6 @@ class SolverConfig:
             )
         if self.dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype={self.dtype}: need float32 or float64")
-        if self.device_build:
-            raise NotImplementedError(
-                f"device_build=True (the on-device build): "
-                f"{_NOT_PORTED.format(3)}")
         if self.certify_every and not self.delta_form:
             warnings.warn(
                 "certify_every is only honored by the delta stepper "

@@ -62,7 +62,7 @@ from hpcclassmultigridproject_tpu_torch.parallel.rows_halo import (
     sharded_eligible,
 )
 
-_NOT_PORTED = "not ported yet (ROADMAP queue 1, item {})"
+_NOT_PORTED = "not ported yet (ROADMAP queue 1: the rest of parallel/)"
 
 
 def _get_smoother(cfg: SolverConfig):
@@ -289,7 +289,7 @@ def refuse_sharded_fmg(shardings) -> None:
     if shardings is not None and any(s is not None for s in shardings):
         raise NotImplementedError(
             f"cycle_mode='fmg' over partitioned levels: "
-            f"{_NOT_PORTED.format(14)}")
+            f"{_NOT_PORTED}")
 
 
 def fmg_iterate(levels, rhs, cfg: SolverConfig, shardings=None):

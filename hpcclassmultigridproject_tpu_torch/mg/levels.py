@@ -20,9 +20,17 @@ Each level stores only what its form reads: from_v levels carry no bands,
 banded levels no velocities.  The coarsest level of a dense-coarse
 hierarchy also carries the dense inverse of its interior operator.
 
-The build runs in numpy float64 like the JAX package's host build
-(`mg/levels.py::build_hierarchy`): velocities are restricted by injection,
-which for node-sampled analytic fields is exact sampling at coarse nodes.
+Two builds, as in the JAX package (`mg/levels.py`):
+
+- the host build (`build_hierarchy`, `build_fine_level`) runs in numpy
+  float64 and copies each level to the device: velocities are restricted
+  by injection, which for node-sampled analytic fields is exact sampling
+  at coarse nodes;
+- the device build (`build_hierarchy_device`, `build_fine_level_device`)
+  samples each level's (v1, v2) at its own nodes, in torch float64 on the
+  device (core/problem.py), and copies nothing but the coarsest level's
+  bands, to invert them on the host.  It takes a global row window per
+  level, so that a rank builds only the rows it keeps (parallel/).
 """
 
 from __future__ import annotations
@@ -35,6 +43,10 @@ import torch
 import torch.nn.functional as F
 
 from hpcclassmultigridproject_tpu_torch.core.layout import padded_shape
+from hpcclassmultigridproject_tpu_torch.core.problem import (
+    cn_coefficients_padded,
+    rotating_velocity_trace,
+)
 
 BANDS = ("aa", "bb", "cc", "dd")
 CORNERS = ("ne", "nw", "se", "sw")
@@ -176,6 +188,19 @@ def banded_level(coef: dict, *, n, h, dt, nu, diag_a, diag_b, dtype,
                  diag_a=diag_a, diag_b=diag_b, **fields)
 
 
+def _hierarchy_meta(n: int, num_levels: int) -> list[tuple[int, float]]:
+    """(n, h) of every level, finest first."""
+    meta = []
+    for lvl in range(num_levels):
+        nl = n >> lvl
+        if nl < 2:
+            raise ValueError(
+                f"num_levels={num_levels} too deep for n={n} (level {lvl} has n={nl})"
+            )
+        meta.append((nl, 1.0 / n * (1 << lvl)))
+    return meta
+
+
 def build_hierarchy(v1, v2, dt: float, nu: float, num_levels: int, *,
                     dtype: torch.dtype, device, coarse_mode: str = "gs",
                     coarse_operator: str = "rediscretize",
@@ -194,16 +219,11 @@ def build_hierarchy(v1, v2, dt: float, nu: float, num_levels: int, *,
     )
 
     n = int(v1.shape[0]) - 1
+    meta = _hierarchy_meta(n, num_levels)
     v1l = _np_pad_field(_to_numpy64(v1))
     v2l = _np_pad_field(_to_numpy64(v2))
     levels, coef = [], None
-    for lvl in range(num_levels):
-        nl = n >> lvl
-        if nl < 2:
-            raise ValueError(
-                f"num_levels={num_levels} too deep for n={n} (level {lvl} has n={nl})"
-            )
-        h = 1.0 / n * (1 << lvl)
+    for lvl, (nl, h) in enumerate(meta):
         diag_a, diag_b = _diagonals(h, dt, nu)
         if lvl > 0 and coarse_operator == "galerkin":
             if lvl == 1:
@@ -232,11 +252,16 @@ def build_hierarchy(v1, v2, dt: float, nu: float, num_levels: int, *,
             v1l = _np_restrict_inject(v1l, shape_c)
             v2l = _np_restrict_inject(v2l, shape_c)
     if coarse_mode == "dense":
-        a_inv = np.linalg.inv(dense_interior_matrix(
-            coef, levels[-1].n, levels[-1].diag_a)).astype(np_dtype(dtype))
-        levels[-1] = dataclasses.replace(levels[-1],
-                                         a_inv=torch.from_numpy(a_inv))
+        levels[-1] = dataclasses.replace(levels[-1], a_inv=_dense_inverse(
+            coef, levels[-1].n, levels[-1].diag_a, dtype))
     return tuple(to_device(level, device) for level in levels)
+
+
+def _dense_inverse(coef: dict, n: int, diag_a: float, dtype) -> torch.Tensor:
+    """The inverse of the dense interior operator of float64 band fields,
+    inverted in float64 on the host and rounded to `dtype`."""
+    a_inv = np.linalg.inv(dense_interior_matrix(coef, n, diag_a))
+    return torch.from_numpy(a_inv.astype(np_dtype(dtype)))
 
 
 def to_device(level: Level, device) -> Level:
@@ -282,3 +307,85 @@ def build_fine_level(v1, v2, dt: float, nu: float, *, dtype: torch.dtype,
         device=device, dtype=dtype)
     return Level(v1=as_dev(v1), v2=as_dev(v2), a_inv=None, n=n, h=h,
                  dt=dt, nu=nu, diag_a=diag_a, diag_b=diag_b)
+
+
+# ---------------------------------------------------------------------------
+# The device build.  The problem's fields are analytic, so each level's
+# velocities are sampled at its own nodes (h = 2^lvl / n), which is what
+# injection of the sampled fields gives; no level passes through the host.
+# ---------------------------------------------------------------------------
+
+
+def _device_cn_coefficients(v1p, v2p, *, n, dt, nu, h, dtype) -> dict:
+    """The CN bands of padded velocity fields, computed in float64 on their
+    device and rounded to `dtype`: the bands the host build stores."""
+    coef = cn_coefficients_padded(v1p.to(torch.float64),
+                                  v2p.to(torch.float64), n, dt, nu, h)
+    return {k: getattr(coef, k).to(dtype) for k in BANDS}
+
+
+def _device_dense_inverse(n, kx, ky, dt, nu, h, dtype, device):
+    """The dense inverse of a level's interior operator, from the bands
+    formed on `device` as `stored_coefficients` forms them (float64,
+    rounded to `dtype`, widened) and inverted on the host, like the host
+    build's."""
+    v1, v2 = rotating_velocity_trace(n, kx, ky, padded_shape(n),
+                                     dtype=torch.float64, device=device)
+    coef = {k: _to_numpy64(b) for k, b in _device_cn_coefficients(
+        v1, v2, n=n, dt=dt, nu=nu, h=h, dtype=dtype).items()}
+    return _dense_inverse(coef, n, _diagonals(h, dt, nu)[0], dtype).to(device)
+
+
+def build_hierarchy_device(n: int, kx: float, ky: float, dt: float,
+                           nu: float, num_levels: int, *, dtype, device,
+                           coarse_mode: str = "gs",
+                           coarse_operator: str = "rediscretize",
+                           rows=None) -> tuple[Level, ...]:
+    """`build_hierarchy` of the rotating velocity field, built on `device`:
+    every level a from_v level whose (v1, v2) are sampled at its nodes in
+    float64 and rounded to `dtype`.
+
+    `rows` (optional) holds one entry per level: a global row window
+    (start, stop) of that level's padded array, which is all the level
+    then holds (with `row_off` = start, equal to `level_rows` of the whole
+    level), or None for the whole level.  coarse_mode "dense" attaches the
+    dense inverse of the whole coarsest level.  Galerkin coarse levels
+    need the R·A·P product of the fine operator and raise ValueError, as
+    in the JAX package."""
+    if coarse_operator != "rediscretize":
+        raise ValueError(
+            "build_hierarchy_device supports coarse_operator='rediscretize' "
+            "only (Galerkin R·A·P levels are built on the host)")
+    meta = _hierarchy_meta(n, num_levels)
+    rows = (None,) * num_levels if rows is None else tuple(rows)
+    if len(rows) != num_levels:
+        raise ValueError(f"{len(rows)} row windows for {num_levels} levels")
+    levels = []
+    for (nl, h), window in zip(meta, rows):
+        v1, v2 = rotating_velocity_trace(nl, kx, ky, padded_shape(nl),
+                                         dtype=dtype, device=device,
+                                         rows=window)
+        diag_a, diag_b = _diagonals(h, dt, nu)
+        levels.append(Level(v1=v1, v2=v2, a_inv=None, n=nl, h=h, dt=dt,
+                            nu=nu, diag_a=diag_a, diag_b=diag_b,
+                            row_off=0 if window is None else window[0]))
+    if coarse_mode == "dense":
+        nl, h = meta[-1]
+        levels[-1] = dataclasses.replace(levels[-1], a_inv=(
+            _device_dense_inverse(nl, kx, ky, dt, nu, h, dtype, device)))
+    return tuple(levels)
+
+
+def build_fine_level_device(n: int, kx: float, ky: float, dt: float,
+                            nu: float, *, dtype, device,
+                            rows=None) -> Level:
+    """`build_fine_level` of the rotating velocity field, built on
+    `device`: the slim (v1, v2) finest level in `dtype`, or its global row
+    window `rows` (with `row_off` = start)."""
+    h = 1.0 / n
+    diag_a, diag_b = _diagonals(h, dt, nu)
+    v1, v2 = rotating_velocity_trace(n, kx, ky, padded_shape(n), dtype=dtype,
+                                     device=device, rows=rows)
+    return Level(v1=v1, v2=v2, a_inv=None, n=n, h=h, dt=dt, nu=nu,
+                 diag_a=diag_a, diag_b=diag_b,
+                 row_off=0 if rows is None else rows[0])

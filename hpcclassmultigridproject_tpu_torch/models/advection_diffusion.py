@@ -16,17 +16,63 @@ from hpcclassmultigridproject_tpu_torch.config import ProblemConfig, SolverConfi
 from hpcclassmultigridproject_tpu_torch.core.layout import crop_field, pad_field
 from hpcclassmultigridproject_tpu_torch.core.problem import (
     gaussian_u0,
+    gaussian_u0_padded_device,
     rotating_velocity,
 )
 from hpcclassmultigridproject_tpu_torch.mg.levels import (
     build_fine_level,
+    build_fine_level_device,
     build_hierarchy,
+    build_hierarchy_device,
 )
 from hpcclassmultigridproject_tpu_torch.mg.timestepper import timestep, timestepper
+from hpcclassmultigridproject_tpu_torch.parallel import (
+    fetch,
+    level_shardings_for_ns,
+    refuse_partitioned,
+    shard_windows,
+)
+
+# auto (device_build None) builds on the device from this n up
+DEVICE_BUILD_MIN_N = 4096
+
+
+def use_device_build(problem: ProblemConfig, solver: SolverConfig,
+                     mesh=None) -> bool:
+    """Whether the model is built on the device: `solver.device_build`,
+    and for None (auto) the JAX package's rule, the device from n = 4096
+    with rediscretized levels (the JAX package also asks for x64, which
+    torch always has).  Auto's choice of the device is announced by a
+    warning, where the JAX package says nothing.  A model born
+    row-partitioned (`mesh`) needs the device build; forcing the host
+    build then raises ValueError, and so does the device build with
+    Galerkin levels."""
+    dev = solver.device_build
+    if mesh is not None:
+        if dev is False:
+            raise ValueError(
+                "a model built row-partitioned over a mesh needs the device "
+                "build (device_build=False was forced)")
+        dev = True
+    elif dev is None:
+        dev = (problem.n >= DEVICE_BUILD_MIN_N
+               and solver.coarse_operator == "rediscretize")
+        if dev:
+            warnings.warn(
+                f"device_build=None (auto): building the model on the "
+                f"device at n={problem.n}, since n >= {DEVICE_BUILD_MIN_N} "
+                "with rediscretized levels; its fields agree with the host "
+                "build to the ulp of sin/cos/exp, not to the bit "
+                "(device_build=False keeps the host build)", stacklevel=3)
+    if dev and solver.coarse_operator != "rediscretize":
+        raise ValueError(
+            "device_build supports coarse_operator='rediscretize' only "
+            "(Galerkin R·A·P levels are built on the host)")
+    return dev
 
 
 class AdvectionDiffusion:
-    """End-to-end advection–diffusion solver on one device.
+    """End-to-end advection–diffusion solver.
 
     >>> model = AdvectionDiffusion(ProblemConfig(n=1024), SolverConfig(
     ...     refine_dtype=torch.float64, cycle_mode="fixed", num_cycles=1,
@@ -40,15 +86,22 @@ class AdvectionDiffusion:
     hand-written kernels, and on the CPU (`device="cpu"`) through their
     plain PyTorch versions; without a card `device="cuda"` raises, with no
     move to the CPU.
+
+    The model is built in host numpy float64 and copied to `device`, or
+    built on `device` from the analytic fields (`use_device_build`).
+    With a `mesh` it is born row-partitioned: `layout` "auto" or "rows"
+    (the only one; "2d" raises NotImplementedError), and the levels whose
+    block holds at least `min_local` grid rows are partitioned, as
+    `parallel.distributed_run` partitions them (`model.shardings`).  This
+    rank then builds only its rows: a partitioned level's block and
+    halo, `fine_hi` likewise and `u0`'s block, so that no rank holds a
+    whole partitioned level; replicated levels and the coarsest are built
+    whole.  Every rank builds its model, and `run` is then collective.
     """
 
     def __init__(self, problem: ProblemConfig, solver: SolverConfig, *,
-                 device="cuda", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a model built sharded over a mesh needs the on-device "
-                "build: not ported yet (ROADMAP queue 1, item 3); build it "
-                "whole and call parallel.distributed_run")
+                 device="cuda", mesh=None, layout: str = "auto",
+                 min_local: int = 64):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -61,6 +114,19 @@ class AdvectionDiffusion:
                 s, num_cycles=s.resolved_num_cycles(p.dt_, p.nu, 1.0 / p.n))
         self.solver = s
         self.num_levels = s.resolved_num_levels(p.n)
+        self.mesh, self.shardings = mesh, None
+        self.layout = self.min_local = None
+        if mesh is not None:
+            self.layout = "rows" if layout == "auto" else layout
+            self.min_local = min_local
+            self.shardings = level_shardings_for_ns(
+                [p.n >> lvl for lvl in range(self.num_levels)], mesh,
+                min_local, self.layout, nsweeps=s.niter)
+            refuse_partitioned(s, self.shardings)
+        u0_dtype = s.dtype if s.refine_dtype is None else s.refine_dtype
+        if use_device_build(p, s, mesh):
+            self._build_on_device(u0_dtype)
+            return
         v1, v2 = rotating_velocity(p.n, p.kx, p.ky, dtype=s.dtype,
                                    device="cpu")
         self.levels = build_hierarchy(
@@ -75,19 +141,39 @@ class AdvectionDiffusion:
                                             dtype=s.refine_dtype,
                                             device=device)
         self.u0 = pad_field(gaussian_u0(
-            p.n, p.x0, p.y0, p.sigma,
-            dtype=s.dtype if s.refine_dtype is None else s.refine_dtype,
-            device=device))
+            p.n, p.x0, p.y0, p.sigma, dtype=u0_dtype, device=device))
+
+    def _build_on_device(self, u0_dtype) -> None:
+        """The levels, fine_hi and u0 built on the model's device; born
+        row-partitioned, only this rank's rows of them."""
+        p, s = self.problem, self.solver
+        part = None if self.shardings is None else self.shardings[0]
+        self.levels = build_hierarchy_device(
+            p.n, p.kx, p.ky, p.dt_, p.nu, self.num_levels, dtype=s.dtype,
+            device=self.device, coarse_mode=s.coarse_mode,
+            coarse_operator=s.coarse_operator,
+            rows=None if part is None else shard_windows(self.shardings))
+        self.fine_hi = None
+        if s.refine_dtype is not None:
+            self.fine_hi = build_fine_level_device(
+                p.n, p.kx, p.ky, p.dt_, p.nu, dtype=s.refine_dtype,
+                device=self.device, rows=None if part is None else part.window)
+        self.u0 = gaussian_u0_padded_device(
+            p.n, p.x0, p.y0, p.sigma, dtype=u0_dtype, device=self.device,
+            rows=None if part is None else (part.start, part.stop))
 
     def run(self, u0: torch.Tensor | None = None, warn: bool = True):
         """Full run; returns (uT cropped to the logical grid, per-step
         stats).  With `warn`, reads the stats back and warns on a step
         that missed tol, a certificate without margin, or a failed
-        high-dtype certificate."""
+        high-dtype certificate.  Born row-partitioned, `u0` is this rank's
+        block and uT is gathered whole on every rank."""
         uT, stats = timestepper(self.levels,
                                 self.u0 if u0 is None else u0,
                                 self.problem.num_steps, self.solver,
-                                self.fine_hi)
+                                self.fine_hi, self.shardings)
+        if self.shardings is not None:
+            uT = fetch(uT, self.shardings[0])
         if warn:
             self._warn(stats)
         return crop_field(uT, self.problem.n), stats
@@ -122,14 +208,17 @@ class AdvectionDiffusion:
                     f"{tol:g} (certify_every={self.solver.certify_every})")
 
     def step(self, u: torch.Tensor):
-        """One CN step from a padded state; returns (u_next, stats)."""
-        return timestep(self.levels, u, self.solver, self.fine_hi)
+        """One CN step from a padded state (born row-partitioned, this
+        rank's block of it); returns (u_next, stats)."""
+        return timestep(self.levels, u, self.solver, self.fine_hi,
+                        self.shardings)
 
     def run_chunk(self, u_padded: torch.Tensor, nsteps: int):
         """`nsteps` CN steps from a padded state (checkpointed runs and
-        trajectory dumps); returns (u padded, per-step stats)."""
+        trajectory dumps); returns (u padded, per-step stats).  Born
+        row-partitioned, u is this rank's block in and out."""
         return timestepper(self.levels, u_padded, nsteps, self.solver,
-                           self.fine_hi)
+                           self.fine_hi, self.shardings)
 
     def pad(self, u_logical: torch.Tensor) -> torch.Tensor:
         """Embed a logical (n+1)^2 field into the padded layout."""

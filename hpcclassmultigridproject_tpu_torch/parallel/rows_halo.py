@@ -209,7 +209,8 @@ def fused_smooth_sharded(part, level, u, rhs, nsweeps: int,
     if level.form == "nine":
         raise NotImplementedError(
             "fused sharded smoothing takes 5-point levels only (Galerkin "
-            "levels under a mesh: ROADMAP queue 1, item 14)")
+            "levels under a mesh: not ported yet, ROADMAP queue 1: the "
+            "rest of parallel/)")
     if not sharded_eligible(level, part, nsweeps):
         raise ValueError(
             f"per-rank block of {part.local} rows with a halo of "

@@ -37,7 +37,7 @@ from hpcclassmultigridproject_tpu_torch.parallel.rows_halo import (
     padded_rows_for,
 )
 
-_NOT_PORTED = "not ported yet (ROADMAP queue 1, item {})"
+_NOT_PORTED = "not ported yet (ROADMAP queue 1: the rest of parallel/)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +71,12 @@ class RowBlocks:
         """The shape of this rank's block of a field."""
         return self.local, self.cols
 
+    @property
+    def window(self) -> tuple[int, int]:
+        """The global rows of this rank's coefficient fields: its block
+        and `halo` rows on each side."""
+        return self.start - self.halo, self.stop + self.halo
+
 
 def level_shardings_for_ns(ns, mesh: Mesh, min_local: int = 64,
                            layout: str = "rows", nsweeps: int = 3):
@@ -82,7 +88,7 @@ def level_shardings_for_ns(ns, mesh: Mesh, min_local: int = 64,
     if layout == "2d":
         raise NotImplementedError(
             "layout='2d' (2-D blocks, a halo exchange on both axes for every "
-            f"op): {_NOT_PORTED.format(14)}")
+            f"op): {_NOT_PORTED}")
     if layout != "rows":
         raise ValueError(f"unknown layout {layout!r} (want 'rows')")
     ns = [int(n) for n in ns]
@@ -120,7 +126,7 @@ def shard_level_data(level: Level, part: RowBlocks | None,
     on the gathered array (the coarsest level), stays as it is."""
     if part is None or whole:
         return level
-    cut = level_rows(level, part.start - part.halo, part.stop + part.halo)
+    cut = level_rows(level, *part.window)
     return dataclasses.replace(cut, **{
         k: getattr(cut, k).clone() for k in ("v1", "v2", *BANDS, *CORNERS,
                                              "diag")
@@ -137,3 +143,13 @@ def shard_hierarchy(levels: tuple[Level, ...], mesh: Mesh,
     sharded = tuple(shard_level_data(level, s, whole=i == last)
                     for i, (level, s) in enumerate(zip(levels, shardings)))
     return sharded, shardings
+
+
+def shard_windows(shardings) -> tuple:
+    """The global rows of each level that `shard_hierarchy` keeps on this
+    rank: a partitioned level's `window`, None for a level kept whole (a
+    replicated one, and the coarsest).  A model born row-partitioned
+    builds only these rows (mg/levels.py::build_hierarchy_device)."""
+    last = len(shardings) - 1
+    return tuple(None if part is None or i == last else part.window
+                 for i, part in enumerate(shardings))

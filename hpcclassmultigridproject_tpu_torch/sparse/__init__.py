@@ -1,1 +1,2 @@
-"""Sparse coarse operators: the Galerkin R·A·P bands (galerkin.py)."""
+"""Sparse operators: the Galerkin R·A·P bands (galerkin.py) and the
+explicit-matrix path (matrix.py)."""

@@ -54,6 +54,9 @@ RUNS = {
                       "--coarse", "dense"],
     "jacobi_w": ["run", *BASE, "--steps", "2", "--smoother", "jacobi",
                  "--cycle-shape", "2"],
+    "delta_device_build": ["run", *BASE, "--steps", "4", "--delta",
+                           "--cycle-mode", "fixed", "--num-cycles", "1",
+                           "--coarse", "dense", "--device-build"],
 }
 
 

@@ -73,11 +73,20 @@ def test_solver_config_validation_matches(kw):
     dict(device_build=True),
 ])
 def test_off_slice_configs_raise_not_implemented(kw):
-    """Valid JAX configurations the port does not run yet name their
-    ROADMAP item instead of running something else."""
+    """Valid JAX configurations the port does not run yet name the work
+    in the ROADMAP instead of running something else.  The device build
+    is ported: its configuration is accepted, and what stays off the
+    slice, the 2-D layout of a model born partitioned, raises."""
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig
+    from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+    from hpcclassmultigridproject_tpu_torch.parallel import Mesh
+
     jcfg.SolverConfig(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
-        tcfg.SolverConfig(**_port_kwargs(kw))
+    cfg = tcfg.SolverConfig(**_port_kwargs(kw))
+    assert cfg.device_build is True
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: the rest"):
+        AdvectionDiffusion(ProblemConfig(n=64), cfg, device="cpu",
+                           mesh=Mesh(2), layout="2d")
 
 
 @pytest.mark.parametrize("kw", [

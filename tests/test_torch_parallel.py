@@ -12,7 +12,9 @@ Which levels are partitioned (n=64, W ranks, min_local):
   (b) W=4, 3 levels, min_local 8: every level above the coarsest;
   (c) the same run's level 1: 10-row blocks, thinner than 2h = 16, which
       take the one-row-exchange-per-colour-pass schedule;
-  (d) W=4, min_local 1 (tests/test_parallel.py): the coarsest level too.
+  (d) W=4, min_local 1 (tests/test_parallel.py): the coarsest level too;
+  (e) W=2, n=128, min_local 16: a model born row-partitioned (each rank
+      builds its rows on the device) against the whole device build.
 
 Bounds: every distributed run equals the port's single-device run
 bitwise (every op on the path is elementwise or schedule-exact; the
@@ -62,11 +64,17 @@ CONFIGS = {
                       dict(dtype="float32", refine_dtype="float64", tol=1e-6,
                            cycle_mode="fixed", num_cycles=1,
                            coarse_mode="dense")),
+    "delta_device": (dict(n=128, num_steps=3),
+                     dict(_DELTA, dtype="float32", refine_dtype="float64",
+                          device_build=True)),
 }
+# a job "born <config>" builds the model born row-partitioned over the
+# spawn's ranks (AdvectionDiffusion(mesh=...)) and runs it as built
 # world: the (config, min_local) runs of one spawn
 RUNS = {
     2: [("delta", 32), ("delta_overlap", 32), ("adaptive_f64", 8),
-        ("refined_adaptive", 8), ("refined_fixed", 8)],
+        ("refined_adaptive", 8), ("refined_fixed", 8), ("delta_device", 16),
+        ("born delta_device", 16)],
     4: [("delta", 8), ("delta_overlap", 8), ("adaptive_f64", 1)],
 }
 
@@ -78,18 +86,40 @@ def _solver(kw, lib):
             for k, v in kw.items()}
 
 
-def _port_model(name):
+def _port_model(name, **kw):
     p, s = CONFIGS[name]
     return AdvectionDiffusion(ProblemConfig(**p),
-                              SolverConfig(**_solver(s, torch)), device="cpu")
+                              SolverConfig(**_solver(s, torch)), device="cpu",
+                              **kw)
+
+
+def _refused(run) -> bool:
+    try:
+        run()
+    except ValueError:
+        return True
+    return False
 
 
 def rank_runs(jobs):
-    """One rank: each (config, min_local) run through distributed_run."""
+    """One rank: each (config, min_local) run through distributed_run; a
+    born job also records whether another mesh and another min_local
+    were refused."""
     torch.set_num_threads(1)
     out = {}
     for name, min_local in jobs:
-        uT, stats = distributed_run(_port_model(name), min_local=min_local)
+        if name.startswith("born "):
+            mesh = make_mesh()
+            model = _port_model(name[5:], mesh=mesh, min_local=min_local)
+            out["refused", name] = (
+                _refused(lambda: distributed_run(
+                    model, Mesh(mesh.world, (mesh.rank + 1) % mesh.world))),
+                _refused(lambda: distributed_run(model,
+                                                 min_local=2 * min_local)))
+            uT, stats = distributed_run(model)
+        else:
+            uT, stats = distributed_run(_port_model(name),
+                                        min_local=min_local)
         out[name, min_local] = (uT.numpy(),
                                 {k: v.numpy() for k, v in stats.items()})
     return out
@@ -241,6 +271,23 @@ def test_refined_matches_jax(spawned, name):
     np.testing.assert_array_equal(uT, _single(name)[0])
 
 
+def test_born_partitioned_run_matches_the_whole_build(spawned):
+    """W=2, n=128, min_local 16, 3 delta steps: the model born
+    row-partitioned (each rank built its rows only) against
+    distributed_run of the whole device-built model, at the JAX package's
+    bound (tests/test_levels_device.py: rtol 2e-6 / atol 1e-11; on the CPU
+    a row window may round sin differently from the whole build); every
+    certificate <= 1e-6; another mesh and another min_local refused."""
+    born, stats = spawned[2]["born delta_device", 16]
+    whole, _ = spawned[2]["delta_device", 16]
+    np.testing.assert_allclose(born, whole, rtol=2e-6, atol=1e-11)
+    assert float(stats["final_rel_residual_hi"]) <= 1e-6
+    assert (stats["rel_residual"] <= 1e-6).all()
+    hi = stats["rel_residual_hi_steps"]
+    assert (hi >= 0).sum() == 1 and (hi[hi >= 0] <= 1e-6).all()
+    assert spawned[2]["refused", "born delta_device"] == (True, True)
+
+
 @pytest.mark.parametrize("world,min_local", [(2, 32), (4, 8)])
 def test_overlap_schedule_equals_plain(spawned, world, min_local):
     plain, _ = spawned[world]["delta", min_local]
@@ -258,22 +305,29 @@ def test_one_rank_equals_single_device():
         np.testing.assert_array_equal(v.numpy(), stats1[k])
 
 
-def test_layout_2d_raises_naming_item_14():
-    with pytest.raises(NotImplementedError, match="item 14"):
+def test_layout_2d_raises_naming_the_rest_of_parallel():
+    with pytest.raises(NotImplementedError, match="the rest of parallel/"):
         distributed_run(_port_model("delta"), Mesh(2), layout="2d")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="the rest of parallel/"):
         level_shardings_for_ns([64, 32], Mesh(2), layout="2d")
 
 
-def test_born_sharded_model_raises_naming_item_3():
+def test_born_sharded_model_builds_its_blocks():
+    """A mesh now builds the model born row-partitioned (the device
+    build): rank 0 of two holds its blocks, with the shardings that
+    distributed_run would choose."""
     p, s = CONFIGS["delta"]
-    with pytest.raises(NotImplementedError, match="item 3"):
-        AdvectionDiffusion(ProblemConfig(**p),
-                           SolverConfig(**_solver(s, torch)), device="cpu",
-                           mesh=Mesh(2))
+    model = AdvectionDiffusion(ProblemConfig(**p),
+                               SolverConfig(**_solver(s, torch)), device="cpu",
+                               mesh=Mesh(2), min_local=16)
+    assert model.shardings == level_shardings_for_ns(
+        [level.n for level in model.levels], Mesh(2), 16)
+    part = model.shardings[0]
+    assert model.u0.shape == part.shape
+    assert model.levels[0].padded[0] == part.local + 2 * part.halo
 
 
-def test_fmg_under_a_mesh_raises_naming_item_14():
+def test_fmg_under_a_mesh_raises_naming_the_rest_of_parallel():
     """cycle_mode 'fmg' over a partitioned level, plain or refined, is
     refused before any collective; so is fmg_solve given shardings."""
     from hpcclassmultigridproject_tpu_torch.mg.cycle import fmg_solve
@@ -283,18 +337,18 @@ def test_fmg_under_a_mesh_raises_naming_item_14():
             ProblemConfig(n=64, num_steps=1),
             SolverConfig(dtype=torch.float64, cycle_mode="fmg",
                          refine_dtype=refine, num_cycles=1), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 14"):
+        with pytest.raises(NotImplementedError, match="the rest of parallel/"):
             distributed_run(model, Mesh(2), min_local=8)
     shardings = level_shardings_for_ns([lvl.n for lvl in model.levels],
                                        Mesh(2), min_local=8)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="the rest of parallel/"):
         fmg_solve(model.levels, model.u0, model.u0, model.solver, shardings)
 
 
-def test_galerkin_under_a_mesh_raises_naming_item_14():
+def test_galerkin_under_a_mesh_raises_naming_the_rest_of_parallel():
     model = AdvectionDiffusion(
         ProblemConfig(n=64, num_steps=1),
         SolverConfig(dtype=torch.float64, coarse_operator="galerkin"),
         device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="the rest of parallel/"):
         distributed_run(model, Mesh(2), min_local=8)

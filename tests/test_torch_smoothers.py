@@ -200,7 +200,7 @@ def test_smooth_block_of_another_smoother(dec):
 @pytest.mark.parametrize("smoother", SMOOTHERS)
 def test_partitioned_run_refuses_another_smoother(smoother):
     """distributed_run refuses the plain smoothers over partitioned levels
-    (ROADMAP item 14) before any collective."""
+    (ROADMAP queue 1: the rest of parallel/) before any collective."""
     from hpcclassmultigridproject_tpu_torch.parallel import (
         Mesh,
         distributed_run,
@@ -209,5 +209,5 @@ def test_partitioned_run_refuses_another_smoother(smoother):
     model = AdvectionDiffusion(
         ProblemConfig(n=64, num_steps=1),
         SolverConfig(dtype=torch.float64, smoother=smoother), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="the rest of parallel/"):
         distributed_run(model, Mesh(2), min_local=8)
