@@ -86,6 +86,27 @@ raising on failure:
     card (cuSPARSE) against the stencil at n=1024 level 0 in float64 and
     on a Galerkin level (atol 1e-13), with both times.
 
+14. 2-D layout and scaling: W=4 gloo ranks on cuda:0 (not a scaling
+    figure).  (a) the main path at n=1024 through distributed_run in the
+    2-D layout over a 2x2 mesh, min_local 64 (levels 1024..128 in 2-D
+    blocks, K3/K4 from 64), plain and with sharded_overlap (halo.py's
+    overlapped sweep): MAIN_STEPS steps unless a timed warm-up says a run
+    would pass GRID_MAX_RUN_S, then fewer (printed, and compared with a
+    single-device run of as many); uT within 1e-9 of the single-device
+    run, every certificate, plain and overlap equal to the bit, each
+    rank's K3/K4 counts, walls, peak MiB and collectives a step; (b) at
+    n=256, 5 steps, min_local 16, in both layouts: FMG plain and refined,
+    Jacobi, Chebyshev, Galerkin (nine-band levels partitioned) and the
+    main configuration, each within 1e-9 of its single-device run on the
+    card (bitwise printed) and certified, and the main one born
+    2-D-partitioned equal to the whole build's run to the bit; (c)
+    `smooth_distributed` on the n=1024 level 0, plain and overlapped,
+    equal to K2 on the whole level to the bit, with its wall and the ms
+    of one exchange; (d) `cli scaling` in subprocesses: strong over 1, 2,
+    4 ranks at n=1024 in the rows and the 2-D layout, weak at n=512 and
+    1024, each line's keys, devices, n and mesh, and center_uT within
+    1e-9 of a single-device run.
+
 Phase 9 also builds the main path's model born row-partitioned over its
 W=4 ranks (AdvectionDiffusion(mesh=...), min_local=64; phase 13's (c)):
 its uT must equal, to the bit, distributed_run of the whole device-built
@@ -95,7 +116,8 @@ whole-built model's.
 
 Each path phase (4, 6, 7, 8, 9, 10, 13) resets the launch counts just before
 the run it reads, checks every count, and runs the same path once more
-through the plain versions.
+through the plain versions.  Phase 14 (a) resets and checks each rank's
+counts the same way; its 2-D blocks run plain torch, with no kernel.
 
 The last two lines are a JSON object with the kernels' numbers (launches
 on their path, max difference, kernel, plain and bound ms, and the time of
@@ -1834,6 +1856,410 @@ def phase_device_build(device, n: int, steps: int, uT_main,
     _phase_spmv(device, n)
 
 
+# phase 14: the 2-D layout and scaling, W=4 gloo ranks on the one card
+GRID_WORLD, GRID_MIN_LOCAL = 4, 64
+# (a): timed warm-up steps, and the longest run that keeps MAIN_STEPS
+GRID_WARM_STEPS, GRID_MAX_RUN_S = 10, 120.0
+CONFIG_N, CONFIG_STEPS, CONFIG_MIN_LOCAL = 256, 5, 16  # (b)
+HALO_SWEEPS, HALO_REPS, EXCHANGE_REPS = 3, 20, 100  # (c)
+SCALING_STEPS = 10  # (d)
+SCALING_KEYS = ["devices", "n", "mesh", "layout", "seconds", "center_uT",
+                "efficiency"]
+
+
+def _smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def _count_collectives() -> dict:
+    """Count this process's point-to-point batches and all-gathers from
+    here on, by wrapping `dist.batch_isend_irecv` and `dist.all_gather`
+    (every exchange and collective of parallel/ goes through one of
+    them); returns the live counts."""
+    import torch.distributed as dist
+
+    counts = {"batch_isend_irecv": 0, "all_gather": 0}
+    for name in counts:
+        real = getattr(dist, name)
+
+        def counted(*a, _real=real, _name=name, **k):
+            counts[_name] += 1
+            return _real(*a, **k)
+
+        setattr(dist, name, counted)
+    return counts
+
+
+def _peaks_mib(base: int = 0) -> list:
+    """Every rank's peak device memory since the last reset, in MiB."""
+    import torch.distributed as dist
+
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, torch.cuda.max_memory_allocated() - base)
+    return [b / 2**20 for b in peaks]
+
+
+def _grid_rank(n: int, steps: int) -> dict:
+    """Phase 14 (a), one rank on cuda:0: the main path through
+    distributed_run in the 2-D layout, plain and with sharded_overlap
+    (halo.py's overlapped sweep), each run read between a reset and a read
+    of this rank's launch counts, collectives and peak memory.  A timed
+    warm-up of GRID_WARM_STEPS steps picks the step count: `steps` if a
+    run would take under GRID_MAX_RUN_S, else as many as take about half
+    that, a multiple of 10 (rank 0 decides for all)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig
+    from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+    from hpcclassmultigridproject_tpu_torch.ops import cuda
+    from hpcclassmultigridproject_tpu_torch.parallel import distributed_run
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    colls = _count_collectives()
+    model = AdvectionDiffusion(ProblemConfig(n=n, num_steps=steps),
+                               delta_config(certify_every=10), device="cuda")
+
+    def run(overlap: bool, nsteps: int):
+        model.solver = dataclasses.replace(model.solver,
+                                           sharded_overlap=overlap)
+        model.problem = dataclasses.replace(model.problem, num_steps=nsteps)
+        dist.barrier()
+        t0 = time.perf_counter()
+        uT, stats = distributed_run(model, min_local=GRID_MIN_LOCAL,
+                                    layout="2d")
+        torch.cuda.synchronize()
+        dist.barrier()
+        return uT, stats, time.perf_counter() - t0
+
+    run(False, 2)  # warm-up: CUDA context, kernel library, allocator
+    _, _, warm = run(False, GRID_WARM_STEPS)
+    pick = [steps]
+    if warm * steps / GRID_WARM_STEPS >= GRID_MAX_RUN_S:
+        fit = GRID_MAX_RUN_S / 2 / warm * GRID_WARM_STEPS
+        pick = [max(10, int(fit) // 10 * 10)]
+    dist.broadcast_object_list(pick, src=0)
+    out = {"steps": pick[0], "warm_s": warm}
+    for tag, overlap in (("plain", False), ("overlap", True)):
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launches()
+        for k in colls:
+            colls[k] = 0
+        uT, stats, wall = run(overlap, pick[0])
+        counts, moved = dict(cuda.LAUNCHES), dict(colls)
+        out[tag] = dict(uT=uT.cpu().numpy(), wall=wall, counts=counts,
+                        collectives=moved, peaks_mib=_peaks_mib(),
+                        stats={k: v.cpu().numpy() for k, v in stats.items()})
+    return out
+
+
+def _grid_configs() -> dict:
+    """Phase 14 (b): the configurations that run over partitioned levels
+    since the 2-D layout (and the main one), by name."""
+    from hpcclassmultigridproject_tpu_torch import SolverConfig
+
+    f64 = torch.float64
+    return {
+        "fmg": SolverConfig(dtype=f64, cycle_mode="fmg", num_cycles=1),
+        "fmg refined": SolverConfig(dtype=torch.float32, refine_dtype=f64,
+                                    tol=TOL, cycle_mode="fmg", num_cycles=1),
+        "jacobi": SolverConfig(dtype=f64, smoother="jacobi",
+                               jacobi_omega=0.8),
+        "chebyshev": SolverConfig(dtype=f64, smoother="chebyshev"),
+        "galerkin": delta_config(certify_every=5,
+                                 coarse_operator="galerkin"),
+        "main": delta_config(certify_every=5),
+    }
+
+
+def _configs_rank(n: int, steps: int, min_local: int) -> dict:
+    """Phase 14 (b), one rank on cuda:0: each configuration through
+    distributed_run in both layouts, and the main one born 2-D-partitioned
+    against the same run of the whole device-built model."""
+    import dataclasses
+
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig
+    from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+    from hpcclassmultigridproject_tpu_torch.parallel import (
+        distributed_run,
+        make_mesh,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    problem = ProblemConfig(n=n, num_steps=steps)
+    as_np = lambda uT, stats: (uT.cpu().numpy(), {
+        k: v.cpu().numpy() for k, v in stats.items()})
+    out = {}
+    for name, cfg in _grid_configs().items():
+        for layout in ("rows", "2d"):
+            model = AdvectionDiffusion(problem, cfg, device="cuda")
+            t0 = time.perf_counter()
+            uT, stats = distributed_run(model, min_local=min_local,
+                                        layout=layout)
+            torch.cuda.synchronize()
+            out[name, layout] = (*as_np(uT, stats),
+                                 time.perf_counter() - t0)
+    main = _grid_configs()["main"]
+    born = AdvectionDiffusion(problem, main, device="cuda", mesh=make_mesh(),
+                              layout="2d", min_local=min_local)
+    whole = AdvectionDiffusion(problem, dataclasses.replace(
+        main, device_build=True), device="cuda")
+    out["born"] = as_np(*distributed_run(born))
+    out["whole"] = as_np(*distributed_run(whole, min_local=min_local,
+                                          layout="2d"))
+    out["born_level0"] = (born.levels[0].padded, born.levels[0].col_off)
+    return out
+
+
+def _halo_rank(n: int) -> dict:
+    """Phase 14 (c), one rank on cuda:0: smooth_distributed on this rank's
+    2-D block of the main path's level 0 (float32, seeded fields), plain
+    and overlapped, gathered; the whole level's K2 (`fused_rb_sweeps`) on
+    the same fields; and the ms of one 2-D halo exchange (halo.py's four
+    edges) and of one corner-carrying extension (blocks.extend)."""
+    import torch.distributed as dist
+
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig
+    from hpcclassmultigridproject_tpu_torch.core.layout import interior_mask
+    from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+    from hpcclassmultigridproject_tpu_torch.ops.cuda.smoother import (
+        fused_rb_sweeps,
+    )
+    from hpcclassmultigridproject_tpu_torch.parallel import (
+        blocks,
+        fetch,
+        halo,
+        level_shardings_for_ns,
+        make_global,
+        make_mesh,
+        smooth_distributed,
+    )
+
+    level = AdvectionDiffusion(ProblemConfig(n=n, num_steps=1),
+                               delta_config(), device="cuda").levels[0]
+    rng = np.random.default_rng(14)
+    mask = interior_mask(n, level.padded, dtype=torch.float32,
+                         device="cuda")
+    u, rhs = (torch.from_numpy(rng.standard_normal(level.padded)).to(
+        device="cuda", dtype=torch.float32) * mask for _ in range(2))
+    mesh = make_mesh()
+    (part,) = level_shardings_for_ns([n], mesh, 1, "2d")
+    ub, rb = make_global(u, part), make_global(rhs, part)
+    out = {"block": part.shape}
+    want = fused_rb_sweeps(level, u, rhs, HALO_SWEEPS, want_residual=True)
+
+    def timed(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            got = fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        return got, (time.perf_counter() - t0) / reps * 1e3
+
+    for tag, overlap in (("plain", False), ("overlapped", True)):
+        (u1, res, norm), ms = timed(lambda: smooth_distributed(
+            mesh, level, ub, rb, HALO_SWEEPS, True, overlap), HALO_REPS)
+        got = (fetch(u1, part), fetch(res, part))
+        out[tag] = dict(ms=ms, equal=[bool(torch.equal(g, w))
+                                      for g, w in zip(got, want)],
+                        max_diff=max(float((g - w).abs().max())
+                                     for g, w in zip(got, want)),
+                        norm=float(norm))
+    _, out["exchange_ms"] = timed(
+        lambda: halo._start_halo(ub, mesh).wait(), EXCHANGE_REPS)
+    _, out["extend_ms"] = timed(lambda: blocks.extend([ub], part),
+                                EXCHANGE_REPS)
+    return out
+
+
+def _certified_run(tag: str, stats: dict, delta: bool) -> str:
+    """Require every step converged (under tol), and under the delta form
+    every f64 certificate <= 1e-6; a one-line summary."""
+    rel = stats["rel_residual"]
+    require(bool(np.all(stats["converged"])) and bool(np.all(rel <= TOL)),
+            f"{tag}: a step missed tol (max {rel.max():.3e})")
+    line = f"max step certificate {rel.max():.3e}"
+    if delta:
+        hi = stats["rel_residual_hi_steps"]
+        final = float(stats["final_rel_residual_hi"])
+        require(bool(np.all(hi[hi >= 0] <= TOL)) and final <= TOL,
+                f"{tag}: an f64 certificate exceeds 1e-6")
+        line += (f", f64 certificates {int((hi >= 0).sum())} (max "
+                 f"{hi[hi >= 0].max():.3e}), final f64 {final:.3e}")
+    return line
+
+
+def _phase_grid_main(n: int, steps: int, uT_single, smi: str) -> None:
+    """Phase 14 (a)."""
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig
+    from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+    from hpcclassmultigridproject_tpu_torch.parallel import launch_local
+
+    t0 = time.perf_counter()
+    res = launch_local(_grid_rank, GRID_WORLD, (n, steps), backend="gloo",
+                       device="cuda:0")
+    ran = res["steps"]
+    print(f"[grid] (a) main path, n={n}, layout 2d over a 2x2 mesh, "
+          f"min_local {GRID_MIN_LOCAL} (levels {n}..{n >> 3} in 2-D blocks, "
+          f"{n >> 4} and {n >> 5} replicated): spawn, build and runs "
+          f"{time.perf_counter() - t0:.1f} s; warm-up of {GRID_WARM_STEPS} "
+          f"steps {res['warm_s']:.3f} s (rank 0); {smi}")
+    if ran != steps:
+        print(f"[grid] (a) steps cut from {steps} to {ran}: a {steps}-step "
+              f"run would take over {GRID_MAX_RUN_S:.0f} s; compared with a "
+              f"single-device run of {ran} steps")
+        model = AdvectionDiffusion(ProblemConfig(n=n, num_steps=ran),
+                                   delta_config(certify_every=10),
+                                   device="cuda")
+        uT_single = model.run(warn=False)[0]
+    single = uT_single.cpu().numpy()
+    expect = {"tower_descent": ran, "tower_ascent": ran}
+    for tag in ("plain", "overlap"):
+        got = res[tag]
+        counts = got["counts"]
+        du = float(np.abs(got["uT"] - single).max())
+        print(f"[grid] (a) {tag}: wall {got['wall']:.4f} s (rank 0, {ran} "
+              f"steps; {smi}), max|uT - uT_single| {du!r} (bound 1e-09); "
+              f"launches per rank {counts}; collectives on rank 0 "
+              f"{got['collectives']} ({got['collectives']['batch_isend_irecv'] / ran:.1f}"
+              f" exchanges and {got['collectives']['all_gather'] / ran:.1f} "
+              f"all-gathers a step); peak device memory per rank "
+              f"{[round(m, 1) for m in got['peaks_mib']]} MiB")
+        require(counts == {k: expect.get(k, 0) for k in counts},
+                f"grid (a) {tag}: launch counts {counts}")
+        require(du <= 1e-9, f"grid (a) {tag}: uT off by {du:.3g}")
+        stats = {k: torch.from_numpy(v) for k, v in got["stats"].items()}
+        _check_advection(f"grid {tag}", n, ran, torch.from_numpy(got["uT"]),
+                         stats, CENTER_1024, True)
+    same = np.array_equal(res["plain"]["uT"], res["overlap"]["uT"])
+    print(f"[grid] (a) overlapped halo sweeps equal to plain to the bit: "
+          f"{same}")
+    require(same, "grid (a): the overlapped sweep differs from the plain")
+
+
+def _phase_grid_configs(smi: str) -> None:
+    """Phase 14 (b)."""
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig
+    from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+    from hpcclassmultigridproject_tpu_torch.parallel import launch_local
+
+    t0 = time.perf_counter()
+    res = launch_local(_configs_rank, GRID_WORLD,
+                       (CONFIG_N, CONFIG_STEPS, CONFIG_MIN_LOCAL),
+                       backend="gloo", device="cuda:0")
+    print(f"[grid] (b) n={CONFIG_N}, {CONFIG_STEPS} steps, min_local "
+          f"{CONFIG_MIN_LOCAL}, W={GRID_WORLD}, both layouts: "
+          f"{time.perf_counter() - t0:.1f} s in all; {smi}")
+    problem = ProblemConfig(n=CONFIG_N, num_steps=CONFIG_STEPS)
+    for name, cfg in _grid_configs().items():
+        single, _ = AdvectionDiffusion(problem, cfg, device="cuda").run(
+            warn=False)
+        single = single.cpu().numpy()
+        for layout in ("rows", "2d"):
+            uT, stats, wall = res[name, layout]
+            du = float(np.abs(uT - single).max())
+            line = _certified_run(f"grid (b) {name} {layout}", stats,
+                                  cfg.delta_form)
+            print(f"[grid] (b) {name}, {layout}: wall {wall:.3f} s (rank "
+                  f"0), max|uT - uT_single(card)| {du!r} (bound 1e-09, "
+                  f"bitwise {du == 0.0}); {line}")
+            require(du <= 1e-9, f"grid (b) {name} {layout}: uT off the "
+                    f"single-device run by {du:.3g}")
+    born, whole = res["born"], res["whole"]
+    same = np.array_equal(born[0], whole[0])
+    _certified_run("grid (b) born", born[1], True)
+    print(f"[grid] (b) main born 2-D-partitioned (rank 0's level 0 "
+          f"{res['born_level0'][0]}, col_off {res['born_level0'][1]}) "
+          f"equal to the whole device build's 2-D run to the bit: {same}")
+    require(same, "grid (b): the born 2-D run differs from the whole one")
+
+
+def _phase_grid_halo(n: int, smi: str) -> None:
+    """Phase 14 (c)."""
+    from hpcclassmultigridproject_tpu_torch.parallel import launch_local
+
+    res = launch_local(_halo_rank, GRID_WORLD, (n,), backend="gloo",
+                       device="cuda:0")
+    for tag in ("plain", "overlapped"):
+        got = res[tag]
+        print(f"[grid] (c) smooth_distributed {tag}, n={n} level 0, "
+              f"{HALO_SWEEPS} sweeps and the residual, blocks "
+              f"{res['block']}: {got['ms']:.3f} ms a call (rank 0, mean "
+              f"of {HALO_REPS}; {smi}); (u, residual) equal to K2 on the "
+              f"whole level: {got['equal']} (max|diff| {got['max_diff']!r})"
+              f"; norm {got['norm']!r}")
+        require(all(got["equal"]), f"grid (c) {tag}: differs from K2")
+    print(f"[grid] (c) one 2-D halo exchange of a block (four edges): "
+          f"{res['exchange_ms']:.4f} ms; one extension with corners (rows, "
+          f"then columns): {res['extend_ms']:.4f} ms (rank 0, mean of "
+          f"{EXCHANGE_REPS}, gloo staged through the host; {smi})")
+
+
+def _phase_grid_scaling(smi: str) -> None:
+    """Phase 14 (d): `cli scaling` on the card, strong in both layouts and
+    weak, each line against a single-device run of its n."""
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig
+    from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+
+    flags = ["--steps", str(SCALING_STEPS), "--delta", "--cycle-mode",
+             "fixed", "--num-cycles", "1", "--coarse", "dense",
+             "--certify-every", "10", "--reps", "1", "--max-devices",
+             str(GRID_WORLD)]
+    centers = {}
+
+    def center(n):
+        if n not in centers:
+            model = AdvectionDiffusion(
+                ProblemConfig(n=n, num_steps=SCALING_STEPS),
+                delta_config(certify_every=10), device="cuda")
+            centers[n] = model.center_value(model.run(warn=False)[0])
+        return centers[n]
+
+    meshes = {1: {"x": 1, "y": 1}, 2: {"x": 1, "y": 2}, 4: {"x": 2, "y": 2}}
+    sweeps = [("strong", layout, MAIN_N, [(1, MAIN_N), (2, MAIN_N),
+                                          (4, MAIN_N)])
+              for layout in ("rows", "2d")]
+    sweeps.append(("weak", "auto", MAIN_N // 2, [(1, MAIN_N // 2),
+                                                 (4, MAIN_N)]))
+    for mode, layout, n, want in sweeps:
+        lines = _cli("scaling", "--mode", mode, "--layout", layout, "--n",
+                     str(n), *flags)
+        require([(r["devices"], r["n"]) for r in lines] == want,
+                f"cli scaling {mode} {layout}: points {lines}")
+        for rec in lines:
+            keys = SCALING_KEYS + (["speedup"] if mode == "strong" else [])
+            dc = abs(rec["center_uT"] - center(rec["n"]))
+            print(f"[grid] (d) scaling --mode {mode} --layout {layout}: "
+                  f"{rec['devices']} ranks, n={rec['n']}, mesh "
+                  f"{rec['mesh']}: {rec['seconds']:.4f} s ({SCALING_STEPS} "
+                  f"steps; {smi}), efficiency {rec['efficiency']}, speedup "
+                  f"{rec.get('speedup')}; |center_uT - single| {dc:.3g}")
+            require(list(rec) == keys, f"cli scaling keys {list(rec)}")
+            require(rec["mesh"] == meshes[rec["devices"]]
+                    and rec["layout"] == layout,
+                    f"cli scaling mesh/layout {rec}")
+            require(dc <= 1e-9, f"cli scaling center off by {dc:.3g}")
+
+
+def phase_grid(n: int, steps: int, uT_single) -> None:
+    """Phase 14: the 2-D layout and scaling (module docstring)."""
+    smi = _smi()
+    print(f"[grid] {GRID_WORLD} ranks share cuda:0 over gloo, halos and "
+          "collectives staged through host memory (NCCL takes one rank per "
+          "GPU).  The walls are not a scaling figure.")
+    _phase_grid_main(n, steps, uT_single, smi)
+    _phase_grid_configs(smi)
+    _phase_grid_halo(n, smi)
+    _phase_grid_scaling(smi)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1858,6 +2284,7 @@ def main() -> None:
     phase_cli(MAIN_N, MAIN_STEPS)
     probes = phase_probe()
     phase_device_build(device, MAIN_N, MAIN_STEPS, uT_main, main_counts)
+    phase_grid(MAIN_N, MAIN_STEPS, uT_main)
     kernels = []
     for key, label, source, replaces in KERNELS:
         if key in probes:

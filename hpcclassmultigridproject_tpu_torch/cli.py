@@ -7,6 +7,9 @@
     python -m hpcclassmultigridproject_tpu_torch.cli sweep --sizes 64,128,256
     python -m hpcclassmultigridproject_tpu_torch.cli gsbench --backend pallas
     python -m hpcclassmultigridproject_tpu_torch.cli profile --n 1024
+    python -m hpcclassmultigridproject_tpu_torch.cli scaling --n 1024 \
+        --max-devices 4 --mode strong --layout 2d --delta \
+        --cycle-mode fixed --num-cycles 1 --coarse dense
     python -m hpcclassmultigridproject_tpu_torch.cli viz uT.txt --out uT.pdf
     python -m hpcclassmultigridproject_tpu_torch.cli diff uT.txt uTother.txt
 
@@ -15,14 +18,19 @@ through the hand-written kernels, or with `--device cpu` through their
 plain PyTorch versions.  `--backend` is validated for parity with the JAX
 package and otherwise unused by the solver: the route follows the device.
 The plots (`viz`, `plot-sweep`, `plot-scaling`) need matplotlib and import
-it only when they run.  The JAX package's `scaling` subcommand is not
-ported yet (ROADMAP queue 1: cli scaling).
+it only when they run.  `scaling` runs each sweep point over that many
+ranks, spawned on this host (`parallel.launch_local`: NCCL where every
+rank has a GPU of its own, gloo otherwise, so ranks may share one card),
+where the JAX package takes that many devices of one process; with
+`--distributed` this process is one rank of a world joined through the
+HPCMG_* variables, and the whole world is the one point.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 
@@ -94,8 +102,12 @@ def _device_arg(p: argparse.ArgumentParser) -> None:
                         "'cpu' (their plain versions)")
 
 
-def _build_model(args):
-    """The model of the CLI arguments on `args.device`."""
+def _build_model(args, mesh=None, layout="auto", device=None):
+    """The model of the CLI arguments on `device` (default `args.device`);
+    with `mesh` (the `scaling` subcommand), born partitioned over it in
+    `layout` where the device build can build it (rediscretized levels,
+    `--host-build` not forced), as the JAX package builds it; else whole,
+    and `parallel.distributed_run` partitions it."""
     import torch
 
     from hpcclassmultigridproject_tpu_torch import ProblemConfig, SolverConfig
@@ -127,7 +139,12 @@ def _build_model(args):
         device_build=getattr(args, "device_build", None),
         sharded_overlap=getattr(args, "sharded_overlap", False),
     )
-    return AdvectionDiffusion(problem, solver, device=args.device)
+    device = args.device if device is None else device
+    if (mesh is not None and solver.coarse_operator == "rediscretize"
+            and solver.device_build is not False):
+        return AdvectionDiffusion(problem, solver, device=device, mesh=mesh,
+                                  layout=layout)
+    return AdvectionDiffusion(problem, solver, device=device)
 
 
 def _run_chunked(model, args):
@@ -213,6 +230,118 @@ def cmd_sweep(args) -> int:
             "center_uT": model.center_value(uT),
             "max_rel_residual": float(as_numpy(stats["rel_residual"]).max()),
         }), flush=True)
+    return 0
+
+
+def _rank_device(args, mesh):
+    """This rank's torch device: `args.device`, and on CUDA without an
+    index the card rank % device count (one card a rank under NCCL; ranks
+    share cards under gloo).  CPU ranks share the host's threads."""
+    import torch
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", mesh.rank % torch.cuda.device_count())
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    elif mesh.world > 1:
+        torch.set_num_threads(max(1, torch.get_num_threads() // mesh.world))
+    return device
+
+
+def scaling_point(args) -> dict:
+    """One point of `scaling` in each rank of the process group (or alone,
+    on one rank): the model built over every rank, and its
+    `distributed_run` timed by `time_run` (best of `--reps`, synchronized,
+    after a warm-up).  Returns the point's seconds, center value and mesh
+    shape, as plain Python values."""
+    from hpcclassmultigridproject_tpu_torch.parallel import (
+        distributed_run,
+        make_mesh,
+    )
+    from hpcclassmultigridproject_tpu_torch.utils.timing import time_run
+
+    mesh = make_mesh()
+    model = _build_model(args, mesh=mesh, layout=args.layout,
+                         device=_rank_device(args, mesh))
+    timing = time_run(lambda: distributed_run(model, mesh,
+                                              layout=args.layout),
+                      reps=args.reps)
+    uT, _ = timing.pop("out")
+    rows, cols = mesh.shape
+    return {"seconds": timing["best_s"], "center_uT": model.center_value(uT),
+            "mesh": {"x": rows, "y": cols}}
+
+
+def _point_backend(args, world: int) -> str:
+    """NCCL where every rank of `world` has a GPU of its own, else gloo."""
+    import torch
+
+    if (torch.device(args.device).type == "cuda"
+            and world <= torch.cuda.device_count()):
+        return "nccl"
+    return "gloo"
+
+
+def cmd_scaling(args) -> int:
+    """Device-count scaling sweeps, the JAX package's `scaling`.
+
+    --mode strong: a fixed problem over 1, 2, 4, 8, 16, 32 ranks, up to
+    --max-devices.  --mode weak: the work per rank held constant over 1,
+    4, 16, 64 ranks, the grid's n times √c for c ranks (the 2-D block
+    decomposition); reports parallel efficiency t(1)/t(c).  Each point
+    runs in that many spawned ranks (`parallel.launch_local`), the first
+    in this process; rank 0 times it and prints one JSON line.
+
+    --distributed: join the process group first
+    (`parallel.initialize`: HPCMG_COORDINATOR / HPCMG_NUM_PROCESSES /
+    HPCMG_PROCESS_ID, else torch's env://) and scale over the whole world,
+    the one point; only rank 0 prints, and the ratios come from
+    --baseline-seconds."""
+    from hpcclassmultigridproject_tpu_torch.parallel import (
+        initialize,
+        is_multiprocess,
+        launch_local,
+        make_mesh,
+    )
+
+    if args.distributed:
+        # the world size before the group exists: the HPCMG variable, else
+        # torch's env:// one
+        world = (os.environ.get("HPCMG_NUM_PROCESSES")
+                 or os.environ.get("WORLD_SIZE") or "1")
+        initialize(_point_backend(args, int(world)))
+    mesh = make_mesh()
+    emit = print if mesh.rank == 0 else (lambda *a, **k: None)
+    if is_multiprocess() or args.distributed:
+        counts = [mesh.world]
+    elif args.mode == "weak":
+        counts = [c for c in (1, 4, 16, 64) if c <= args.max_devices]
+    else:
+        counts = [c for c in (1, 2, 4, 8, 16, 32) if c <= args.max_devices]
+    base_n, base_t = args.n, None
+    for c in counts:
+        if args.mode == "weak":
+            args.n = base_n * int(round(c ** 0.5))
+        if args.distributed or c == 1:
+            point = scaling_point(args)
+        else:
+            point = launch_local(scaling_point, c, (args,),
+                                 backend=_point_backend(args, c))
+        if base_t is None and len(counts) > 1:
+            base_t = point["seconds"]
+        if args.baseline_seconds:
+            base_t = args.baseline_seconds
+        rec = {"devices": c, "n": args.n, "mesh": point["mesh"],
+               "layout": args.layout, "seconds": point["seconds"],
+               "center_uT": point["center_uT"]}
+        have_ratio = base_t is not None
+        rec["efficiency"] = (base_t / point["seconds"]
+                             if args.mode == "weak" and have_ratio else None)
+        if args.mode == "strong" and have_ratio:
+            rec["speedup"] = base_t / point["seconds"]
+        emit(json.dumps(rec), flush=True)
+    args.n = base_n
     return 0
 
 
@@ -438,6 +567,25 @@ def main(argv=None) -> int:
     p.add_argument("--sizes", default="32,64,128,256,512,1024")
     p.add_argument("--reps", type=int, default=3)
     p.set_defaults(fn=cmd_sweep)
+
+    p = sub.add_parser("scaling", help="device-count scaling")
+    _solver_args(p)
+    p.add_argument("--max-devices", type=int, default=8)
+    p.add_argument("--reps", type=int, default=3)
+    p.add_argument("--mode", choices=["strong", "weak"], default="strong")
+    p.add_argument("--layout", choices=["auto", "2d", "rows"], default="auto",
+                   help="level partition layout (parallel/sharding.py): "
+                        "'rows' runs the deep-halo kernel K7 on the "
+                        "partitioned levels, '2d' splits rows and columns")
+    p.add_argument("--distributed", action="store_true",
+                   help="join the process group from HPCMG_COORDINATOR, "
+                        "HPCMG_NUM_PROCESSES and HPCMG_PROCESS_ID first "
+                        "(one process a rank)")
+    p.add_argument("--baseline-seconds", type=float, default=None,
+                   help="recorded single-device runtime to ratio against "
+                        "(required for speedup/efficiency under "
+                        "--distributed, where only the whole world runs)")
+    p.set_defaults(fn=cmd_scaling)
 
     p = sub.add_parser("gsbench", help="red-black GS throughput microbench")
     p.add_argument("--n", type=int, default=2048)

@@ -8,9 +8,10 @@ compares elementwise with the JAX package; a layout chosen for the GPU is
 ROADMAP work.  Invariant: u / rhs / residual fields are zero outside the
 open interior [1:n, 1:n], and so are the CN coefficients.
 
-A rank's block of a row-partitioned level (parallel/) holds the global rows
-[row_off, row_off + rows): the masks take that offset, so an op on a block
-sees the global interior and the global red–black colours.
+A rank's block of a partitioned level (parallel/) holds the global rows
+[row_off, row_off + rows) and columns [col_off, col_off + cols): the masks
+take both offsets, so an op on a block sees the global interior and the
+global red–black colours.
 """
 
 from __future__ import annotations
@@ -63,18 +64,23 @@ def _index_planes(shape, device):
 
 
 def interior_mask(n: int, shape: tuple[int, int], *, dtype=torch.bool,
-                  device, row_off: int = 0) -> torch.Tensor:
+                  device, row_off: int = 0, col_off: int = 0) -> torch.Tensor:
     """Mask of the open interior [1:n, 1:n] inside a padded array whose
-    row 0 is global row `row_off`."""
+    element [0, 0] is global node [row_off, col_off]."""
     r, c = _index_planes(shape, device)
     r = r + row_off
+    if col_off:  # 0 off the 2-D layout: no op, no launch
+        c = c + col_off
     inside = ((r >= 1) & (r <= n - 1)) & ((c >= 1) & (c <= n - 1))
     return inside.to(dtype)
 
 
 def color_mask(shape: tuple[int, int], parity: int, *, device,
-               row_off: int = 0) -> torch.Tensor:
+               row_off: int = 0, col_off: int = 0) -> torch.Tensor:
     """Red–black mask: (i+j) % 2 == parity in global indices (red = even),
-    row 0 being global row `row_off`."""
+    element [0, 0] being global node [row_off, col_off]: the JAX package's
+    `parallel/halo.py::_local_color_mask` on a 2-D block."""
     r, c = _index_planes(shape, device)
+    if col_off:  # 0 off the 2-D layout: no op, no launch
+        c = c + col_off
     return ((r + row_off + c) & 1) == parity

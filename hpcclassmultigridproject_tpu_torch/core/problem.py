@@ -10,10 +10,10 @@ Two builds of the fields, as in the JAX package (`core/problem.py`):
 - the device build (`rotating_velocity_trace`, `gaussian_u0_trace`,
   `gaussian_u0_padded_device`): the same formulas evaluated by torch on an
   explicit device from `torch.arange`, in float64, then cast.  It takes an
-  optional global row window `rows=(start, stop)` of the padded array, so
-  that a rank builds only its own rows (parallel/); the window may start
-  below row 0 and end past the padded rows, and every value outside the
-  logical grid is 0.  It agrees with the host build to the ulp of sin, cos
+  optional global row window `rows=(start, stop)` and column window
+  `cols=(start, stop)` of the padded array, so that a rank builds only its
+  own part (parallel/); a window may start below 0 and end past the padded
+  array, and every value outside the logical grid is 0.  It agrees with the host build to the ulp of sin, cos
   and exp, not to the bit.
 """
 
@@ -64,26 +64,30 @@ def rotating_velocity(n: int, kx: float = np.pi, ky: float = np.pi, *,
             torch.from_numpy(v2).to(device=device, dtype=dtype))
 
 
-def _iota_coords(n: int, shape: tuple[int, int], *, device, rows=None):
+def _iota_coords(n: int, shape: tuple[int, int], *, device, rows=None,
+                 cols=None):
     """(r, c, x, y): the global row indices of the window `rows` (default:
-    every row of `shape`) as a column, the column indices as a row, and
-    their coordinates x = r·h, y = c·h in float64 (the host build's
-    correctly rounded i·h products).  Fields are formed by broadcasting,
-    so a formula of x alone is evaluated once a row."""
+    every row of `shape`) as a column, the column indices of the window
+    `cols` (default: every column) as a row, and their coordinates
+    x = r·h, y = c·h in float64 (the host build's correctly rounded i·h
+    products).  Fields are formed by broadcasting, so a formula of x alone
+    is evaluated once a row."""
     start, stop = (0, shape[0]) if rows is None else rows
+    c_start, c_stop = (0, shape[1]) if cols is None else cols
     r = torch.arange(start, stop, device=device)[:, None]
-    c = torch.arange(shape[1], device=device)[None, :]
+    c = torch.arange(c_start, c_stop, device=device)[None, :]
     h = 1.0 / n
     return r, c, r.to(torch.float64) * h, c.to(torch.float64) * h
 
 
 def rotating_velocity_trace(n: int, kx: float, ky: float,
                             shape: tuple[int, int], *, dtype, device,
-                            rows=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """The padded rotating-velocity fields (the window `rows` of them), 0
-    outside the logical (n+1)² node grid."""
-    r, c, x, y = _iota_coords(n, shape, device=device, rows=rows)
-    outside = (r < 0) | (r > n) | (c > n)
+                            rows=None,
+                            cols=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The padded rotating-velocity fields (the window `rows` x `cols` of
+    them), 0 outside the logical (n+1)² node grid."""
+    r, c, x, y = _iota_coords(n, shape, device=device, rows=rows, cols=cols)
+    outside = (r < 0) | (r > n) | (c < 0) | (c > n)
     v1 = -ky * torch.sin(kx * x) * torch.cos(ky * y)
     v2 = kx * torch.cos(kx * x) * torch.sin(ky * y)
     return (v1.masked_fill_(outside, 0.0).to(dtype),
@@ -92,10 +96,10 @@ def rotating_velocity_trace(n: int, kx: float, ky: float,
 
 def gaussian_u0_trace(n: int, x0: float, y0: float, sigma: float,
                       shape: tuple[int, int], *, dtype, device,
-                      rows=None) -> torch.Tensor:
-    """The padded Gaussian initial condition (the window `rows` of it), 0
-    on the boundary ring and outside the logical grid."""
-    r, c, x, y = _iota_coords(n, shape, device=device, rows=rows)
+                      rows=None, cols=None) -> torch.Tensor:
+    """The padded Gaussian initial condition (the window `rows` x `cols`
+    of it), 0 on the boundary ring and outside the logical grid."""
+    r, c, x, y = _iota_coords(n, shape, device=device, rows=rows, cols=cols)
     outside = (r < 1) | (r > n - 1) | (c < 1) | (c > n - 1)
     dx, dy = x - x0, y - y0
     u0 = (dx * dx + dy * dy).mul_(-sigma).exp_()
@@ -104,11 +108,12 @@ def gaussian_u0_trace(n: int, x0: float, y0: float, sigma: float,
 
 def gaussian_u0_padded_device(n: int, x0: float = 0.2, y0: float = 0.4,
                               sigma: float = 100.0, *, dtype, device,
-                              rows=None) -> torch.Tensor:
+                              rows=None, cols=None) -> torch.Tensor:
     """The device twin of pad_field(gaussian_u0(...)): the padded Gaussian
-    initial condition built on `device`, or its global rows `rows`."""
+    initial condition built on `device`, or its global window `rows` x
+    `cols`."""
     return gaussian_u0_trace(n, x0, y0, sigma, padded_shape(n), dtype=dtype,
-                             device=device, rows=rows)
+                             device=device, rows=rows, cols=cols)
 
 
 class CNCoefficients(NamedTuple):

@@ -12,23 +12,29 @@ coarse tower (K3, dense solve, K4).  Each kernel wrapper launches its CUDA
 kernel for CUDA tensors and runs its plain PyTorch version for CPU tensors.
 The weighted-Jacobi and Chebyshev smoothers have no kernel, in the JAX
 package either: their blocks are `niter` plain applications and a
-residual on either device, and the coarse GS solve and the FMG bottom
-iterate the configured smoother.
+residual on either device, whole or partitioned, and the coarse GS solve
+and the FMG bottom iterate the configured smoother.
 
 PyTorch has no on-device while loop, so the adaptive solvers
 (`mg_solve`, `coarse_solve_gs`) are host loops that read one norm per
 iteration, and stop after the same count as the JAX package's
 `lax.while_loop`.
 
-With `shardings` (one `parallel.sharding.RowBlocks` or None per level,
-from `parallel.distributed_run`) a level with a partition holds this
-rank's block: it smooths by one deep-halo exchange and K7 per block
-(parallel/rows_halo.py), or by one-row exchanges on a block thinner than
-the halo, and every other op runs in its block form (parallel/blocks.py).
+With `shardings` (one partition or None per level, from
+`parallel.distributed_run`: a `parallel.sharding.RowBlocks` in the rows
+layout, a `GridBlocks` in the 2-D one) a level with a partition holds
+this rank's block.  Under red–black GS a rows-layout 5-point block smooths
+by one deep-halo exchange and K7 per block (parallel/rows_halo.py), a
+2-D-layout 5-point block by one-cell exchanges on both axes before each
+colour pass (parallel/halo.py), and a block thinner than the deep halo or
+a nine-band block by one-line exchanges with corners
+(parallel/blocks.py::rb_sweeps); the Jacobi and Chebyshev smoothers and
+every other op run in their block forms (parallel/blocks.py).
 Restriction into a replicated level gathers it on every rank (the
-agglomeration), and a partitioned coarsest level is solved on its gathered
-field.  The norms are added over the ranks, so every rank reads the same
-value and takes the same branch.
+agglomeration), a partitioned coarsest level is solved on its gathered
+field, and FMG restricts, solves and prolongs the same way.  The norms are
+added over the ranks, so every rank reads the same value and takes the
+same branch.
 """
 
 from __future__ import annotations
@@ -42,17 +48,14 @@ from hpcclassmultigridproject_tpu_torch.ops.cuda.tower import (
     tower_vcycle,
 )
 from hpcclassmultigridproject_tpu_torch.ops.padded import (
-    chebyshev_smooth,
     interior_norm,
-    prolong_bilinear,
     rb_gauss_seidel,
     residual,
     restrict_full_weighting,
     restrict_inject,
     restrict_inject_rows_decimated,
-    weighted_jacobi,
 )
-from hpcclassmultigridproject_tpu_torch.parallel import blocks
+from hpcclassmultigridproject_tpu_torch.parallel import blocks, halo
 from hpcclassmultigridproject_tpu_torch.parallel.distributed import (
     fetch,
     make_global,
@@ -62,20 +65,20 @@ from hpcclassmultigridproject_tpu_torch.parallel.rows_halo import (
     sharded_eligible,
 )
 
-_NOT_PORTED = "not ported yet (ROADMAP queue 1: the rest of parallel/)"
 
-
-def _get_smoother(cfg: SolverConfig):
-    """One plain sweep of the configured smoother, (level, u, rhs) -> u."""
-    if cfg.smoother == "rbgs":
+def _get_smoother(cfg: SolverConfig, part=None):
+    """One plain sweep of the configured smoother, (level, u, rhs) -> u,
+    on a whole level or (Jacobi, Chebyshev) on this rank's block of a
+    partitioned one (`part`)."""
+    if cfg.smoother == "rbgs" and part is None:
         return rb_gauss_seidel
     if cfg.smoother == "jacobi":
-        return lambda level, u, rhs: weighted_jacobi(level, u, rhs,
-                                                     cfg.jacobi_omega)
+        return lambda level, u, rhs: blocks.weighted_jacobi(
+            level, u, rhs, cfg.jacobi_omega, part)
     if cfg.smoother == "chebyshev":
-        return lambda level, u, rhs: chebyshev_smooth(
+        return lambda level, u, rhs: blocks.chebyshev_smooth(
             level, u, rhs, cfg.cheby_degree, cfg.cheby_lower,
-            cfg.cheby_upper)
+            cfg.cheby_upper, part)
     raise ValueError(f"unknown smoother {cfg.smoother!r}")
 
 
@@ -162,14 +165,16 @@ def _smooth_block(cfg: SolverConfig, level, u, rhs, want_residual: bool,
                   part=None, zero_init: bool = False, corr=None,
                   residual_rows_decimated: bool = False):
     """One smoothing block: under red–black GS the level form's kernel on a
-    whole level; on a partitioned one, the correction added first, then
-    the deep-halo exchange and K7 per block, or on a block thinner than
-    the halo red–black sweeps with a one-row exchange per colour pass.
-    Another smoother runs `niter` plain sweeps and the residual (its even
-    rows with `residual_rows_decimated`) on a whole level
-    (`parallel.distributed_run` refuses it on partitioned ones)."""
+    whole level; on a partitioned one, the correction added first, then in
+    the rows layout the deep-halo exchange and K7 per block, in the 2-D
+    layout the explicit halo sweeps of parallel/halo.py (in
+    `cfg.sharded_overlap`'s schedule), and on a rows block thinner than
+    the halo or a nine-band block red–black sweeps with a one-line
+    exchange per colour pass.  Another smoother runs `niter` plain sweeps
+    and the residual (its even rows with `residual_rows_decimated`), in
+    their block forms on a partitioned level."""
     if cfg.smoother != "rbgs":
-        smoother = _get_smoother(cfg)
+        smoother = _get_smoother(cfg, part)
         if zero_init:
             u = torch.zeros_like(rhs)
         elif corr is not None:
@@ -178,7 +183,7 @@ def _smooth_block(cfg: SolverConfig, level, u, rhs, want_residual: bool,
             u = smoother(level, u, rhs)
         if not want_residual:
             return u, None
-        res = residual(level, u, rhs)
+        res = blocks.residual(level, u, rhs, part)
         return u, res[::2].contiguous() if residual_rows_decimated else res
     if part is None:
         return fused_rb_sweeps(level, u, rhs, cfg.niter, want_residual,
@@ -190,6 +195,11 @@ def _smooth_block(cfg: SolverConfig, level, u, rhs, want_residual: bool,
         return fused_smooth_sharded(part, level, u, rhs, cfg.niter,
                                     want_residual, zero_init=zero_init,
                                     overlap=cfg.sharded_overlap)
+    if blocks.is_grid(part) and level.form != "nine":
+        if zero_init:
+            u = torch.zeros_like(rhs)
+        return halo.smooth_block(part.mesh, level, u, rhs, cfg.niter,
+                                 want_residual, cfg.sharded_overlap)
     u = blocks.rb_sweeps(level, u, rhs, cfg.niter, part, zero_init)
     return u, (blocks.residual(level, u, rhs, part) if want_residual
                else None)
@@ -283,39 +293,39 @@ def mg_solve_fixed(levels, u, rhs, cfg: SolverConfig, shardings=None):
     return u, _stats(cfg.num_cycles, rel, cfg)
 
 
-def refuse_sharded_fmg(shardings) -> None:
-    """FMG over partitioned levels is not ported: raise if any level of
-    `shardings` is partitioned."""
-    if shardings is not None and any(s is not None for s in shardings):
-        raise NotImplementedError(
-            f"cycle_mode='fmg' over partitioned levels: "
-            f"{_NOT_PORTED}")
-
-
 def fmg_iterate(levels, rhs, cfg: SolverConfig, shardings=None):
     """The FMG ascent without a certificate: restrict `rhs` down the
     tower, solve the coarsest level, then prolong upward running
     `cfg.num_cycles` cycles per level.  Shared by `fmg_solve` and the
-    refined path's FMG opening (mg/refine.py).  Partitioned levels raise."""
-    refuse_sharded_fmg(shardings)
+    refined path's FMG opening (mg/refine.py).  Partitioned levels
+    restrict and prolong by blocks, and a partitioned coarsest level is
+    solved on its gathered field."""
     rhs_l = [rhs]
     for lvl in range(1, len(levels)):
-        rhs_l.append(_restrict(cfg, rhs_l[-1], levels[lvl]))
-    v = _coarse_solve(levels[-1], None, rhs_l[-1], cfg)
-    for lvl in range(len(levels) - 2, -1, -1):
-        v = prolong_bilinear(v, levels[lvl].padded)
+        part = _part(shardings, lvl - 1)
+        if part is None:
+            rhs_l.append(_restrict(cfg, rhs_l[-1], levels[lvl]))
+        else:
+            rhs_l.append(blocks.restrict(cfg.restriction, rhs_l[-1],
+                                         levels[lvl], part,
+                                         _part(shardings, lvl)))
+    last = len(levels) - 1
+    v = _coarse_solve(levels[-1], None, rhs_l[-1], cfg,
+                      _part(shardings, last))
+    for lvl in range(last - 1, -1, -1):
+        v = blocks.prolong(v, levels[lvl].padded, _part(shardings, lvl),
+                           _part(shardings, lvl + 1))
         for _ in range(cfg.num_cycles):
-            v = mg_cycle(levels, v, rhs_l[lvl], cfg, lvl=lvl)
+            v = mg_cycle(levels, v, rhs_l[lvl], cfg, lvl=lvl,
+                         shardings=shardings)
     return v
 
 
 def fmg_solve(levels, u, rhs, cfg: SolverConfig, shardings=None):
     """Full multigrid: the FMG iterate replaces `u`, which only sets the
     certificate's baseline residual.  stats["cycles"] counts num_cycles at
-    each non-coarsest level.  Partitioned levels raise."""
-    refuse_sharded_fmg(shardings)
-    fine = levels[0]
-    res0_safe = _safe(interior_norm(residual(fine, u, rhs)))
-    v = fmg_iterate(levels, rhs, cfg)
-    rel = interior_norm(residual(fine, v, rhs)) / res0_safe
+    each non-coarsest level."""
+    res0_safe = _safe(_fine_norm(levels, u, rhs, shardings))
+    v = fmg_iterate(levels, rhs, cfg, shardings)
+    rel = _fine_norm(levels, v, rhs, shardings) / res0_safe
     return v, _stats(cfg.num_cycles * (len(levels) - 1), rel, cfg)

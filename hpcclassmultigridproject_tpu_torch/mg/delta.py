@@ -13,11 +13,12 @@ dtype, and the epilogue certifies the last step in the high dtype.
 A Python loop replaces the JAX package's `lax.scan`; the statistics stay on
 the device, so the loop never waits for the card.
 
-With `shardings` (parallel/) a partitioned fine level opens with the plain
-block ops (the TwoSum needs no halo, the delta rhs a one-row halo of hi
-and lo), not K1, as the JAX package's sharded fine level does; the norms,
-the certificates and the epilogue run in their block forms
-(parallel/blocks.py), and `fine_hi` is cut like level 0.
+With `shardings` (parallel/) a partitioned fine level, in either layout,
+opens with the plain block ops (the TwoSum needs no halo, the delta rhs a
+one-line halo of hi and lo on each side), not K1, as the JAX package's
+sharded fine level does; the norms, the certificates and the epilogue run
+in their block forms (parallel/blocks.py), and `fine_hi` is cut like
+level 0 (its rows, or its 2-D window).
 
 Under `_FUSE_OPEN_SMOOTH` an eligible run opens each step with K8, the
 whole-step opening (`step_open_smooth`).
@@ -40,7 +41,6 @@ from hpcclassmultigridproject_tpu_torch.ops.padded import (
     restrict_inject_rows_decimated,
 )
 from hpcclassmultigridproject_tpu_torch.parallel import blocks
-from hpcclassmultigridproject_tpu_torch.parallel.rows_halo import extend
 
 # Whole-step opening: fold the top level's zero-init pre-smooth block, with
 # its row-decimated residual, into the opening, so one kernel (K8,
@@ -79,15 +79,17 @@ def delta_rhs(level, u_hi, u_lo=None):
         lap, di, dj = lap + lap_l, di + di_l, dj + dj_l
     out = -(two_rnu * lap) - r_h * (level.v1 * di + level.v2 * dj)
     return out * interior_mask(level.n, u_hi.shape, dtype=dtype,
-                               device=u_hi.device, row_off=level.row_off)
+                               device=u_hi.device, row_off=level.row_off,
+                               col_off=level.col_off)
 
 
 def _delta_rhs(level, part, u_hi, u_lo=None):
-    """`delta_rhs` on this rank's block: a one-row halo of hi and lo."""
+    """`delta_rhs` on this rank's block: a one-line halo of hi and lo."""
     if part is None:
         return delta_rhs(level, u_hi, u_lo)
-    ext = extend([u_hi] if u_lo is None else [u_hi, u_lo], 1, part.mesh)
-    return delta_rhs(blocks.halo_level(level, part), *ext)[1:-1]
+    ext = blocks.extend([u_hi] if u_lo is None else [u_hi, u_lo], part)
+    return blocks.inner(delta_rhs(blocks.halo_level(level, part), *ext),
+                        part)
 
 
 def _split_hi_lo(x, dtype):

@@ -12,9 +12,10 @@ A level comes in one of three forms, told apart by which fields are set:
   coarse operator (sparse/galerkin.py), with corner couplings and a
   diagonal that varies in space and is 1 outside the open interior.
 
-A rank's block of a row-partitioned level (parallel/sharding.py) is a
-level too: its fields hold the global rows [row_off, row_off + rows), and
-every op reads the offset (`row_off`, 0 on a whole level).
+A rank's block of a partitioned level (parallel/sharding.py) is a level
+too: its fields hold the global rows [row_off, row_off + rows) and columns
+[col_off, col_off + cols), and every op reads the offsets (`row_off`,
+`col_off`, both 0 on a whole level; `col_off` is 0 in the rows layout).
 
 Each level stores only what its form reads: from_v levels carry no bands,
 banded levels no velocities.  The coarsest level of a dense-coarse
@@ -29,8 +30,9 @@ Two builds, as in the JAX package (`mg/levels.py`):
 - the device build (`build_hierarchy_device`, `build_fine_level_device`)
   samples each level's (v1, v2) at its own nodes, in torch float64 on the
   device (core/problem.py), and copies nothing but the coarsest level's
-  bands, to invert them on the host.  It takes a global row window per
-  level, so that a rank builds only the rows it keeps (parallel/).
+  bands, to invert them on the host.  It takes a global row window, and
+  in the 2-D layout a column window, per level, so that a rank builds only
+  the part it keeps (parallel/).
 """
 
 from __future__ import annotations
@@ -79,6 +81,7 @@ class Level:
     sw: Optional[torch.Tensor] = None
     diag: Optional[torch.Tensor] = None
     row_off: int = 0
+    col_off: int = 0
 
     @property
     def form(self) -> str:
@@ -272,26 +275,39 @@ def to_device(level: Level, device) -> Level:
         if isinstance(getattr(level, f.name), torch.Tensor)})
 
 
-def level_rows(level: Level, start: int, stop: int) -> Level:
-    """The level on its global rows [start, stop): every field of the
-    stored shape cut to those rows (zero rows where they pass the stored
-    ones, and a nine-band diagonal of 1 there, as outside the interior),
-    with `row_off` = start.  Inside the stored rows the fields are views;
-    `a_inv` stays as it is."""
-    rows = level.padded[0]
-    lo, hi = start - level.row_off, stop - level.row_off
+def level_window(level: Level, rows: tuple[int, int],
+                 cols: tuple[int, int] | None = None) -> Level:
+    """The level on its global rows [rows[0], rows[1]) and, given `cols`,
+    its global columns [cols[0], cols[1]) (else its stored columns): every
+    field of the stored shape cut to that window (zero where it passes the
+    stored fields, and a nine-band diagonal of 1 there, as outside the
+    interior), with `row_off` and `col_off` its origin.  Inside the stored
+    fields the cut is a view; `a_inv` stays as it is."""
+    r_lo, r_hi = rows[0] - level.row_off, rows[1] - level.row_off
+    if cols is None:
+        cols = (level.col_off, level.col_off + level.padded[1])
+    c_lo, c_hi = cols[0] - level.col_off, cols[1] - level.col_off
+    stored_r, stored_c = level.padded
 
     def cut(t, fill):
         if t is None:
             return t
-        x = t[max(lo, 0):min(hi, rows)]
-        top, bot = max(-lo, 0), max(hi - rows, 0)
-        return F.pad(x, (0, 0, top, bot), value=fill) if top or bot else x
+        x = t[max(r_lo, 0):min(r_hi, stored_r),
+              max(c_lo, 0):min(c_hi, stored_c)]
+        pads = (max(-c_lo, 0), max(c_hi - stored_c, 0),
+                max(-r_lo, 0), max(r_hi - stored_r, 0))
+        return F.pad(x, pads, value=fill) if any(pads) else x
 
     fields = {k: cut(getattr(level, k), 0.0)
               for k in ("v1", "v2", *BANDS, *CORNERS)}
-    return dataclasses.replace(level, row_off=start,
+    return dataclasses.replace(level, row_off=rows[0], col_off=cols[0],
                                diag=cut(level.diag, 1.0), **fields)
+
+
+def level_rows(level: Level, start: int, stop: int) -> Level:
+    """`level_window` on the global rows [start, stop) and every stored
+    column: the rows layout's cut."""
+    return level_window(level, (start, stop))
 
 
 def build_fine_level(v1, v2, dt: float, nu: float, *, dtype: torch.dtype,
@@ -340,7 +356,7 @@ def build_hierarchy_device(n: int, kx: float, ky: float, dt: float,
                            nu: float, num_levels: int, *, dtype, device,
                            coarse_mode: str = "gs",
                            coarse_operator: str = "rediscretize",
-                           rows=None) -> tuple[Level, ...]:
+                           rows=None, cols=None) -> tuple[Level, ...]:
     """`build_hierarchy` of the rotating velocity field, built on `device`:
     every level a from_v level whose (v1, v2) are sampled at its nodes in
     float64 and rounded to `dtype`.
@@ -348,7 +364,10 @@ def build_hierarchy_device(n: int, kx: float, ky: float, dt: float,
     `rows` (optional) holds one entry per level: a global row window
     (start, stop) of that level's padded array, which is all the level
     then holds (with `row_off` = start, equal to `level_rows` of the whole
-    level), or None for the whole level.  coarse_mode "dense" attaches the
+    level), or None for the whole level.  `cols` (optional, the 2-D
+    layout) likewise holds a global column window per level, or None for
+    every stored column (with `col_off` = its start; `level_window` of the
+    whole level).  coarse_mode "dense" attaches the
     dense inverse of the whole coarsest level.  Galerkin coarse levels
     need the R·A·P product of the fine operator and raise ValueError, as
     in the JAX package."""
@@ -358,17 +377,15 @@ def build_hierarchy_device(n: int, kx: float, ky: float, dt: float,
             "only (Galerkin R·A·P levels are built on the host)")
     meta = _hierarchy_meta(n, num_levels)
     rows = (None,) * num_levels if rows is None else tuple(rows)
-    if len(rows) != num_levels:
-        raise ValueError(f"{len(rows)} row windows for {num_levels} levels")
+    cols = (None,) * num_levels if cols is None else tuple(cols)
+    if len(rows) != num_levels or len(cols) != num_levels:
+        raise ValueError(f"{len(rows)} row and {len(cols)} column windows "
+                         f"for {num_levels} levels")
     levels = []
-    for (nl, h), window in zip(meta, rows):
-        v1, v2 = rotating_velocity_trace(nl, kx, ky, padded_shape(nl),
-                                         dtype=dtype, device=device,
-                                         rows=window)
-        diag_a, diag_b = _diagonals(h, dt, nu)
-        levels.append(Level(v1=v1, v2=v2, a_inv=None, n=nl, h=h, dt=dt,
-                            nu=nu, diag_a=diag_a, diag_b=diag_b,
-                            row_off=0 if window is None else window[0]))
+    for (nl, h), r_win, c_win in zip(meta, rows, cols):
+        levels.append(build_fine_level_device(
+            nl, kx, ky, dt, nu, dtype=dtype, device=device, rows=r_win,
+            cols=c_win, h=h))
     if coarse_mode == "dense":
         nl, h = meta[-1]
         levels[-1] = dataclasses.replace(levels[-1], a_inv=(
@@ -377,15 +394,18 @@ def build_hierarchy_device(n: int, kx: float, ky: float, dt: float,
 
 
 def build_fine_level_device(n: int, kx: float, ky: float, dt: float,
-                            nu: float, *, dtype, device,
-                            rows=None) -> Level:
+                            nu: float, *, dtype, device, rows=None,
+                            cols=None, h: float | None = None) -> Level:
     """`build_fine_level` of the rotating velocity field, built on
     `device`: the slim (v1, v2) finest level in `dtype`, or its global row
-    window `rows` (with `row_off` = start)."""
-    h = 1.0 / n
+    window `rows` and column window `cols` (with `row_off`, `col_off` their
+    starts).  `h` (default 1/n) is a coarse level's own spacing, which the
+    hierarchy passes."""
+    h = 1.0 / n if h is None else h
     diag_a, diag_b = _diagonals(h, dt, nu)
     v1, v2 = rotating_velocity_trace(n, kx, ky, padded_shape(n), dtype=dtype,
-                                     device=device, rows=rows)
+                                     device=device, rows=rows, cols=cols)
     return Level(v1=v1, v2=v2, a_inv=None, n=n, h=h, dt=dt, nu=nu,
                  diag_a=diag_a, diag_b=diag_b,
-                 row_off=0 if rows is None else rows[0])
+                 row_off=0 if rows is None else rows[0],
+                 col_off=0 if cols is None else cols[0])

@@ -12,7 +12,9 @@ float32 solve cannot.  The adaptive mode is a host loop that reads one norm
 per cycle; the fixed and FMG modes read none.
 
 With `shardings` (parallel/) the high-dtype residuals and norms of a
-partitioned fine level run in their block forms (parallel/blocks.py).
+partitioned fine level run in their block forms (parallel/blocks.py), in
+either layout, and the FMG opening restricts and prolongs by blocks
+(mg/cycle.py::fmg_iterate).
 """
 
 from __future__ import annotations

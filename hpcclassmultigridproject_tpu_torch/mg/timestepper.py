@@ -14,8 +14,8 @@ Solve-path dispatch (every combination shares the same cycle kernels):
   fmg          float64        refined_solve     (FMG first correction)
   fixed + delta_form          timestepper_delta (mg/delta.py)
 
-`shardings` (parallel/) runs any of them but FMG on this rank's blocks of
-the partitioned levels: see mg/cycle.py.
+`shardings` (parallel/) runs any of them on this rank's blocks of the
+partitioned levels, in either layout: see mg/cycle.py.
 """
 
 from __future__ import annotations

@@ -29,7 +29,7 @@ from hpcclassmultigridproject_tpu_torch.mg.timestepper import timestep, timestep
 from hpcclassmultigridproject_tpu_torch.parallel import (
     fetch,
     level_shardings_for_ns,
-    refuse_partitioned,
+    resolve_layout,
     shard_windows,
 )
 
@@ -44,14 +44,14 @@ def use_device_build(problem: ProblemConfig, solver: SolverConfig,
     with rediscretized levels (the JAX package also asks for x64, which
     torch always has).  Auto's choice of the device is announced by a
     warning, where the JAX package says nothing.  A model born
-    row-partitioned (`mesh`) needs the device build; forcing the host
+    partitioned (`mesh`) needs the device build; forcing the host
     build then raises ValueError, and so does the device build with
     Galerkin levels."""
     dev = solver.device_build
     if mesh is not None:
         if dev is False:
             raise ValueError(
-                "a model built row-partitioned over a mesh needs the device "
+                "a model built partitioned over a mesh needs the device "
                 "build (device_build=False was forced)")
         dev = True
     elif dev is None:
@@ -80,8 +80,8 @@ class AdvectionDiffusion:
     >>> uT, stats = model.run()
 
     Every stepper of `mg/timestepper.py` runs, and either coarse operator;
-    `parallel.distributed_run(model, mesh)` runs the model row-partitioned
-    over ranks.
+    `parallel.distributed_run(model, mesh)` runs the model partitioned
+    over ranks, in the rows or the 2-D layout.
     It runs on the card (`device="cuda"`, the default) through the
     hand-written kernels, and on the CPU (`device="cpu"`) through their
     plain PyTorch versions; without a card `device="cuda"` raises, with no
@@ -89,14 +89,16 @@ class AdvectionDiffusion:
 
     The model is built in host numpy float64 and copied to `device`, or
     built on `device` from the analytic fields (`use_device_build`).
-    With a `mesh` it is born row-partitioned: `layout` "auto" or "rows"
-    (the only one; "2d" raises NotImplementedError), and the levels whose
-    block holds at least `min_local` grid rows are partitioned, as
-    `parallel.distributed_run` partitions them (`model.shardings`).  This
-    rank then builds only its rows: a partitioned level's block and
-    halo, `fine_hi` likewise and `u0`'s block, so that no rank holds a
-    whole partitioned level; replicated levels and the coarsest are built
-    whole.  Every rank builds its model, and `run` is then collective.
+    With a `mesh` it is born partitioned, in `layout` "rows" or "2d"
+    ("auto": `parallel.resolve_layout`'s rule, "rows" under red–black GS
+    and "2d" otherwise, as `distributed_run` picks), and the levels whose
+    block holds at least `min_local` grid nodes along each split axis are
+    partitioned, as `parallel.distributed_run` partitions them
+    (`model.shardings`).  This rank then builds only its part: a
+    partitioned level's block and halo (rows, or a 2-D window), `fine_hi`
+    likewise and `u0`'s block, so that no rank holds a whole partitioned
+    level; replicated levels and the coarsest are built whole.  Every
+    rank builds its model, and `run` is then collective.
     """
 
     def __init__(self, problem: ProblemConfig, solver: SolverConfig, *,
@@ -117,12 +119,11 @@ class AdvectionDiffusion:
         self.mesh, self.shardings = mesh, None
         self.layout = self.min_local = None
         if mesh is not None:
-            self.layout = "rows" if layout == "auto" else layout
+            self.layout = resolve_layout(layout, s)
             self.min_local = min_local
             self.shardings = level_shardings_for_ns(
                 [p.n >> lvl for lvl in range(self.num_levels)], mesh,
                 min_local, self.layout, nsweeps=s.niter)
-            refuse_partitioned(s, self.shardings)
         u0_dtype = s.dtype if s.refine_dtype is None else s.refine_dtype
         if use_device_build(p, s, mesh):
             self._build_on_device(u0_dtype)
@@ -145,28 +146,32 @@ class AdvectionDiffusion:
 
     def _build_on_device(self, u0_dtype) -> None:
         """The levels, fine_hi and u0 built on the model's device; born
-        row-partitioned, only this rank's rows of them."""
+        partitioned, only this rank's part of them."""
         p, s = self.problem, self.solver
         part = None if self.shardings is None else self.shardings[0]
+        whole = part is None
         self.levels = build_hierarchy_device(
             p.n, p.kx, p.ky, p.dt_, p.nu, self.num_levels, dtype=s.dtype,
             device=self.device, coarse_mode=s.coarse_mode,
             coarse_operator=s.coarse_operator,
-            rows=None if part is None else shard_windows(self.shardings))
+            rows=None if whole else shard_windows(self.shardings),
+            cols=None if whole else shard_windows(self.shardings, cols=True))
         self.fine_hi = None
         if s.refine_dtype is not None:
             self.fine_hi = build_fine_level_device(
                 p.n, p.kx, p.ky, p.dt_, p.nu, dtype=s.refine_dtype,
-                device=self.device, rows=None if part is None else part.window)
+                device=self.device, rows=None if whole else part.window,
+                cols=None if whole else part.col_window)
         self.u0 = gaussian_u0_padded_device(
             p.n, p.x0, p.y0, p.sigma, dtype=u0_dtype, device=self.device,
-            rows=None if part is None else (part.start, part.stop))
+            rows=None if whole else (part.start, part.stop),
+            cols=None if whole else (part.col_start, part.col_stop))
 
     def run(self, u0: torch.Tensor | None = None, warn: bool = True):
         """Full run; returns (uT cropped to the logical grid, per-step
         stats).  With `warn`, reads the stats back and warns on a step
         that missed tol, a certificate without margin, or a failed
-        high-dtype certificate.  Born row-partitioned, `u0` is this rank's
+        high-dtype certificate.  Born partitioned, `u0` is this rank's
         block and uT is gathered whole on every rank."""
         uT, stats = timestepper(self.levels,
                                 self.u0 if u0 is None else u0,
@@ -208,7 +213,7 @@ class AdvectionDiffusion:
                     f"{tol:g} (certify_every={self.solver.certify_every})")
 
     def step(self, u: torch.Tensor):
-        """One CN step from a padded state (born row-partitioned, this
+        """One CN step from a padded state (born partitioned, this
         rank's block of it); returns (u_next, stats)."""
         return timestep(self.levels, u, self.solver, self.fine_hi,
                         self.shardings)
@@ -216,7 +221,7 @@ class AdvectionDiffusion:
     def run_chunk(self, u_padded: torch.Tensor, nsteps: int):
         """`nsteps` CN steps from a padded state (checkpointed runs and
         trajectory dumps); returns (u padded, per-step stats).  Born
-        row-partitioned, u is this rank's block in and out."""
+        partitioned, u is this rank's block in and out."""
         return timestepper(self.levels, u_padded, nsteps, self.solver,
                            self.fine_hi, self.shardings)
 

@@ -94,7 +94,7 @@ def fused_open_presmooth(level, hi, lo, d, nsweeps: int,
     From_v levels on one device, any nsweeps (past `FROM_V_MAX_SWEEPS`, K8
     then K2 launches: `open_in_launches`, one count).  CUDA tensors launch
     the kernel, CPU tensors run the plain version."""
-    if level.form != "from_v" or level.row_off:
+    if level.form != "from_v" or level.row_off or level.col_off:
         raise ValueError("the whole-step opening takes a whole from_v level")
     if not cuda.use_kernel(hi, lo, d, level.v1, level.v2):
         return fused_open_presmooth_plain(level, hi, lo, d, nsweeps,

@@ -98,6 +98,9 @@ def fused_rb_sweeps(level, u, rhs, nsweeps: int, want_residual: bool = False,
     if level.form == "from_v" and level.row_off:
         raise ValueError("a block of a row-partitioned level (row_off "
                          f"{level.row_off}) takes fused_rb_sweeps_rows (K7)")
+    if level.col_off:
+        raise ValueError("a block of a 2-D-partitioned level (col_off "
+                         f"{level.col_off}) is smoothed by parallel/halo.py")
     return _launch(level, u, rhs, nsweeps, want_residual, zero_init, corr,
                    residual_rows_decimated, _FORMS[level.form])
 
@@ -112,8 +115,9 @@ def fused_rb_sweeps_rows(level, u, rhs, nsweeps: int,
     CUDA tensors launch the kernel, CPU tensors run the plain version
     (`fused_rb_sweeps_plain`, which reads `row_off` through
     `ops/padded.py::coefs`)."""
-    if level.form != "from_v":
-        raise ValueError(f"K7 takes from_v levels, not {level.form}")
+    if level.form != "from_v" or level.col_off:
+        raise ValueError(f"K7 takes whole-width from_v levels, not "
+                         f"{level.form} with col_off {level.col_off}")
     if level.row_off % 2:
         raise ValueError(
             f"row_off {level.row_off} is odd: K7 takes a cell's colour from "

@@ -63,7 +63,7 @@ def coefs_from_v(level):
     hh = as_dtype(0.5 * level.h, dt)
     nu = as_dtype(level.nu, dt)
     mask = interior_mask(level.n, level.padded, dtype=dt, device=v1.device,
-                         row_off=level.row_off)
+                         row_off=level.row_off, col_off=level.col_off)
     aa = rr * (-v2 * hh + nu) * mask
     bb = rr * (v2 * hh + nu) * mask
     cc = rr * (-v1 * hh + nu) * mask
@@ -141,7 +141,8 @@ def rb_gauss_seidel(level, u, rhs, c: Coefs | None = None) -> torch.Tensor:
     before the pass."""
     c = coefs(level) if c is None else c
     inv_diag = _inv_diagonal(c, u.dtype)
-    red = color_mask(u.shape, 0, device=u.device, row_off=level.row_off)
+    red = color_mask(u.shape, 0, device=u.device, row_off=level.row_off,
+                     col_off=level.col_off)
     u = torch.where(red, (rhs - neighbor_sum(c, u)) * inv_diag, u)
     u = torch.where(~red, (rhs - neighbor_sum(c, u)) * inv_diag, u)
     return u
@@ -160,16 +161,21 @@ def weighted_jacobi(level, u, rhs, omega: float = 1.0,
     return (1.0 - omega) * u + omega * jac
 
 
-def gershgorin_bound(level, c: Coefs | None = None) -> torch.Tensor:
-    """Gershgorin bound on the spectrum of D⁻¹A: 1 + max Σ_j|a_ij| / |d_i|
-    (|d_i|, so a positive ν cannot flip the bound's sign)."""
-    c = coefs(level) if c is None else c
+def gershgorin_ratio(c: Coefs) -> torch.Tensor:
+    """Σ_j|a_ij| / |d_i| at every node (|d_i|, so a positive ν cannot flip
+    the bound's sign)."""
     rowsum = c.aa.abs() + c.bb.abs() + c.cc.abs() + c.dd.abs()
     if c.corners is not None:
         ne, nw, se, sw = c.corners
         rowsum = rowsum + ne.abs() + nw.abs() + se.abs() + sw.abs()
     diag = abs(c.diag_a) if c.diag is None else c.diag.abs()
-    return 1.0 + torch.max(rowsum / diag)
+    return rowsum / diag
+
+
+def gershgorin_bound(level, c: Coefs | None = None) -> torch.Tensor:
+    """Gershgorin bound on the spectrum of D⁻¹A: 1 + max Σ_j|a_ij| / |d_i|."""
+    c = coefs(level) if c is None else c
+    return 1.0 + torch.max(gershgorin_ratio(c))
 
 
 def chebyshev_smooth(level, u, rhs, degree: int = 3,
@@ -182,23 +188,32 @@ def chebyshev_smooth(level, u, rhs, degree: int = 3,
     the residual."""
     c = coefs(level) if c is None else c
     lam = gershgorin_bound(level, c).to(u.dtype)
+    # a tensor, so `inv_diag / theta` is one division (a Python float over
+    # a tensor is taken as a reciprocal and a product)
+    inv_diag = (torch.tensor(1.0 / c.diag_a, dtype=u.dtype, device=u.device)
+                if c.diag is None else 1.0 / c.diag)
+    return chebyshev_steps(u, lambda v: residual(level, v, rhs, c), lam,
+                           inv_diag, degree, lower_frac, upper_frac)
+
+
+def chebyshev_steps(u, res_fn, lam, inv_diag, degree: int,
+                    lower_frac: float, upper_frac: float) -> torch.Tensor:
+    """The Chebyshev recurrence of `chebyshev_smooth` from u, given the
+    residual map v -> rhs − A·v, the Gershgorin bound `lam` in u's dtype
+    and 1/diag (a 0-d tensor or an array)."""
     lmax = upper_frac * lam
     lmin = torch.maximum(lower_frac * lam, 2.0 - lam)
     theta = 0.5 * (lmax + lmin)
     delta = 0.5 * (lmax - lmin)
     sigma = theta / delta
-    # a tensor, so `inv_diag / theta` is one division (a Python float over
-    # a tensor is taken as a reciprocal and a product)
-    inv_diag = (torch.tensor(1.0 / c.diag_a, dtype=u.dtype, device=u.device)
-                if c.diag is None else 1.0 / c.diag)
 
-    r = residual(level, u, rhs, c)
+    r = res_fn(u)
     d = (inv_diag / theta) * r
     u = u + d
     rho = 1.0 / sigma
     for _ in range(degree - 1):
         rho_new = 1.0 / (2.0 * sigma - rho)
-        r = residual(level, u, rhs, c)
+        r = res_fn(u)
         d = (rho_new * rho) * d + (2.0 * rho_new / delta) * (inv_diag * r)
         u = u + d
         rho = rho_new

@@ -5,11 +5,15 @@ package's `parallel/distributed.py`.
     from explicit arguments or the HPCMG_COORDINATOR /
     HPCMG_NUM_PROCESSES / HPCMG_PROCESS_ID environment variables (the JAX
     package's names);
-  * `make_global(x, part)`: a host-built padded array to this rank's block;
-  * `fetch(x, part)`: the blocks of every rank gathered to the whole
-    padded array, on every rank;
-  * `all_sum`, `all_gather_rows`: the two collectives the SPMD program
-    needs beyond the halo exchange (parallel/rows_halo.py);
+  * `make_global(x, part)`: a host-built padded array to this rank's block
+    (a row block or a 2-D block, parallel/sharding.py);
+  * `fetch(x, part)`: the blocks of every rank gathered in rank order to
+    the whole padded array, on every rank;
+  * `all_sum`, `all_max`, `all_gather_rows`, `all_gather_blocks`: the
+    collectives the SPMD program needs beyond the halo exchange;
+  * `start_exchange(blocks, k, mesh, sides)`: the point-to-point exchange
+    of k edge lines with the neighbours along one or both mesh axes, the
+    JAX package's `ppermute` (a rank with no neighbour gets zeros);
   * `launch_local(fn, world, ...)`: `world` spawned processes on this
     host, each in the process group, returning rank 0's result.
 
@@ -108,39 +112,137 @@ def all_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return total.reshape(()).to(x.device)
 
 
-def all_gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Every rank's block (all of one shape) stacked by rank along the
-    rows, on every rank.  On one rank it is x."""
+def all_max(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """max over the ranks of the 0-d tensor x, on every rank (exact, so
+    the same bits whatever the order).  On one rank it is x."""
     if _single_rank(mesh):
         return x
+    return torch.stack(all_gather_blocks(x.reshape(1), mesh)).max().reshape(
+        ())
+
+
+def all_gather_blocks(x: torch.Tensor, mesh: Mesh) -> list[torch.Tensor]:
+    """Every rank's block (all of one shape), in rank order, on every
+    rank.  On one rank it is [x]."""
+    if _single_rank(mesh):
+        return [x]
     staged = host_staged(mesh, x)
     src = (x.cpu() if staged else x).contiguous()
     parts = [torch.empty_like(src) for _ in range(mesh.world)]
     dist.all_gather(parts, src)
-    return torch.cat(parts).to(x.device)
+    return [p.to(x.device) for p in parts]
 
 
-def fit_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
-    """x cut or zero-padded to `rows` rows."""
-    x = x[:rows]
-    return F.pad(x, (0, 0, 0, rows - x.shape[0]))
+def all_gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Every rank's block (all of one shape) stacked by rank along the
+    rows, on every rank.  On one rank it is x."""
+    return torch.cat(all_gather_blocks(x, mesh))
+
+
+def fit(x: torch.Tensor, rows: int, cols: int | None = None) -> torch.Tensor:
+    """x cut or zero-padded to `rows` rows and, given, `cols` columns."""
+    cols = x.shape[1] if cols is None else cols
+    x = x[:rows, :cols]
+    return F.pad(x, (0, cols - x.shape[1], 0, rows - x.shape[0]))
+
+
+def assemble(blocks, grid: tuple[int, int], shape) -> torch.Tensor:
+    """The array of `shape` whose blocks, in rank order, tile a grid of
+    `grid` = (block rows, block columns) row by row (rank k at
+    (k // grid[1], k % grid[1])); cut or zero-padded to `shape`."""
+    cols = grid[1]
+    rows = [torch.cat(blocks[i:i + cols], dim=1)
+            for i in range(0, len(blocks), cols)]
+    return fit(torch.cat(rows), *shape)
 
 
 def make_global(x: torch.Tensor, part) -> torch.Tensor:
     """This rank's block of the padded array x (the same on every rank):
-    its rows [part.start, part.stop), zero past the array.  `part` None
-    (a replicated level) keeps x."""
+    its rows [part.start, part.stop) and columns [part.col_start,
+    part.col_stop), zero past the array.  `part` None (a replicated level)
+    keeps x."""
     if part is None:
         return x
-    return fit_rows(x, part.span)[part.start:part.stop].clone()
+    return fit(x, part.span, part.col_span)[
+        part.start:part.stop, part.col_start:part.col_stop].clone()
 
 
 def fetch(x: torch.Tensor, part) -> torch.Tensor:
-    """The whole padded array (part.rows rows) from every rank's block, on
-    every rank.  `part` None keeps x."""
+    """The whole padded array (part.rows x part.cols) from every rank's
+    block, gathered in rank order, on every rank.  `part` None keeps x."""
     if part is None:
         return x
-    return fit_rows(all_gather_rows(x, part.mesh), part.rows)
+    return assemble(all_gather_blocks(x, part.mesh), part.grid,
+                    (part.rows, part.cols))
+
+
+class Exchange:
+    """Edge lines of some blocks in flight: `wait()` returns a (before,
+    after) pair per block and side, the lines of the neighbour before it
+    and of the one after it."""
+
+    def __init__(self, pairs, reqs=(), device=None, sends=()):
+        self._pairs, self._reqs, self._device = pairs, list(reqs), device
+        self._sends = list(sends)  # alive until the receives are waited on
+
+    @classmethod
+    def given(cls, pairs):
+        """Halos known already (a test, or a rank's view emulated)."""
+        return cls(list(pairs))
+
+    def wait(self):
+        for req in self._reqs:
+            req.wait()
+        self._reqs, self._sends = [], []
+        if self._device is not None:
+            self._pairs = [(t.to(self._device), b.to(self._device))
+                           for t, b in self._pairs]
+            self._device = None
+        return self._pairs
+
+
+def _lines(x: torch.Tensor, axis: int, first: bool, k: int) -> torch.Tensor:
+    """The first or last k lines of x along `axis`, contiguous (a column
+    edge is a strided view)."""
+    sl = slice(0, k) if first else slice(x.shape[axis] - k, None)
+    return (x[sl] if axis == 0 else x[:, sl]).contiguous()
+
+
+def start_exchange(blocks, k: int, mesh: Mesh, sides) -> Exchange:
+    """Post the exchange of k edge lines of each block: for each side
+    (axis, before, after) of `sides`, the block's first k lines along
+    `axis` go to rank `before` and its last k lines to rank `after`, and
+    theirs are received; a side whose rank is None receives zeros, as the
+    JAX package's `ppermute` leaves a device that gets no message.
+    `wait()` gives one (before, after) pair per side and block, sides
+    outermost.  Every receive is posted in one `batch_isend_irecv`."""
+    staged = host_staged(mesh, blocks[0])
+    buf_dev = torch.device("cpu") if staged else blocks[0].device
+    ops, pairs, sends = [], [], []
+    for s, (axis, before, after) in enumerate(sides):
+        for i, b in enumerate(blocks):
+            if b.shape[axis] < k:
+                raise ValueError(f"block of {b.shape[axis]} lines along "
+                                 f"axis {axis}, halo of {k}")
+            shape = (k, b.shape[1]) if axis == 0 else (b.shape[0], k)
+            top = torch.zeros(shape, dtype=b.dtype, device=buf_dev)
+            bot = torch.zeros_like(top)
+            head, tail = _lines(b, axis, True, k), _lines(b, axis, False, k)
+            if staged:
+                head, tail = head.cpu(), tail.cpu()
+            sends += [head, tail]
+            # tags pair each send with its receive: 2t goes to `before`,
+            # 2t+1 to `after`
+            t = s * len(blocks) + i
+            if before is not None:
+                ops += [dist.P2POp(dist.isend, head, before, tag=2 * t),
+                        dist.P2POp(dist.irecv, top, before, tag=2 * t + 1)]
+            if after is not None:
+                ops += [dist.P2POp(dist.isend, tail, after, tag=2 * t + 1),
+                        dist.P2POp(dist.irecv, bot, after, tag=2 * t)]
+            pairs.append((top, bot))
+    reqs = dist.batch_isend_irecv(ops) if ops else []
+    return Exchange(pairs, reqs, blocks[0].device if staged else None, sends)
 
 
 def _rank_main(rank: int, fn, world: int, args: tuple, backend: str,

@@ -5,8 +5,12 @@ PyTorch has no device mesh that its ops follow: a run is one process per
 rank over `torch.distributed`, and each process runs the SPMD program on
 its own block.  `Mesh` describes the ranks: the world size, this process's
 rank, the process group's backend, and the 2-D shape `factor_2d` gives the
-JAX package's mesh.  The rows layout (parallel/rows_halo.py) flattens both
-axes into one row of ranks, as the JAX package's `rows_spec` does.
+JAX package's mesh, with axes ("x", "y") over the grid's rows and columns.
+Rank k sits at mesh coordinates (k // cols, k % cols), as the JAX
+package's `make_mesh` reshapes its device list.  The 2-D layout
+(parallel/halo.py, parallel/blocks.py) exchanges with the four neighbours
+of those coordinates; the rows layout (parallel/rows_halo.py) flattens
+both axes into one row of ranks, as the JAX package's `rows_spec` does.
 """
 
 from __future__ import annotations
@@ -45,6 +49,24 @@ class Mesh:
     def shape(self) -> tuple[int, int]:
         """The JAX package's 2-D mesh shape for `world` devices."""
         return factor_2d(self.world)
+
+    axis_names = ("x", "y")
+
+    @property
+    def coords(self) -> tuple[int, int]:
+        """This rank's (row, col) on the mesh: (rank // cols, rank % cols)."""
+        return divmod(self.rank, self.shape[1])
+
+    @property
+    def neighbors(self) -> tuple[int | None, ...]:
+        """The ranks (up, down, left, right) beside this one on the mesh:
+        up is the previous along "x" (the grid rows above), left the
+        previous along "y"; None past the mesh's edge."""
+        (rows, cols), (i, j) = self.shape, self.coords
+        return (self.rank - cols if i > 0 else None,
+                self.rank + cols if i < rows - 1 else None,
+                self.rank - 1 if j > 0 else None,
+                self.rank + 1 if j < cols - 1 else None)
 
     @property
     def backend(self) -> str | None:

@@ -26,12 +26,13 @@ Five-band levels run K5 on the extended block with no offset (their stored
 bands carry the mask).  Nine-band levels are refused, as in the JAX
 package.
 
-`exchange` carries every halo of the distributed program, through
-`dist.batch_isend_irecv`: device tensors under NCCL; under gloo, CUDA
-tensors' halo rows are copied to the host, exchanged and copied back
-(parallel/distributed.py::host_staged).  The per-rank computation
-(`smooth_block`) takes its halos from an `Exchange`, a posted exchange or
-halos given by hand, so it runs with no process group too.
+`exchange` carries every halo of the rows layout, through
+`distributed.start_exchange` (`dist.batch_isend_irecv`): device tensors
+under NCCL; under gloo, CUDA tensors' halo rows are copied to the host,
+exchanged and copied back (parallel/distributed.py::host_staged).  The
+per-rank computation (`smooth_block`) takes its halos from an `Exchange`,
+a posted exchange or halos given by hand, so it runs with no process
+group too.
 """
 
 from __future__ import annotations
@@ -39,16 +40,14 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.distributed as dist
 
 from hpcclassmultigridproject_tpu_torch.mg.levels import level_rows
 from hpcclassmultigridproject_tpu_torch.ops.cuda.smoother import (
     fused_rb_sweeps,
     fused_rb_sweeps_rows,
 )
-from hpcclassmultigridproject_tpu_torch.parallel.distributed import (
-    host_staged,
-)
+from hpcclassmultigridproject_tpu_torch.parallel import distributed
+from hpcclassmultigridproject_tpu_torch.parallel.distributed import Exchange
 
 
 def halo_rows(nsweeps: int) -> int:
@@ -88,57 +87,14 @@ def sharded_eligible(level, part, nsweeps: int) -> bool:
             and part.halo >= 2 * nsweeps + 1 and part.local >= 2 * part.halo)
 
 
-class Exchange:
-    """Halo rows of some blocks: `wait()` returns (top, bottom) per block,
-    the k rows above and below it."""
-
-    def __init__(self, pairs, reqs=(), device=None, sends=()):
-        self._pairs, self._reqs, self._device = pairs, list(reqs), device
-        self._sends = list(sends)  # alive until the receives are waited on
-
-    @classmethod
-    def given(cls, pairs):
-        """Halos known already (a test, or a rank's view emulated)."""
-        return cls(list(pairs))
-
-    def wait(self):
-        for req in self._reqs:
-            req.wait()
-        self._reqs, self._sends = [], []
-        if self._device is not None:
-            self._pairs = [(t.to(self._device), b.to(self._device))
-                           for t, b in self._pairs]
-            self._device = None
-        return self._pairs
-
-
 def start_exchange(blocks, k: int, mesh) -> Exchange:
     """Post the exchange of k halo rows of each block: its first k rows to
     the rank before, its last k rows to the rank after, and the receives of
     theirs.  Rank 0's top and the last rank's bottom halos are zero."""
-    staged = host_staged(mesh, blocks[0])
-    buf_dev = torch.device("cpu") if staged else blocks[0].device
     rank, world = mesh.rank, mesh.world
-    ops, pairs, sends = [], [], []
-    for i, b in enumerate(blocks):
-        if b.shape[0] < k:
-            raise ValueError(f"block of {b.shape[0]} rows, halo of {k}")
-        top = torch.zeros((k, b.shape[1]), dtype=b.dtype, device=buf_dev)
-        bot = torch.zeros_like(top)
-        head, tail = b[:k], b[-k:]
-        if staged:
-            head, tail = head.cpu(), tail.cpu()
-        sends += [head, tail]
-        # tags pair each send with its receive: 2i goes up, 2i+1 down
-        if rank > 0:
-            ops += [dist.P2POp(dist.isend, head, rank - 1, tag=2 * i),
-                    dist.P2POp(dist.irecv, top, rank - 1, tag=2 * i + 1)]
-        if rank < world - 1:
-            ops += [dist.P2POp(dist.isend, tail, rank + 1, tag=2 * i + 1),
-                    dist.P2POp(dist.irecv, bot, rank + 1, tag=2 * i)]
-        pairs.append((top, bot))
-    reqs = dist.batch_isend_irecv(ops) if ops else []
-    return Exchange(pairs, reqs, blocks[0].device if staged else None, sends)
+    side = (0, rank - 1 if rank > 0 else None,
+            rank + 1 if rank < world - 1 else None)
+    return distributed.start_exchange(blocks, k, mesh, [side])
 
 
 def exchange(blocks, k: int, mesh):
@@ -208,9 +164,10 @@ def fused_smooth_sharded(part, level, u, rhs, nsweeps: int,
     Returns (u, residual or None)."""
     if level.form == "nine":
         raise NotImplementedError(
-            "fused sharded smoothing takes 5-point levels only (Galerkin "
-            "levels under a mesh: not ported yet, ROADMAP queue 1: the "
-            "rest of parallel/)")
+            "fused sharded smoothing takes 5-point levels only (a "
+            "partitioned Galerkin level smooths by one-line exchanges, "
+            "parallel/blocks.py::rb_sweeps, as the JAX package's GSPMD "
+            "path does)")
     if not sharded_eligible(level, part, nsweeps):
         raise ValueError(
             f"per-rank block of {part.local} rows with a halo of "

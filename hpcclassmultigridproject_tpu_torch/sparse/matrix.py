@@ -38,7 +38,8 @@ def _numpy64(t: torch.Tensor) -> np.ndarray:
 def _bands(level: Level) -> dict:
     """The level's bands (and a nine-band level's diagonal) in numpy
     float64, padded shape."""
-    if level.row_off or level.padded[0] < level.n + 1:
+    if (level.row_off or level.col_off
+            or min(level.padded) < level.n + 1):
         raise ValueError("the explicit matrix takes a whole level, not a "
                          "rank's block")
     if level.form == "from_v":

@@ -222,10 +222,30 @@ def test_device_defaults_to_the_card(monkeypatch):
         t_main(["run", *BASE, "--steps", "1"])
 
 
-def test_scaling_is_not_a_port_subcommand(capsys):
-    with pytest.raises(SystemExit):
-        t_main(["scaling"])
-    assert "invalid choice" in capsys.readouterr().err
+@pytest.mark.parametrize("mode", ["strong", "weak"])
+def test_scaling_runs_and_matches(capsys, mode):
+    """`scaling` against the JAX package's on its 8-device CPU mesh, at
+    n=64, 2 steps, f64, --max-devices 4: the port spawns each point's
+    ranks over gloo, the JAX package takes that many devices.  The same
+    lines (strong: 1, 2, 4 devices; weak: 1 and 4, n times 2) with the
+    same keys, devices, n, mesh and layout, and center_uT within 1e-12."""
+    argv = ["scaling", "--n", "64", "--steps", "2", "--dtype", "f64",
+            "--reps", "1", "--max-devices", "4", "--mode", mode]
+    assert j_main(argv) == 0
+    want = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.startswith("{")]
+    assert t_main([*argv, "--device", "cpu"]) == 0
+    got = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+           if line.startswith("{")]
+    assert [r["devices"] for r in got] == (
+        [1, 2, 4] if mode == "strong" else [1, 4])
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert list(g) == list(w)
+        for key in ("devices", "n", "mesh", "layout"):
+            assert g[key] == w[key], key
+        assert g["center_uT"] == pytest.approx(w["center_uT"], rel=0,
+                                               abs=1e-12)
 
 
 def test_port_cli_never_imports_jax(tmp_path):

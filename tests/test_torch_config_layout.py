@@ -72,21 +72,38 @@ def test_solver_config_validation_matches(kw):
 @pytest.mark.parametrize("kw", [
     dict(device_build=True),
 ])
-def test_off_slice_configs_raise_not_implemented(kw):
-    """Valid JAX configurations the port does not run yet name the work
-    in the ROADMAP instead of running something else.  The device build
-    is ported: its configuration is accepted, and what stays off the
-    slice, the 2-D layout of a model born partitioned, raises."""
+def test_off_slice_configs_runs_and_matches(kw):
+    """Valid JAX configurations the port once refused now run.  The device
+    build's configuration is accepted, and the 2-D layout of a model born
+    partitioned builds rank 0's window of rows and columns, equal to the
+    whole device build's level and u0 cut to it (the born-run bound of
+    tests/test_torch_parallel.py)."""
     from hpcclassmultigridproject_tpu_torch import ProblemConfig
     from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
-    from hpcclassmultigridproject_tpu_torch.parallel import Mesh
+    from hpcclassmultigridproject_tpu_torch.parallel import (
+        GridBlocks,
+        Mesh,
+        make_global,
+        shard_level_data,
+    )
 
     jcfg.SolverConfig(**kw)
     cfg = tcfg.SolverConfig(**_port_kwargs(kw))
     assert cfg.device_build is True
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: the rest"):
-        AdvectionDiffusion(ProblemConfig(n=64), cfg, device="cpu",
-                           mesh=Mesh(2), layout="2d")
+    born = AdvectionDiffusion(ProblemConfig(n=64), cfg, device="cpu",
+                              mesh=Mesh(2), layout="2d", min_local=16)
+    whole = AdvectionDiffusion(ProblemConfig(n=64), cfg, device="cpu")
+    part = born.shardings[0]
+    assert isinstance(part, GridBlocks) and born.layout == "2d"
+    want = shard_level_data(whole.levels[0], part)
+    got = born.levels[0]
+    assert (got.row_off, got.col_off, got.padded) == (
+        want.row_off, want.col_off, want.padded) == (-1, -1, (74, 66))
+    for f in ("v1", "v2"):
+        np.testing.assert_allclose(getattr(got, f), getattr(want, f),
+                                   rtol=2e-6, atol=1e-11)
+    np.testing.assert_allclose(born.u0, make_global(whole.u0, part),
+                               rtol=2e-6, atol=1e-11)
 
 
 @pytest.mark.parametrize("kw", [

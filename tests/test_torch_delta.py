@@ -9,6 +9,7 @@ final f64 certificate within 20% of the JAX run's (tests/test_tower.py),
 and the same rel_residual_hi_steps cadence.
 """
 
+import dataclasses
 import functools
 import pathlib
 import warnings
@@ -154,10 +155,18 @@ def test_cuda_device_without_a_card_raises(monkeypatch):
                            device="cuda")
 
 
-def test_mesh_raises_not_implemented():
-    """A mesh builds the model born row-partitioned in the rows layout;
-    the 2-D layout is still not ported and raises, naming the work."""
-    from hpcclassmultigridproject_tpu_torch.parallel import Mesh
+def test_mesh_runs_and_matches():
+    """A mesh builds the model born partitioned, in the rows layout and in
+    the 2-D one: rank 1 of two holds its rows (and halo) of level 0, or
+    in the 2-D layout its column window (col_off), and its fields match
+    the whole device build's cut to the same window (the born-run bound of
+    tests/test_torch_parallel.py: a window may round sin apart on the
+    CPU)."""
+    from hpcclassmultigridproject_tpu_torch.parallel import (
+        Mesh,
+        make_global,
+        shard_level_data,
+    )
 
     cfg = SolverConfig(refine_dtype=torch.float64, num_levels=2, **_RUN)
     model = AdvectionDiffusion(ProblemConfig(n=64), cfg, device="cpu",
@@ -165,9 +174,24 @@ def test_mesh_raises_not_implemented():
     part = model.shardings[0]
     assert model.levels[0].padded[0] == part.local + 2 * part.halo
     assert model.levels[0].row_off == part.start - part.halo
-    with pytest.raises(NotImplementedError, match="the rest of parallel/"):
-        AdvectionDiffusion(ProblemConfig(n=64), cfg, device="cpu",
-                           mesh=Mesh(2, 1), layout="2d")
+    whole = AdvectionDiffusion(ProblemConfig(n=64), dataclasses.replace(
+        cfg, device_build=True), device="cpu")
+    grid = AdvectionDiffusion(ProblemConfig(n=64), cfg, device="cpu",
+                              mesh=Mesh(2, 1), min_local=16, layout="2d")
+    part = grid.shardings[0]
+    level = grid.levels[0]
+    assert (level.row_off, level.col_off) == (-1, part.col_start - 1) == (
+        -1, 63)
+    assert level.padded == (part.local + 2, part.local_cols + 2)
+    for got, want in ((level, shard_level_data(whole.levels[0], part)),
+                      (grid.fine_hi, shard_level_data(whole.fine_hi, part))):
+        assert (got.row_off, got.col_off, got.padded) == (
+            want.row_off, want.col_off, want.padded)
+        for f in ("v1", "v2"):
+            np.testing.assert_allclose(getattr(got, f), getattr(want, f),
+                                       rtol=2e-6, atol=1e-11)
+    np.testing.assert_allclose(grid.u0, make_global(whole.u0, part),
+                               rtol=2e-6, atol=1e-11)
 
 
 @pytest.mark.slow

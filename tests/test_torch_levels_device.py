@@ -277,7 +277,8 @@ def test_build_choice_and_its_one_notice(n, kw, device, notice):
 @pytest.mark.parametrize("case", ["galerkin", "mesh_host_build", "layout_2d"])
 def test_device_build_refusals(case):
     """Galerkin levels on the device and a mesh with the host build forced
-    raise ValueError, as in the JAX package; the 2-D layout is not ported."""
+    raise ValueError, as in the JAX package, in the 2-D layout too; an
+    unknown layout raises ValueError."""
     p = ProblemConfig(n=64, num_steps=1)
     if case == "galerkin":
         with pytest.raises(ValueError, match="rediscretize"):
@@ -293,9 +294,12 @@ def test_device_build_refusals(case):
             AdvectionDiffusion(p, _delta(device_build=False), device="cpu",
                                mesh=Mesh(2))
     else:
-        with pytest.raises(NotImplementedError, match="the rest of parallel/"):
+        with pytest.raises(ValueError, match="device build"):
+            AdvectionDiffusion(p, _delta(device_build=False), device="cpu",
+                               mesh=Mesh(2), layout="2d")
+        with pytest.raises(ValueError, match="unknown layout"):
             AdvectionDiffusion(p, _delta(), device="cpu", mesh=Mesh(2),
-                               layout="2d")
+                               layout="cols")
 
 
 def test_born_partitioned_run_refuses_another_partitioning():

@@ -173,7 +173,7 @@ def test_nine_band_level_raises():
                                ne=level.v1, nw=level.v1, se=level.v1,
                                sw=level.v1, diag=level.v1)
     (part,) = level_shardings_for_ns([64], Mesh(2, 0), min_local=1)
-    with pytest.raises(NotImplementedError, match="the rest of parallel/"):
+    with pytest.raises(NotImplementedError, match="5-point levels only"):
         rows_halo.fused_smooth_sharded(part, nine, u, rhs, 3)
 
 

@@ -8,7 +8,9 @@ the JAX package on the CPU in float64.
   (tests/test_golden.py's bound for f64 ops);
 - one `mg_cycle` with each smoother (GS coarse solve, so the coarse solve
   iterates the smoother too): atol 1e-12;
-- an FMG run of the model with each smoother: uT within 1e-12.
+- an FMG run of the model with each smoother: uT within 1e-12;
+- the block forms of both smoothers (parallel/blocks.py) on a one-rank
+  2-D partition of each level kind: the whole-level op to the bit.
 """
 
 import functools
@@ -197,17 +199,30 @@ def test_smooth_block_of_another_smoother(dec):
     assert torch.equal(r, res[::2] if dec else res)
 
 
+@pytest.mark.parametrize("kind", ["cn", "poisson", "galerkin"])
 @pytest.mark.parametrize("smoother", SMOOTHERS)
-def test_partitioned_run_refuses_another_smoother(smoother):
-    """distributed_run refuses the plain smoothers over partitioned levels
-    (ROADMAP queue 1: the rest of parallel/) before any collective."""
+def test_block_smoother_on_one_rank_equals_the_whole(smoother, kind):
+    """The block forms of the smoothers (parallel/blocks.py), which run
+    them over partitioned levels, on a one-rank 2-D "partition" holding
+    the whole level: every halo line zero (no neighbour), the window past
+    the array filled as outside the interior, the Gershgorin bound a max
+    over the one rank; equal to the whole-level op to the bit.  The
+    spawned runs over 4 ranks are in tests/test_torch_parallel.py."""
     from hpcclassmultigridproject_tpu_torch.parallel import (
+        GridBlocks,
         Mesh,
-        distributed_run,
+        blocks,
     )
 
-    model = AdvectionDiffusion(
-        ProblemConfig(n=64, num_steps=1),
-        SolverConfig(dtype=torch.float64, smoother=smoother), device="cpu")
-    with pytest.raises(NotImplementedError, match="the rest of parallel/"):
-        distributed_run(model, Mesh(2), min_local=8)
+    _, tl = _levels(kind)
+    u, rhs = (torch.from_numpy(x) for x in _fields(tl.padded, tl.n, 5))
+    part = GridBlocks(Mesh(1), *tl.padded, *tl.padded)
+    if smoother == "jacobi":
+        got = blocks.weighted_jacobi(tl, u, rhs, 0.8, part)
+        want = t_ops.weighted_jacobi(tl, u, rhs, 0.8)
+    else:
+        got = blocks.chebyshev_smooth(tl, u, rhs, 3, 1.0 / 30.0, 1.1, part)
+        want = t_ops.chebyshev_smooth(tl, u, rhs)
+        assert torch.equal(blocks.gershgorin_bound(tl, part),
+                           t_ops.gershgorin_bound(tl))
+    assert torch.equal(got, want)
