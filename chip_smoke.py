@@ -106,6 +106,22 @@ raising on failure:
     4 ranks at n=1024 in the rows and the 2-D layout, weak at n=512 and
     1024, each line's keys, devices, n and mesh, and center_uT within
     1e-9 of a single-device run.
+15. routes and oracle: (a) the main path of phase 4 once with each of
+    the JAX package's switches off (mg.cycle._FUSE_CORR, _USE_TOWER,
+    _RESTRICT_DEC, mg.delta._FUSE_OPEN: the unfused forms) and once with
+    backend="jnp" (the plain versions on the card), beside the default
+    route: each uT equal to phase 4's to the bit, every certificate
+    <= 1e-6, every kernel's launch count exact (no K1-K8 under "jnp"),
+    and each route's wall in turns (median of 6), device busy, idle
+    share, launch calls and peak MiB; (b) the float64 adaptive reference
+    configuration (GS coarse solve, injection; K2 in float64) against the
+    port's own native C++ oracle (native/, built with g++) at n=64, 2
+    levels, 100 steps, V- and W-cycles, within 1e-12 and with the
+    V-cycle's cycles a step equal, and at n=256 against
+    tests/golden/uT_n256.npy within 1e-12, center within 5e-9 of
+    4.802e-5, at most one cycle a step; (c) the logical-shape operations
+    (ops) on the card against the oracle in float64 at
+    tests/test_ops.py's tolerances.
 
 Phase 9 also builds the main path's model born row-partitioned over its
 W=4 ranks (AdvectionDiffusion(mesh=...), min_local=64; phase 13's (c)):
@@ -114,9 +130,10 @@ model in the same spawn, with the certificates and K7 counts of the plain
 schedule, and each rank's peak MiB, build through run, lower than the
 whole-built model's.
 
-Each path phase (4, 6, 7, 8, 9, 10, 13) resets the launch counts just before
-the run it reads, checks every count, and runs the same path once more
-through the plain versions.  Phase 14 (a) resets and checks each rank's
+Each path phase (4, 6, 7, 8, 9, 10, 13, 15) resets the launch counts just
+before the run it reads, checks every count, and (but 15, whose "jnp"
+route is the plain one) runs the same path once more through the plain
+versions.  Phase 14 (a) resets and checks each rank's
 counts the same way; its 2-D blocks run plain torch, with no kernel.
 
 The last two lines are a JSON object with the kernels' numbers (launches
@@ -128,6 +145,7 @@ repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import pathlib
@@ -1865,6 +1883,14 @@ HALO_SWEEPS, HALO_REPS, EXCHANGE_REPS = 3, 20, 100  # (c)
 SCALING_STEPS = 10  # (d)
 SCALING_KEYS = ["devices", "n", "mesh", "layout", "seconds", "center_uT",
                 "efficiency"]
+# phase 15: the routes of the main path, each switch by its module, and
+# the float64 reference configuration against the native oracle
+ROUTE_SWITCHES = (("cycle", "_FUSE_CORR"), ("cycle", "_USE_TOWER"),
+                  ("cycle", "_RESTRICT_DEC"), ("delta", "_FUSE_OPEN"))
+ROUTE_ROUNDS = 3  # walls in turns: each route twice a round
+ORACLE_N, ORACLE_STEPS, ORACLE_LEVELS = 64, 100, 2  # tests/test_golden.py
+GOLDEN_CENTER = 4.802e-5
+OPS_N = 16  # tests/test_ops.py's grid
 
 
 def _smi() -> str:
@@ -2260,6 +2286,264 @@ def phase_grid(n: int, steps: int, uT_single) -> None:
     _phase_grid_scaling(smi)
 
 
+def _route_counts(steps: int, switch: str | None) -> dict:
+    """The launch counts one main-path run must show on a route, from the
+    code: K1 a step, K2 before and after level 0, the tower's two halves;
+    without the tower K2 before and after each of levels 0-4; without K1
+    the opening is plain torch; none under backend "jnp"."""
+    if switch == "jnp":
+        return {}
+    want = {"delta_open": steps, "smooth": 2 * steps,
+            "tower_descent": steps, "tower_ascent": steps}
+    if switch == "_USE_TOWER":
+        want.update(smooth=10 * steps, tower_descent=0, tower_ascent=0)
+    if switch == "_FUSE_OPEN":
+        want["delta_open"] = 0
+    return want
+
+
+def _route_run(tag: str, run, want: dict) -> dict:
+    """Check one route of the main path: a warm-up run, a run between a
+    reset and a read of the launch counts (every count must equal
+    `want`), a run for peak memory and a profiled run.  Returns the
+    counted run's (uT, stats), its launch counts, the peak MiB and the
+    MiB held before that run (earlier phases' tensors and the models),
+    and the profiled run's (wall, busy ms, launch calls, cooperative
+    ones)."""
+    from hpcclassmultigridproject_tpu_torch.ops import cuda
+
+    run()
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    counts = dict(cuda.LAUNCHES)
+    want = {k: want.get(k, 0) for k in counts}
+    require(counts == want, f"{tag}: launch counts {counts}, expected {want}")
+    held = torch.cuda.memory_allocated() / 2**20
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    return {"out": out, "counts": {k: v for k, v in counts.items() if v},
+            "peak": torch.cuda.max_memory_allocated() / 2**20,
+            "held": held, "profiled": _profiled_run(run)}
+
+
+@contextlib.contextmanager
+def _switched_off(module, switch: str | None):
+    """The switch `switch` of `module` off for as long as the context
+    lasts (no switch: nothing)."""
+    if switch is None:
+        yield
+        return
+    old = getattr(module, switch)
+    setattr(module, switch, False)
+    try:
+        yield
+    finally:
+        setattr(module, switch, old)
+
+
+def _phase_routes(device, n: int, steps: int, uT_main, smi: str) -> None:
+    """Phase 15 (a): the main path on each route, bit for bit phase 4's,
+    then every route's wall in turns (forward, then backward, three
+    rounds) in this process."""
+    import dataclasses
+
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig
+    from hpcclassmultigridproject_tpu_torch.mg import cycle, delta
+    from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+
+    modules = {"cycle": cycle, "delta": delta}
+    model = AdvectionDiffusion(ProblemConfig(n=n, num_steps=steps),
+                               delta_config(certify_every=10), device=device)
+    jnp_model = AdvectionDiffusion(
+        ProblemConfig(n=n, num_steps=steps),
+        dataclasses.replace(model.solver, backend="jnp"), device=device)
+    routes = [("default", model, None, None)] + [
+        (f"{switch} off", model, modules[module], switch)
+        for module, switch in ROUTE_SWITCHES] + [
+        ('backend="jnp"', jnp_model, None, "jnp")]
+    checked = {}
+    for tag, m, module, switch in routes:
+        run = lambda m=m: m.run(warn=False)
+        with _switched_off(module, None if switch == "jnp" else switch):
+            checked[tag] = _route_run(tag, run, _route_counts(steps, switch))
+        uT, stats = checked[tag].pop("out")
+        _check_advection(f"routes {tag}", n, steps, uT, stats, CENTER_1024,
+                         True)
+        du = float((uT - uT_main).abs().max())
+        print(f"[routes] {tag}: max|uT - uT(phase 4)| {du!r}; equal to the "
+              f"bit: {torch.equal(uT, uT_main)}")
+        require(torch.equal(uT, uT_main),
+                f"routes: {tag}: uT off phase 4's by {du:.3g}")
+    walls = {tag: [] for tag, *_ in routes}
+    for _ in range(ROUTE_ROUNDS):
+        for tag, m, module, switch in routes + routes[::-1]:
+            with _switched_off(module, None if switch == "jnp" else switch):
+                t0 = time.perf_counter()
+                m.run(warn=False)
+                torch.cuda.synchronize()
+                walls[tag].append(time.perf_counter() - t0)
+    for tag, *_ in routes:
+        c = checked[tag]
+        median = statistics.median(walls[tag])
+        wall, busy, launches, cooperative = c["profiled"]
+        print(f"[routes] {tag} ({smi}): launches {c['counts']}; wall in "
+              f"turns {median:.4f} s (median of {len(walls[tag])}, "
+              f"{walls[tag]}); one profiled run {wall:.4f} s, the card busy "
+              f"{busy:.2f} ms, idle {1 - busy / 1e3 / median:.1%} of the "
+              f"median wall, {launches} launch calls ({cooperative} "
+              f"cooperative); peak {c['peak']:.1f} MiB, "
+              f"{c['peak'] - c['held']:.1f} above the {c['held']:.1f} "
+              "held before the run")
+
+
+def _default_problem(n: int):
+    """The default problem's u0, v1, v2 as numpy float64 logical fields,
+    from the reference's formulas (tests/conftest.py::default_problem)."""
+    idx = np.arange(n + 1) * (1.0 / n)
+    x = idx[:, None] * np.ones((1, n + 1))
+    y = np.ones((n + 1, 1)) * idx[None, :]
+    u0 = np.exp(-100.0 * ((x - 0.2) ** 2 + (y - 0.4) ** 2))
+    u0[0, :] = u0[-1, :] = u0[:, 0] = u0[:, -1] = 0.0
+    v1 = -np.pi * np.sin(np.pi * x) * np.cos(np.pi * y)
+    v2 = np.pi * np.cos(np.pi * x) * np.sin(np.pi * y)
+    return u0, v1, v2
+
+
+def _phase_oracle(device) -> None:
+    """Phase 15 (b): the float64 adaptive reference configuration on the
+    card against the native oracle (n=64, V and W) and the golden field
+    (n=256), K2 launched in float64 two blocks a level a cycle pass."""
+    from hpcclassmultigridproject_tpu_torch import (
+        ProblemConfig,
+        SolverConfig,
+        native,
+    )
+    from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+    from hpcclassmultigridproject_tpu_torch.ops import cuda
+
+    t0 = time.perf_counter()
+    native.build()
+    print(f"[oracle] native library {native.build().name} built with g++ "
+          f"{' '.join(native.GXX_FLAGS)} in {time.perf_counter() - t0:.2f} s")
+    n = ORACLE_N
+    u0, v1, v2 = _default_problem(n)
+    for shape in (1, 2):
+        model = AdvectionDiffusion(
+            ProblemConfig(n=n, num_steps=ORACLE_STEPS),
+            SolverConfig(dtype=torch.float64, num_levels=ORACLE_LEVELS,
+                         cycle_shape=shape), device=device)
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        uT, stats = model.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(cuda.LAUNCHES)
+        cycles = stats["cycles"].cpu().numpy()
+        t0 = time.perf_counter()
+        want, want_cycles = native.run(u0, v1, v2, nu=-4e-4,
+                                       dt=(1 / n) / 10, nsteps=ORACLE_STEPS,
+                                       num_levels=ORACLE_LEVELS, shape=shape)
+        oracle_s = time.perf_counter() - t0
+        err = float(np.abs(uT.cpu().numpy() - want).max())
+        name = "V" if shape == 1 else "W"
+        print(f"[oracle] n={n} {name}-cycle, float64, {ORACLE_STEPS} steps: "
+              f"max|uT - native| {err:.3g} (bound 1e-12); cycles a step "
+              f"{sorted(set(cycles.tolist()))} (native "
+              f"{sorted(set(want_cycles.tolist()))}); K2 launches "
+              f"{counts['smooth']}; card {wall:.3f} s, native "
+              f"{oracle_s:.3f} s")
+        require(err <= 1e-12, f"oracle: n={n} {name}-cycle off by {err:.3g}")
+        if shape == 1:
+            require(np.array_equal(cycles, want_cycles),
+                    "oracle: V-cycle cycles a step differ from native")
+        want_counts = {k: 0 for k in counts}
+        want_counts["smooth"] = 2 * shape * int(cycles.sum())
+        require(counts == want_counts,
+                f"oracle: launch counts {counts}, expected {want_counts}")
+    golden = np.load(ROOT / "tests" / "golden" / "uT_n256.npy")
+    model = AdvectionDiffusion(ProblemConfig(n=256),
+                               SolverConfig(dtype=torch.float64),
+                               device=device)
+    cuda.reset_launches()
+    uT, stats = model.run()
+    counts = dict(cuda.LAUNCHES)
+    got = uT.cpu().numpy()
+    err = float(np.abs(got - golden).max())
+    center = float(got[128, 128])
+    cycles = stats["cycles"].cpu().numpy()
+    print(f"[oracle] n=256 float64 adaptive, {model.num_levels} levels: "
+          f"max|uT - golden| {err:.3g} (bound 1e-12), center {center!r} "
+          f"({GOLDEN_CENTER} +- 5e-9), max cycles a step {cycles.max()}, "
+          f"K2 launches {counts['smooth']}")
+    require(err <= 1e-12, f"oracle: n=256 off the golden field by {err:.3g}")
+    require(abs(center - GOLDEN_CENTER) <= 5e-9, "oracle: n=256 center")
+    require(int(cycles.max()) <= 1, "oracle: n=256 took > 1 cycle a step")
+    want_counts = {k: 0 for k in counts}
+    want_counts["smooth"] = 2 * (model.num_levels - 1) * int(cycles.sum())
+    require(counts == want_counts,
+            f"oracle: launch counts {counts}, expected {want_counts}")
+
+
+def _phase_logical_ops(device) -> None:
+    """Phase 15 (c): the logical-shape operations on the card in float64
+    against the native oracle, at tests/test_ops.py's grid and
+    tolerances."""
+    from hpcclassmultigridproject_tpu_torch import native, ops
+    from hpcclassmultigridproject_tpu_torch.core.problem import (
+        cn_coefficients,
+    )
+
+    n, h = OPS_N, 1.0 / OPS_N
+    dt, nu = h / 10, -4e-4
+    rng = np.random.default_rng(0)
+    u, rhs, v1, v2 = rng.standard_normal((4, n + 1, n + 1))
+    for a in (u, rhs):
+        a[0, :] = a[-1, :] = a[:, 0] = a[:, -1] = 0.0
+    dev = lambda a: torch.from_numpy(a).to(device)
+    coef = cn_coefficients(dev(v1), dev(v2), dt, nu, h)
+    require(coef.aa.device.type == "cuda", "ops: coefficients off the card")
+    gs = dev(u)
+    for _ in range(3):
+        gs = ops.rb_gauss_seidel(coef, gs, dev(rhs))
+    coarse = rng.standard_normal((6, 6))
+    fine = rng.standard_normal((11, 11))
+    cases = [  # (name, got, want, rtol, atol, interior only)
+        ("compute_rhs", ops.compute_rhs(coef, dev(u)),
+         native.compute_rhs(u, v1, v2, h, dt, nu), 1e-13, 0.0, True),
+        ("residual", ops.residual(coef, dev(u), dev(rhs)),
+         native.residual(u, rhs, v1, v2, h, dt, nu), 1e-12, 0.0, True),
+        ("norm", ops.interior_norm(dev(rhs)), np.float64(native.norm(rhs)),
+         1e-13, 0.0, False),
+        ("gs_sweep (3)", gs, native.gs_sweep(u, rhs, v1, v2, h, dt, nu,
+                                             nsweeps=3), 0.0, 1e-13, False),
+        ("prolong", ops.prolong_bilinear(dev(coarse)),
+         native.prolong(coarse), 1e-15, 0.0, False),
+        ("restrict", ops.restrict_inject(dev(fine)), native.restrict(fine),
+         0.0, 0.0, False),
+    ]
+    for name, got, want, rtol, atol, interior in cases:
+        require(got.device.type == "cuda", f"ops: {name} off the card")
+        got = got.cpu().numpy()
+        if interior:
+            got, want = got[1:-1, 1:-1], want[1:-1, 1:-1]
+        err = float(np.abs(got - want).max())
+        ok = bool(np.all(np.abs(got - want) <= atol + rtol * np.abs(want)))
+        print(f"[ops] {name} on the card against native, n={n}: max abs "
+              f"diff {err:.3g} (rtol {rtol:g}, atol {atol:g})")
+        require(ok, f"ops: {name} off the native oracle")
+
+
+def phase_routes_oracle(device, n: int, steps: int, uT_main) -> None:
+    """Phase 15: the routes of the main path, then the oracle."""
+    smi = _smi()
+    _phase_routes(device, n, steps, uT_main, smi)
+    _phase_oracle(device)
+    _phase_logical_ops(device)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2285,6 +2569,7 @@ def main() -> None:
     probes = phase_probe()
     phase_device_build(device, MAIN_N, MAIN_STEPS, uT_main, main_counts)
     phase_grid(MAIN_N, MAIN_STEPS, uT_main)
+    phase_routes_oracle(device, MAIN_N, MAIN_STEPS, uT_main)
     kernels = []
     for key, label, source, replaces in KERNELS:
         if key in probes:

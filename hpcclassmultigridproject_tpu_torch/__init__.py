@@ -8,31 +8,37 @@ adaptive, fixed, FMG, refined and delta steppers (the delta stepper
 optionally opening each step with the whole-step kernel), V- and W-cycles
 of red–black GS, weighted-Jacobi or Chebyshev smoothing with injection or
 full weighting, dense or GS coarse solves, rediscretized or Galerkin
-coarse operators, and the Poisson family; the same run partitioned by rows
-over `torch.distributed` ranks (`parallel.distributed_run`); and the CLI.
-Its kernels are hand-written CUDA C++ in `csrc/`, built with nvcc at first
-use (`ops/cuda/_build.py`); on CPU tensors each kernel's plain PyTorch
-version runs instead.  Entry points run on the card unless asked for the
-CPU (`device="cpu"`).
+coarse operators, and the Poisson family; the same runs partitioned over
+`torch.distributed` ranks by rows or in 2-D blocks
+(`parallel.distributed_run`); the logical-shape operations (`ops`), the
+native C++ oracle (`native`) and the CLI.  Its kernels are hand-written
+CUDA C++ in `csrc/`, built with nvcc at first use (`ops/cuda/_build.py`);
+on CPU tensors, or in a solve of `backend="jnp"`, each kernel's plain
+PyTorch version runs instead.  Entry points run on the card unless asked
+for the CPU (`device="cpu"`).
 
 Layer map:
   cli.py      the command-line interface (`python -m ....cli`)
   utils/      timing, field I/O, checkpoints, per-phase profile and the
               kernels' byte model
   core/       padded layout, problem fields
-  ops/        plain level operations (padded.py) and the kernels (cuda/),
-              with the Hopper feature probe (cuda/probe.py)
+  ops/        the logical-shape operations (stencil, smoothers,
+              transfer), plain level operations (padded.py) and the
+              kernels (cuda/), with the Hopper feature probe
+              (cuda/probe.py)
   mg/         levels, cycles and solvers, refined and delta
               steppers, timestepper
   sparse/     Galerkin R·A·P coarse operators
   models/     AdvectionDiffusion, Poisson
-  parallel/   the rows-partitioned run: ranks, collectives, deep-halo
-              smoothing (K7), block forms of the level ops
+  parallel/   the partitioned run, by rows or in 2-D blocks: ranks,
+              collectives, deep-halo smoothing (K7), halo sweeps
+              (halo.py), block forms of the level ops
+  native/     the serial float64 C++ oracle (mgref.cpp), built with g++
   interop.py  the JAX package's level fields into the port's levels
 """
 
 from hpcclassmultigridproject_tpu_torch.config import ProblemConfig, SolverConfig
-from hpcclassmultigridproject_tpu_torch.mg.cycle import mg_cycle
+from hpcclassmultigridproject_tpu_torch.mg.cycle import mg_cycle, mg_solve
 from hpcclassmultigridproject_tpu_torch.mg.levels import Level, build_hierarchy
 from hpcclassmultigridproject_tpu_torch.mg.timestepper import timestepper
 
@@ -42,5 +48,6 @@ __all__ = [
     "Level",
     "build_hierarchy",
     "mg_cycle",
+    "mg_solve",
     "timestepper",
 ]

@@ -15,8 +15,10 @@
 
 Every solver subcommand runs on the card (`--device cuda`, the default)
 through the hand-written kernels, or with `--device cpu` through their
-plain PyTorch versions.  `--backend` is validated for parity with the JAX
-package and otherwise unused by the solver: the route follows the device.
+plain PyTorch versions.  `--backend` picks the route of `run`, `sweep`,
+`profile` and `scaling` as `SolverConfig.backend` does: `jnp` runs the
+plain versions on the card too, `auto` and `pallas` the kernels.
+`gsbench --backend` keeps its own meaning (K2 or the plain sweep).
 The plots (`viz`, `plot-sweep`, `plot-scaling`) need matplotlib and import
 it only when they run.  `scaling` runs each sweep point over that many
 ranks, spawned on this host (`parallel.launch_local`: NCCL where every

@@ -5,11 +5,10 @@ Defaults and validation are the reference package's.  The port runs every
 single-device configuration: red–black Gauss–Seidel, weighted-Jacobi and
 Chebyshev smoothing, V- and W-cycles, injection and full weighting, dense
 and GS coarse solves, rediscretized and Galerkin coarse operators, and the
-adaptive, fixed, FMG, refined and delta steppers; and each of them but FMG,
-the Galerkin operator and the Jacobi and Chebyshev smoothers
-row-partitioned over ranks (`parallel.distributed_run`, in either
-`sharded_overlap` schedule).  `device_build` picks the host or the device
-build of the model (models/advection_diffusion.py::use_device_build).
+adaptive, fixed, FMG, refined and delta steppers; and each of them
+partitioned over ranks by rows or in 2-D blocks (`parallel.distributed_run`,
+in either `sharded_overlap` schedule).  `device_build` picks the host or the
+device build of the model (models/advection_diffusion.py::use_device_build).
 """
 
 from __future__ import annotations
@@ -49,9 +48,10 @@ class ProblemConfig:
 @dataclasses.dataclass(frozen=True)
 class SolverConfig:
     """Multigrid solver parameters; see the JAX package for each field's
-    meaning.  `backend` is validated for parity only: the port picks its
-    route from the device of the tensors (a CUDA tensor runs the
-    hand-written kernel, a CPU tensor its plain PyTorch version)."""
+    meaning.  `backend` picks a solve's route (`ops.cuda.routed`): "auto"
+    and "pallas" launch the hand-written kernels on CUDA tensors, in
+    float32 and float64; "jnp" runs their plain PyTorch versions on every
+    device.  CPU tensors run the plain versions under every backend."""
 
     num_levels: Optional[int] = None
     cycle_shape: int = 1

@@ -5,11 +5,15 @@ The arrangement is the JAX package's fused one (its Pallas backend):
 under red–black GS every smoothing block is one launch of the level form's
 smoother kernel
 (K2 from_v, K5 five-band, K6 nine-band; `ops/cuda/smoother.py`), whose
-pre-smooth emits the residual (row-decimated under injection) and whose
-post-smooth folds in the prolonged correction.  A zero-iterate V-cycle
-over from_v levels from n <= 512 down to a dense coarse solve runs as the
-coarse tower (K3, dense solve, K4).  Each kernel wrapper launches its CUDA
-kernel for CUDA tensors and runs its plain PyTorch version for CPU tensors.
+pre-smooth emits the residual (row-decimated under injection,
+`_RESTRICT_DEC`) and whose post-smooth folds in the prolonged correction
+(`_FUSE_CORR`).  A zero-iterate V-cycle over from_v levels from n <= 512
+down to a dense coarse solve runs as the coarse tower (K3, dense solve,
+K4; `_USE_TOWER`).  Each of the three switches is the JAX package's, read
+at each call; off, it takes the unfused form.  Each kernel wrapper
+launches its CUDA kernel for CUDA tensors and runs its plain PyTorch
+version for CPU tensors; a solve of `backend="jnp"` runs the plain
+versions on every device (`ops.cuda.routed`).
 The weighted-Jacobi and Chebyshev smoothers have no kernel, in the JAX
 package either: their blocks are `niter` plain applications and a
 residual on either device, whole or partitioned, and the coarse GS solve
@@ -42,6 +46,7 @@ from __future__ import annotations
 import torch
 
 from hpcclassmultigridproject_tpu_torch.config import SolverConfig
+from hpcclassmultigridproject_tpu_torch.ops.cuda import routed
 from hpcclassmultigridproject_tpu_torch.ops.cuda.smoother import fused_rb_sweeps
 from hpcclassmultigridproject_tpu_torch.ops.cuda.tower import (
     TOWER_MAX_N,
@@ -64,6 +69,20 @@ from hpcclassmultigridproject_tpu_torch.parallel.rows_halo import (
     fused_smooth_sharded,
     sharded_eligible,
 )
+
+# Fold the prolonged correction into the post-smooth kernel's reads
+# (fused_rb_sweeps(corr=...)) instead of a separate u + corr pass; the two
+# are equal to the bit.
+_FUSE_CORR = True
+
+# Run the zero-iterate sub-cycle from n <= TOWER_MAX_N down as the coarse
+# tower (K3, the dense solve, K4) instead of per-level smoothing blocks.
+_USE_TOWER = True
+
+# Under injection, let a whole level's pre-smooth emit the residual's even
+# rows only (the row half of the restriction) instead of the full residual
+# and `restrict_inject`; mg/delta.py's whole-step opening follows it too.
+_RESTRICT_DEC = True
 
 
 def _get_smoother(cfg: SolverConfig, part=None):
@@ -93,10 +112,10 @@ def _tower_eligible(cfg: SolverConfig, levels, lvl: int,
     sub-cycle of from_v levels, from a level below the finest with
     n <= TOWER_MAX_N down to a dense coarse solve, under injection and
     red–black GS, in a float32 working dtype, with no level from lvl down
-    partitioned: the JAX package's gate.  Its backend test has no
-    counterpart: the tower's wrappers pick the kernel or the plain version
-    by device."""
-    if not u_is_zero or lvl == 0 or lvl >= len(levels) - 1:
+    partitioned, with `_USE_TOWER` on: the JAX package's gate.  Its backend
+    test has no counterpart: the tower's wrappers pick the kernel or the
+    plain version by device and route."""
+    if not _USE_TOWER or not u_is_zero or lvl == 0 or lvl >= len(levels) - 1:
         return False
     if shardings is not None and any(s is not None for s in shardings[lvl:]):
         return False
@@ -186,6 +205,8 @@ def _smooth_block(cfg: SolverConfig, level, u, rhs, want_residual: bool,
         res = blocks.residual(level, u, rhs, part)
         return u, res[::2].contiguous() if residual_rows_decimated else res
     if part is None:
+        if corr is not None and not _FUSE_CORR:
+            u, corr = u + corr, None
         return fused_rb_sweeps(level, u, rhs, cfg.niter, want_residual,
                                zero_init=zero_init, corr=corr,
                                residual_rows_decimated=residual_rows_decimated)
@@ -205,6 +226,7 @@ def _smooth_block(cfg: SolverConfig, level, u, rhs, want_residual: bool,
                else None)
 
 
+@routed
 def mg_cycle(levels, u, rhs, cfg: SolverConfig, lvl: int = 0,
              want_final_residual: bool = False, u_is_zero: bool = False,
              shardings=None):
@@ -229,7 +251,8 @@ def mg_cycle(levels, u, rhs, cfg: SolverConfig, lvl: int = 0,
         coarse, part_c = levels[lvl + 1], _part(shardings, lvl + 1)
         # under injection the pre-smooth of a whole level emits the
         # residual's even rows only, the row half of the restriction
-        res_dec = cfg.restriction == "inject" and part is None
+        res_dec = (_RESTRICT_DEC and cfg.restriction == "inject"
+                   and part is None)
         u, r0 = _smooth_block(cfg, level, u, rhs, True, part,
                               zero_init=u_is_zero and sh == 0,
                               residual_rows_decimated=res_dec)
@@ -268,6 +291,7 @@ def _fine_norm(levels, u, rhs, shardings):
                                 part)
 
 
+@routed
 def mg_solve(levels, u, rhs, cfg: SolverConfig, shardings=None):
     """Solve A u = rhs by repeated cycles until the relative residual is at
     most tol or `max_cycles` cycles ran.  Returns (u, stats) with stats
@@ -283,6 +307,7 @@ def mg_solve(levels, u, rhs, cfg: SolverConfig, shardings=None):
     return u, _stats(it, res / res0_safe, cfg)
 
 
+@routed
 def mg_solve_fixed(levels, u, rhs, cfg: SolverConfig, shardings=None):
     """Exactly `cfg.num_cycles` cycles, with the relative-residual
     certificate in stats; no host read."""
@@ -293,6 +318,7 @@ def mg_solve_fixed(levels, u, rhs, cfg: SolverConfig, shardings=None):
     return u, _stats(cfg.num_cycles, rel, cfg)
 
 
+@routed
 def fmg_iterate(levels, rhs, cfg: SolverConfig, shardings=None):
     """The FMG ascent without a certificate: restrict `rhs` down the
     tower, solve the coarsest level, then prolong upward running
@@ -321,6 +347,7 @@ def fmg_iterate(levels, rhs, cfg: SolverConfig, shardings=None):
     return v
 
 
+@routed
 def fmg_solve(levels, u, rhs, cfg: SolverConfig, shardings=None):
     """Full multigrid: the FMG iterate replaces `u`, which only sets the
     certificate's baseline residual.  stats["cycles"] counts num_cycles at

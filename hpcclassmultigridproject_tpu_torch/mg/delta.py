@@ -20,8 +20,11 @@ sharded fine level does; the norms, the certificates and the epilogue run
 in their block forms (parallel/blocks.py), and `fine_hi` is cut like
 level 0 (its rows, or its 2-D window).
 
-Under `_FUSE_OPEN_SMOOTH` an eligible run opens each step with K8, the
-whole-step opening (`step_open_smooth`).
+A whole fine level opens each step with K1 (`_FUSE_OPEN`), or under
+`_FUSE_OPEN_SMOOTH` an eligible run with K8, the whole-step opening
+(`step_open_smooth`), whose residual is row-decimated as
+`mg/cycle.py::_RESTRICT_DEC` says.  Each switch is the JAX package's, read
+at each call.
 """
 
 from __future__ import annotations
@@ -30,7 +33,9 @@ import torch
 
 from hpcclassmultigridproject_tpu_torch.config import SolverConfig
 from hpcclassmultigridproject_tpu_torch.core.layout import interior_mask, shift
+from hpcclassmultigridproject_tpu_torch.mg import cycle
 from hpcclassmultigridproject_tpu_torch.mg.cycle import _smooth_block, mg_cycle
+from hpcclassmultigridproject_tpu_torch.ops.cuda import routed
 from hpcclassmultigridproject_tpu_torch.ops.cuda.delta_step import (
     fused_accumulate_open,
     fused_open_presmooth,
@@ -38,20 +43,28 @@ from hpcclassmultigridproject_tpu_torch.ops.cuda.delta_step import (
 from hpcclassmultigridproject_tpu_torch.ops.padded import (
     as_dtype,
     prolong_bilinear,
+    restrict_inject,
     restrict_inject_rows_decimated,
 )
 from hpcclassmultigridproject_tpu_torch.parallel import blocks
 
+# Open each step of a whole fine level with K1
+# (ops/cuda/delta_step.py::fused_accumulate_open): the TwoSum fold of the
+# pending correction and the delta rhs in one pass, instead of
+# `_accumulate` then `delta_rhs`; the two are equal to the bit.
+_FUSE_OPEN = True
+
 # Whole-step opening: fold the top level's zero-init pre-smooth block, with
-# its row-decimated residual, into the opening, so one kernel (K8,
-# ops/cuda/delta_step.py::fused_open_presmooth) does the accumulate, the
-# delta rhs and the pre-smooth in one pass over device memory; the separate
-# kernels (K1, then K2) read (rhs_δ, v1, v2) again, and launch twice.  It
-# applies to one V-cycle per step under injection and red–black GS, on an
-# unpartitioned from_v fine level with a coarser level below it; rhs_δ is
-# still written, for the post-smooth and the certificate norm.  Off by
-# default, as in the JAX package: whether it pays is decided by measured
-# walls, not by the saved traffic alone.
+# its residual (row-decimated under `_RESTRICT_DEC`), into the opening, so
+# one kernel (K8, ops/cuda/delta_step.py::fused_open_presmooth) does the
+# accumulate, the delta rhs and the pre-smooth in one pass over device
+# memory; the separate kernels (K1, then K2) read (rhs_δ, v1, v2) again,
+# and launch twice.  It applies with `_FUSE_OPEN` on, to one V-cycle per
+# step under injection and red–black GS, on an unpartitioned from_v fine
+# level with a coarser level below it; rhs_δ is still written, for the
+# post-smooth and the certificate norm.  Off by default, as in the JAX
+# package: whether it pays is decided by measured walls, not by the saved
+# traffic alone.
 _FUSE_OPEN_SMOOTH = False
 
 
@@ -126,6 +139,7 @@ def _certify_hi(fine_hi, hi2, lo2, d, acc_dtype, part=None):
 def _open_smooth_eligible(levels, cfg: SolverConfig, part) -> bool:
     """The JAX package's gate for the whole-step opening, item for item."""
     return (_FUSE_OPEN_SMOOTH
+            and _FUSE_OPEN
             and levels[0].form == "from_v"
             and part is None
             and cfg.num_cycles == 1
@@ -141,15 +155,20 @@ def step_open_smooth(levels, cfg: SolverConfig, hi, lo, d_pend):
     level 1 (the tower where eligible).  Returns (hi', lo', rhs_δ, δ,
     rhs_δ − A δ)."""
     fine = levels[0]
+    dec = cycle._RESTRICT_DEC
     hi, lo, rhs_d, u1, r0 = fused_open_presmooth(
-        fine, hi, lo, d_pend, cfg.niter, residual_rows_decimated=True)
-    rhs_c = restrict_inject_rows_decimated(r0, levels[1].padded)
+        fine, hi, lo, d_pend, cfg.niter, residual_rows_decimated=dec)
+    if dec:
+        rhs_c = restrict_inject_rows_decimated(r0, levels[1].padded)
+    else:
+        rhs_c = restrict_inject(r0, levels[1].padded)
     u_c = mg_cycle(levels, None, rhs_c, cfg, lvl=1, u_is_zero=True)
     corr = prolong_bilinear(u_c, fine.padded)
     d, r = _smooth_block(cfg, fine, u1, rhs_d, True, corr=corr)
     return hi, lo, rhs_d, d, r
 
 
+@routed
 def timestepper_delta(levels, fine_hi, u0: torch.Tensor, num_steps: int,
                       cfg: SolverConfig, shardings=None):
     """`num_steps` delta-form CN steps from the padded high-dtype state u0
@@ -172,7 +191,7 @@ def timestepper_delta(levels, fine_hi, u0: torch.Tensor, num_steps: int,
             hi, lo, rhs_d, d, r = step_open_smooth(levels, cfg, hi, lo,
                                                    d_pend)
         else:
-            if part is None:
+            if part is None and _FUSE_OPEN:
                 hi, lo, rhs_d = fused_accumulate_open(fine, hi, lo, d_pend)
             else:
                 hi, lo = _accumulate(hi, lo, d_pend)

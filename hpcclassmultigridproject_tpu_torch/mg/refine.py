@@ -23,6 +23,7 @@ import torch
 
 from hpcclassmultigridproject_tpu_torch.config import SolverConfig
 from hpcclassmultigridproject_tpu_torch.mg.cycle import fmg_iterate, mg_cycle
+from hpcclassmultigridproject_tpu_torch.ops.cuda import routed
 from hpcclassmultigridproject_tpu_torch.ops.padded import as_dtype
 from hpcclassmultigridproject_tpu_torch.parallel.blocks import (
     coefs,
@@ -39,6 +40,7 @@ def _correction(levels, r_lo, cfg: SolverConfig, shardings):
                     shardings=shardings)
 
 
+@routed
 def refined_solve(levels, fine_hi, u, rhs, cfg: SolverConfig, r0=None,
                   shardings=None):
     """Solve A u = rhs with u, rhs and residuals in `fine_hi`'s dtype and
@@ -82,6 +84,7 @@ def refined_solve(levels, fine_hi, u, rhs, cfg: SolverConfig, r0=None,
     return u, stats
 
 
+@routed
 def timestepper_refined_fused(levels, fine_hi, u0: torch.Tensor,
                               num_steps: int, cfg: SolverConfig,
                               shardings=None):

@@ -15,7 +15,10 @@ Solve-path dispatch (every combination shares the same cycle kernels):
   fixed + delta_form          timestepper_delta (mg/delta.py)
 
 `shardings` (parallel/) runs any of them on this rank's blocks of the
-partitioned levels, in either layout: see mg/cycle.py.
+partitioned levels, in either layout: see mg/cycle.py.  Every solver runs
+on the route `cfg.backend` names (`ops.cuda.routed`): "jnp" the kernels'
+plain versions on every device, "auto" and "pallas" the kernels on the
+card.
 """
 
 from __future__ import annotations
@@ -33,12 +36,14 @@ from hpcclassmultigridproject_tpu_torch.mg.refine import (
     refined_solve,
     timestepper_refined_fused,
 )
+from hpcclassmultigridproject_tpu_torch.ops.cuda import routed
 from hpcclassmultigridproject_tpu_torch.parallel.blocks import (
     compute_rhs,
     rhs_and_residual0,
 )
 
 
+@routed
 def timestep(levels, u, cfg: SolverConfig, fine_hi=None, shardings=None):
     """One CN step; returns (u_next, stats of that step).  With `fine_hi`
     (the finest operator in `cfg.refine_dtype`) the step runs under
@@ -61,6 +66,7 @@ def timestep(levels, u, cfg: SolverConfig, fine_hi=None, shardings=None):
     return mg_solve(levels, u, rhs, cfg, shardings)
 
 
+@routed
 def timestepper(levels, u0, num_steps: int, cfg: SolverConfig,
                 fine_hi=None, shardings=None):
     """Run `num_steps` CN steps from the padded state u0; returns (uT,

@@ -27,6 +27,7 @@ from hpcclassmultigridproject_tpu_torch.mg.cycle import (
     mg_solve_fixed,
 )
 from hpcclassmultigridproject_tpu_torch.mg.levels import BANDS, banded_level
+from hpcclassmultigridproject_tpu_torch.ops.cuda import backend_route
 from hpcclassmultigridproject_tpu_torch.ops.cuda.smoother import fused_rb_sweeps
 from hpcclassmultigridproject_tpu_torch.ops.padded import (
     interior_norm,
@@ -112,7 +113,8 @@ class Poisson:
                      "adaptive": mg_solve}[self.solver.cycle_mode]
             u, stats = solve(self.levels, u0, self.rhs, self.solver)
         elif method == "gs":
-            u, stats = self._gs(u0, max_iters, check_every)
+            with backend_route(self.solver.backend):
+                u, stats = self._gs(u0, max_iters, check_every)
         else:
             raise ValueError(f"unknown method {method!r}")
         return crop_field(u, self.n), stats

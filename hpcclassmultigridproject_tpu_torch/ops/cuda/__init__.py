@@ -2,9 +2,11 @@
 
 Each kernel module (delta_step, smoother, tower, probe) holds its wrappers
 and the kernels' plain PyTorch versions.  The wrapper launches the kernel for CUDA
-tensors and runs the plain version for CPU tensors; there is no other
-route and no fallback.  Each launch adds one to its entry of `LAUNCHES`,
-so a run can show which kernels carried it.
+tensors and runs the plain version for CPU tensors, or for every tensor
+inside `plain_route()`, which a solve of `SolverConfig.backend="jnp"`
+enters (`routed`); there is no other route and no fallback.  Each launch
+adds one to its entry of `LAUNCHES`, so a run can show which kernels
+carried it.
 
 Nothing here imports ctypes or calls nvcc at import time: the library is
 built and loaded at the first launch (`_build.library`).
@@ -13,6 +15,8 @@ built and loaded at the first launch (`_build.library`).
 from __future__ import annotations
 
 import contextlib
+import functools
+import inspect
 
 import torch
 
@@ -35,14 +39,40 @@ def reset_launches() -> None:
 @contextlib.contextmanager
 def plain_route():
     """Run every kernel's plain PyTorch version, CUDA tensors included, for
-    as long as the context lasts.  Only for comparing the kernel path with
-    the plain path on the card; the main path never enters it."""
+    as long as the context lasts, then restore the route it found.  A solve
+    of backend "jnp" runs in it (`routed`), and the card's checks enter it
+    to compare the kernel path with the plain path."""
     global _plain_on_cuda
-    _plain_on_cuda = True
+    old, _plain_on_cuda = _plain_on_cuda, True
     try:
         yield
     finally:
-        _plain_on_cuda = False
+        _plain_on_cuda = old
+
+
+def backend_route(backend: str):
+    """The context a solve of `SolverConfig.backend` runs in: "jnp" the
+    plain versions on every device (the JAX package's XLA-only route),
+    "auto" and "pallas" the kernels on CUDA tensors."""
+    return plain_route() if backend == "jnp" else contextlib.nullcontext()
+
+
+def routed(fn):
+    """Decorate a solver entry point whose SolverConfig parameter is named
+    `cfg`: each call runs in `backend_route(cfg.backend)`, so the route is
+    decided per solve, and left as it was found when the call returns or
+    raises."""
+    at = list(inspect.signature(fn).parameters).index("cfg")
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        cfg = args[at] if len(args) > at else kwargs["cfg"]
+        if cfg.backend != "jnp":
+            return fn(*args, **kwargs)
+        with plain_route():
+            return fn(*args, **kwargs)
+
+    return call
 
 
 def use_kernel(*tensors: torch.Tensor) -> bool:

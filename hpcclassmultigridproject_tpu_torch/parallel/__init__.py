@@ -49,11 +49,13 @@ _UNSET = object()
 def resolve_layout(layout: str, solver) -> str:
     """The layout a run takes: `layout` itself, or for "auto" the JAX
     package's rule with the port's kernel in place of its TPU gate:
-    "rows" where K7 smooths the partitioned levels (red–black GS), "2d"
-    otherwise (the Jacobi and Chebyshev smoothers)."""
+    "rows" where K7 smooths the partitioned levels (red–black GS on the
+    kernel route), "2d" otherwise (the Jacobi and Chebyshev smoothers, and
+    backend "jnp", whose route launches no kernel)."""
     if layout != "auto":
         return layout
-    return "rows" if solver.smoother == "rbgs" else "2d"
+    kernel = solver.smoother == "rbgs" and solver.backend != "jnp"
+    return "rows" if kernel else "2d"
 
 
 def _born_partitioned(model, mesh, min_local, layout):

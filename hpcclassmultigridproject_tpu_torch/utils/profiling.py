@@ -34,6 +34,7 @@ from hpcclassmultigridproject_tpu_torch.mg.cycle import (
     coarse_solve_dense,
     coarse_solve_gs,
 )
+from hpcclassmultigridproject_tpu_torch.ops.cuda import backend_route
 from hpcclassmultigridproject_tpu_torch.ops.padded import (
     compute_rhs,
     interior_norm,
@@ -333,7 +334,8 @@ def profile_step(model, reps: int = 5, inner: int = 32) -> dict:
     buy over the isolated phases.
     """
     cfg = model.solver
-    phases = measure_phases(model, reps=reps, inner=inner)
+    with backend_route(cfg.backend):
+        phases = measure_phases(model, reps=reps, inner=inner)
     counts = _phase_counts(cfg, len(model.levels))
     by_phase: dict[str, float] = {}
     modeled = 0.0
