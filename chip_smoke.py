@@ -123,6 +123,31 @@ raising on failure:
     (ops) on the card against the oracle in float64 at
     tests/test_ops.py's tolerances.
 
+16. multi-gpu: the partitioned run over four cards, one NCCL rank a card
+    (`launch_local(..., backend="nccl", device="cuda")`: rank r on
+    cuda:r, halos and norms on the device).  On fewer than four cards one
+    line says it was not run, with the device count, and nothing else
+    runs.  On four it prints nvidia-smi's index, name and power limit of
+    each card and `nvidia-smi topo -m`, then: (a) the main path at
+    n=1024, 100 steps, min_local 64, through distributed_run in the rows
+    layout (K7, plain and overlapped schedule) and the 2-D layout (plain
+    and overlapped sweep), built whole and born partitioned: uT within
+    1e-9 of phase 4's (bitwise printed), every certificate, every rank's
+    launch counts exact (K7 6 a step plain, 18 overlapped; K3/K4 one a
+    step), every rank posting the same collectives (counted a step),
+    rank 0's wall (built whole: median of 5 after a warm-up; born: one
+    run), peak MiB per rank, and the ms of each exchange and all-gather
+    at the path's shapes; (b)
+    phase 14 (b) over NCCL; (c) n=16384 born partitioned in each layout,
+    10 steps at phase 13's cycle count, uT equal to phase 13's one-card
+    uT to the bit (SHA-256), and n=32768 born row-partitioned, 10 steps
+    at the auto cycle count (if it does not certify, at each larger count
+    until one does), every certificate <= 1e-6, build seconds and peak
+    MiB per rank; (d) `cli scaling` over NCCL, strong at n=8192 over 1,
+    2, 4 ranks and weak at n=4096 and 8192 over 1 and 4, in both layouts,
+    at the auto cycle count, each center within 1e-9 of a single-device
+    run.
+
 Phase 9 also builds the main path's model born row-partitioned over its
 W=4 ranks (AdvectionDiffusion(mesh=...), min_local=64; phase 13's (c)):
 its uT must equal, to the bit, distributed_run of the whole device-built
@@ -146,6 +171,7 @@ repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import os
 import pathlib
@@ -1164,16 +1190,21 @@ def _born_partitioned_runs(n: int, steps: int) -> dict:
     return out
 
 
-def _collective_costs(model, reps: int = 100) -> dict:
+def _collective_costs(model, reps: int = 100, grid: bool = False) -> dict:
     """Mean ms per call of each collective of the distributed path, with
     no kernel between the calls, at the path's shapes: the deep-halo
     exchange of (u, rhs) at level 0, the one-row exchange, the norm's
-    all_sum, and the agglomeration's all-gather into level 3."""
+    all_sum, and the agglomeration's all-gather into level 3; with `grid`
+    also the 2-D layout's four-edge exchange of a level-0 block and its
+    one-line extension with corners (two batches)."""
     import torch.distributed as dist
 
     from hpcclassmultigridproject_tpu_torch.parallel import (
+        blocks,
         distributed,
+        halo,
         level_shardings,
+        level_shardings_for_ns,
         make_mesh,
         rows_halo,
     )
@@ -1191,6 +1222,13 @@ def _collective_costs(model, reps: int = 100) -> dict:
         "all_gather_rows into level 3": lambda: distributed.all_gather_rows(
             coarse, mesh),
     }
+    if grid:
+        (part,) = level_shardings_for_ns([model.problem.n], mesh, 1, "2d")
+        xg = torch.ones(part.shape, device="cuda")
+        calls["2-D exchange, four edges"] = lambda: halo._start_halo(
+            xg, mesh).wait()
+        calls["2-D extension with corners"] = lambda: blocks.extend([xg],
+                                                                    part)
     out = {}
     for name, fn in calls.items():
         fn()
@@ -1720,8 +1758,10 @@ def _certified(stats) -> tuple[bool, float, float, float]:
     return max(rel, mid, final) <= TOL, rel, mid, final
 
 
-def _phase_big(device) -> None:
-    """Phase 13 (b): n=16384 on the one card, auto build and auto cycles."""
+def _phase_big(device) -> tuple[int, dict]:
+    """Phase 13 (b): n=16384 on the one card, auto build and auto cycles.
+    Returns the cycle count of the last run and its uT's fingerprint, which
+    phase 16 holds the four-card runs to."""
     import dataclasses
     import gc
     import warnings
@@ -1788,6 +1828,7 @@ def _phase_big(device) -> None:
           f"uT {float(uT[BIG_N // 2, BIG_N // 2])!r}")
     require(ok, f"device build n={BIG_N}: the run at {cycles} cycles is not "
             "certified")
+    return cycles, _fingerprint(uT)
 
 
 def _phase_spmv(device, n: int) -> None:
@@ -1834,9 +1875,10 @@ def _phase_spmv(device, n: int) -> None:
 
 
 def phase_device_build(device, n: int, steps: int, uT_main,
-                       counts_main: dict) -> None:
+                       counts_main: dict) -> tuple[int, dict]:
     """13. The device build: (a) the main configuration, (b) n=16384 on
-    one card, (d) the explicit matrix; (c) runs in phase 9's ranks."""
+    one card, (d) the explicit matrix; (c) runs in phase 9's ranks.
+    Returns (b)'s cycle count and uT fingerprint."""
     import dataclasses
 
     from hpcclassmultigridproject_tpu_torch import ProblemConfig
@@ -1870,8 +1912,9 @@ def phase_device_build(device, n: int, steps: int, uT_main,
           f"4's: {counts == counts_main}")
     require(ok, f"device build: uT off the main path's by {err:.3g}")
     dev = uT = stats = None
-    _phase_big(device)
+    big = _phase_big(device)
     _phase_spmv(device, n)
+    return big
 
 
 # phase 14: the 2-D layout and scaling, W=4 gloo ranks on the one card
@@ -2170,8 +2213,10 @@ def _phase_grid_main(n: int, steps: int, uT_single, smi: str) -> None:
     require(same, "grid (a): the overlapped sweep differs from the plain")
 
 
-def _phase_grid_configs(smi: str) -> None:
-    """Phase 14 (b)."""
+def _phase_grid_configs(smi: str, backend: str = "gloo",
+                        device: str = "cuda:0",
+                        label: str = "[grid] (b)") -> None:
+    """Phase 14 (b), and phase 16 (b) over NCCL with one card a rank."""
     from hpcclassmultigridproject_tpu_torch import ProblemConfig
     from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
     from hpcclassmultigridproject_tpu_torch.parallel import launch_local
@@ -2179,10 +2224,10 @@ def _phase_grid_configs(smi: str) -> None:
     t0 = time.perf_counter()
     res = launch_local(_configs_rank, GRID_WORLD,
                        (CONFIG_N, CONFIG_STEPS, CONFIG_MIN_LOCAL),
-                       backend="gloo", device="cuda:0")
-    print(f"[grid] (b) n={CONFIG_N}, {CONFIG_STEPS} steps, min_local "
+                       backend=backend, device=device)
+    print(f"{label} n={CONFIG_N}, {CONFIG_STEPS} steps, min_local "
           f"{CONFIG_MIN_LOCAL}, W={GRID_WORLD}, both layouts: "
-          f"{time.perf_counter() - t0:.1f} s in all; {smi}")
+          f"{time.perf_counter() - t0:.1f} s in all, {backend}; {smi}")
     problem = ProblemConfig(n=CONFIG_N, num_steps=CONFIG_STEPS)
     for name, cfg in _grid_configs().items():
         single, _ = AdvectionDiffusion(problem, cfg, device="cuda").run(
@@ -2191,20 +2236,20 @@ def _phase_grid_configs(smi: str) -> None:
         for layout in ("rows", "2d"):
             uT, stats, wall = res[name, layout]
             du = float(np.abs(uT - single).max())
-            line = _certified_run(f"grid (b) {name} {layout}", stats,
+            line = _certified_run(f"{label} {name} {layout}", stats,
                                   cfg.delta_form)
-            print(f"[grid] (b) {name}, {layout}: wall {wall:.3f} s (rank "
+            print(f"{label} {name}, {layout}: wall {wall:.3f} s (rank "
                   f"0), max|uT - uT_single(card)| {du!r} (bound 1e-09, "
                   f"bitwise {du == 0.0}); {line}")
-            require(du <= 1e-9, f"grid (b) {name} {layout}: uT off the "
+            require(du <= 1e-9, f"{label} {name} {layout}: uT off the "
                     f"single-device run by {du:.3g}")
     born, whole = res["born"], res["whole"]
     same = np.array_equal(born[0], whole[0])
-    _certified_run("grid (b) born", born[1], True)
-    print(f"[grid] (b) main born 2-D-partitioned (rank 0's level 0 "
+    _certified_run(f"{label} born", born[1], True)
+    print(f"{label} main born 2-D-partitioned (rank 0's level 0 "
           f"{res['born_level0'][0]}, col_off {res['born_level0'][1]}) "
           f"equal to the whole device build's 2-D run to the bit: {same}")
-    require(same, "grid (b): the born 2-D run differs from the whole one")
+    require(same, f"{label}: the born 2-D run differs from the whole one")
 
 
 def _phase_grid_halo(n: int, smi: str) -> None:
@@ -2228,32 +2273,40 @@ def _phase_grid_halo(n: int, smi: str) -> None:
           f"{EXCHANGE_REPS}, gloo staged through the host; {smi})")
 
 
-def _phase_grid_scaling(smi: str) -> None:
+def _phase_grid_scaling(smi: str, strong_n: int = MAIN_N,
+                        weak_n: int = MAIN_N // 2,
+                        weak_layouts=("auto",), cycles: int | None = 1,
+                        reps: int = 1, label: str = "[grid] (d)") -> None:
     """Phase 14 (d): `cli scaling` on the card, strong in both layouts and
-    weak, each line against a single-device run of its n."""
+    weak, each line against a single-device run of its n at `cycles`
+    V-cycles a step (None: the auto count); phase 16 (d) runs it over
+    NCCL, one card a rank, at its own sizes."""
+    import dataclasses
+
     from hpcclassmultigridproject_tpu_torch import ProblemConfig
     from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
 
     flags = ["--steps", str(SCALING_STEPS), "--delta", "--cycle-mode",
-             "fixed", "--num-cycles", "1", "--coarse", "dense",
-             "--certify-every", "10", "--reps", "1", "--max-devices",
-             str(GRID_WORLD)]
+             "fixed", "--num-cycles", "auto" if cycles is None else
+             str(cycles), "--coarse", "dense", "--certify-every", "10",
+             "--reps", str(reps), "--max-devices", str(GRID_WORLD)]
     centers = {}
 
     def center(n):
         if n not in centers:
             model = AdvectionDiffusion(
                 ProblemConfig(n=n, num_steps=SCALING_STEPS),
-                delta_config(certify_every=10), device="cuda")
+                dataclasses.replace(delta_config(certify_every=10),
+                                    num_cycles=cycles), device="cuda")
             centers[n] = model.center_value(model.run(warn=False)[0])
         return centers[n]
 
     meshes = {1: {"x": 1, "y": 1}, 2: {"x": 1, "y": 2}, 4: {"x": 2, "y": 2}}
-    sweeps = [("strong", layout, MAIN_N, [(1, MAIN_N), (2, MAIN_N),
-                                          (4, MAIN_N)])
+    sweeps = [("strong", layout, strong_n, [(1, strong_n), (2, strong_n),
+                                            (4, strong_n)])
               for layout in ("rows", "2d")]
-    sweeps.append(("weak", "auto", MAIN_N // 2, [(1, MAIN_N // 2),
-                                                 (4, MAIN_N)]))
+    sweeps += [("weak", layout, weak_n, [(1, weak_n), (4, 2 * weak_n)])
+               for layout in weak_layouts]
     for mode, layout, n, want in sweeps:
         lines = _cli("scaling", "--mode", mode, "--layout", layout, "--n",
                      str(n), *flags)
@@ -2262,7 +2315,7 @@ def _phase_grid_scaling(smi: str) -> None:
         for rec in lines:
             keys = SCALING_KEYS + (["speedup"] if mode == "strong" else [])
             dc = abs(rec["center_uT"] - center(rec["n"]))
-            print(f"[grid] (d) scaling --mode {mode} --layout {layout}: "
+            print(f"{label} scaling --mode {mode} --layout {layout}: "
                   f"{rec['devices']} ranks, n={rec['n']}, mesh "
                   f"{rec['mesh']}: {rec['seconds']:.4f} s ({SCALING_STEPS} "
                   f"steps; {smi}), efficiency {rec['efficiency']}, speedup "
@@ -2544,6 +2597,336 @@ def phase_routes_oracle(device, n: int, steps: int, uT_main) -> None:
     _phase_logical_ops(device)
 
 
+# phase 16: the partitioned run over four cards, one NCCL rank a card
+MULTI_WORLD, MULTI_REPS = 4, 5  # (a): timed runs a case, after a warm-up
+HUGE_N, HUGE_MAX_CYCLES = 32768, 12  # (c): a grid no single card holds
+STRONG_N, WEAK_N, MULTI_SCALING_REPS = 8192, 4096, 3  # (d)
+FINGERPRINT_STRIDE = 64
+
+
+def _fingerprint(uT: torch.Tensor) -> dict:
+    """A large uT in small: the SHA-256 of its bytes (equal digests, equal
+    bits), its shape and dtype, its center and every FINGERPRINT_STRIDE-th
+    node of each axis (the size of a difference)."""
+    host = uT.contiguous().cpu().numpy()
+    n = host.shape[0] - 1
+    return {"sha256": hashlib.sha256(host.data).hexdigest(),
+            "shape": host.shape, "dtype": str(host.dtype),
+            "center": float(host[n // 2, n // 2]),
+            "sample": host[::FINGERPRINT_STRIDE,
+                           ::FINGERPRINT_STRIDE].copy()}
+
+
+def _all_ranks(value) -> list:
+    """`value` of every rank, in rank order, on every rank."""
+    import torch.distributed as dist
+
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, value)
+    return out
+
+
+def _multi_main_rank(n: int, steps: int) -> dict:
+    """Phase 16 (a), one NCCL rank on its own card: the main path through
+    distributed_run in both layouts, built whole and born partitioned, in
+    the plain and the overlapped schedule.  Each case runs a warm-up, then
+    MULTI_REPS timed runs built whole and one born; the first timed run
+    is read between a reset and a read of this rank's launch counts and
+    collectives, which every rank reports.  Then the ms of each
+    collective at the path's shapes."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig
+    from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+    from hpcclassmultigridproject_tpu_torch.ops import cuda
+    from hpcclassmultigridproject_tpu_torch.parallel import (
+        distributed_run,
+        make_mesh,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"cards": _all_ranks(torch.cuda.current_device()),
+           "backend": dist.get_backend()}
+    colls = _count_collectives()
+    mesh = make_mesh()
+    problem = ProblemConfig(n=n, num_steps=steps)
+    cfg = delta_config(certify_every=10)
+    for layout in ("rows", "2d"):
+        for build in ("whole", "born"):
+            if build == "whole":
+                model = AdvectionDiffusion(problem, cfg, device="cuda")
+                kw = dict(min_local=DIST_MIN_LOCAL, layout=layout)
+            else:
+                model = AdvectionDiffusion(problem, cfg, device="cuda",
+                                           mesh=mesh, layout=layout,
+                                           min_local=DIST_MIN_LOCAL)
+                kw = {}
+            for overlap in (False, True):
+                model.solver = dataclasses.replace(model.solver,
+                                                   sharded_overlap=overlap)
+                case = out[layout, build, overlap] = {"walls": []}
+                timed = MULTI_REPS if build == "whole" else 1
+                for rep in range(timed + 1):
+                    torch.cuda.reset_peak_memory_stats()
+                    cuda.reset_launches()
+                    for k in colls:
+                        colls[k] = 0
+                    dist.barrier()
+                    t0 = time.perf_counter()
+                    uT, stats = distributed_run(model, **kw)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    if rep == 1:
+                        case["counts"] = _all_ranks(dict(cuda.LAUNCHES))
+                        case["collectives"] = _all_ranks(dict(colls))
+                    if rep:
+                        case["walls"].append(wall)
+                case.update(uT=uT.cpu().numpy(), peaks_mib=_peaks_mib(),
+                            stats={k: v.cpu().numpy()
+                                   for k, v in stats.items()})
+            if layout == "rows" and build == "whole":
+                out["comm_ms"] = _collective_costs(model, grid=True)
+            model = None
+    return out
+
+
+def _phase_multi_main(n: int, steps: int, uT_single, smi: str) -> None:
+    """Phase 16 (a)."""
+    from hpcclassmultigridproject_tpu_torch.parallel import launch_local
+
+    t0 = time.perf_counter()
+    res = launch_local(_multi_main_rank, MULTI_WORLD, (n, steps),
+                       backend="nccl", device="cuda")
+    cards, backend = res.pop("cards"), res.pop("backend")
+    comm = res.pop("comm_ms")
+    print(f"[multi-gpu] (a) main path, n={n}, {steps} steps, min_local "
+          f"{DIST_MIN_LOCAL}, {MULTI_WORLD} ranks over {backend}, rank r "
+          f"on cuda:{cards}: spawn, builds and runs "
+          f"{time.perf_counter() - t0:.1f} s; {smi}")
+    require(backend == "nccl" and cards == list(range(MULTI_WORLD)),
+            f"multi-gpu (a): backend {backend}, cards {cards}")
+    print(f"[multi-gpu] (a) collectives per call over {backend}, ms (rank 0, "
+          f"mean of 100, no kernel between them; {smi}): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in comm.items()))
+    single = uT_single.cpu().numpy()
+    for (layout, build, overlap), got in res.items():
+        tag = f"{layout}, {build}, {'overlap' if overlap else 'plain'}"
+        du = float(np.abs(got["uT"] - single).max())
+        expect = {"tower_descent": steps, "tower_ascent": steps}
+        if layout == "rows":
+            expect["smooth_rows"] = (18 if overlap else 6) * steps
+        colls = got["collectives"]
+        per_step = {k: v / steps for k, v in colls[0].items()}
+        walls = got["walls"]
+        print(f"[multi-gpu] (a) {tag}: wall {statistics.median(walls):.4f} s "
+              f"(rank 0, median of {len(walls)}: {walls}; {smi}); "
+              f"max|uT - uT_single| {du!r} (bound 1e-09, bitwise "
+              f"{du == 0.0}); launches per rank (rank 0) {got['counts'][0]};"
+              f" collectives a step per rank {per_step}; peak device "
+              f"memory per rank {[round(m, 1) for m in got['peaks_mib']]} "
+              "MiB")
+        for rank, counts in enumerate(got["counts"]):
+            require(counts == {k: expect.get(k, 0) for k in counts},
+                    f"multi-gpu (a) {tag}: rank {rank}'s launch counts "
+                    f"{counts}, expected {expect}")
+        require(all(c == colls[0] for c in colls),
+                f"multi-gpu (a) {tag}: the ranks posted different "
+                f"collectives {colls}")
+        require(du <= 1e-9, f"multi-gpu (a) {tag}: uT off the "
+                f"single-device run by {du:.3g}")
+        stats = {k: torch.from_numpy(v) for k, v in got["stats"].items()}
+        _check_advection(f"multi-gpu (a) {tag}", n, steps,
+                         torch.from_numpy(got["uT"]), stats, CENTER_1024,
+                         True)
+    for layout in ("rows", "2d"):
+        for overlap in (False, True):
+            whole, born = (res[layout, b, overlap] for b in ("whole", "born"))
+            du = float(np.abs(whole["uT"] - born["uT"]).max())
+            print(f"[multi-gpu] (a) {layout}, "
+                  f"{'overlap' if overlap else 'plain'}: born (built on "
+                  f"the device) against whole (host build): max|uT diff| "
+                  f"{du!r}; the same collectives: "
+                  f"{whole['collectives'] == born['collectives']}")
+
+
+def _multi_scale_rank(big_n: int, big_cycles: int, huge_n: int) -> dict:
+    """Phase 16 (c), one NCCL rank on its own card: n=big_n born
+    partitioned in each layout at big_cycles V-cycles a step (rank 0
+    fingerprints uT), then n=huge_n born row-partitioned at the auto
+    cycle count and, if that does not certify, at each larger count up
+    to HUGE_MAX_CYCLES until one does.  Build seconds, walls, stats and
+    every rank's peak device memory, reset before each build."""
+    import dataclasses
+    import gc
+    import warnings
+
+    import torch.distributed as dist
+
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig
+    from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+    from hpcclassmultigridproject_tpu_torch.parallel import (
+        distributed_run,
+        make_mesh,
+    )
+
+    mesh = make_mesh()
+
+    def build(n, cycles, layout):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        solver = dataclasses.replace(delta_config(certify_every=10),
+                                     num_cycles=cycles)
+        dist.barrier()
+        with warnings.catch_warnings(record=True) as said:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            model = AdvectionDiffusion(
+                ProblemConfig(n=n, num_steps=BIG_STEPS), solver,
+                device="cuda", mesh=mesh, layout=layout)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+        return model, dict(build_s=build_s, built_mib=_peaks_mib(),
+                           level0=model.levels[0].padded,
+                           notices=[str(w.message) for w in said])
+
+    def run(model, cycles):
+        model.solver = dataclasses.replace(model.solver, num_cycles=cycles)
+        dist.barrier()
+        t0 = time.perf_counter()
+        uT, stats = distributed_run(model)
+        torch.cuda.synchronize()
+        return uT, dict(cycles=cycles, wall=time.perf_counter() - t0,
+                        stats={k: v.cpu().numpy()
+                               for k, v in stats.items()})
+
+    out = {}
+    for layout in ("rows", "2d"):
+        model, got = build(big_n, big_cycles, layout)
+        uT, ran = run(model, big_cycles)
+        got.update(ran, peaks_mib=_peaks_mib())
+        got["fingerprint"] = _fingerprint(uT) if mesh.rank == 0 else None
+        out[big_n, layout] = got
+        model = uT = None
+    model, got = build(huge_n, None, "rows")
+    got["auto"] = model.solver.num_cycles
+    got["runs"] = []
+    for cycles in [got["auto"], *range(got["auto"] + 1,
+                                       HUGE_MAX_CYCLES + 1)]:
+        uT = None
+        uT, ran = run(model, cycles)
+        got["runs"].append(ran)
+        if _certified(ran["stats"])[0]:
+            break
+    got.update(peaks_mib=_peaks_mib(), shape=tuple(uT.shape),
+               finite=bool(torch.isfinite(uT).all()),
+               center=float(uT[huge_n // 2, huge_n // 2]))
+    out[huge_n] = got
+    return out
+
+
+def _phase_multi_scale(big: tuple[int, dict], smi: str) -> None:
+    """Phase 16 (c)."""
+    from hpcclassmultigridproject_tpu_torch.parallel import launch_local
+
+    big_cycles, want = big
+    t0 = time.perf_counter()
+    res = launch_local(_multi_scale_rank, MULTI_WORLD,
+                       (BIG_N, big_cycles, HUGE_N), backend="nccl",
+                       device="cuda")
+    print(f"[multi-gpu] (c) n={BIG_N} and n={HUGE_N} born partitioned over "
+          f"{MULTI_WORLD} cards, {BIG_STEPS} steps: spawn, builds and runs "
+          f"{time.perf_counter() - t0:.1f} s; {smi}")
+    for layout in ("rows", "2d"):
+        got = res[BIG_N, layout]
+        fp = got["fingerprint"]
+        same = (fp["sha256"] == want["sha256"] and fp["shape"] == want[
+            "shape"] and fp["dtype"] == want["dtype"])
+        dsample = float(np.abs(fp["sample"] - want["sample"]).max())
+        ok, rel, mid, final = _certified(got["stats"])
+        print(f"[multi-gpu] (c) n={BIG_N}, {layout}, {big_cycles} V-cycles "
+              f"a step: built in {got['build_s']:.3f} s (rank 0's level 0 "
+              f"{got['level0']}), wall {got['wall']:.3f} s (rank 0, the "
+              f"first run; {smi}); certificates f32 {rel:.3e} / f64 "
+              f"mid-run {mid:.3e} / final {final:.3e}; uT equal to phase "
+              f"13's one-card run to the bit (SHA-256 of {fp['shape']} "
+              f"{fp['dtype']}): {same}; max|diff| on every "
+              f"{FINGERPRINT_STRIDE}th node {dsample!r}; center "
+              f"{fp['center']!r}; peak device memory per rank, after the "
+              f"build {[round(m, 1) for m in got['built_mib']]} MiB, "
+              f"build through run {[round(m, 1) for m in got['peaks_mib']]}"
+              f" MiB")
+        require(ok, f"multi-gpu (c) n={BIG_N} {layout}: not certified")
+        require(same, f"multi-gpu (c) n={BIG_N} {layout}: uT differs from "
+                "phase 13's one-card run")
+    got = res[HUGE_N]
+    print(f"[multi-gpu] (c) n={HUGE_N} born row-partitioned: built in "
+          f"{got['build_s']:.3f} s (rank 0), rank 0's level 0 "
+          f"{got['level0']}; peak device memory per rank after the build "
+          f"{[round(m, 1) for m in got['built_mib']]} MiB; auto cycle count "
+          f"{got['auto']}; the notices: {got['notices']}")
+    for ran in got["runs"]:
+        ok, rel, mid, final = _certified(ran["stats"])
+        auto = " (auto)" if ran["cycles"] == got["auto"] else ""
+        print(f"[multi-gpu] (c) n={HUGE_N}, {BIG_STEPS} steps, "
+              f"{ran['cycles']} V-cycles a step{auto}: wall "
+              f"{ran['wall']:.3f} s (rank 0, the first run at this count; "
+              f"{smi}), certificates f32 {rel:.3e} / f64 mid-run "
+              f"{mid:.3e} / final {final:.3e}: "
+              f"{'certified' if ok else 'NOT certified'}")
+    last = got["runs"][-1]
+    ok = _certified(last["stats"])[0]
+    if last["cycles"] != got["auto"]:
+        print(f"[multi-gpu] (c) n={HUGE_N}: the auto count {got['auto']} "
+              f"does not certify; the fewest cycles above it that do: "
+              f"{last['cycles'] if ok else 'none up to ' + str(HUGE_MAX_CYCLES)}")
+    print(f"[multi-gpu] (c) n={HUGE_N}: uT {got['shape']}, finite "
+          f"{got['finite']}, center {got['center']!r}; peak device memory "
+          f"per rank, build through the runs and the gather of uT "
+          f"{[round(m, 1) for m in got['peaks_mib']]} MiB ({smi})")
+    require(got["shape"] == (HUGE_N + 1, HUGE_N + 1) and got["finite"],
+            f"multi-gpu (c) n={HUGE_N}: uT")
+    require(ok, f"multi-gpu (c) n={HUGE_N}: no cycle count up to "
+            f"{HUGE_MAX_CYCLES} certifies")
+
+
+def phase_multi_gpu(n: int, steps: int, uT_single, big) -> None:
+    """Phase 16: the partitioned run over MULTI_WORLD cards, one NCCL rank
+    a card (module docstring); on fewer cards one line says it was not
+    run.  `big` is phase 13's (cycle count, uT fingerprint) at n=16384."""
+    import gc
+
+    count = torch.cuda.device_count()
+    if count < MULTI_WORLD:
+        print(f"[multi-gpu] not run: it takes {MULTI_WORLD} cards, one NCCL "
+              f"rank a card, and torch.cuda.device_count() is {count}")
+        return
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True, timeout=60)
+    for line in cards:
+        print(f"[multi-gpu] card {line}")
+    for line in (topo.stdout + topo.stderr).rstrip().splitlines():
+        print(f"[multi-gpu] topo {line}")
+    smi = "; ".join(cards)
+    gc.collect()
+    torch.cuda.empty_cache()  # this process's cache on cuda:0 is rank 0's
+    _phase_multi_main(n, steps, uT_single, smi)
+    _phase_grid_configs(smi, backend="nccl", device="cuda",
+                        label="[multi-gpu] (b)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase_multi_scale(big, smi)
+    _phase_grid_scaling(smi, strong_n=STRONG_N, weak_n=WEAK_N,
+                        weak_layouts=("rows", "2d"), cycles=None,
+                        reps=MULTI_SCALING_REPS, label="[multi-gpu] (d)")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2567,9 +2950,11 @@ def main() -> None:
         device, MAIN_N, MAIN_STEPS, uT_main)["open_presmooth"]
     phase_cli(MAIN_N, MAIN_STEPS)
     probes = phase_probe()
-    phase_device_build(device, MAIN_N, MAIN_STEPS, uT_main, main_counts)
+    big = phase_device_build(device, MAIN_N, MAIN_STEPS, uT_main,
+                             main_counts)
     phase_grid(MAIN_N, MAIN_STEPS, uT_main)
     phase_routes_oracle(device, MAIN_N, MAIN_STEPS, uT_main)
+    phase_multi_gpu(MAIN_N, MAIN_STEPS, uT_main, big)
     kernels = []
     for key, label, source, replaces in KERNELS:
         if key in probes:

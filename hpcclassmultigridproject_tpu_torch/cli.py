@@ -236,14 +236,17 @@ def cmd_sweep(args) -> int:
 
 
 def _rank_device(args, mesh):
-    """This rank's torch device: `args.device`, and on CUDA without an
-    index the card rank % device count (one card a rank under NCCL; ranks
-    share cards under gloo).  CPU ranks share the host's threads."""
+    """This rank's torch device, selected: `parallel.rank_device` of
+    `args.device` (on CUDA without an index the card rank % device count,
+    one card a rank under NCCL; ranks share cards under gloo).  CPU ranks
+    share the host's threads."""
     import torch
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", mesh.rank % torch.cuda.device_count())
+    from hpcclassmultigridproject_tpu_torch.parallel.distributed import (
+        rank_device,
+    )
+
+    device = rank_device(args.device, mesh.rank, mesh.world, mesh.backend)
     if device.type == "cuda":
         torch.cuda.set_device(device)
     elif mesh.world > 1:
@@ -329,7 +332,8 @@ def cmd_scaling(args) -> int:
             point = scaling_point(args)
         else:
             point = launch_local(scaling_point, c, (args,),
-                                 backend=_point_backend(args, c))
+                                 backend=_point_backend(args, c),
+                                 device=args.device)
         if base_t is None and len(counts) > 1:
             base_t = point["seconds"]
         if args.baseline_seconds:

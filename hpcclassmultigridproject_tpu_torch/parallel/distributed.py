@@ -14,14 +14,18 @@ package's `parallel/distributed.py`.
   * `start_exchange(blocks, k, mesh, sides)`: the point-to-point exchange
     of k edge lines with the neighbours along one or both mesh axes, the
     JAX package's `ppermute` (a rank with no neighbour gets zeros);
+  * `rank_device(device, rank, world, backend)`: the card a rank runs
+    on (one card a rank under NCCL);
   * `launch_local(fn, world, ...)`: `world` spawned processes on this
-    host, each in the process group, returning rank 0's result.
+    host, each in the process group on its own card, returning rank 0's
+    result.
 
-Under NCCL the collectives move device tensors.  Gloo has no CUDA
-send/recv, so under gloo a CUDA tensor is copied to the host, exchanged
-there and copied back: that is how several ranks share one card, for
-testing the program and not for speed.  The group's backend picks the
-branch.
+Under NCCL the collectives move device tensors, each on its rank's own
+card, and nothing goes through host memory: a tensor elsewhere reaching
+a collective raises.  Gloo has no CUDA send/recv, so under gloo a CUDA
+tensor is copied to the host, exchanged there and copied back: that is
+how several ranks share one card, for testing the program and not for
+speed.  The group's backend picks the branch.
 """
 
 from __future__ import annotations
@@ -91,8 +95,17 @@ def _single_rank(mesh: Mesh) -> bool:
 
 def host_staged(mesh: Mesh, t: torch.Tensor) -> bool:
     """True where a collective on `t` goes through host memory: a CUDA
-    tensor under gloo."""
-    return t.is_cuda and mesh.backend == "gloo"
+    tensor under gloo.  Under NCCL nothing is staged: `t` must lie on this
+    rank's card, and a tensor elsewhere (the CPU, another card) raises
+    ValueError, a fault of the caller's."""
+    backend = mesh.backend
+    if backend == "nccl" and t.device != torch.device(
+            "cuda", torch.cuda.current_device()):
+        raise ValueError(
+            f"a tensor on {t.device} reached an NCCL collective of rank "
+            f"{mesh.rank}, whose card is cuda:{torch.cuda.current_device()}"
+            ": under NCCL every collective moves this card's tensors")
+    return t.is_cuda and backend == "gloo"
 
 
 def all_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -215,8 +228,28 @@ def start_exchange(blocks, k: int, mesh: Mesh, sides) -> Exchange:
     theirs are received; a side whose rank is None receives zeros, as the
     JAX package's `ppermute` leaves a device that gets no message.
     `wait()` gives one (before, after) pair per side and block, sides
-    outermost.  Every receive is posted in one `batch_isend_irecv`."""
-    staged = host_staged(mesh, blocks[0])
+    outermost.  Every receive is posted in one `batch_isend_irecv`.
+
+    Pairing.  NCCL ignores tags: it matches the sends from rank A to rank
+    B with the receives B posts from A in the order each rank posts them.
+    So the order is the contract.  Each rank posts, side by side and
+    within a side block by block, its send and receive with `before`,
+    then its send and receive with `after`.  If every rank passes the
+    same sides in the same order, and blocks of the same shapes and
+    dtypes in the same order, and B is A's `after` on a side exactly when
+    A is B's `before` on it (the mesh's neighbours), then A's k-th send
+    to B is B's k-th receive from A, of the same shape: on a side, A's
+    tails go to B in block order, and B receives its tops from A in block
+    order.  A peer appears on one side of a call only (the neighbours of
+    a rank on a mesh are four distinct ranks).  Gloo pairs by the tags
+    (2t to `before`, 2t+1 to `after`), which say the same.  A side whose
+    axis holds one rank gives no rank a neighbour, so a batch is empty on
+    every rank or on none, and the first batch of a group (which under
+    NCCL sets up the communicator, and must include every rank) is
+    posted by every rank.  tests/test_torch_multigpu.py holds the
+    pairing on meshes of 2 to 8 ranks."""
+    # under NCCL, host_staged raises for a block off this rank's card
+    staged = [host_staged(mesh, b) for b in blocks][0]
     buf_dev = torch.device("cpu") if staged else blocks[0].device
     ops, pairs, sends = [], [], []
     for s, (axis, before, after) in enumerate(sides):
@@ -231,8 +264,8 @@ def start_exchange(blocks, k: int, mesh: Mesh, sides) -> Exchange:
             if staged:
                 head, tail = head.cpu(), tail.cpu()
             sends += [head, tail]
-            # tags pair each send with its receive: 2t goes to `before`,
-            # 2t+1 to `after`
+            # the order below is the pairing (docstring); gloo reads the
+            # tags: 2t goes to `before`, 2t+1 to `after`
             t = s * len(blocks) + i
             if before is not None:
                 ops += [dist.P2POp(dist.isend, head, before, tag=2 * t),
@@ -245,10 +278,41 @@ def start_exchange(blocks, k: int, mesh: Mesh, sides) -> Exchange:
     return Exchange(pairs, reqs, blocks[0].device if staged else None, sends)
 
 
+def rank_device(device, rank: int, world: int,
+                backend: str | None) -> torch.device | None:
+    """The device rank `rank` of `world` runs on: `device` (None stays
+    None), and for a CUDA device with no index the card rank % the card
+    count, so rank r takes cuda:r where there are cards enough.  NCCL
+    takes one card a rank: under it, with more than one rank, more ranks
+    than cards, or an explicit index (every rank on that one card), raise
+    ValueError rather than share a card.  Under gloo ranks may share cards
+    (all of them cuda:0 given "cuda:0")."""
+    if device is None:
+        return None
+    device = torch.device(device)
+    if device.type != "cuda":
+        return device
+    count = torch.cuda.device_count()
+    if backend == "nccl" and world > 1:
+        if device.index is not None:
+            raise ValueError(
+                f"NCCL takes one card a rank: {world} ranks cannot all run "
+                f"on {device}; pass 'cuda' for cuda:rank")
+        if world > count:
+            raise ValueError(
+                f"NCCL takes one card a rank: {world} ranks, {count} cards")
+    if device.index is not None:
+        return device
+    if count == 0:
+        raise RuntimeError("device 'cuda' but torch sees no CUDA device")
+    return torch.device("cuda", rank % count)
+
+
 def _rank_main(rank: int, fn, world: int, args: tuple, backend: str,
                tmp: str, device) -> None:
-    if device is not None and torch.device(device).type == "cuda":
-        torch.cuda.set_device(torch.device(device))
+    device = rank_device(device, rank, world, backend)
+    if device is not None and device.type == "cuda":
+        torch.cuda.set_device(device)
     dist.init_process_group(backend, init_method=f"file://{tmp}/pg",
                             world_size=world, rank=rank,
                             timeout=LOCAL_TIMEOUT)
@@ -267,10 +331,17 @@ def launch_local(fn, world: int, args: tuple = (), *, backend: str = "gloo",
     this host (rendezvous through a file in a temporary directory) and
     return rank 0's result, which must pickle (numpy, not CUDA tensors).
     `fn` must be importable by name; each process finds its rank with
-    `make_mesh()`.  With a CUDA `device`, each process selects it before
-    any CUDA work.  A failed rank raises here."""
+    `make_mesh()`.  With a CUDA `device`, each process selects its card
+    (`rank_device`: "cuda" gives rank r cuda:r) before any CUDA work, and
+    this process builds the kernel library first, so the ranks only load
+    it.  A failed rank raises here."""
     import torch.multiprocessing as mp
 
+    if device is not None and torch.device(device).type == "cuda":
+        from hpcclassmultigridproject_tpu_torch.ops.cuda import _build
+
+        rank_device(device, 0, world, backend)  # raises before spawning
+        _build.build()
     with tempfile.TemporaryDirectory() as tmp:
         mp.spawn(_rank_main,
                  args=(fn, world, tuple(args), backend, tmp, device),
