@@ -147,6 +147,31 @@ raising on failure:
     2, 4 ranks and weak at n=4096 and 8192 over 1 and 4, in both layouts,
     at the auto cycle count, each center within 1e-9 of a single-device
     run.
+17. compiled (run before phase 16, whose rank 0 takes cuda:0): the
+    models' entry points as compiled programs, each captured once as a
+    CUDA graph and replayed (utils/graphs.py), against their eager runs
+    (`timestepper`, `mg_solve_fixed`, `fmg_solve` called directly).
+    (a) the tower alone (two cooperative launches) captured and replayed
+    against its eager call to the bit; the main path at n=1024, 100
+    steps: 6 replays, each with uT and every stats tensor equal to the
+    eager run's (phase 4's uT) to the bit and launch counts equal to
+    eager's, the certificates and the center;
+    the capture seconds (warm-up, capture, instantiation), the graph's
+    node count, walls in turns against eager (median of 6), busy by
+    torch.profiler and the graph alone by CUDA events, idle shares, peak
+    MiB allocated and reserved; (b) every other captured configuration:
+    open-smooth and each switch of phase 15 off, Galerkin (delta form),
+    refined fixed, mg_solve_fixed with and without Galerkin levels,
+    fmg_solve, Jacobi and Chebyshev (10 steps), backend="jnp", Poisson
+    fixed and fmg in float64 and fixed in float32: each replay equal to
+    its eager run to the bit with equal launch counts, with the same
+    numbers; (c) two runs from different u0 independent, `step` and
+    `run_chunk(10)` equal to eager, the checkpointed run (every=10) equal
+    to its eager chunks to the bit and within 1e-9 of `run`'s uT, and
+    each switch and the backend flipped between calls giving the flipped
+    route's eager uT; (d) n=16384, 10 steps at phase 13's cycle count,
+    eager and captured, each uT equal to phase 13's to the bit, with peak
+    MiB.  It frees its models and graphs and empties the cache at the end.
 
 Phase 9 also builds the main path's model born row-partitioned over its
 W=4 ranks (AdvectionDiffusion(mesh=...), min_local=64; phase 13's (c)):
@@ -158,7 +183,11 @@ whole-built model's.
 Each path phase (4, 6, 7, 8, 9, 10, 13, 15) resets the launch counts just
 before the run it reads, checks every count, and (but 15, whose "jnp"
 route is the plain one) runs the same path once more through the plain
-versions.  Phase 14 (a) resets and checks each rank's
+versions.  On the card `AdvectionDiffusion.run`, `step` and `run_chunk`
+and `Poisson.solve` in fixed and fmg mode replay captured graphs (the
+route is part of a graph's key, so the plain run captures its own); a
+replay adds the launch counts its capture recorded, and phase 17 holds
+each to its eager run.  Phase 14 (a) resets and checks each rank's
 counts the same way; its 2-D blocks run plain torch, with no kernel.
 
 The last two lines are a JSON object with the kernels' numbers (launches
@@ -227,10 +256,12 @@ BUILD_TOL = {torch.float32: (1e-6, 1e-7), torch.float64: (1e-14, 1e-15)}
 U0_TOL, A_INV_TOL, RUN_TOL = (1e-13, 1e-300), (1e-5, 1e-6), (1e-5, 1e-10)
 TOWER_SWEEPS, TOWER_REPEATS = (1, 3, 14), 20  # 14: a chain of two links
 K8_SWEEPS = (3, 14)  # 14: K8 of 13 sweeps, then a K2 link
-# the host calls that launch a kernel, as torch.profiler names them
+# the host calls that launch a kernel or a captured graph, as
+# torch.profiler names them
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
                 "cuLaunchKernelEx", "cudaLaunchCooperativeKernel",
-                "cudaLaunchCooperativeKernelExC", "cuLaunchCooperativeKernel")
+                "cudaLaunchCooperativeKernelExC", "cuLaunchCooperativeKernel",
+                "cudaGraphLaunch", "cuGraphLaunch")
 GSBENCH_N, GSBENCH_SWEEPS = 2048, 500  # the reference's GS microbenchmark
 # K2's flag sets (the C entry's ZERO_INIT / ADD_CORR / u starts, WANT_RES,
 # RES_ROWS_DEC): pre- and post-smooth of the main path first, gsbench's last
@@ -2927,6 +2958,489 @@ def phase_multi_gpu(n: int, steps: int, uT_single, big) -> None:
                         reps=MULTI_SCALING_REPS, label="[multi-gpu] (d)")
 
 
+# phase 17: the compiled run, each model entry point one CUDA graph
+COMPILED_REPLAYS = 6  # (a): replays checked one by one, and walls in turns
+COMPILED_ROUNDS = 3   # (a): rounds of (eager, captured, captured, eager)
+
+
+def _peak_mib(held) -> tuple[float, float]:
+    """(peak allocated, peak reserved) MiB since the last reset, above the
+    `held` (allocated, reserved) MiB."""
+    return (torch.cuda.max_memory_allocated() / 2**20 - held[0],
+            torch.cuda.max_memory_reserved() / 2**20 - held[1])
+
+
+def _fresh_peaks() -> tuple[float, float]:
+    """Collect garbage, empty the allocator's cache and reset the peaks;
+    returns the (allocated, reserved) MiB held then."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return (torch.cuda.memory_allocated() / 2**20,
+            torch.cuda.memory_reserved() / 2**20)
+
+
+def _equal_out(got, want) -> bool:
+    """Every tensor of two (u, stats) results equal to the bit."""
+    (u, stats), (u_w, stats_w) = got, want
+    return (torch.equal(u, u_w) and set(stats) == set(stats_w)
+            and all(torch.equal(stats[k], stats_w[k]) for k in stats_w))
+
+
+def _in_turns(eager, compiled, rounds: int) -> tuple[list, list]:
+    """Walls of `eager` and `compiled` in turns (eager, compiled,
+    compiled, eager), `rounds` times, each ending in a synchronize."""
+    walls = {eager: [], compiled: []}
+    for _ in range(rounds):
+        for fn in (eager, compiled, compiled, eager):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[fn].append(time.perf_counter() - t0)
+    return walls[eager], walls[compiled]
+
+
+def _graph_ms(program) -> float:
+    """The card's time for one replay of a program's graph alone, by CUDA
+    events around it."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    program.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def _compare_compiled(tag, owner, compiled, eager, smi,
+                      profile_eager=True) -> None:
+    """Phase 17 (b): a configuration captured against its eager run:
+    launch counts and every output equal to the bit, capture seconds,
+    nodes, walls in turns, busy and idle of both, peak MiB of both.
+    `owner` is the model whose `programs` capture; `compiled()` and
+    `eager()` return the same (u, stats)."""
+    from hpcclassmultigridproject_tpu_torch.ops import cuda
+
+    t_start = time.perf_counter()
+    eager()
+    held = _fresh_peaks()
+    cuda.reset_launches()
+    want = eager()
+    torch.cuda.synchronize()
+    want_counts = dict(cuda.LAUNCHES)
+    peak_e = _peak_mib(held)
+    held_c = _fresh_peaks()
+    t0 = time.perf_counter()
+    compiled()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    peak_c = _peak_mib(held_c)
+    program = owner.programs.last
+    require(owner.last_run_compiled and program is not None,
+            f"compiled {tag}: the call was not compiled "
+            f"({owner.last_run_reason})")
+    cuda.reset_launches()
+    got = compiled()
+    torch.cuda.synchronize()
+    counts = dict(cuda.LAUNCHES)
+    require(counts == want_counts, f"compiled {tag}: replay launch counts "
+            f"{counts}, eager {want_counts}")
+    require(_equal_out(got, want), f"compiled {tag}: the replay's outputs "
+            "are not the eager run's to the bit")
+    walls_e, walls_c = _in_turns(eager, compiled, 1)
+    _, busy_c, calls_c, _ = _profiled_run(compiled)
+    busy_e = _profiled_run(eager)[1] if profile_eager else None
+    med_e, med_c = statistics.median(walls_e), statistics.median(walls_c)
+    idle_e = ("not measured" if busy_e is None
+              else f"{1 - busy_e / 1e3 / med_e:.1%}")
+    print(f"[compiled] (b) {tag} ({smi}): replay equal to eager to the bit, "
+          f"launches {({k: v for k, v in counts.items() if v})} in both; "
+          f"capture {program.seconds:.3f} s (first call {first:.3f} s), "
+          f"{program.nodes} graph nodes; wall in turns (median of "
+          f"{len(walls_c)}) captured {med_c:.5f} s, eager {med_e:.5f} s "
+          f"({med_e / med_c:.2f}x); busy captured {busy_c:.2f} ms (idle "
+          f"{1 - busy_c / 1e3 / med_c:.1%}, {calls_c} launch calls), eager "
+          f"{'not measured' if busy_e is None else f'{busy_e:.2f} ms'} "
+          f"(idle {idle_e}); peak MiB allocated / reserved above what each "
+          f"call found held: eager {peak_e[0]:.1f} / {peak_e[1]:.1f}, the "
+          f"capturing call {peak_c[0]:.1f} / {peak_c[1]:.1f} (held before "
+          f"it {held_c[0]:.1f} / {held_c[1]:.1f}); checked in {time.perf_counter() - t_start:.1f} "
+          "s")
+
+
+def _tower_captured(model) -> None:
+    """Phase 17 (a): the tower alone (K3, the dense solve, K4; two
+    cooperative launches) captured from level 1 and replayed, against its
+    eager call, to the bit."""
+    from hpcclassmultigridproject_tpu_torch.core.layout import interior_mask
+    from hpcclassmultigridproject_tpu_torch.ops.cuda.tower import (
+        tower_vcycle,
+    )
+
+    level = model.levels[1]
+    gen = torch.Generator(device=model.device).manual_seed(17)
+    rhs = torch.randn(level.padded, generator=gen, device=model.device)
+    rhs = rhs * interior_mask(level.n, level.padded, dtype=rhs.dtype,
+                              device=model.device)
+    want = tower_vcycle(model.levels, 1, rhs, model.solver)
+    static = rhs.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = tower_vcycle(model.levels, 1, static, model.solver)
+    graph.replay()
+    torch.cuda.synchronize()
+    print(f"[compiled] (a) the tower alone from level 1 (n={level.n}), "
+          f"captured and replayed: equal to its eager call to the bit: "
+          f"{torch.equal(got, want)}")
+    require(torch.equal(got, want), "compiled (a): the captured tower is "
+            "not its eager call")
+
+
+def _compiled_main(device, n, steps, uT_main, counts_main, smi):
+    """Phase 17 (a): the main path captured and replayed against its eager
+    run (`timestepper` called directly), then (c)'s semantics on the same
+    model.  Returns the model."""
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig
+    from hpcclassmultigridproject_tpu_torch.mg.timestepper import timestepper
+    from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+    from hpcclassmultigridproject_tpu_torch.ops import cuda
+
+    model = AdvectionDiffusion(ProblemConfig(n=n, num_steps=steps),
+                               delta_config(certify_every=10), device=device)
+    _tower_captured(model)
+    compiled = lambda: model.run(warn=False)
+
+    def eager():
+        uT, stats = timestepper(model.levels, model.u0, steps, model.solver,
+                                model.fine_hi)
+        return model.crop(uT), stats
+
+    eager()
+    held = _fresh_peaks()
+    cuda.reset_launches()
+    want = eager()
+    torch.cuda.synchronize()
+    want_counts = dict(cuda.LAUNCHES)
+    peak_e = _peak_mib(held)
+    require(want_counts == counts_main, f"compiled (a): eager launch counts "
+            f"{want_counts}, phase 4's {counts_main}")
+    require(torch.equal(want[0], uT_main),
+            "compiled (a): the eager run's uT is not phase 4's")
+    held_c = _fresh_peaks()
+    t0 = time.perf_counter()
+    compiled()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    peak_c = _peak_mib(held_c)
+    program = model.programs.last
+    require(model.last_run_compiled and program is not None,
+            f"compiled (a): not compiled ({model.last_run_reason})")
+    held_r = _fresh_peaks()
+    replay_walls = []
+    for k in range(COMPILED_REPLAYS):
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        got = compiled()
+        torch.cuda.synchronize()
+        replay_walls.append(time.perf_counter() - t0)
+        counts = dict(cuda.LAUNCHES)
+        require(counts == want_counts, f"compiled (a): replay {k} launch "
+                f"counts {counts}, eager {want_counts}")
+        require(_equal_out(got, want), f"compiled (a): replay {k} is not "
+                "the eager run to the bit")
+    peak_r = _peak_mib(held_r)
+    uT, stats = got
+    _check_advection("compiled (a)", n, steps, uT, stats, CENTER_1024, True)
+    walls_e, walls_c = [], []
+    for _ in range(COMPILED_ROUNDS):
+        e, c = _in_turns(eager, compiled, 1)
+        walls_e += e
+        walls_c += c
+    wall_p, busy_c, calls_c, _ = _profiled_run(compiled)
+    _, busy_e, calls_e, coop_e = _profiled_run(eager)
+    graph_ms = statistics.median(_graph_ms(program) for _ in range(3))
+    med_e, med_c = statistics.median(walls_e), statistics.median(walls_c)
+    print(f"[compiled] (a) main n={n}, {steps} steps ({smi}): "
+          f"{COMPILED_REPLAYS} replays, each with uT and every stats tensor "
+          f"equal to the eager run's (phase 4's uT) to the bit and its "
+          f"launch counts {({k: v for k, v in counts.items() if v})} equal "
+          f"to eager's")
+    print(f"[compiled] (a) capture (warm-up, capture, instantiation) "
+          f"{program.seconds:.3f} s, first call {first:.3f} s; "
+          f"{program.nodes} graph nodes; replay walls {replay_walls}")
+    print(f"[compiled] (a) wall in turns (median of {len(walls_c)}): "
+          f"captured {med_c:.5f} s {walls_c}, eager {med_e:.5f} s {walls_e}"
+          f" ({med_e / med_c:.2f}x)")
+    print(f"[compiled] (a) busy (torch.profiler over one call): captured "
+          f"{busy_c:.2f} ms of a {wall_p:.4f} s profiled replay, "
+          f"{calls_c} launch calls; eager {busy_e:.2f} ms, {calls_e} launch "
+          f"calls ({coop_e} cooperative); the graph alone by CUDA events "
+          f"{graph_ms:.3f} ms; idle captured {1 - busy_c / 1e3 / med_c:.1%}"
+          f", eager {1 - busy_e / 1e3 / med_e:.1%} of the median walls")
+    print(f"[compiled] (a) peak MiB allocated / reserved above what each "
+          f"found held: eager run {peak_e[0]:.1f} / {peak_e[1]:.1f} "
+          f"(PERF.md's eager phase 4: 217.3 allocated; held "
+          f"{held[0]:.1f} / {held[1]:.1f}), the capturing call "
+          f"{peak_c[0]:.1f} / {peak_c[1]:.1f} (held {held_c[0]:.1f} / "
+          f"{held_c[1]:.1f}), replays {peak_r[0]:.1f} / {peak_r[1]:.1f} "
+          f"(held {held_r[0]:.1f} / {held_r[1]:.1f}: the graph's pool)")
+    return model
+
+
+def _compiled_semantics(model, uT_main, smi) -> None:
+    """Phase 17 (c): independent outputs of two runs, `step` and
+    `run_chunk`, the checkpointed run, and every switch and the backend
+    flipped between calls."""
+    import dataclasses
+
+    from hpcclassmultigridproject_tpu_torch.mg import cycle, delta
+    from hpcclassmultigridproject_tpu_torch.mg.timestepper import (
+        timestep,
+        timestepper,
+    )
+    from hpcclassmultigridproject_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+        run_with_checkpoints,
+    )
+
+    steps = model.problem.num_steps
+    eager = lambda u, k: timestepper(model.levels, u, k, model.solver,
+                                     model.fine_hi)
+    u_a, u_b = model.u0, model.u0 * 0.5
+    got_a = model.run(u_a, warn=False)
+    got_b = model.run(u_b, warn=False)
+    crop = lambda out: (model.crop(out[0]), out[1])
+    require(_equal_out(got_a, crop(eager(u_a, steps)))
+            and _equal_out(got_b, crop(eager(u_b, steps)))
+            and got_a[0].data_ptr() != got_b[0].data_ptr()
+            and torch.equal(got_a[0], uT_main),
+            "compiled (c): two runs from different u0 are not independent")
+    got = model.step(model.u0)
+    want = timestep(model.levels, model.u0, model.solver, model.fine_hi)
+    require(model.last_run_compiled and _equal_out(got, want),
+            "compiled (c): step is not the eager step")
+    got = model.run_chunk(model.u0, 10)
+    require(model.last_run_compiled and _equal_out(got, eager(model.u0, 10)),
+            "compiled (c): run_chunk(10) is not eager's")
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp, model.problem)
+        uT_ck, done = run_with_checkpoints(model, mgr, every=10)
+    u = model.u0
+    for _ in range(steps // 10):
+        u, _ = eager(u, 10)
+    du = float((uT_ck - uT_main).abs().max())
+    require(done == steps and torch.equal(uT_ck, model.crop(u)),
+            "compiled (c): the checkpointed run is not the eager chunks'")
+    require(du <= 1e-9, f"compiled (c): the checkpointed run is off run's "
+            f"uT by {du:.3g}")
+    print("[compiled] (c) two runs from different u0: independent tensors, "
+          "each its eager run's to the bit; step and run_chunk(10) equal "
+          "eager's; run_with_checkpoints(every=10) equal to its eager chunks"
+          f" to the bit and within {du!r} of run's uT (the delta form "
+          "splits (hi, lo) anew at each chunk, eager too)")
+    modules = {"cycle": cycle, "delta": delta}
+    captured = len(model.programs)
+    for mod, switch in ROUTE_SWITCHES + (("delta", "_FUSE_OPEN_SMOOTH"),):
+        module = modules[mod]
+        old = getattr(module, switch)
+        try:
+            setattr(module, switch, not old)
+            got = model.run(warn=False)
+            want = crop(eager(model.u0, steps))
+        finally:
+            setattr(module, switch, old)
+        require(_equal_out(got, want) and torch.equal(got[0], uT_main),
+                f"compiled (c): {switch} flipped: not the flipped route's "
+                "eager uT")
+    solver = model.solver
+    try:
+        model.solver = dataclasses.replace(solver, backend="jnp")
+        got = model.run(warn=False)
+        want = crop(eager(model.u0, steps))
+    finally:
+        model.solver = solver
+    require(_equal_out(got, want), "compiled (c): backend flipped to jnp: "
+            "not its eager run")
+    back = model.run(warn=False)
+    require(torch.equal(back[0], uT_main)
+            and len(model.programs) == captured + 6,
+            "compiled (c): flipping back did not replay the cached program")
+    print(f"[compiled] (c) each of the five switches and backend='jnp' "
+          f"flipped between calls: the flipped route's eager uT to the bit "
+          f"(a program of its own: {len(model.programs)} captured), and the "
+          f"default's replayed again on flipping back ({smi})")
+
+
+def _compiled_configs(device, n, steps, smi) -> None:
+    """Phase 17 (b): every other captured configuration against its eager
+    run, at the path phases' sizes."""
+    import dataclasses
+    import gc
+
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig, SolverConfig
+    from hpcclassmultigridproject_tpu_torch.mg import cycle, delta
+    from hpcclassmultigridproject_tpu_torch.mg.timestepper import timestepper
+    from hpcclassmultigridproject_tpu_torch.models import (
+        AdvectionDiffusion,
+        Poisson,
+    )
+
+    def advection(solver, steps=steps):
+        return AdvectionDiffusion(ProblemConfig(n=n, num_steps=steps),
+                                  solver, device=device)
+
+    def run_pair(model):
+        def eager():
+            uT, stats = timestepper(model.levels, model.u0,
+                                    model.problem.num_steps, model.solver,
+                                    model.fine_hi)
+            return model.crop(uT), stats
+        return lambda: model.run(warn=False), eager
+
+    fixed = SolverConfig(dtype=torch.float32, tol=TOL, cycle_mode="fixed",
+                         num_cycles=1, coarse_mode="dense")
+    main = advection(delta_config(certify_every=10))
+    modules = {"cycle": cycle, "delta": delta}
+    for mod, switch, value in ((("delta", "_FUSE_OPEN_SMOOTH", True),)
+                               + tuple((m, s, False)
+                                       for m, s in ROUTE_SWITCHES)):
+        module = modules[mod]
+        old = getattr(module, switch)
+        try:
+            setattr(module, switch, value)
+            _compare_compiled(f"main, {switch} {value}", main,
+                              *run_pair(main), smi)
+        finally:
+            setattr(module, switch, old)
+    main = None
+    # (tag, solver, steps): Jacobi and Chebyshev, plain torch, launch
+    # 10-40x more than the kernels a step, and run 10 steps
+    cases = [
+        ("galerkin (delta, K6)", delta_config(certify_every=10,
+                                              coarse_operator="galerkin"),
+         steps),
+        ("refined fused", dataclasses.replace(
+            fixed, refine_dtype=torch.float64), steps),
+        ("mg_solve_fixed", fixed, steps),
+        ("mg_solve_fixed galerkin (K6)", dataclasses.replace(
+            fixed, coarse_operator="galerkin", restriction="full"), steps),
+        ("fmg_solve dense", dataclasses.replace(fixed, cycle_mode="fmg"),
+         steps),
+        ("jacobi fixed", dataclasses.replace(fixed, smoother="jacobi",
+                                             jacobi_omega=0.8), 10),
+        ("chebyshev fixed", dataclasses.replace(fixed,
+                                                smoother="chebyshev"), 10),
+        ('backend="jnp"', delta_config(certify_every=10, backend="jnp"),
+         steps),
+    ]
+    for tag, solver, k in cases:
+        model = advection(solver, k)
+        _compare_compiled(f"{tag}, {k} steps", model, *run_pair(model), smi,
+                          profile_eager=solver.backend != "jnp")
+        model = None
+        gc.collect()
+    from hpcclassmultigridproject_tpu_torch.mg.cycle import (
+        fmg_solve,
+        mg_solve_fixed,
+    )
+    for tag, dtype, mode, cycles in (("f64 fixed", torch.float64, "fixed", 7),
+                                     ("f64 fmg", torch.float64, "fmg", 2),
+                                     ("f32 fixed", torch.float32, "fixed",
+                                      50)):
+        solver = SolverConfig(dtype=dtype, tol=1e-10, restriction="full",
+                              coarse_mode="dense", cycle_mode=mode,
+                              num_cycles=cycles)
+        model = Poisson(n=n, solver=solver, device=device)
+        solve = mg_solve_fixed if mode == "fixed" else fmg_solve
+
+        def eager(model=model, solve=solve):
+            u, stats = solve(model.levels, torch.zeros_like(model.rhs),
+                             model.rhs, model.solver)
+            return u[:n + 1, :n + 1], stats
+
+        _compare_compiled(f"poisson {tag} (K5)", model,
+                          lambda model=model: model.solve(), eager, smi)
+        model = None
+        gc.collect()
+
+
+def _compiled_big(device, big, smi) -> None:
+    """Phase 17 (d): n=16384, BIG_STEPS steps at phase 13's cycle count,
+    eager and then captured, each uT phase 13's to the bit."""
+    import dataclasses
+    import warnings
+
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig
+    from hpcclassmultigridproject_tpu_torch.mg.timestepper import timestepper
+    from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+
+    cycles, fingerprint = big
+    solver = dataclasses.replace(delta_config(certify_every=10),
+                                 num_cycles=cycles)
+    before = _fresh_peaks()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model = AdvectionDiffusion(ProblemConfig(n=BIG_N,
+                                                 num_steps=BIG_STEPS),
+                                   solver, device=device)
+    held = torch.cuda.memory_allocated() / 2**20 - before[0]
+    t0 = time.perf_counter()
+    uT, stats = timestepper(model.levels, model.u0, BIG_STEPS, model.solver,
+                            model.fine_hi)
+    torch.cuda.synchronize()
+    wall_e = time.perf_counter() - t0
+    same_e = _fingerprint(model.crop(uT))["sha256"] == fingerprint["sha256"]
+    uT = stats = None
+    peak_e = _peak_mib(before)
+    _fresh_peaks()
+    t0 = time.perf_counter()
+    uT, stats = model.run(warn=False)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    peak_c = _peak_mib(before)
+    program = model.programs.last
+    ok, rel, mid, final = _certified(stats)
+    same_c = _fingerprint(uT)["sha256"] == fingerprint["sha256"]
+    uT = stats = None
+    t0 = time.perf_counter()
+    model.run(warn=False)
+    torch.cuda.synchronize()
+    wall_r = time.perf_counter() - t0
+    print(f"[compiled] (d) n={BIG_N}, {BIG_STEPS} steps, {cycles} cycles "
+          f"({smi}): uT equal to phase 13's to the bit: eager {same_e}, "
+          f"captured {same_c}; certificates f32 {rel:.3e} / f64 mid-run "
+          f"{mid:.3e} / final {final:.3e}; capture {program.seconds:.3f} s "
+          f"(first call {first:.3f} s), {program.nodes} nodes; walls eager "
+          f"{wall_e:.3f} s (first eager run), replay {wall_r:.3f} s; peak "
+          f"MiB allocated / reserved, the model's included: eager "
+          f"{peak_e[0]:.1f} / {peak_e[1]:.1f}, the capturing call "
+          f"{peak_c[0]:.1f} / {peak_c[1]:.1f} (PERF.md's eager phase 13: "
+          f"41073.2 allocated), {held:.1f} held by the model; "
+          f"{before[0]:.1f} / {before[1]:.1f} held before the build")
+    require(same_e and same_c and ok, f"compiled (d): n={BIG_N} uT off "
+            "phase 13's, or not certified")
+
+
+def phase_compiled(device, n, steps, uT_main, counts_main, big) -> None:
+    """Phase 17: the compiled run (module docstring).  Frees its models
+    and graphs and empties the allocator's cache at the end: phase 16's
+    rank 0 takes cuda:0."""
+    import gc
+
+    smi = _smi()
+    model = _compiled_main(device, n, steps, uT_main, counts_main, smi)
+    _compiled_semantics(model, uT_main, smi)
+    model = None
+    gc.collect()
+    _compiled_configs(device, n, steps, smi)
+    _compiled_big(device, big, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2954,6 +3468,7 @@ def main() -> None:
                              main_counts)
     phase_grid(MAIN_N, MAIN_STEPS, uT_main)
     phase_routes_oracle(device, MAIN_N, MAIN_STEPS, uT_main)
+    phase_compiled(device, MAIN_N, MAIN_STEPS, uT_main, main_counts, big)
     phase_multi_gpu(MAIN_N, MAIN_STEPS, uT_main, big)
     kernels = []
     for key, label, source, replaces in KERNELS:

@@ -15,6 +15,9 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <map>
+#include <mutex>
+#include <utility>
 
 namespace mg {
 
@@ -772,6 +775,31 @@ __device__ void smooth_from_v(const SmoothArgs<T>& a, const Run& run, int ty,
   }
 }
 
+// Let `kernel` take `smem` bytes of dynamic shared memory on the current
+// device, with the max-shared carveout: set once per kernel, device and
+// size, and remembered, so that a launch inside a stream capture (a CUDA
+// graph) makes no attribute call once a warm-up has set it.
+template <typename T>
+cudaError_t reserve_dynamic_smem(void (*kernel)(SmoothArgs<T>), size_t smem) {
+  static std::mutex lock;
+  static std::map<std::pair<const void*, int>, size_t> reserved;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> hold(lock);
+  size_t& have = reserved[{reinterpret_cast<const void*>(kernel), dev}];
+  if (have >= smem) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) have = smem;
+  return err;
+}
+
 // Launch the from_v block over a.rows x a.cols, one block per tile, with
 // `paired` (smooth_from_v<T, FV_PAIRED, ...>) where every row of every
 // array starts aligned to a pair of values (the window's columns start
@@ -779,8 +807,9 @@ __device__ void smooth_from_v(const SmoothArgs<T>& a, const Run& run, int ty,
 // `smem` bytes of dynamic shared memory (FORM_NINE's corner words).  A
 // block's static and dynamic shared memory together pass 48 KB only under
 // cudaFuncAttributeMaxDynamicSharedMemorySize, so it is set whenever the
-// block takes dynamic memory.  An nsweeps whose halo leaves no tile is
-// refused with cudaErrorInvalidValue; returns the launch error.
+// block takes dynamic memory (`reserve_dynamic_smem`).  An nsweeps whose
+// halo leaves no tile is refused with cudaErrorInvalidValue; returns the
+// launch error.
 template <typename T>
 cudaError_t launch_smooth_from_v(void (*paired)(SmoothArgs<T>),
                                  void (*singles)(SmoothArgs<T>),
@@ -800,13 +829,7 @@ cudaError_t launch_smooth_from_v(void (*paired)(SmoothArgs<T>),
   const dim3 grid((a.cols + tw - 1) / tw, (a.rows + th - 1) / th);
   void (*kernel)(SmoothArgs<T>) = aligned ? paired : singles;
   if (smem > 0) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-          cudaSharedmemCarveoutMaxShared);
+    const cudaError_t err = reserve_dynamic_smem(kernel, smem);
     if (err != cudaSuccess) return err;
   }
   kernel<<<grid, FV_THREADS, smem, stream>>>(a);

@@ -279,10 +279,24 @@ def _safe(res0):
 
 def _stats(cycles: int, rel, cfg: SolverConfig) -> dict:
     return {
-        "cycles": torch.tensor(cycles, dtype=torch.int32, device=rel.device),
+        "cycles": torch.full((), cycles, dtype=torch.int32,
+                             device=rel.device),
         "rel_residual": rel,
         "converged": rel <= cfg.tol,
     }
+
+
+def host_reads(levels, cfg: SolverConfig) -> str | None:
+    """Why a solve of `cfg` over `levels` reads the host inside its body,
+    so that no CUDA graph can hold it (utils/graphs.py), or None: the
+    adaptive solvers and the GS coarse solve are host loops here, where
+    the JAX package runs them as `lax.while_loop`."""
+    if cfg.cycle_mode == "adaptive":
+        return ("cycle_mode 'adaptive': mg_solve (or the adaptive refined "
+                "solve) reads one norm a cycle")
+    if cfg.coarse_mode != "dense" or levels[-1].a_inv is None:
+        return "the GS coarse solve: coarse_solve_gs reads one norm a sweep"
+    return None
 
 
 def _fine_norm(levels, u, rhs, shardings):

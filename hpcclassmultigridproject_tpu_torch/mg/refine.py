@@ -77,7 +77,8 @@ def refined_solve(levels, fine_hi, u, rhs, cfg: SolverConfig, r0=None,
         rel = res / res0_safe
 
     stats = {
-        "cycles": torch.tensor(cycles, dtype=torch.int32, device=u.device),
+        "cycles": torch.full((), cycles, dtype=torch.int32,
+                             device=u.device),
         "rel_residual": rel.to(torch.float32),
         "converged": rel <= cfg.tol,
     }

@@ -19,6 +19,7 @@ from hpcclassmultigridproject_tpu_torch.core.problem import (
     gaussian_u0_padded_device,
     rotating_velocity,
 )
+from hpcclassmultigridproject_tpu_torch.mg.cycle import host_reads
 from hpcclassmultigridproject_tpu_torch.mg.levels import (
     build_fine_level,
     build_fine_level_device,
@@ -32,6 +33,7 @@ from hpcclassmultigridproject_tpu_torch.parallel import (
     resolve_layout,
     shard_windows,
 )
+from hpcclassmultigridproject_tpu_torch.utils import graphs
 
 # auto (device_build None) builds on the device from this n up
 DEVICE_BUILD_MIN_N = 4096
@@ -99,6 +101,16 @@ class AdvectionDiffusion:
     likewise and `u0`'s block, so that no rank holds a whole partitioned
     level; replicated levels and the coarsest are built whole.  Every
     rank builds its model, and `run` is then collective.
+
+    `run`, `step` and `run_chunk` are compiled programs on the card, as
+    the JAX model's are `jax.jit` programs: each step count (and the step)
+    is captured once as a CUDA graph and replayed (utils/graphs.py), where
+    the configuration's body reads nothing back to the host.  A run on the
+    CPU, a partitioned one, or one of the adaptive solvers or the GS
+    coarse solve (`mg.cycle.host_reads`) is eager.  After each call,
+    `last_run_compiled` says which way it ran and `last_run_reason` why it
+    was eager (None when it was compiled).  Eager on the card means calling
+    `mg.timestepper.timestepper` or `timestep` directly.
     """
 
     def __init__(self, problem: ProblemConfig, solver: SolverConfig, *,
@@ -109,6 +121,8 @@ class AdvectionDiffusion:
             raise RuntimeError(
                 "device='cuda' but torch sees no CUDA device")
         self.device = device
+        self.programs = graphs.Programs()
+        self.last_run_compiled, self.last_run_reason = False, None
         self.problem = p = problem
         s = solver
         if s.num_cycles is None:
@@ -173,10 +187,8 @@ class AdvectionDiffusion:
         that missed tol, a certificate without margin, or a failed
         high-dtype certificate.  Born partitioned, `u0` is this rank's
         block and uT is gathered whole on every rank."""
-        uT, stats = timestepper(self.levels,
-                                self.u0 if u0 is None else u0,
-                                self.problem.num_steps, self.solver,
-                                self.fine_hi, self.shardings)
+        uT, stats = self.run_chunk(self.u0 if u0 is None else u0,
+                                   self.problem.num_steps)
         if self.shardings is not None:
             uT = fetch(uT, self.shardings[0])
         if warn:
@@ -212,18 +224,51 @@ class AdvectionDiffusion:
                     f"true high-dtype relative residual {hi:.3e} > tol "
                     f"{tol:g} (certify_every={self.solver.certify_every})")
 
+    def eager_reason(self) -> str | None:
+        """Why this model's calls run eagerly, or None where each replays
+        a captured program: the CPU, a partitioned model, or a body that
+        reads the host (`mg.cycle.host_reads`)."""
+        if not graphs.on_card(self.device):
+            return "the CPU was asked for: the function is called directly"
+        if self.shardings is not None:
+            return ("partitioned over ranks: a step's collectives are not "
+                    "captured (gloo cannot be; NCCL capture is later work)")
+        return host_reads(self.levels, self.solver)
+
+    def _compiled(self, key, fn, u, warm=None):
+        """`fn(u)` as the compiled program of `key` (the counterpart of the
+        JAX model's `_jit_*` programs), or called directly where
+        `eager_reason` gives a reason; records which way it ran."""
+        reason = self.eager_reason()
+        out = fn(u) if reason is not None else self.programs(
+            key, fn, (u,), warm, keep=(self.levels, self.fine_hi))
+        self.last_run_compiled, self.last_run_reason = reason is None, reason
+        return out
+
     def step(self, u: torch.Tensor):
         """One CN step from a padded state (born partitioned, this
-        rank's block of it); returns (u_next, stats)."""
-        return timestep(self.levels, u, self.solver, self.fine_hi,
-                        self.shardings)
+        rank's block of it); returns (u_next, stats).  One compiled
+        program, as the JAX model's `_jit_step`."""
+        levels, cfg = self.levels, self.solver
+        fine_hi, shardings = self.fine_hi, self.shardings
+        return self._compiled(
+            ("step", cfg),
+            lambda u: timestep(levels, u, cfg, fine_hi, shardings), u)
 
     def run_chunk(self, u_padded: torch.Tensor, nsteps: int):
         """`nsteps` CN steps from a padded state (checkpointed runs and
         trajectory dumps); returns (u padded, per-step stats).  Born
-        partitioned, u is this rank's block in and out."""
-        return timestepper(self.levels, u_padded, nsteps, self.solver,
-                           self.fine_hi, self.shardings)
+        partitioned, u is this rank's block in and out.  One compiled
+        program per step count, shared with `run` (the JAX model's
+        `_jit_run` and `_chunk_cache`), warmed up by one step."""
+        levels, cfg = self.levels, self.solver
+        fine_hi, shardings = self.fine_hi, self.shardings
+        return self._compiled(
+            ("steps", nsteps, cfg),
+            lambda u: timestepper(levels, u, nsteps, cfg, fine_hi,
+                                  shardings),
+            u_padded,
+            lambda u: timestepper(levels, u, 1, cfg, fine_hi, shardings))
 
     def pad(self, u_logical: torch.Tensor) -> torch.Tensor:
         """Embed a logical (n+1)^2 field into the padded layout."""

@@ -12,6 +12,8 @@ solve.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from hpcclassmultigridproject_tpu_torch.config import SolverConfig
@@ -23,6 +25,7 @@ from hpcclassmultigridproject_tpu_torch.core.layout import (
 )
 from hpcclassmultigridproject_tpu_torch.mg.cycle import (
     fmg_solve,
+    host_reads,
     mg_solve,
     mg_solve_fixed,
 )
@@ -36,6 +39,7 @@ from hpcclassmultigridproject_tpu_torch.ops.padded import (
 from hpcclassmultigridproject_tpu_torch.sparse.galerkin import (
     attach_dense_inverse,
 )
+from hpcclassmultigridproject_tpu_torch.utils import graphs
 
 
 def poisson_level(n: int, h: float, *, dtype: torch.dtype, device):
@@ -73,6 +77,14 @@ class Poisson:
     `f` takes the node coordinates x, y as torch tensors in the solver's
     dtype and returns f on them; the default is f ≡ 1.  It runs on the
     card (`device="cuda"`, the default) or, asked for, on the CPU.
+
+    On the card `solve("mg")` in cycle_mode "fixed" or "fmg" with the
+    dense coarse solve is a compiled program, as the JAX model's `_jit_mg`
+    is: captured once as a CUDA graph and replayed (utils/graphs.py).  The
+    adaptive solve, the GS coarse solve and `method="gs"` read the host
+    and run eagerly; `last_run_compiled` and `last_run_reason` say which
+    way the last solve ran and why.  Eager means calling
+    `mg.cycle.mg_solve_fixed` or `fmg_solve` directly.
     """
 
     # The JAX package's defaults: full weighting and the dense coarse solve
@@ -88,6 +100,8 @@ class Poisson:
         self.n = n
         self.solver = solver
         self.device = device
+        self.programs = graphs.Programs()
+        self.last_run_compiled, self.last_run_reason = False, None
         self.num_levels = solver.resolved_num_levels(n)
         self.levels = build_poisson_hierarchy(
             n, self.num_levels, dtype=solver.dtype, device=device,
@@ -107,17 +121,41 @@ class Poisson:
         red–black GS sweeps from u = 0 with a relative-residual check every
         `check_every` sweeps, at most `max_iters` sweeps; stats {"iters",
         "rel_residual"}."""
-        u0 = torch.zeros_like(self.rhs)
-        if method == "mg":
-            solve = {"fixed": mg_solve_fixed, "fmg": fmg_solve,
-                     "adaptive": mg_solve}[self.solver.cycle_mode]
-            u, stats = solve(self.levels, u0, self.rhs, self.solver)
-        elif method == "gs":
-            with backend_route(self.solver.backend):
-                u, stats = self._gs(u0, max_iters, check_every)
-        else:
+        if method not in ("mg", "gs"):
             raise ValueError(f"unknown method {method!r}")
+        reason = self.eager_reason(method)
+        if method == "gs":
+            with backend_route(self.solver.backend):
+                u, stats = self._gs(torch.zeros_like(self.rhs), max_iters,
+                                    check_every)
+        else:
+            levels, cfg = self.levels, self.solver
+            solve = {"fixed": mg_solve_fixed, "fmg": fmg_solve,
+                     "adaptive": mg_solve}[cfg.cycle_mode]
+
+            def run(rhs, cfg=cfg):
+                return solve(levels, torch.zeros_like(rhs), rhs, cfg)
+
+            if reason is None:
+                one = dataclasses.replace(cfg, num_cycles=1)
+                u, stats = self.programs(("mg", cfg), run, (self.rhs,),
+                                         lambda rhs: run(rhs, one),
+                                         keep=(levels,))
+            else:
+                u, stats = run(self.rhs)
+        self.last_run_compiled, self.last_run_reason = reason is None, reason
         return crop_field(u, self.n), stats
+
+    def eager_reason(self, method: str = "mg") -> str | None:
+        """Why `solve(method)` runs eagerly, or None where it replays a
+        captured program: the CPU, `method="gs"`, or a solve whose body
+        reads the host (`mg.cycle.host_reads`)."""
+        if not graphs.on_card(self.device):
+            return "the CPU was asked for: the function is called directly"
+        if method == "gs":
+            return ("method 'gs': the iteration reads the residual norm "
+                    "every check_every sweeps")
+        return host_reads(self.levels, self.solver)
 
     def _gs(self, u, max_iters: int, check_every: int):
         """The precursors' iteration: a host loop that reads the residual

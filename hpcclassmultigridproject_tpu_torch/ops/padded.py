@@ -20,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -30,9 +31,16 @@ from hpcclassmultigridproject_tpu_torch.core.layout import (
 )
 
 
+# the numpy type of each floating dtype `as_dtype` rounds to
+_NUMPY_FLOAT = {torch.float16: np.float16, torch.float32: np.float32,
+                torch.float64: np.float64}
+
+
 def as_dtype(x: float, dtype: torch.dtype) -> float:
-    """A Python float rounded to `dtype` (a kernel's scalar constant)."""
-    return torch.tensor(x, dtype=dtype).item()
+    """A Python float rounded to `dtype` (a kernel's scalar constant), on
+    the host by numpy's IEEE conversion: the same bits as a torch tensor of
+    `dtype` would hold, with no tensor made and nothing read back."""
+    return float(_NUMPY_FLOAT[dtype](x))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,7 +198,8 @@ def chebyshev_smooth(level, u, rhs, degree: int = 3,
     lam = gershgorin_bound(level, c).to(u.dtype)
     # a tensor, so `inv_diag / theta` is one division (a Python float over
     # a tensor is taken as a reciprocal and a product)
-    inv_diag = (torch.tensor(1.0 / c.diag_a, dtype=u.dtype, device=u.device)
+    inv_diag = (torch.full((), 1.0 / c.diag_a, dtype=u.dtype,
+                           device=u.device)
                 if c.diag is None else 1.0 / c.diag)
     return chebyshev_steps(u, lambda v: residual(level, v, rhs, c), lam,
                            inv_diag, degree, lower_frac, upper_frac)

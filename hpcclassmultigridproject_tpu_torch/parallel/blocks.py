@@ -260,7 +260,8 @@ def chebyshev_smooth(level, u, rhs, degree: int, lower_frac: float,
                                   upper_frac)
     c = coefs(level, part)
     lam = gershgorin_bound(level, part).to(u.dtype)
-    inv_diag = (torch.tensor(1.0 / c.diag_a, dtype=u.dtype, device=u.device)
+    inv_diag = (torch.full((), 1.0 / c.diag_a, dtype=u.dtype,
+                           device=u.device)
                 if c.diag is None else inner(1.0 / c.diag, part))
     return P.chebyshev_steps(u, lambda v: residual(level, v, rhs, part, c),
                              lam, inv_diag, degree, lower_frac, upper_frac)

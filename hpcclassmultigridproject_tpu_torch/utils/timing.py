@@ -78,7 +78,9 @@ class Timer:
 
 def time_run(fn, *args, reps: int = 3, warmup: int = 1) -> dict:
     """Best-of-`reps` wall time of `fn(*args)`, each call synchronized,
-    after `warmup` untimed calls (the first builds the kernels)."""
+    after `warmup` untimed calls (the first builds the kernels and, for a
+    model's entry point on the card, captures its compiled program, as
+    the JAX package's first call compiles)."""
     out = None
     for _ in range(warmup):
         out = fn(*args)
