@@ -42,6 +42,8 @@ raising on failure:
 6. galerkin: the main path with Galerkin coarse levels (K1, K2, K6);
 7. poisson: Poisson(n=1024) in float64 to tol 1e-10 and in its float32
    default, which stalls at 50 cycles as the JAX package's does (K5);
+   both adaptive, each a replay whose loop is a WHILE node (while_set
+   one a cycle and one more);
 8. refined: n=1024, 100 refined fixed-cycle steps, not in delta form (K2,
    K3, K4);
 9. distributed: parallel.distributed_run of the main path over W=4 spawned
@@ -57,8 +59,9 @@ raising on failure:
     turns;
 11. cli: the port's CLI in subprocesses: the main configuration's `run`,
     the same checkpointed (its chunks' stats stitched: converged, every
-    certificate <= 1e-6), `gsbench` at n=2048 with both backends, and
-    `profile` of the main configuration;
+    certificate <= 1e-6), `gsbench` at n=2048 with both backends (each
+    its sweeps as one compiled program), and `profile` of the main
+    configuration;
 12. probe: P's six kernels (ops/cuda/probe.py) against the JAX probe
     script's checks and bit for bit against their plain versions; the
     product kernel on dense operands (the three probe shapes, an unaligned
@@ -92,11 +95,11 @@ raising on failure:
     blocks, K3/K4 from 64), plain and with sharded_overlap (halo.py's
     overlapped sweep): MAIN_STEPS steps unless a timed warm-up says a run
     would pass GRID_MAX_RUN_S, then fewer (printed, and compared with a
-    single-device run of as many); uT within 1e-9 of the single-device
-    run, every certificate, plain and overlap equal to the bit, each
-    rank's K3/K4 counts, walls, peak MiB and collectives a step; (b) at
-    n=256, 5 steps, min_local 16, in both layouts: FMG plain and refined,
-    Jacobi, Chebyshev, Galerkin (nine-band levels partitioned) and the
+    single-device run of as many, its center too); uT within 1e-9 of the
+    single-device run, every certificate, plain and overlap equal to the
+    bit, each rank's K3/K4 counts, walls, peak MiB and collectives a step;
+    (b) at n=256, 5 steps, min_local 16, in both layouts: FMG plain and
+    refined, Jacobi, Chebyshev, Galerkin (nine-band levels partitioned) and the
     main configuration, each within 1e-9 of its single-device run on the
     card (bitwise printed) and certified, and the main one born
     2-D-partitioned equal to the whole build's run to the bit; (c)
@@ -119,7 +122,9 @@ raising on failure:
     levels, 100 steps, V- and W-cycles, within 1e-12 and with the
     V-cycle's cycles a step equal, and at n=256 against
     tests/golden/uT_n256.npy within 1e-12, center within 5e-9 of
-    4.802e-5, at most one cycle a step; (c) the logical-shape operations
+    4.802e-5, at most one cycle a step, each run a replay whose solves
+    are WHILE nodes (while_set at least one a cycle and one a step); (c)
+    the logical-shape operations
     (ops) on the card against the oracle in float64 at
     tests/test_ops.py's tolerances.
 
@@ -172,6 +177,31 @@ raising on failure:
     route's eager uT; (d) n=16384, 10 steps at phase 13's cycle count,
     eager and captured, each uT equal to phase 13's to the bit, with peak
     MiB.  It frees its models and graphs and empties the cache at the end.
+18. compiled loops (after 17, before 16): `utils.graphs.while_loop`, the
+    counterpart of `lax.while_loop`, captured as CUDA conditional WHILE
+    nodes whose predicate mg_while_set (csrc/loop.cu) sets on the card.
+    (a) probes, each captured and replayed twice against its host form
+    (outputs to the bit, launch counts equal, while_set equal to the host
+    form's tests): a counter body with a device-set trip count of 0, 1
+    and 37, a nested while, a cuBLAS 961x961 matvec in a body, the K3/K4
+    pair (two cooperative launches) in a body, and a body's temporaries in
+    the programs' pool; mg_while_set's time a launch in a graph against
+    its plain version (the host's read); (b) at n=1024 from two inputs
+    each, replays against their host loops (`timestepper`, `mg_solve`,
+    Poisson's `_gs` called directly), uT and every stats tensor to the
+    bit, launch counts equal: SolverConfig(tol=1e-5) (adaptive, the GS
+    coarse solve nested), SolverConfig(dtype=float64), SolverConfig(tol=
+    1e-5, coarse_mode="dense") (K2, K3/K4 and the matvec in the body),
+    phase 8's refined configuration in cycle_mode "adaptive" (100 steps,
+    or as many as an eager run does in LOOP_EAGER_S: an f32 step may
+    take 50 cycles), Poisson f64 at tol 1e-10 (7 cycles, the center
+    within 1e-11), Poisson.DEFAULT_SOLVER in float32 (50 cycles, not
+    converged) and Poisson(256).solve("gs", max_iters=100000,
+    check_every=100): walls in turns, capture seconds, WHILE, top and body
+    nodes, busy (the graph by CUDA events) and idle, peak MiB; (c)
+    gsbench's sweeps (`cli.gsbench_sweeps`) at n=2048, 4096 and 8192, 100
+    sweeps, both backends, captured against the eager loop: the bits, µs a
+    sweep and GDOF/s.
 
 Phase 9 also builds the main path's model born row-partitioned over its
 W=4 ranks (AdvectionDiffusion(mesh=...), min_local=64; phase 13's (c)):
@@ -180,14 +210,17 @@ model in the same spawn, with the certificates and K7 counts of the plain
 schedule, and each rank's peak MiB, build through run, lower than the
 whole-built model's.
 
-Each path phase (4, 6, 7, 8, 9, 10, 13, 15) resets the launch counts just
-before the run it reads, checks every count, and (but 15, whose "jnp"
-route is the plain one) runs the same path once more through the plain
-versions.  On the card `AdvectionDiffusion.run`, `step` and `run_chunk`
-and `Poisson.solve` in fixed and fmg mode replay captured graphs (the
-route is part of a graph's key, so the plain run captures its own); a
-replay adds the launch counts its capture recorded, and phase 17 holds
-each to its eager run.  Phase 14 (a) resets and checks each rank's
+Each path phase (4, 6, 7, 8, 9, 10, 13, 15, 18) resets the launch counts
+just before the run it reads, checks every count, and (but 15, whose
+"jnp" route is the plain one, and 18, which holds each replay to its
+host loop) runs the same path once more through the plain versions.  On
+the card `AdvectionDiffusion.run`, `step` and `run_chunk` and
+`Poisson.solve` replay captured graphs in every single-device
+configuration (the route is part of a graph's key, so the plain run
+captures its own; the plain route keeps mg_while_set, XLA's while); a
+replay adds the launch counts its capture recorded, and each WHILE
+node's body counts times its trips, and phases 17 and 18 hold each to
+its eager run.  Phase 14 (a) resets and checks each rank's
 counts the same way; its 2-D blocks run plain torch, with no kernel.
 
 The last two lines are a JSON object with the kernels' numbers (launches
@@ -239,7 +272,11 @@ KERNELS = [  # (counter, name, source, the TPU kernel's pallas_call)
     ("open_presmooth", "K8 whole-step opening", f"{PKG}/csrc/delta_step.cu",
      f"{TPU}/delta_step.py:329"),
 ] + [(f"probe_{p}", f"P {p}", f"{PKG}/csrc/probe.cu", PROBE_TPU)
-     for p in PROBES]
+     for p in PROBES] + [
+    # no pallas_call: XLA's while of lax.while_loop (mg_solve's here; also
+    # mg/cycle.py:317, mg/refine.py:117, models/poisson.py:148)
+    ("while_set", "L while node test", f"{PKG}/csrc/loop.cu",
+     "hpcclassmultigridproject_tpu/mg/cycle.py:457")]
 MAIN_N, MAIN_STEPS = 1024, 100
 CENTER_1024 = 4.60419316843316e-5  # delta form at n=1024 (BENCH_r05.json)
 # the JAX package's values on the CPU under x64, at n=1024
@@ -1032,15 +1069,22 @@ def phase_poisson(device, n: int):
         model = Poisson(n=n, solver=solver, device=device)
         smoothed = model.num_levels - 1
         cycles_want = 7 if dtype == torch.float64 else solver.max_cycles
+        # a replay: mg_solve's WHILE node tests its predicate once before
+        # each cycle and once at the end (while_set)
         u, stats, got = _drive(
-            tag, model.solve, {"smooth5": 2 * smoothed * cycles_want},
+            tag, model.solve, {"smooth5": 2 * smoothed * cycles_want,
+                               "while_set": cycles_want + 1},
             1e-13 if dtype == torch.float64 else 1e-6)
         cycles = int(stats["cycles"])
         rel = float(stats["rel_residual"])
         conv = bool(stats["converged"])
         center = float(u[n // 2, n // 2])
         print(f"[{tag}] cycles {cycles}, rel_residual {rel:.4g}, converged "
-              f"{conv}, center u {center!r}")
+              f"{conv}, center u {center!r}; compiled "
+              f"{model.last_run_compiled} (the adaptive solve replays one "
+              f"graph, its loop a WHILE node)")
+        require(model.last_run_compiled, f"{tag}: not compiled "
+                f"({model.last_run_reason})")
         require(tuple(u.shape) == (n + 1, n + 1)
                 and bool(torch.isfinite(u).all()), f"{tag}: u")
         require(cycles == cycles_want, f"{tag}: {cycles} cycles, expected "
@@ -1521,7 +1565,11 @@ def phase_cli(n: int, steps: int) -> None:
         print(f"[cli] gsbench --backend {backend} ({what}): "
               f"{gs['gflops']:.2f} GFLOP/s, {gs['stencil_gdof_s']:.3f} "
               f"stencil GDOF/s, {gs['us_per_sweep']:.2f} us per sweep "
-              f"(K2's bytes bound a sweep at {sweep_bound * 1e3:.2f} us)")
+              f"(K2's bytes bound a sweep at {sweep_bound * 1e3:.2f} us); "
+              f"compiled {gs['compiled']}, capture "
+              f"{gs['capture_seconds']:.3f} s")
+        require(gs["compiled"], f"cli gsbench --backend {backend}: the "
+                "sweeps did not run as one compiled program")
     prof = _cli("profile", *main_cfg, "--reps", "3")
     for rec in prof[:-1]:
         print(f"[cli] profile: {rec['phase']} level {rec['level']} (n="
@@ -1951,7 +1999,7 @@ def phase_device_build(device, n: int, steps: int, uT_main,
 # phase 14: the 2-D layout and scaling, W=4 gloo ranks on the one card
 GRID_WORLD, GRID_MIN_LOCAL = 4, 64
 # (a): timed warm-up steps, and the longest run that keeps MAIN_STEPS
-GRID_WARM_STEPS, GRID_MAX_RUN_S = 10, 120.0
+GRID_WARM_STEPS, GRID_MAX_RUN_S = 10, 30.0
 CONFIG_N, CONFIG_STEPS, CONFIG_MIN_LOCAL = 256, 5, 16  # (b)
 HALO_SWEEPS, HALO_REPS, EXCHANGE_REPS = 3, 20, 100  # (c)
 SCALING_STEPS = 10  # (d)
@@ -2236,8 +2284,10 @@ def _phase_grid_main(n: int, steps: int, uT_single, smi: str) -> None:
                 f"grid (a) {tag}: launch counts {counts}")
         require(du <= 1e-9, f"grid (a) {tag}: uT off by {du:.3g}")
         stats = {k: torch.from_numpy(v) for k, v in got["stats"].items()}
+        center_ref = (CENTER_1024 if ran == steps
+                      else float(single[n // 2, n // 2]))
         _check_advection(f"grid {tag}", n, ran, torch.from_numpy(got["uT"]),
-                         stats, CENTER_1024, True)
+                         stats, center_ref, True)
     same = np.array_equal(res["plain"]["uT"], res["overlap"]["uT"])
     print(f"[grid] (a) overlapped halo sweeps equal to plain to the bit: "
           f"{same}")
@@ -2543,6 +2593,8 @@ def _phase_oracle(device) -> None:
         if shape == 1:
             require(np.array_equal(cycles, want_cycles),
                     "oracle: V-cycle cycles a step differ from native")
+        _check_loop_tests(f"oracle: n={n} {name}-cycle", counts, cycles,
+                          model)
         want_counts = {k: 0 for k in counts}
         want_counts["smooth"] = 2 * shape * int(cycles.sum())
         require(counts == want_counts,
@@ -2565,10 +2617,25 @@ def _phase_oracle(device) -> None:
     require(err <= 1e-12, f"oracle: n=256 off the golden field by {err:.3g}")
     require(abs(center - GOLDEN_CENTER) <= 5e-9, "oracle: n=256 center")
     require(int(cycles.max()) <= 1, "oracle: n=256 took > 1 cycle a step")
+    _check_loop_tests("oracle: n=256", counts, cycles, model)
     want_counts = {k: 0 for k in counts}
     want_counts["smooth"] = 2 * (model.num_levels - 1) * int(cycles.sum())
     require(counts == want_counts,
             f"oracle: launch counts {counts}, expected {want_counts}")
+
+
+def _check_loop_tests(tag, counts, cycles, model) -> None:
+    """A replay of an adaptive run with the GS coarse solve: compiled,
+    and its tests (while_set, taken out of `counts`) at least
+    mg_solve's, one a cycle and one more a step; phase 18 holds them to
+    the host loop's exactly."""
+    tests = counts.pop("while_set")
+    least = int(cycles.sum()) + cycles.size
+    print(f"[oracle] {tag}: compiled {model.last_run_compiled}, "
+          f"{len(model.programs.last.loops)} WHILE nodes, while_set {tests} "
+          f"(mg_solve's tests alone {least})")
+    require(model.last_run_compiled and tests >= least,
+            f"{tag}: not a replay of WHILE nodes ({model.last_run_reason})")
 
 
 def _phase_logical_ops(device) -> None:
@@ -3441,6 +3508,480 @@ def phase_compiled(device, n, steps, uT_main, counts_main, big) -> None:
     torch.cuda.empty_cache()
 
 
+# phase 18: the compiled loops, each adaptive solve a graph of WHILE nodes
+LOOP_TRIPS = (0, 1, 37)  # (a): the counter probe's device-set trip counts
+NESTED_TABLE = (3, 0, 2, 5, 0)  # (a): inner trips a trip of the outer loop
+WHILE_SET_REPS = 1000  # launches of mg_while_set in the graph that times it
+# (b): an advection configuration runs fewer than MAIN_STEPS steps where
+# its eager run would take longer than this (an f32 step can take 50
+# cycles), and an eager run is profiled only below PROFILE_EAGER_S
+LOOP_EAGER_S, LOOP_MIN_STEPS, PROFILE_EAGER_S = 3.0, 10, 1.0
+GSBENCH_LOOP_NS, GSBENCH_LOOP_SWEEPS = (2048, 4096, 8192), 100  # (c)
+POISSON_GS_N, POISSON_GS_ITERS, POISSON_GS_CHECK = 256, 100_000, 100  # (b)
+
+
+def _loop_against_host(tag, fn, args, smi) -> float:
+    """Phase 18 (a): `fn(*args)` captured as a program (its while_loops as
+    WHILE nodes) and replayed twice, each replay against the host form
+    (`fn` called directly): every output to the bit, the launch counts
+    equal but while_set, which is the host form's tests.  Returns the
+    largest |replay - host form|."""
+    from hpcclassmultigridproject_tpu_torch.ops import cuda
+    from hpcclassmultigridproject_tpu_torch.utils import graphs
+
+    cuda.reset_launches()
+    want = fn(*args)
+    torch.cuda.synchronize()
+    counts_e, tests = dict(cuda.LAUNCHES), cuda.HOST_TESTS["while_set"]
+    programs = graphs.Programs()
+    err = 0.0
+    for k in range(2):
+        cuda.reset_launches()
+        got = programs(tag, fn, args)
+        torch.cuda.synchronize()
+        counts = dict(cuda.LAUNCHES)
+        require(programs.last is not None and len(programs.last.loops) > 0,
+                f"loops (a) {tag}: not captured with a WHILE node")
+        require(counts.pop("while_set") == tests and counts == {
+            k2: v for k2, v in counts_e.items() if k2 != "while_set"},
+                f"loops (a) {tag}: replay {k} counts {cuda.LAUNCHES}, host "
+                f"form {counts_e} with {tests} tests")
+        require(_equal_out((got[0], dict(enumerate(got[1:]))),
+                           (want[0], dict(enumerate(want[1:])))),
+                f"loops (a) {tag}: replay {k} is not the host form's")
+        err = max(err, max(float((g.double() - w.double()).abs().max())
+                           for g, w in zip(got, want)))
+    program = programs.last
+    print(f"[loops] (a) {tag} ({smi}): 2 replays equal to the host form to "
+          f"the bit, launches equal, while_set {tests} (the host form's "
+          f"tests); {len(program.loops)} WHILE nodes, {program.nodes} top "
+          f"nodes, {program.body_nodes} body nodes, capture "
+          f"{program.seconds:.3f} s")
+    return err
+
+
+def _loop_probes(device, smi) -> float:
+    """Phase 18 (a): a counter body with a device-set trip count (0, 1,
+    37 trips), a nested while, a cuBLAS matvec in a body, the K3/K4 pair
+    (two cooperative launches) in a body, and a body's temporaries in the
+    programs' pool.  Returns the largest |replay - host form|."""
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig, SolverConfig
+    from hpcclassmultigridproject_tpu_torch.core.layout import interior_mask
+    from hpcclassmultigridproject_tpu_torch.mg.cycle import _zero_count
+    from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+    from hpcclassmultigridproject_tpu_torch.ops.cuda.tower import (
+        tower_vcycle,
+    )
+    from hpcclassmultigridproject_tpu_torch.utils import graphs
+
+    def counter(x, trips):
+        return graphs.while_loop(
+            lambda c: c[1] < trips, lambda c: (c[0] * 1.5 + 1.0, c[1] + 1),
+            (x, _zero_count(x.device)))
+
+    def nested(x, table):
+        def outer(c):
+            x, it = c
+            bound = torch.index_select(table, 0, it.view(1))[0]
+            x, _ = graphs.while_loop(lambda d: d[1] < bound,
+                                     lambda d: (d[0] + 1.0, d[1] + 1),
+                                     (x, torch.zeros_like(it)))
+            return x * 2.0, it + 1
+
+        return graphs.while_loop(lambda c: c[1] < table.numel() - 1, outer,
+                                 (x, _zero_count(x.device)))
+
+    gen = torch.Generator(device=device).manual_seed(18)
+    x = torch.rand(4096, device=device, generator=gen)
+    err = 0.0
+    for trips in LOOP_TRIPS:
+        count = torch.full((), trips, dtype=torch.int32, device=device)
+        err = max(err, _loop_against_host(f"counter, {trips} trips", counter,
+                                          (x, count), smi))
+    table = torch.tensor(NESTED_TABLE, dtype=torch.int32, device=device)
+    err = max(err, _loop_against_host(f"nested, inner {NESTED_TABLE}",
+                                      nested, (x, table), smi))
+    a = torch.randn(961, 961, device=device, generator=gen) / 40
+
+    def matvec(v):
+        def body(c):
+            w = a @ c[0]
+            return w / w.norm(), c[1] + 1
+
+        return graphs.while_loop(lambda c: c[1] < 25, body,
+                                 (v, _zero_count(v.device)))
+
+    err = max(err, _loop_against_host("cuBLAS 961x961 matvec, 25 trips",
+                                      matvec, (x[:961].clone(),), smi))
+    model = AdvectionDiffusion(ProblemConfig(n=MAIN_N, num_steps=1),
+                               SolverConfig(tol=1e-5, coarse_mode="dense"),
+                               device=device)
+    level = model.levels[1]
+    rhs = torch.randn(level.padded, device=device, generator=gen)
+    rhs = rhs * interior_mask(level.n, level.padded, dtype=rhs.dtype,
+                              device=device)
+
+    def tower(r):
+        return graphs.while_loop(
+            lambda c: c[1] < 2,
+            lambda c: (tower_vcycle(model.levels, 1, c[0], model.solver),
+                       c[1] + 1), (r, _zero_count(r.device)))
+
+    err = max(err, _loop_against_host("K3/K4 from level 1, 2 trips", tower,
+                                      (rhs,), smi))
+    ptrs = []
+
+    def pooled(x):
+        def body(c):
+            t = c[0] * 3.0
+            ptrs.append(t.data_ptr())
+            return t - 1.0, c[1] + 1
+
+        return graphs.while_loop(lambda c: c[1] < 3, body,
+                                 (x, _zero_count(x.device)))
+
+    programs = graphs.Programs()
+    programs("pooled", pooled, (x,))
+    pool = programs._pool[0].id
+    segments = torch.cuda.memory._snapshot()["segments"]
+    homes = [{tuple(sg["segment_pool_id"]) for sg in segments
+              if sg["address"] <= ptr < sg["address"] + sg["total_size"]}
+             for ptr in ptrs]
+    print(f"[loops] (a) a body's temporaries lie in the programs' pool "
+          f"{tuple(pool)}: {homes}")
+    require(ptrs and all(h == {tuple(pool)} for h in homes),
+            "loops (a): a body temporary outside the programs' pool")
+    return err
+
+
+def _while_set_times(device) -> tuple[float, float]:
+    """mg_while_set's time on the card, ms a launch: WHILE_SET_REPS
+    launches and a node of zero trips in one graph, by CUDA events around
+    its replay, over the launches; and its plain version's, the host
+    form's read of the predicate (`bool`), by the host clock."""
+    from hpcclassmultigridproject_tpu_torch.ops import cuda
+    from hpcclassmultigridproject_tpu_torch.ops.cuda import loop
+
+    pred = torch.zeros((), dtype=torch.bool, device=device)
+    trips = torch.zeros((), dtype=torch.int32, device=device)
+    body = torch.cuda.Stream(device)
+    graph = torch.cuda.CUDAGraph()
+    saved = dict(cuda.LAUNCHES)
+    with torch.cuda.graph(graph):
+        stream = torch.cuda.current_stream(device)
+        handle = loop.while_handle(stream)
+        for _ in range(WHILE_SET_REPS):
+            loop.while_set(handle, pred, trips)
+        loop.while_begin(stream, handle, body)
+        with torch.cuda.stream(body):
+            loop.while_set(handle, pred, trips)
+        loop.while_end(body)
+    cuda.LAUNCHES.update(saved)
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / (WHILE_SET_REPS + 1))
+    require(int(trips) == 0, "loops: mg_while_set counted a trip for false")
+    t0 = time.perf_counter()
+    for _ in range(WHILE_SET_REPS):
+        bool(pred)
+    plain = (time.perf_counter() - t0) / WHILE_SET_REPS * 1e3
+    return statistics.median(times), plain
+
+
+def _compare_loop(tag, owner, compiled, eager, inputs, smi) -> dict:
+    """Phase 18 (b): a configuration with loops, captured (`compiled(x)`,
+    through the owner's programs) against its host loop (`eager(x)`), from
+    two inputs: each replay's output and stats equal to its eager run's to
+    the bit, launch counts equal (while_set: the host loop's tests); walls
+    in turns (eager, captured, captured, eager over the two inputs),
+    capture seconds, top and body nodes, busy and idle, peak MiB.  Busy of
+    a replay is the graph's time by CUDA events (torch.profiler does not
+    see the kernels inside a WHILE body: its figure is printed beside);
+    the eager run is profiled where it takes under PROFILE_EAGER_S.
+    Returns the eager run's (output, stats) and the replay's counts."""
+    from hpcclassmultigridproject_tpu_torch.ops import cuda
+
+    t_start = time.perf_counter()
+    x0, x1 = inputs
+    held = _fresh_peaks()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    want0 = eager(x0)
+    torch.cuda.synchronize()
+    walls_e = [time.perf_counter() - t0]
+    counts_e, tests = dict(cuda.LAUNCHES), cuda.HOST_TESTS["while_set"]
+    peak_e = _peak_mib(held)
+    held_c = _fresh_peaks()
+    t0 = time.perf_counter()
+    compiled(x0)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    peak_c = _peak_mib(held_c)
+    program = owner.programs.last
+    require(owner.last_run_compiled and program is not None
+            and len(program.loops) > 0,
+            f"loops (b) {tag}: not compiled with WHILE nodes "
+            f"({owner.last_run_reason})")
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    got0 = compiled(x0)
+    torch.cuda.synchronize()
+    walls_c = [time.perf_counter() - t0]
+    counts = dict(cuda.LAUNCHES)
+    while_set = counts.pop("while_set")
+    counts_e.pop("while_set")
+    require(counts == counts_e and while_set == tests,
+            f"loops (b) {tag}: replay counts {cuda.LAUNCHES}, eager "
+            f"{counts_e} with {tests} host tests")
+    require(_equal_out(got0, want0), f"loops (b) {tag}: the replay's "
+            "outputs are not the host loop's to the bit")
+    t0 = time.perf_counter()
+    got1 = compiled(x1)
+    torch.cuda.synchronize()
+    walls_c.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    want1 = eager(x1)
+    torch.cuda.synchronize()
+    walls_e.append(time.perf_counter() - t0)
+    require(_equal_out(got1, want1), f"loops (b) {tag}: the replay from a "
+            "second input is not its host loop's to the bit")
+    compiled(x0)
+    graph_ms = statistics.median(_graph_ms(program) for _ in range(2))
+    _, seen_c, calls_c, _ = _profiled_run(lambda: compiled(x0))
+    med_e, med_c = statistics.median(walls_e), statistics.median(walls_c)
+    busy_e = (_profiled_run(lambda: eager(x0))[1]
+              if med_e < PROFILE_EAGER_S else None)
+    idle_e = ("not measured" if busy_e is None
+              else f"{1 - busy_e / 1e3 / med_e:.1%}")
+    print(f"[loops] (b) {tag} ({smi}): 2 replays (two inputs) equal to "
+          f"their host loops to the bit, launches "
+          f"{({k: v for k, v in counts.items() if v})} in both, while_set "
+          f"{while_set} = the host loop's tests; capture {program.seconds:.3f}"
+          f" s (first call {first:.3f} s), {len(program.loops)} WHILE "
+          f"nodes, {program.nodes} top nodes, {program.body_nodes} body "
+          f"nodes; wall in turns (median of 2) captured {med_c:.5f} s "
+          f"{walls_c}, eager {med_e:.5f} s {walls_e} ({med_e / med_c:.2f}x);"
+          f" busy captured {graph_ms:.2f} ms, the graph by CUDA events "
+          f"(idle {1 - graph_ms / 1e3 / med_c:.1%}; the profiler sees "
+          f"{seen_c:.2f} ms of it, {calls_c} launch calls), eager "
+          f"{'not measured' if busy_e is None else f'{busy_e:.2f} ms'} "
+          f"(idle {idle_e}); peak MiB allocated / reserved above what each "
+          f"call found held: eager {peak_e[0]:.1f} / {peak_e[1]:.1f}, the "
+          f"capturing call {peak_c[0]:.1f} / {peak_c[1]:.1f}; checked in "
+          f"{time.perf_counter() - t_start:.1f} s")
+    return want0, counts | {"while_set": while_set}
+
+
+def _advection_loops(device, n, steps, smi) -> dict:
+    """Phase 18 (b): the advection configurations with adaptive solves,
+    each over `steps` steps unless its eager run would pass LOOP_EAGER_S
+    (timed by one eager step), then over as many as fit it, at least
+    LOOP_MIN_STEPS.  Returns the first configuration's replay counts."""
+    import dataclasses
+    import gc
+
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig, SolverConfig
+    from hpcclassmultigridproject_tpu_torch.mg.timestepper import timestepper
+    from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+
+    cases = [
+        ("SolverConfig(tol=1e-5): adaptive, GS coarse solve nested, K2",
+         SolverConfig(tol=1e-5)),
+        ("SolverConfig(dtype=float64): K2 in float64",
+         SolverConfig(dtype=torch.float64)),
+        ("SolverConfig(tol=1e-5, coarse_mode='dense'): K2, K3/K4, matvec",
+         SolverConfig(tol=1e-5, coarse_mode="dense")),
+        ("refined adaptive (phase 8's, cycle_mode 'adaptive'): K2, K3/K4",
+         SolverConfig(dtype=torch.float32, refine_dtype=torch.float64,
+                      tol=TOL, cycle_mode="adaptive", num_cycles=1,
+                      coarse_mode="dense")),
+    ]
+    default_counts = None
+    for tag, solver in cases:
+        model = AdvectionDiffusion(ProblemConfig(n=n, num_steps=steps),
+                                   solver, device=device)
+        t0 = time.perf_counter()
+        timestepper(model.levels, model.u0, 1, model.solver, model.fine_hi)
+        torch.cuda.synchronize()
+        per_step = time.perf_counter() - t0
+        k = min(steps, max(LOOP_MIN_STEPS, int(LOOP_EAGER_S / per_step)))
+        model.problem = dataclasses.replace(model.problem, num_steps=k)
+        cut = ("" if k == steps else f", cut from {steps}: an eager step "
+               f"took {per_step:.3f} s")
+        tag = f"{tag}, {k} steps{cut}"
+
+        def eager(u, model=model, k=k):
+            uT, stats = timestepper(model.levels, u, k, model.solver,
+                                    model.fine_hi)
+            return model.crop(uT), stats
+
+        want, counts = _compare_loop(
+            tag, model, lambda u, model=model: model.run(u, warn=False),
+            eager, (model.u0, model.u0 * 0.5), smi)
+        uT, stats = want
+        cycles = stats["cycles"].cpu()
+        conv = stats["converged"].cpu()
+        center = float(uT[n // 2, n // 2])
+        print(f"[loops] (b) {tag}: cycles a step min {int(cycles.min())} max"
+              f" {int(cycles.max())} (sum {int(cycles.sum())}), converged "
+              f"{int(conv.sum())} of {k} steps, center uT {center!r}")
+        require(bool(torch.isfinite(uT).all()), f"loops (b) {tag}: uT")
+        if default_counts is None:
+            default_counts = counts
+        model = None
+        gc.collect()
+    return default_counts
+
+
+def _poisson_loops(device, n, smi) -> None:
+    """Phase 18 (b): Poisson's adaptive solves and its "gs" iteration."""
+    import gc
+
+    from hpcclassmultigridproject_tpu_torch import SolverConfig
+    from hpcclassmultigridproject_tpu_torch.mg.cycle import mg_solve
+    from hpcclassmultigridproject_tpu_torch.models import Poisson
+    from hpcclassmultigridproject_tpu_torch.ops.cuda import backend_route
+
+    for tag, solver, cycles_want in (
+            ("poisson f64 tol 1e-10, adaptive (K5)",
+             SolverConfig(dtype=torch.float64, tol=1e-10,
+                          restriction="full", coarse_mode="dense"), 7),
+            ("poisson DEFAULT_SOLVER float32 (K5)", Poisson.DEFAULT_SOLVER,
+             Poisson.DEFAULT_SOLVER.max_cycles)):
+        model = Poisson(n=n, solver=solver, device=device)
+
+        def compiled(rhs, model=model):
+            model.rhs = rhs
+            return model.solve()
+
+        def eager(rhs, model=model):
+            u, stats = mg_solve(model.levels, torch.zeros_like(rhs), rhs,
+                                model.solver)
+            return u[:n + 1, :n + 1], stats
+
+        rhs = model.rhs
+        (u, stats), _ = _compare_loop(tag, model, compiled, eager,
+                                      (rhs, rhs * 0.5), smi)
+        model.rhs = rhs
+        cycles, conv = int(stats["cycles"]), bool(stats["converged"])
+        center = float(u[n // 2, n // 2])
+        print(f"[loops] (b) {tag}: cycles {cycles}, converged {conv}, "
+              f"center u {center!r}")
+        require(cycles == cycles_want, f"loops (b) {tag}: {cycles} cycles, "
+                f"expected {cycles_want}")
+        if solver.dtype == torch.float64:
+            require(conv and abs(center - CENTER_POISSON) <= 1e-11,
+                    f"loops (b) {tag}: center off by "
+                    f"{abs(center - CENTER_POISSON):.3g}")
+        else:
+            require(not conv, f"loops (b) {tag}: converged, unlike the JAX "
+                    "package")
+        model = None
+        gc.collect()
+    model = Poisson(n=POISSON_GS_N, device=device)
+
+    def compiled_gs(rhs):
+        model.rhs = rhs
+        return model.solve("gs", max_iters=POISSON_GS_ITERS,
+                           check_every=POISSON_GS_CHECK)
+
+    def eager_gs(rhs):
+        with backend_route(model.solver.backend):
+            u, stats = model._gs(rhs, POISSON_GS_ITERS, POISSON_GS_CHECK)
+        return u[:POISSON_GS_N + 1, :POISSON_GS_N + 1], stats
+
+    rhs = model.rhs
+    (u, stats), _ = _compare_loop(
+        f"Poisson({POISSON_GS_N}).solve('gs', max_iters={POISSON_GS_ITERS}, "
+        f"check_every={POISSON_GS_CHECK}) (K5)", model, compiled_gs,
+        eager_gs, (rhs, rhs * 0.5), smi)
+    print(f"[loops] (b) poisson gs: iters {int(stats['iters'])}, "
+          f"rel_residual {float(stats['rel_residual']):.4g}")
+    require(bool(torch.isfinite(u).all()), "loops (b) poisson gs: u")
+
+
+def _gsbench_captured(device, smi) -> None:
+    """Phase 18 (c): gsbench's sweeps (cli.gsbench_sweeps) captured as one
+    program against the eager loop, both backends, at GSBENCH_LOOP_NS:
+    the bits, µs a sweep (best of 3) and GDOF/s."""
+    import gc
+
+    from hpcclassmultigridproject_tpu_torch.cli import gsbench_sweeps
+    from hpcclassmultigridproject_tpu_torch.utils import graphs
+
+    sweeps = GSBENCH_LOOP_SWEEPS
+    for n in GSBENCH_LOOP_NS:
+        for backend in ("pallas", "jnp"):
+            run, u, sweep, keep = gsbench_sweeps(n, sweeps, backend,
+                                                 torch.float32, device)
+            programs = graphs.Programs()
+            compiled = lambda u: programs(  # noqa: E731
+                ("gsbench", n, sweeps, backend, torch.float32), run, (u,),
+                sweep, keep=keep)
+            want = run(u)
+            got = compiled(u)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want), f"loops (c) gsbench n={n} "
+                    f"{backend}: the captured sweeps are not the eager "
+                    "loop's")
+            best = {}
+            for name, fn in (("eager", run), ("captured", compiled),
+                             ("captured", compiled), ("eager", run)) * 2:
+                t0 = time.perf_counter()
+                fn(u)
+                torch.cuda.synchronize()
+                best[name] = min(best.get(name, float("inf")),
+                                 time.perf_counter() - t0)
+            points = (n - 1) ** 2
+            us = {k: v / sweeps * 1e6 for k, v in best.items()}
+            gdof = {k: points * sweeps / v / 1e9 for k, v in best.items()}
+            print(f"[loops] (c) gsbench n={n} --backend {backend}, {sweeps} "
+                  f"sweeps ({smi}): captured equal to the eager loop to the "
+                  f"bit; us a sweep captured {us['captured']:.2f}, eager "
+                  f"{us['eager']:.2f} ({us['eager'] / us['captured']:.2f}x); "
+                  f"GDOF/s captured {gdof['captured']:.3f}, eager "
+                  f"{gdof['eager']:.3f}; capture {programs.last.seconds:.3f} "
+                  f"s, {programs.last.nodes} nodes (best of 4 in turns)")
+            programs = run = u = want = got = None
+            gc.collect()
+
+
+def phase_loops(device, n, steps) -> tuple:
+    """Phase 18: the compiled loops (module docstring).  Returns
+    mg_while_set's row of the kernel line: (max |replay - host form|, ms,
+    plain ms, bound ms, bound by, launches in the default configuration's
+    replay)."""
+    import gc
+
+    from hpcclassmultigridproject_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    smi = _smi()
+    err = _loop_probes(device, smi)
+    ms, plain_ms = _while_set_times(device)
+    # one bool read, one int32 read and written
+    bound, bound_by = profiling.bound_ms(1.0 + 4.0 + 4.0, 1.0, 4)
+    print(f"[loops] mg_while_set ({smi}): {ms:.5f} ms a launch in a graph "
+          f"({WHILE_SET_REPS} launches), plain (the host form's read) "
+          f"{plain_ms:.5f} ms, bound {bound:.3g} ms ({bound_by}); largest "
+          f"|replay - host form| in (a) {err!r}")
+    counts = _advection_loops(device, n, steps, smi)
+    _poisson_loops(device, n, smi)
+    _gsbench_captured(device, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[loops] phase 18 in {time.perf_counter() - t0:.1f} s")
+    return err, ms, plain_ms, bound, bound_by, counts["while_set"]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3469,11 +4010,15 @@ def main() -> None:
     phase_grid(MAIN_N, MAIN_STEPS, uT_main)
     phase_routes_oracle(device, MAIN_N, MAIN_STEPS, uT_main)
     phase_compiled(device, MAIN_N, MAIN_STEPS, uT_main, main_counts, big)
+    loops = phase_loops(device, MAIN_N, MAIN_STEPS)
     phase_multi_gpu(MAIN_N, MAIN_STEPS, uT_main, big)
     kernels = []
     for key, label, source, replaces in KERNELS:
         if key in probes:
             err, ms, plain_ms, bound, bound_by, library, launches = probes[key]
+        elif key == "while_set":
+            err, ms, plain_ms, bound, bound_by, launches = loops
+            library = None
         else:
             err, ms, plain_ms, bound, bound_by = measured[key]
             library, launches = None, counts[key]

@@ -351,11 +351,13 @@ def cmd_scaling(args) -> int:
     return 0
 
 
-def cmd_gsbench(args) -> int:
-    """Red–black GS throughput microbenchmark: `--sweeps` sweeps at n from a
-    field of ones, 31 flops/point/sweep model.  Reports GFLOP/s and
-    stencil GDOF/s.  `--backend pallas` runs K2 (`fused_rb_sweeps`, one
-    launch per sweep); `--backend jnp` the plain `rb_gauss_seidel`."""
+def gsbench_sweeps(n: int, sweeps: int, backend: str, dtype, device):
+    """What `gsbench` times: (run, u0, sweep, keep).  `run(u)` is `sweeps`
+    red–black sweeps from u, K2 (`fused_rb_sweeps`, one launch a sweep)
+    for backend "pallas", the plain `rb_gauss_seidel` for "jnp", on the
+    reference's fine level at n with rhs 0; u0 is a field of ones with a
+    zero boundary; `sweep` is one sweep; `keep` the tensors a sweep reads
+    besides u."""
     import torch
 
     from hpcclassmultigridproject_tpu_torch.core.layout import pad_field
@@ -363,35 +365,58 @@ def cmd_gsbench(args) -> int:
         rotating_velocity,
     )
     from hpcclassmultigridproject_tpu_torch.mg.levels import build_fine_level
-    from hpcclassmultigridproject_tpu_torch.ops.cuda.smoother import (
-        fused_rb_sweeps,
-    )
+    from hpcclassmultigridproject_tpu_torch.ops.cuda import smoother
     from hpcclassmultigridproject_tpu_torch.ops.padded import rb_gauss_seidel
-    from hpcclassmultigridproject_tpu_torch.utils.timing import time_run
 
-    n = args.n
-    dtype = torch.float32 if args.dtype == "f32" else torch.float64
     v1, v2 = rotating_velocity(n, dtype=dtype, device="cpu")
     level = build_fine_level(v1, v2, (1.0 / n) / 10, -4e-4, dtype=dtype,
-                             device=args.device)
-    u = torch.zeros((n + 1, n + 1), dtype=dtype, device=args.device)
+                             device=device)
+    u = torch.zeros((n + 1, n + 1), dtype=dtype, device=device)
     u[1:-1, 1:-1] = 1.0
     u = pad_field(u)
     rhs = torch.zeros_like(u)
 
-    if args.backend == "pallas":
+    if backend == "pallas":
         def sweep(u):
-            return fused_rb_sweeps(level, u, rhs, 1)[0]
+            return smoother.fused_rb_sweeps(level, u, rhs, 1)[0]
     else:
         def sweep(u):
             return rb_gauss_seidel(level, u, rhs)
 
     def run(u):
-        for _ in range(args.sweeps):
+        for _ in range(sweeps):
             u = sweep(u)
         return u
 
-    t = time_run(run, u, reps=args.reps)
+    return run, u, sweep, (level, rhs)
+
+
+def cmd_gsbench(args) -> int:
+    """Red–black GS throughput microbenchmark: `--sweeps` sweeps at n from a
+    field of ones, 31 flops/point/sweep model.  Reports GFLOP/s and
+    stencil GDOF/s.  `--backend pallas` runs K2 (`fused_rb_sweeps`, one
+    launch per sweep); `--backend jnp` the plain `rb_gauss_seidel`.  On
+    the card the sweeps are one compiled program (utils/graphs.py), keyed
+    by (n, sweeps, backend, dtype), as the JAX package's are one
+    `jax.jit` of `lax.scan`: its capture is the untimed first call, and
+    `compiled` and `capture_seconds` say so; on the CPU they run eagerly."""
+    import torch
+
+    from hpcclassmultigridproject_tpu_torch.utils.graphs import Programs
+    from hpcclassmultigridproject_tpu_torch.utils.timing import time_run
+
+    n = args.n
+    dtype = torch.float32 if args.dtype == "f32" else torch.float64
+    run, u, sweep, keep = gsbench_sweeps(n, args.sweeps, args.backend, dtype,
+                                         args.device)
+    programs = Programs()
+    key = ("gsbench", n, args.sweeps, args.backend, dtype)
+
+    def compiled(u):
+        return programs(key, run, (u,), sweep, keep=keep)
+
+    t = time_run(compiled, u, reps=args.reps)
+    program = programs.last
     points = (n - 1) ** 2
     flops = 31.0 * points * args.sweeps
     secs = t["best_s"]
@@ -403,6 +428,8 @@ def cmd_gsbench(args) -> int:
         "gflops": flops / secs / 1e9,
         "stencil_gdof_s": points * args.sweeps / secs / 1e9,
         "us_per_sweep": secs / args.sweeps * 1e6,
+        "compiled": program is not None,
+        "capture_seconds": None if program is None else program.seconds,
     }))
     return 0
 

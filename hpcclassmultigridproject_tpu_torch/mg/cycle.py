@@ -19,10 +19,13 @@ package either: their blocks are `niter` plain applications and a
 residual on either device, whole or partitioned, and the coarse GS solve
 and the FMG bottom iterate the configured smoother.
 
-PyTorch has no on-device while loop, so the adaptive solvers
-(`mg_solve`, `coarse_solve_gs`) are host loops that read one norm per
-iteration, and stop after the same count as the JAX package's
-`lax.while_loop`.
+The adaptive solvers (`mg_solve`, `coarse_solve_gs`) are
+`utils.graphs.while_loop`s, as the JAX package's are `lax.while_loop`s,
+with the same carry and predicate: eagerly a host loop that reads one norm
+per test, and inside a captured program a conditional WHILE node on the
+card whose predicate is set on the device (csrc/loop.cu), so that
+`SolverConfig()`'s default runs as one graph.  Their cycle counts are int32
+counters on the device either way.
 
 With `shardings` (one partition or None per level, from
 `parallel.distributed_run`: a `parallel.sharding.RowBlocks` in the rows
@@ -69,6 +72,7 @@ from hpcclassmultigridproject_tpu_torch.parallel.rows_halo import (
     fused_smooth_sharded,
     sharded_eligible,
 )
+from hpcclassmultigridproject_tpu_torch.utils.graphs import while_loop
 
 # Fold the prolonged correction into the post-smooth kernel's reads
 # (fused_rb_sweeps(corr=...)) instead of a separate u + corr pass; the two
@@ -142,18 +146,24 @@ def coarse_solve_gs(level, u, rhs, cfg: SolverConfig):
     """Coarsest-level solve by sweeps of the configured smoother until the
     absolute residual norm is at most `coarse_tol` or `coarse_maxiter`
     sweeps ran: check before each sweep, with a placeholder residual of 1
-    at the start (the JAX package's semantics).  A host loop: each sweep
-    reads one norm.  `u` None starts from zero."""
+    at the start (the JAX package's semantics).  A `while_loop` over (u,
+    res, it).  `u` None starts from zero."""
     smoother = _get_smoother(cfg)
     if u is None:
         u = torch.zeros_like(rhs)
     res = torch.ones((), dtype=torch.promote_types(rhs.dtype, torch.float32),
                      device=rhs.device)
-    it = 0
-    while it < cfg.coarse_maxiter and bool(res > cfg.coarse_tol):
+
+    def cond(carry):
+        _, res, it = carry
+        return (it < cfg.coarse_maxiter) & (res > cfg.coarse_tol)
+
+    def body(carry):
+        u, _, it = carry
         u = smoother(level, u, rhs)
-        res = interior_norm(residual(level, u, rhs))
-        it += 1
+        return u, interior_norm(residual(level, u, rhs)), it + 1
+
+    u, _, _ = while_loop(cond, body, (u, res, _zero_count(rhs.device)))
     return u
 
 
@@ -277,26 +287,22 @@ def _safe(res0):
     return torch.clamp_min(res0, torch.finfo(res0.dtype).tiny)
 
 
-def _stats(cycles: int, rel, cfg: SolverConfig) -> dict:
+def _zero_count(device) -> torch.Tensor:
+    """A loop's iteration counter: an int32 zero on the device, as the JAX
+    package's `jnp.int32(0)` carry."""
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
+def _stats(cycles, rel, cfg: SolverConfig) -> dict:
+    """`cycles` is a count (fixed, fmg) or an adaptive loop's int32
+    counter on the device."""
+    if not isinstance(cycles, torch.Tensor):
+        cycles = torch.full((), cycles, dtype=torch.int32, device=rel.device)
     return {
-        "cycles": torch.full((), cycles, dtype=torch.int32,
-                             device=rel.device),
+        "cycles": cycles,
         "rel_residual": rel,
         "converged": rel <= cfg.tol,
     }
-
-
-def host_reads(levels, cfg: SolverConfig) -> str | None:
-    """Why a solve of `cfg` over `levels` reads the host inside its body,
-    so that no CUDA graph can hold it (utils/graphs.py), or None: the
-    adaptive solvers and the GS coarse solve are host loops here, where
-    the JAX package runs them as `lax.while_loop`."""
-    if cfg.cycle_mode == "adaptive":
-        return ("cycle_mode 'adaptive': mg_solve (or the adaptive refined "
-                "solve) reads one norm a cycle")
-    if cfg.coarse_mode != "dense" or levels[-1].a_inv is None:
-        return "the GS coarse solve: coarse_solve_gs reads one norm a sweep"
-    return None
 
 
 def _fine_norm(levels, u, rhs, shardings):
@@ -310,14 +316,21 @@ def mg_solve(levels, u, rhs, cfg: SolverConfig, shardings=None):
     """Solve A u = rhs by repeated cycles until the relative residual is at
     most tol or `max_cycles` cycles ran.  Returns (u, stats) with stats
     {"cycles", "rel_residual", "converged"} on the device; the tolerance
-    test runs in the norm's dtype, as in the JAX package."""
+    test runs in the norm's dtype, as in the JAX package.  A `while_loop`
+    over (u, res, it)."""
     res0 = _fine_norm(levels, u, rhs, shardings)
     res0_safe = _safe(res0)
-    res, it = res0, 0
-    while it < cfg.max_cycles and bool(res / res0_safe > cfg.tol):
+
+    def cond(carry):
+        _, res, it = carry
+        return (it < cfg.max_cycles) & (res / res0_safe > cfg.tol)
+
+    def body(carry):
+        u, _, it = carry
         u = mg_cycle(levels, u, rhs, cfg, shardings=shardings)
-        res = _fine_norm(levels, u, rhs, shardings)
-        it += 1
+        return u, _fine_norm(levels, u, rhs, shardings), it + 1
+
+    u, res, it = while_loop(cond, body, (u, res0, _zero_count(u.device)))
     return u, _stats(it, res / res0_safe, cfg)
 
 

@@ -8,8 +8,10 @@
 All smoothing runs in the working dtype; only the residuals and the update
 run in the high one.  The CN system is strongly diagonally dominant, so one
 cycle per step certifies the reference tolerance of 1e-6 that a pure
-float32 solve cannot.  The adaptive mode is a host loop that reads one norm
-per cycle; the fixed and FMG modes read none.
+float32 solve cannot.  The adaptive mode is a `utils.graphs.while_loop`,
+as the JAX package's is a `lax.while_loop` (eagerly one norm read per
+test, captured a WHILE node on the card); the fixed and FMG modes have no
+loop to test.
 
 With `shardings` (parallel/) the high-dtype residuals and norms of a
 partitioned fine level run in their block forms (parallel/blocks.py), in
@@ -22,7 +24,11 @@ from __future__ import annotations
 import torch
 
 from hpcclassmultigridproject_tpu_torch.config import SolverConfig
-from hpcclassmultigridproject_tpu_torch.mg.cycle import fmg_iterate, mg_cycle
+from hpcclassmultigridproject_tpu_torch.mg.cycle import (
+    _zero_count,
+    fmg_iterate,
+    mg_cycle,
+)
 from hpcclassmultigridproject_tpu_torch.ops.cuda import routed
 from hpcclassmultigridproject_tpu_torch.ops.padded import as_dtype
 from hpcclassmultigridproject_tpu_torch.parallel.blocks import (
@@ -31,6 +37,7 @@ from hpcclassmultigridproject_tpu_torch.parallel.blocks import (
     neighbor_sum,
     residual,
 )
+from hpcclassmultigridproject_tpu_torch.utils.graphs import while_loop
 
 
 def _correction(levels, r_lo, cfg: SolverConfig, shardings):
@@ -66,19 +73,25 @@ def refined_solve(levels, fine_hi, u, rhs, cfg: SolverConfig, r0=None,
             u = u + e.to(u.dtype)
             r_lo = residual(fine_hi, u, rhs, part).to(cfg.dtype)
         rel = interior_norm(r_lo, part) / res0_safe
-        cycles = cfg.num_cycles
+        cycles = torch.full((), cfg.num_cycles, dtype=torch.int32,
+                            device=u.device)
     else:
-        res, cycles = res0, 0
-        while cycles < cfg.max_cycles and bool(res / res0_safe > cfg.tol):
+        def cond(carry):
+            _, _, res, it = carry
+            return (it < cfg.max_cycles) & (res / res0_safe > cfg.tol)
+
+        def body(carry):
+            u, r_lo, _, it = carry
             u = u + _correction(levels, r_lo, cfg, shardings).to(u.dtype)
             r_lo = residual(fine_hi, u, rhs, part).to(cfg.dtype)
-            res = interior_norm(r_lo, part)
-            cycles += 1
+            return u, r_lo, interior_norm(r_lo, part), it + 1
+
+        u, r_lo, res, cycles = while_loop(
+            cond, body, (u, r_lo, res0, _zero_count(u.device)))
         rel = res / res0_safe
 
     stats = {
-        "cycles": torch.full((), cycles, dtype=torch.int32,
-                             device=u.device),
+        "cycles": cycles,
         "rel_residual": rel.to(torch.float32),
         "converged": rel <= cfg.tol,
     }

@@ -19,7 +19,6 @@ from hpcclassmultigridproject_tpu_torch.core.problem import (
     gaussian_u0_padded_device,
     rotating_velocity,
 )
-from hpcclassmultigridproject_tpu_torch.mg.cycle import host_reads
 from hpcclassmultigridproject_tpu_torch.mg.levels import (
     build_fine_level,
     build_fine_level_device,
@@ -104,13 +103,15 @@ class AdvectionDiffusion:
 
     `run`, `step` and `run_chunk` are compiled programs on the card, as
     the JAX model's are `jax.jit` programs: each step count (and the step)
-    is captured once as a CUDA graph and replayed (utils/graphs.py), where
-    the configuration's body reads nothing back to the host.  A run on the
-    CPU, a partitioned one, or one of the adaptive solvers or the GS
-    coarse solve (`mg.cycle.host_reads`) is eager.  After each call,
-    `last_run_compiled` says which way it ran and `last_run_reason` why it
-    was eager (None when it was compiled).  Eager on the card means calling
-    `mg.timestepper.timestepper` or `timestep` directly.
+    is captured once as a CUDA graph and replayed (utils/graphs.py), in
+    every single-device configuration: the adaptive solvers and the GS
+    coarse solve are conditional WHILE nodes in it
+    (`utils.graphs.while_loop`), as they are `lax.while_loop`s in the JAX
+    programs.  A run on the CPU or a partitioned one is eager.  After
+    each call, `last_run_compiled` says which way it ran and
+    `last_run_reason` why it was eager (None when it was compiled).  Eager
+    on the card means calling `mg.timestepper.timestepper` or `timestep`
+    directly.
     """
 
     def __init__(self, problem: ProblemConfig, solver: SolverConfig, *,
@@ -226,14 +227,13 @@ class AdvectionDiffusion:
 
     def eager_reason(self) -> str | None:
         """Why this model's calls run eagerly, or None where each replays
-        a captured program: the CPU, a partitioned model, or a body that
-        reads the host (`mg.cycle.host_reads`)."""
+        a captured program: the CPU, or a partitioned model."""
         if not graphs.on_card(self.device):
             return "the CPU was asked for: the function is called directly"
         if self.shardings is not None:
             return ("partitioned over ranks: a step's collectives are not "
                     "captured (gloo cannot be; NCCL capture is later work)")
-        return host_reads(self.levels, self.solver)
+        return None
 
     def _compiled(self, key, fn, u, warm=None):
         """`fn(u)` as the compiled program of `key` (the counterpart of the

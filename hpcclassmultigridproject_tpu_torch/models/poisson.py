@@ -24,8 +24,8 @@ from hpcclassmultigridproject_tpu_torch.core.layout import (
     padded_shape,
 )
 from hpcclassmultigridproject_tpu_torch.mg.cycle import (
+    _zero_count,
     fmg_solve,
-    host_reads,
     mg_solve,
     mg_solve_fixed,
 )
@@ -78,13 +78,16 @@ class Poisson:
     dtype and returns f on them; the default is f ≡ 1.  It runs on the
     card (`device="cuda"`, the default) or, asked for, on the CPU.
 
-    On the card `solve("mg")` in cycle_mode "fixed" or "fmg" with the
-    dense coarse solve is a compiled program, as the JAX model's `_jit_mg`
-    is: captured once as a CUDA graph and replayed (utils/graphs.py).  The
-    adaptive solve, the GS coarse solve and `method="gs"` read the host
-    and run eagerly; `last_run_compiled` and `last_run_reason` say which
-    way the last solve ran and why.  Eager means calling
-    `mg.cycle.mg_solve_fixed` or `fmg_solve` directly.
+    On the card `solve("mg")` in every cycle_mode and `solve("gs")` are
+    compiled programs, as the JAX model's `_jit_mg` and `_jit_gs` are:
+    captured once as a CUDA graph and replayed (utils/graphs.py), the
+    adaptive solve, the GS coarse solve and the "gs" iteration as
+    conditional WHILE nodes (`utils.graphs.while_loop`).  "gs" is one
+    program per (max_iters, check_every), the JAX `_jit_gs`'s static
+    arguments.  On the CPU each runs eagerly; `last_run_compiled` and
+    `last_run_reason` say which way the last solve ran and why.  Eager
+    means calling `mg.cycle.mg_solve`, `mg_solve_fixed` or `fmg_solve`, or
+    `_gs`, directly.
     """
 
     # The JAX package's defaults: full weighting and the dense coarse solve
@@ -124,51 +127,61 @@ class Poisson:
         if method not in ("mg", "gs"):
             raise ValueError(f"unknown method {method!r}")
         reason = self.eager_reason(method)
+        levels, cfg = self.levels, self.solver
         if method == "gs":
-            with backend_route(self.solver.backend):
-                u, stats = self._gs(torch.zeros_like(self.rhs), max_iters,
-                                    check_every)
+            key = ("gs", max_iters, check_every, cfg)
+
+            def run(rhs, max_iters=max_iters):
+                with backend_route(cfg.backend):
+                    return self._gs(rhs, max_iters, check_every)
+
+            def warm(rhs):  # one trip of check_every sweeps
+                return run(rhs, check_every)
         else:
-            levels, cfg = self.levels, self.solver
+            key = ("mg", cfg)
             solve = {"fixed": mg_solve_fixed, "fmg": fmg_solve,
                      "adaptive": mg_solve}[cfg.cycle_mode]
 
             def run(rhs, cfg=cfg):
                 return solve(levels, torch.zeros_like(rhs), rhs, cfg)
 
-            if reason is None:
-                one = dataclasses.replace(cfg, num_cycles=1)
-                u, stats = self.programs(("mg", cfg), run, (self.rhs,),
-                                         lambda rhs: run(rhs, one),
-                                         keep=(levels,))
-            else:
-                u, stats = run(self.rhs)
+            def warm(rhs):  # one cycle
+                return run(rhs, dataclasses.replace(cfg, num_cycles=1,
+                                                    max_cycles=1))
+        if reason is None:
+            u, stats = self.programs(key, run, (self.rhs,), warm,
+                                     keep=(levels,))
+        else:
+            u, stats = run(self.rhs)
         self.last_run_compiled, self.last_run_reason = reason is None, reason
         return crop_field(u, self.n), stats
 
     def eager_reason(self, method: str = "mg") -> str | None:
         """Why `solve(method)` runs eagerly, or None where it replays a
-        captured program: the CPU, `method="gs"`, or a solve whose body
-        reads the host (`mg.cycle.host_reads`)."""
+        captured program: only on the CPU."""
         if not graphs.on_card(self.device):
             return "the CPU was asked for: the function is called directly"
-        if method == "gs":
-            return ("method 'gs': the iteration reads the residual norm "
-                    "every check_every sweeps")
-        return host_reads(self.levels, self.solver)
+        return None
 
-    def _gs(self, u, max_iters: int, check_every: int):
-        """The precursors' iteration: a host loop that reads the residual
-        norm every `check_every` sweeps, as the JAX package's while_loop
-        tests it."""
-        fine, rhs, tol = self.levels[0], self.rhs, self.solver.tol
+    def _gs(self, rhs, max_iters: int, check_every: int):
+        """The precursors' iteration from u = 0: a `while_loop` over (u,
+        res, iters) whose body is `check_every` sweeps (K5) and one
+        residual norm, as the JAX package's `_jit_gs` tests it."""
+        fine, tol = self.levels[0], self.solver.tol
+        u = torch.zeros_like(rhs)
         res0 = interior_norm(residual(fine, u, rhs))
-        res, iters = res0, 0
-        while iters < max_iters and bool(res / res0 > tol):
+
+        def cond(carry):
+            _, res, it = carry
+            return (it < max_iters) & (res / res0 > tol)
+
+        def body(carry):
+            u, _, it = carry
             for _ in range(check_every):
                 u, _ = fused_rb_sweeps(fine, u, rhs, 1)
-            res = interior_norm(residual(fine, u, rhs))
-            iters += check_every
-        return u, {"iters": torch.tensor(iters, dtype=torch.int32,
-                                         device=u.device),
-                   "rel_residual": res / res0}
+            return (u, interior_norm(residual(fine, u, rhs)),
+                    it + check_every)
+
+        u, res, iters = graphs.while_loop(cond, body,
+                                          (u, res0, _zero_count(u.device)))
+        return u, {"iters": iters, "rel_residual": res / res0}

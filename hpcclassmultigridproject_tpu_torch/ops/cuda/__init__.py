@@ -1,10 +1,11 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their routing.
 
-Each kernel module (delta_step, smoother, tower, probe) holds its wrappers
-and the kernels' plain PyTorch versions.  The wrapper launches the kernel for CUDA
-tensors and runs the plain version for CPU tensors, or for every tensor
-inside `plain_route()`, which a solve of `SolverConfig.backend="jnp"`
-enters (`routed`); there is no other route and no fallback.  Each launch
+Each kernel module (delta_step, smoother, tower, probe, loop) holds its
+wrappers and the kernels' plain PyTorch versions.  The wrapper launches
+the kernel for CUDA tensors and runs the plain version for CPU tensors,
+or for every tensor inside `plain_route()`, which a solve of
+`SolverConfig.backend="jnp"` enters (`routed`; `loop.while_set` aside);
+there is no other route and no fallback.  Each launch
 adds one to its entry of `LAUNCHES`, so a run can show which kernels
 carried it.
 
@@ -26,7 +27,13 @@ LAUNCHES = {"delta_open": 0, "open_presmooth": 0, "smooth": 0, "smooth5": 0,
             "tower_ascent": 0, "probe_stride2_rows": 0,
             "probe_dot_decimate": 0, "probe_interleave_rows": 0,
             "probe_flatten": 0, "probe_dot_decimate_rows": 0,
-            "probe_dot_prolong_rows": 0}
+            "probe_dot_prolong_rows": 0, "while_set": 0}
+
+# The predicate tests that the host form of `utils.graphs.while_loop` made,
+# one host read each: where the loop is captured, each test is a launch of
+# while_set instead, so a replay's LAUNCHES["while_set"] is the eager run's
+# count here.
+HOST_TESTS = {"while_set": 0}
 
 _plain_on_cuda = False
 
@@ -34,12 +41,15 @@ _plain_on_cuda = False
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    HOST_TESTS["while_set"] = 0
 
 
 @contextlib.contextmanager
 def plain_route():
     """Run every kernel's plain PyTorch version, CUDA tensors included, for
-    as long as the context lasts, then restore the route it found.  A solve
+    as long as the context lasts, then restore the route it found (but
+    the while node's `loop.while_set`, the counterpart of XLA's own
+    `while`, which the JAX package's "jnp" backend keeps).  A solve
     of backend "jnp" runs in it (`routed`), and the card's checks enter it
     to compare the kernel path with the plain path."""
     global _plain_on_cuda

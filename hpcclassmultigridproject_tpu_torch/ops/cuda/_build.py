@@ -49,6 +49,15 @@ _F32_SIGNATURES = {
     "mg_probe_flatten": [_P, _P, _I, _P],
     "mg_probe_dot": [_P] * 3 + [_I] * 3 + [_P],
 }
+# the while node's entry points (csrc/loop.cu), of no dtype: the
+# conditional handle is an unsigned long long
+_U64 = ctypes.c_ulonglong
+_LOOP_SIGNATURES = {
+    "mg_while_set": [_U64, _P, _P, _P],
+    "mg_while_handle": [_P, _P],
+    "mg_while_begin": [_P, _U64, _P, _P],
+    "mg_while_end": [_P],
+}
 
 
 def _nvcc() -> str:
@@ -95,7 +104,8 @@ def library() -> ctypes.CDLL:
     names = {f"{base}_{suffix}": argtypes
              for base, argtypes in _SIGNATURES.items()
              for suffix in ("f32", "f64")}
-    for name, argtypes in {**names, **_F32_SIGNATURES}.items():
+    for name, argtypes in {**names, **_F32_SIGNATURES,
+                           **_LOOP_SIGNATURES}.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -105,8 +115,8 @@ def library() -> ctypes.CDLL:
 
 
 def entry(base: str, dtype_itemsize: int | None = None):
-    """The C entry point `base` for float32 (4) or float64 (8), or a
-    float32-only entry point (no itemsize)."""
+    """The C entry point `base` for float32 (4) or float64 (8), or an
+    entry point without a suffix (no itemsize)."""
     if dtype_itemsize is None:
         return getattr(library(), base)
     return getattr(library(), f"{base}_{'f32' if dtype_itemsize == 4 else 'f64'}")

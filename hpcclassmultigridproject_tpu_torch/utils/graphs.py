@@ -23,13 +23,35 @@ captured once into a `torch.cuda.CUDAGraph` and replayed:
   devices, and the route and switches read at call time (`route_key`).
 - `ops.cuda.LAUNCHES` is counted by the Python wrappers, which run at the
   capture and not on a replay.  The warm-up and the capture leave the
-  counts as they found them; each replay adds the capture's counts, so a
-  run's per-kernel counts are those of its eager run.
+  counts (and `ops.cuda.HOST_TESTS`) as they found them; each replay adds
+  the capture's counts, so a run's per-kernel counts are those of its
+  eager run.
 - All graphs of one `Programs` share one memory pool, and the warm-ups
   allocate in it too, so a capture reuses the blocks its warm-up freed: the
   pool holds the largest program's temporaries once, not a warm-up's and a
   capture's side by side (at n=16384 each is some 30 GB).  Dropping the
   `Programs` drops the graphs and their memory.
+
+A body may hold data-dependent loops, `while_loop`, the counterpart of
+`jax.lax.while_loop`: outside a capture it is a host loop that reads its
+predicate once a test; inside one it becomes a CUDA conditional WHILE node
+whose predicate the kernel `mg_while_set` (csrc/loop.cu) sets on the
+device, so the adaptive solvers are one graph as their JAX programs are one
+XLA program:
+
+- The carry is copied into static buffers before the node; the node's body
+  is captured once, on a body stream (one per nesting depth and device,
+  created with the side stream and warmed with a product, so that torch's
+  cuBLAS workspace for it exists before any capture), with its allocations
+  routed to the programs' pool (`CudaGraphs._route_to_pool`); it ends by
+  copying its results into the static carry and testing again.
+- Each node's trip counter (an int32 on the device, counted up by
+  `mg_while_set`) is zeroed by the replay itself (`Loops`) and read back
+  after it (one read for the program, where the eager form reads once a
+  test), and each replay adds every node's body launch counts times its
+  trips: a replay's
+  per-kernel counts are its eager run's, plus `while_set` once a test (the
+  eager run's `ops.cuda.HOST_TESTS`).
 
 On the CPU the function is called directly: the CPU was asked for, and
 nothing on the card is hidden.  On the card there is no fallback: a capture
@@ -46,6 +68,12 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from hpcclassmultigridproject_tpu_torch.ops import cuda
+from hpcclassmultigridproject_tpu_torch.ops.cuda import loop
+
+# How deep captured loops may nest: a body stream each, made before any
+# capture (the port's loops nest two deep: the GS coarse solve inside an
+# adaptive solve).
+MAX_DEPTH = 2
 
 
 def route_key() -> tuple:
@@ -60,15 +88,116 @@ def route_key() -> tuple:
             cycle._RESTRICT_DEC, delta._FUSE_OPEN, delta._FUSE_OPEN_SMOOTH)
 
 
-def _node_count(graph: torch.cuda.CUDAGraph) -> int:
-    """The nodes of a captured graph, by libcuda's cuGraphGetNodes."""
+def _node_count(graph: int) -> int:
+    """The nodes of a captured graph (a cudaGraph_t, as an int) at its top
+    level, by libcuda's cuGraphGetNodes."""
     libcuda = ctypes.CDLL("libcuda.so.1")
     count = ctypes.c_size_t(0)
-    err = libcuda.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()),
-                                  None, ctypes.byref(count))
+    err = libcuda.cuGraphGetNodes(ctypes.c_void_p(graph), None,
+                                  ctypes.byref(count))
     if err != 0:
         raise RuntimeError(f"cuGraphGetNodes: CUDA error {err}")
     return count.value
+
+
+class Loops:
+    """The WHILE nodes of one capture: for each, the launches one trip of
+    its body makes and its body graph; and a trip counter each, an int32
+    in `trips` on the device.  `trips` is allocated and zeroed where the
+    capture meets its first node, which is at the graph's top level: a
+    buffer a capture allocates holds nothing before that point of the
+    graph (the pool may lend its memory to earlier temporaries), so every
+    replay zeroes it there, before any node counts.  `fold` after a
+    replay gives LAUNCHES each node's counts times its trips."""
+
+    MAX_NODES = 1 << 18
+
+    def __init__(self, device):
+        self.device = device
+        self.counts: list[dict] = []
+        self.bodies: list = []
+        self.body_nodes = 0
+        self.trips: torch.Tensor | None = None
+
+    def __len__(self) -> int:
+        return len(self.counts)
+
+    def node(self) -> tuple[int, torch.Tensor]:
+        """A new node's index and trip counter (a 0-d view into `trips`),
+        taken when its capture begins: a node nested in its body is taken
+        after it and recorded before it."""
+        k = len(self.counts)
+        if self.trips is None:
+            self.trips = torch.zeros(self.MAX_NODES, dtype=torch.int32,
+                                     device=self.device)
+        if k == self.MAX_NODES:
+            raise RuntimeError(f"a captured program holds at most "
+                               f"{self.MAX_NODES} WHILE nodes")
+        self.counts.append({})
+        self.bodies.append(None)
+        return k, self.trips[k]
+
+    def record(self, k: int, counts: dict, body=None) -> None:
+        """Node k's launches a trip and its body graph."""
+        self.counts[k], self.bodies[k] = counts, body
+
+    def fold(self) -> None:
+        """Add each node's body counts times its trips to LAUNCHES: the one
+        read of a replay."""
+        if not self.counts:
+            return
+        trips = self.trips[:len(self.counts)].tolist()
+        for counts, t in zip(self.counts, trips, strict=True):
+            for name, count in counts.items():
+                cuda.LAUNCHES[name] += count * t
+
+
+def static_carry(carry):
+    """(the carry with each tensor copied, the copies): the static buffers
+    a node's body reads and writes."""
+    flat, spec = tree_flatten(carry)
+    if not all(isinstance(t, torch.Tensor) for t in flat):
+        raise TypeError("a while_loop's carry holds tensors only")
+    static = [t.clone() for t in flat]
+    return tree_unflatten(static, spec), static
+
+
+def capture_trip(cond, body, state, static, test) -> dict:
+    """Capture one trip of a loop on its static carry: the body, its
+    results copied into the carry, then `test(cond(carry))`.  Returns the
+    launches this made, taken back out of LAUNCHES (a replay adds them once
+    a trip)."""
+    before = dict(cuda.LAUNCHES)
+    try:
+        new = tree_flatten(body(state))[0]
+        for buf, x in zip(static, new, strict=True):
+            buf.copy_(x)
+        test(cond(state))
+        return {k: v - before[k] for k, v in cuda.LAUNCHES.items()
+                if v != before[k]}
+    finally:
+        cuda.LAUNCHES.update(before)
+
+
+def while_loop(cond, body, carry):
+    """`jax.lax.while_loop(cond, body, carry)`: `cond` is tested before
+    each `body`, so zero trips are possible; `cond(carry)` is a bool
+    tensor and `body(carry)` returns a carry of the same structure.
+
+    Outside a capture (the CPU, an eager call on the card, a partitioned
+    rank) a host loop that reads the predicate once a test.  Inside one, a
+    conditional WHILE node (`CAPTURE.while_node`): the carry's tensors
+    become static buffers, the body is captured once, and `mg_while_set`
+    tests the same predicate on the device."""
+    device = next(t for t in tree_flatten(carry)[0]
+                  if isinstance(t, torch.Tensor)).device
+    if CAPTURE.capturing(device):
+        return CAPTURE.while_node(cond, body, carry, device)
+    while True:
+        cuda.HOST_TESTS["while_set"] += 1
+        if not bool(cond(carry)):
+            return carry
+        carry = body(carry)
 
 
 class CudaGraphs:
@@ -77,19 +206,40 @@ class CudaGraphs:
     `CAPTURE` to run the bookkeeping on the CPU."""
 
     def __init__(self):
-        # one side stream a device for every warm-up and capture: torch
-        # keeps a cuBLAS workspace (32 MiB) for each stream that ever ran
-        # a product, for the life of the process
+        # one side stream a device for every warm-up and capture, and one
+        # body stream a nesting depth: torch keeps a cuBLAS workspace
+        # (32 MiB) for each stream that ever ran a product, for the life
+        # of the process
         self._streams: dict = {}
+        self._bodies: dict = {}
+        self._loops: Loops | None = None
+        self._pool = None
+        self._routed = None
+        self._depth = 0
 
     def on_card(self, device: torch.device) -> bool:
         return device.type == "cuda"
 
+    def capturing(self, device: torch.device) -> bool:
+        """True where a call on `device` is being captured."""
+        return (device.type == "cuda"
+                and torch.cuda.is_current_stream_capturing())
+
     def pool(self, device: torch.device):
         """A memory pool and the side stream every warm-up and capture of
-        it runs on (the allocator reuses a freed block on its own stream)."""
+        it runs on (the allocator reuses a freed block on its own stream).
+        The first call for a device also makes its body streams and runs a
+        product on each, outside any capture."""
         if device not in self._streams:
             self._streams[device] = torch.cuda.Stream(device)
+            self._bodies[device] = [torch.cuda.Stream(device)
+                                    for _ in range(MAX_DEPTH)]
+            a = torch.ones((2, 2), device=device)
+            for body in self._bodies[device]:
+                body.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(body):
+                    a @ a, a @ a[0]
+            torch.cuda.synchronize(device)
         with torch.cuda.device(device):
             return torch.cuda.MemPool(), self._streams[device]
 
@@ -106,15 +256,73 @@ class CudaGraphs:
 
     def capture(self, fn, args, pool, device: torch.device):
         """Capture `fn(*args)` into a graph in the pool, on its side stream,
-        and instantiate it; returns (graph, static outputs, node count)."""
+        and instantiate it; returns (graph, static outputs, top-level node
+        count, its Loops with the body graphs' node count)."""
         mem, side = pool
-        with torch.cuda.device(device):
-            graph = torch.cuda.CUDAGraph(keep_graph=True)
-            with torch.cuda.graph(graph, pool=mem.id, stream=side):
-                out = fn(*args)
-            nodes = _node_count(graph)
-            graph.instantiate()
-        return graph, out, nodes
+        loops = Loops(device)
+        self._loops, self._pool = loops, mem
+        try:
+            with torch.cuda.device(device):
+                graph = torch.cuda.CUDAGraph(keep_graph=True)
+                with torch.cuda.graph(graph, pool=mem.id, stream=side):
+                    out = fn(*args)
+                nodes = _node_count(graph.raw_cuda_graph())
+                loops.body_nodes = sum(_node_count(b) for b in loops.bodies
+                                       if b is not None)
+                graph.instantiate()
+        finally:
+            if self._routed is not None:
+                torch._C._cuda_releasePool(self._routed, mem.id)
+            self._loops = self._pool = self._routed = None
+        return graph, out, nodes, loops
+
+    def _route_to_pool(self, device: torch.device) -> None:
+        """Route this thread's allocations to the capture's pool for the
+        rest of the capture.  torch's capture routes only those of its own
+        stream, and a WHILE body is captured on another; the allocator
+        keeps one filter a pool, so at a capture's first body the
+        capture's filter is swapped for one of this thread (what
+        `torch.cuda.use_mem_pool` installs), which the capture's end
+        removes.  The reference it takes on the pool is released after the
+        capture."""
+        if self._routed is None:
+            index = torch.cuda._utils._get_device_index(device, True)
+            torch._C._cuda_endAllocateToPool(index, self._pool.id)
+            torch._C._cuda_beginAllocateCurrentThreadToPool(index,
+                                                            self._pool.id)
+            self._routed = index
+
+    def while_node(self, cond, body, carry, device: torch.device):
+        """`while_loop`'s device form, inside `capture`: the static carry,
+        the first test (mg_while_set), the WHILE node after the stream's
+        work, and its body captured once on this depth's body stream with
+        its allocations in the pool."""
+        if self._loops is None:
+            raise RuntimeError("a while_loop captured outside "
+                               "CudaGraphs.capture: nothing would read its "
+                               "trips back")
+        if self._depth >= MAX_DEPTH:
+            raise RuntimeError(f"captured while loops nest at most "
+                               f"{MAX_DEPTH} deep")
+        state, static = static_carry(carry)
+        k, trips = self._loops.node()
+        outer = torch.cuda.current_stream(device)
+        handle = loop.while_handle(outer)
+        loop.while_set(handle, cond(state), trips)
+        inner = self._bodies[device][self._depth]
+        self._route_to_pool(device)
+        graph = loop.while_begin(outer, handle, inner)
+        self._depth += 1
+        try:
+            with torch.cuda.stream(inner):
+                counts = capture_trip(
+                    cond, body, state, static,
+                    lambda pred: loop.while_set(handle, pred, trips))
+        finally:
+            self._depth -= 1
+            loop.while_end(inner)
+        self._loops.record(k, counts, graph)
+        return state
 
 
 CAPTURE = CudaGraphs()
@@ -128,10 +336,11 @@ def on_card(device) -> bool:
 @dataclasses.dataclass
 class Program:
     """One captured call: its graph, static input and output buffers, the
-    launch counts its capture made, the seconds the warm-up, capture and
-    instantiation took, and the graph's node count.  `keep` holds the
-    tensors the graph reads besides its inputs (a model's levels), so they
-    outlive it."""
+    launch counts its capture made outside loop bodies, the seconds the
+    warm-up, capture and instantiation took, the graph's top-level node
+    count, and its WHILE nodes (`loops`; `body_nodes` the nodes of their
+    bodies).  `keep` holds the tensors the graph reads besides its inputs
+    (a model's levels), so they outlive it."""
 
     graph: object
     inputs: list
@@ -141,6 +350,11 @@ class Program:
     seconds: float
     nodes: int
     keep: tuple
+    loops: Loops
+
+    @property
+    def body_nodes(self) -> int:
+        return self.loops.body_nodes
 
     def __call__(self, args):
         for buf, x in zip(self.inputs, args, strict=True):
@@ -148,6 +362,7 @@ class Program:
         self.graph.replay()
         for name, count in self.launches.items():
             cuda.LAUNCHES[name] += count
+        self.loops.fold()
         return tree_unflatten(
             [t.clone() if isinstance(t, torch.Tensor) else t
              for t in self.outputs], self.spec)
@@ -193,15 +408,17 @@ class Programs:
         t0 = time.perf_counter()
         inputs = [a.clone() for a in args]
         before = dict(cuda.LAUNCHES)
+        tests = dict(cuda.HOST_TESTS)
         try:
             CAPTURE.warm_up(warm, inputs, self._pool, device)
             cuda.LAUNCHES.update(before)
-            graph, out, nodes = CAPTURE.capture(fn, inputs, self._pool,
-                                                device)
+            graph, out, nodes, loops = CAPTURE.capture(fn, inputs,
+                                                       self._pool, device)
             launches = {k: v - before[k] for k, v in cuda.LAUNCHES.items()
                         if v != before[k]}
         finally:
             cuda.LAUNCHES.update(before)
+            cuda.HOST_TESTS.update(tests)
         outputs, spec = tree_flatten(out)
         return Program(graph, inputs, outputs, spec, launches,
-                       time.perf_counter() - t0, nodes, tuple(keep))
+                       time.perf_counter() - t0, nodes, tuple(keep), loops)

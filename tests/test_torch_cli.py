@@ -150,8 +150,11 @@ def test_gsbench_keys_match_jax(capsys, backend):
     argv = ["gsbench", "--n", "32", "--sweeps", "4", "--reps", "1",
             "--backend", backend]
     (jout,), (tout,) = _both(capsys, argv)
-    assert set(tout) == set(jout)
+    # the port adds whether the sweeps ran as a compiled program, and its
+    # capture's seconds (eager on the CPU)
+    assert set(tout) == set(jout) | {"compiled", "capture_seconds"}
     assert tout["backend"] == backend and tout["sweeps"] == 4
+    assert tout["compiled"] is False and tout["capture_seconds"] is None
 
 
 def test_gsbench_backends_agree():

@@ -8,8 +8,10 @@ programs.  Here:
 (i) a strict host-read guard (`Tensor.__bool__`, `__float__`, `__int__`,
     `item`, `tolist`, `cpu`, `numpy`, `torch.tensor` and `torch.as_tensor`
     raise) over every configuration the models capture: each runs to its
-    end, `mg.cycle.host_reads` calls it capturable, and each adaptive
-    solve, the GS coarse solve and Poisson's "gs" trip the guard;
+    end and is compiled on the stand-in below; each adaptive solve, the GS
+    coarse solve and Poisson's "gs" trip the guard eagerly (their host
+    loops) and are compiled, their capture reading nothing, on the
+    stand-in (their `while_loop`s as its conditional nodes);
 (ii) the bookkeeping of `graphs.Programs` with a stand-in for torch's CUDA
     graph, which replays by running the captured function again on the
     static inputs and writing the static outputs in place: the key, fresh
@@ -131,7 +133,8 @@ CAPTURED = [
 ] + [(f"{switch} off", _DELTA, {(mod, switch): False})
      for mod, switch in SWITCHES]
 
-EAGER = [
+# configurations whose solves loop on a device predicate
+HOST_LOOPS = [
     ("mg_solve adaptive", dict(tol=1e-6, coarse_mode="dense",
                                num_levels=3)),
     ("coarse GS", dict(_FIXED, coarse_mode="gs")),
@@ -157,7 +160,9 @@ def _switched(settings):
                          ids=[c[0] for c in CAPTURED])
 def test_captured_configuration_reads_nothing_back(name, fields, settings):
     model = _model(fields)
-    assert t_cycle.host_reads(model.levels, model.solver) is None
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(graphs, "CAPTURE", StandIn())
+        assert model.eager_reason() is None
     with _switched(settings), no_host_reads():
         uT, stats = model.run(warn=False)
         u1, _ = model.step(model.u0)
@@ -167,12 +172,21 @@ def test_captured_configuration_reads_nothing_back(name, fields, settings):
     assert torch.isfinite(u1).all() and torch.isfinite(u2).all()
 
 
-@pytest.mark.parametrize("name,fields", EAGER, ids=[c[0] for c in EAGER])
+@pytest.mark.parametrize("name,fields", HOST_LOOPS,
+                         ids=[c[0] for c in HOST_LOOPS])
 def test_host_loop_trips_the_guard(name, fields):
+    """Eagerly the loop reads its predicate on the host; captured (the
+    stand-in, its capture inside the guard) it reads nothing."""
     model = _model(fields)
-    assert t_cycle.host_reads(model.levels, model.solver) is not None
     with no_host_reads(), pytest.raises(HostRead):
         model.run(warn=False)
+    with pytest.MonkeyPatch.context() as mp:
+        fake = StandIn(guard=no_host_reads)
+        mp.setattr(graphs, "CAPTURE", fake)
+        assert model.eager_reason() is None
+        model.run(warn=False)
+    assert model.last_run_compiled and fake.captures == 1
+    assert len(model.programs.last.loops) > 0
 
 
 _POISSON = dict(dtype=torch.float64, tol=1e-10, restriction="full",
@@ -183,7 +197,9 @@ _POISSON = dict(dtype=torch.float64, tol=1e-10, restriction="full",
 def test_poisson_captured_solve_reads_nothing_back(mode):
     model = Poisson(n=N, solver=SolverConfig(cycle_mode=mode, num_cycles=3,
                                              **_POISSON), device="cpu")
-    assert t_cycle.host_reads(model.levels, model.solver) is None
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(graphs, "CAPTURE", StandIn())
+        assert model.eager_reason() is None
     with no_host_reads():
         u, stats = model.solve()
     assert u.shape == (N + 1, N + 1) and int(stats["cycles"]) > 0
@@ -195,41 +211,82 @@ def test_poisson_captured_solve_reads_nothing_back(mode):
     ("gs", dict(_POISSON, cycle_mode="fixed")),
 ], ids=["adaptive", "gs coarse", "gs method"])
 def test_poisson_host_loop_trips_the_guard(method, fields):
+    """Eagerly the loop reads its predicate on the host; captured (the
+    stand-in, its capture inside the guard) it reads nothing."""
     model = Poisson(n=N, solver=SolverConfig(**fields), device="cpu")
     with no_host_reads(), pytest.raises(HostRead):
         model.solve(method, max_iters=200, check_every=100)
+    with pytest.MonkeyPatch.context() as mp:
+        fake = StandIn(guard=no_host_reads)
+        mp.setattr(graphs, "CAPTURE", fake)
+        assert model.eager_reason(method) is None
+        model.solve(method, max_iters=200, check_every=100)
+    assert model.last_run_compiled and fake.captures == 1
+    assert len(model.programs.last.loops) > 0
 
 
 # (ii) the bookkeeping, with a stand-in for torch's CUDA graph
 
+# the stand-in's replay tests a loop's predicate through the read that
+# `no_host_reads` refuses: on the card that read is the kernel's
+_UNGUARDED_BOOL = torch.Tensor.__bool__
+
+
 class StandInGraph:
     """A captured call on the CPU: `replay` runs the function again on the
     static inputs and writes the static outputs in place, leaving
-    `LAUNCHES` as a replay does (no Python wrapper runs on a replay)."""
+    `LAUNCHES` as a replay does (no Python wrapper runs on a replay).  Its
+    loops replay as the stand-in's conditional nodes (`StandIn.while_node`),
+    from the tree of nodes the capture recorded."""
 
-    def __init__(self, fn, args, out):
-        self.fn, self.args, self.out = fn, args, out
+    def __init__(self, owner, fn, args, out, roots, loops):
+        self.owner, self.fn, self.args, self.out = owner, fn, args, out
+        self.roots, self.loops = roots, loops
 
     def replay(self):
         saved = dict(cuda.LAUNCHES)
-        new = self.fn(*self.args)
-        cuda.LAUNCHES.update(saved)
+        if self.loops.trips is not None:  # the graph's own zeroing
+            self.loops.trips.zero_()
+        self.owner._frames = [[self.roots, 0]]
+        try:
+            new = self.fn(*self.args)
+        finally:
+            self.owner._frames = None
+            cuda.LAUNCHES.update(saved)
         for static, fresh in zip(tree_flatten(self.out)[0],
                                  tree_flatten(new)[0], strict=True):
             if isinstance(static, torch.Tensor):
                 static.copy_(fresh)
 
 
-class StandIn:
-    """`graphs.CudaGraphs` on the CPU, counting its warm-ups and
-    captures."""
+class StandInNode:
+    """A conditional WHILE node on the CPU: its trip counter (the
+    capture's, in `graphs.Loops`) and the nodes of its body."""
 
-    def __init__(self, fail=False):
+    def __init__(self, trips):
+        self.trips, self.children = trips, []
+
+
+class StandIn:
+    """`graphs.CudaGraphs` on the CPU, counting its warm-ups and captures.
+    Its capture runs the function once inside `guard` (a context manager:
+    `no_host_reads` checks that the capture reads nothing back), and a
+    `graphs.while_loop` met there becomes a StandInNode: the carry made
+    static, the first test and the body recorded once, each test counted
+    as the launch of `while_set` it is on the card.  On replay each node
+    loops its body while the predicate holds, read unguarded, counting its
+    trips on its device counter."""
+
+    def __init__(self, fail=False, guard=contextlib.nullcontext):
         self.warmups = self.captures = 0
-        self.fail = fail
+        self.fail, self.guard = fail, guard
+        self._loops = self._tree = self._frames = None
 
     def on_card(self, device):
         return True
+
+    def capturing(self, device):
+        return self._tree is not None or self._frames is not None
 
     def pool(self, device):
         return object()
@@ -243,8 +300,48 @@ class StandIn:
             raise RuntimeError("operation not permitted when stream is "
                                "capturing")
         self.captures += 1
-        out = fn(*args)
-        return StandInGraph(fn, args, out), out, 7
+        loops = graphs.Loops(device)
+        self._loops, self._tree = loops, [[]]
+        try:
+            with self.guard():
+                out = fn(*args)
+            roots = self._tree[0]
+        finally:
+            self._loops = self._tree = None
+        loops.body_nodes = 3 * len(loops)
+        return StandInGraph(self, fn, args, out, roots, loops), out, 7, loops
+
+    @staticmethod
+    def _test(pred):
+        assert pred.dtype == torch.bool and pred.numel() == 1
+        cuda.LAUNCHES["while_set"] += 1
+
+    def while_node(self, cond, body, carry, device):
+        if self._frames is not None:  # a replay
+            frame = self._frames[-1]
+            node = frame[0][frame[1]]
+            frame[1] += 1
+            while _UNGUARDED_BOOL(cond(carry)):
+                node.trips += 1
+                self._frames.append([node.children, 0])
+                try:
+                    carry = body(carry)
+                finally:
+                    self._frames.pop()
+            return carry
+        state, static = graphs.static_carry(carry)
+        k, trips = self._loops.node()
+        node = StandInNode(trips)
+        self._tree[-1].append(node)
+        self._test(cond(state))
+        self._tree.append(node.children)
+        try:
+            counts = graphs.capture_trip(cond, body, state, static,
+                                         self._test)
+        finally:
+            self._tree.pop()
+        self._loops.record(k, counts)
+        return state
 
 
 @pytest.fixture
@@ -421,19 +518,27 @@ def test_backend_between_calls_is_its_own_program(stand_in):
 
 
 def test_eager_reasons_on_the_card(stand_in):
+    """On the card only a partitioned model runs eagerly: the adaptive
+    solves, the GS coarse solve and Poisson's "gs" are compiled."""
+    from hpcclassmultigridproject_tpu_torch.parallel import Mesh
+
     assert _model(_DELTA).eager_reason() is None
-    reason = _model(EAGER[0][1]).eager_reason()
-    assert "adaptive" in reason
-    assert "GS coarse" in _model(EAGER[1][1]).eager_reason()
-    model = _model(EAGER[0][1])
+    assert _model(HOST_LOOPS[0][1]).eager_reason() is None
+    assert _model(HOST_LOOPS[1][1]).eager_reason() is None
+    model = _model(HOST_LOOPS[0][1])
     uT, _ = model.run(warn=False)
-    assert model.last_run_compiled is False and stand_in.captures == 0
+    assert model.last_run_compiled and model.last_run_reason is None
+    assert stand_in.captures == 1
     poisson = Poisson(n=N, solver=SolverConfig(**_POISSON), device="cpu")
     poisson.solve()
-    assert not poisson.last_run_compiled
-    assert "adaptive" in poisson.last_run_reason
+    assert poisson.last_run_compiled and poisson.last_run_reason is None
     poisson.solve("gs", max_iters=100, check_every=100)
-    assert "'gs'" in poisson.last_run_reason and stand_in.captures == 0
+    assert poisson.last_run_compiled and poisson.last_run_reason is None
+    assert stand_in.captures == 3
+    parted = AdvectionDiffusion(
+        ProblemConfig(n=N, num_steps=STEPS), SolverConfig(**_FIXED),
+        device="cpu", mesh=Mesh(2, 0), min_local=8)
+    assert "partitioned" in parted.eager_reason()
 
 
 def test_checkpointed_run_replays_the_chunk_program(stand_in, tmp_path):

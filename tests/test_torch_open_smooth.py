@@ -238,6 +238,7 @@ def test_c_entry_points_match_the_ctypes_tables():
     want = {f"{base}_{s}": len(args) for base, args in _build._SIGNATURES.items()
             for s in ("f32", "f64")}
     want.update({k: len(v) for k, v in _build._F32_SIGNATURES.items()})
+    want.update({k: len(v) for k, v in _build._LOOP_SIGNATURES.items()})
     assert _c_entries() == want
 
 
