@@ -50,9 +50,12 @@ raising on failure:
    ranks on the one card, over gloo with the halos staged through host
    memory (NCCL takes one rank per GPU), in the plain and the overlap
    schedule (K7, K3, K4) and once through the plain versions: every
-   certificate, the center value, uT against phase 4's, and each
-   schedule's launch counts; then one NCCL rank, whose 10-step
-   distributed_run must equal a 10-step single-device run;
+   certificate, the center value, uT against phase 4's, each schedule's
+   launch counts and collectives a step (`ops.cuda.COLLECTIVES`), and the
+   reason each run is eager (gloo stages its collectives through the
+   host, which no graph can hold); then one NCCL rank, whose 10-step
+   distributed_run (a replay: one rank) must equal a 10-step
+   single-device run;
 10. open-smooth: the main path with mg.delta._FUSE_OPEN_SMOOTH on (K8,
     K2 post-smooth, K3, K4; no K1): launch counts, certificates, the
     center, uT equal to phase 4's to the bit, and both paths' walls in
@@ -97,7 +100,9 @@ raising on failure:
     would pass GRID_MAX_RUN_S, then fewer (printed, and compared with a
     single-device run of as many, its center too); uT within 1e-9 of the
     single-device run, every certificate, plain and overlap equal to the
-    bit, each rank's K3/K4 counts, walls, peak MiB and collectives a step;
+    bit, each rank's K3/K4 counts, walls, peak MiB and collectives a step
+    (`ops.cuda.COLLECTIVES`, checked once against the torch.distributed
+    calls counted by wrapping them), each run eager with gloo's reason;
     (b) at n=256, 5 steps, min_local 16, in both layouts: FMG plain and
     refined, Jacobi, Chebyshev, Galerkin (nine-band levels partitioned) and the
     main configuration, each within 1e-9 of its single-device run on the
@@ -108,7 +113,8 @@ raising on failure:
     of one exchange; (d) `cli scaling` in subprocesses: strong over 1, 2,
     4 ranks at n=1024 in the rows and the 2-D layout, weak at n=512 and
     1024, each line's keys, devices, n and mesh, and center_uT within
-    1e-9 of a single-device run.
+    1e-9 of a single-device run, the one-rank points replays of their
+    captured programs and the gloo points eager.
 15. routes and oracle: (a) the main path of phase 4 once with each of
     the JAX package's switches off (mg.cycle._FUSE_CORR, _USE_TOWER,
     _RESTRICT_DEC, mg.delta._FUSE_OPEN: the unfused forms) and once with
@@ -128,30 +134,24 @@ raising on failure:
     (ops) on the card against the oracle in float64 at
     tests/test_ops.py's tolerances.
 
-16. multi-gpu: the partitioned run over four cards, one NCCL rank a card
-    (`launch_local(..., backend="nccl", device="cuda")`: rank r on
+16. multi-gpu: the partitioned run over four cards, eager, one NCCL rank
+    a card (`launch_local(..., backend="nccl", device="cuda")`: rank r on
     cuda:r, halos and norms on the device).  On fewer than four cards one
     line says it was not run, with the device count, and nothing else
-    runs.  On four it prints nvidia-smi's index, name and power limit of
-    each card and `nvidia-smi topo -m`, then: (a) the main path at
-    n=1024, 100 steps, min_local 64, through distributed_run in the rows
-    layout (K7, plain and overlapped schedule) and the 2-D layout (plain
-    and overlapped sweep), built whole and born partitioned: uT within
-    1e-9 of phase 4's (bitwise printed), every certificate, every rank's
-    launch counts exact (K7 6 a step plain, 18 overlapped; K3/K4 one a
-    step), every rank posting the same collectives (counted a step),
-    rank 0's wall (built whole: median of 5 after a warm-up; born: one
-    run), peak MiB per rank, and the ms of each exchange and all-gather
-    at the path's shapes; (b)
-    phase 14 (b) over NCCL; (c) n=16384 born partitioned in each layout,
-    10 steps at phase 13's cycle count, uT equal to phase 13's one-card
-    uT to the bit (SHA-256), and n=32768 born row-partitioned, 10 steps
-    at the auto cycle count (if it does not certify, at each larger count
-    until one does), every certificate <= 1e-6, build seconds and peak
-    MiB per rank; (d) `cli scaling` over NCCL, strong at n=8192 over 1,
-    2, 4 ranks and weak at n=4096 and 8192 over 1 and 4, in both layouts,
-    at the auto cycle count, each center within 1e-9 of a single-device
-    run.
+    runs (nor phase 19).  On four it prints nvidia-smi's index, name and
+    power limit of each card and `nvidia-smi topo -m`, then, after phase
+    19 (a): (a) the main path at n=1024, 100 steps, min_local 64, in the
+    eager form of distributed_run (the partition, `timestepper` and the
+    gather called directly) in the rows layout (K7, plain and overlapped
+    schedule) and the 2-D layout (plain and overlapped sweep), built
+    whole and born partitioned: uT within 1e-9 of phase 4's (bitwise
+    printed), every certificate, every rank's launch counts exact (K7 6
+    a step plain, 18 overlapped; K3/K4 one a step), every rank posting
+    the same collectives (counted a step), rank 0's wall (built whole:
+    median of 3 after a warm-up; born: one run), peak MiB per rank, and
+    the ms of each exchange and all-gather at the path's shapes; (b)
+    phase 14 (b) over NCCL, eager.  Its large grids and `cli scaling`
+    run captured, in phase 19 (d) and (e).
 17. compiled (run before phase 16, whose rank 0 takes cuda:0): the
     models' entry points as compiled programs, each captured once as a
     CUDA graph and replayed (utils/graphs.py), against their eager runs
@@ -203,6 +203,39 @@ raising on failure:
     sweeps, both backends, captured against the eager loop: the bits, µs a
     sweep and GDOF/s.
 
+19. compiled multi-gpu (on four cards, with phase 16; on fewer one line
+    says it was not run): the partitioned run captured under NCCL, each
+    rank replaying its own CUDA graph whose NCCL kernels meet across the
+    cards.  Each rank 0 progress line is printed as its ranks start on
+    it.  (a) probes, each captured once and replayed from two inputs on
+    four ranks against its eager form, to the bit, with LAUNCHES and
+    COLLECTIVES equal: one `start_exchange` batch, an `all_sum`, and K7's
+    overlapped schedule (the fork to NCCL's stream and the join around
+    K7's launches); and whether the capture's later allocations take the
+    exchange's receive buffers' memory.  (An `all_sum` inside a
+    `while_loop` is not probed: its capture in a WHILE body did not
+    finish on four H100s, and an adaptive partitioned run is eager.)  (b) in phase 16 (a)'s spawn, each of its eight cases through
+    distributed_run, captured: on every rank the replay equal to the
+    eager run to the bit with equal launch and collective counts and
+    `last_run_compiled`, then 5 timed replays, each equal; rank 0's
+    replay wall against the eager wall and phase 17 (a)'s one-card
+    replay, capture seconds, top nodes, peak MiB per rank with the pool
+    held.  (c) in phase 16 (b)'s spawn, each configuration captured
+    against its eager run (FMG's GS coarse solve a WHILE node in the
+    graph), and SolverConfig(dtype=float64), adaptive: eager on every
+    rank with the reason `parallel.capture_reason` gives it.  (d) n=16384 born partitioned in
+    each layout, 10 steps at phase 13's cycle count, replayed, uT equal
+    to phase 13's one-card uT to the bit (SHA-256), and n=32768 born
+    row-partitioned, 10 steps at the auto cycle count (if it does not
+    certify, at each larger count until one does), every certificate
+    <= 1e-6; first call, capture and replay seconds, build seconds, peak
+    MiB per rank and reserved MiB with the graph's pool held.  (e) `cli
+    scaling` over NCCL, every point a replay: strong at n=8192 over 1,
+    2, 4 ranks and weak at n=4096 and 8192 over 1 and 4, in both
+    layouts, at the auto cycle count, each center within 1e-9 of a
+    single-device run, with capture seconds; the speedup is against the
+    one-rank point, one card's replay.
+
 Phase 9 also builds the main path's model born row-partitioned over its
 W=4 ranks (AdvectionDiffusion(mesh=...), min_local=64; phase 13's (c)):
 its uT must equal, to the bit, distributed_run of the whole device-built
@@ -216,7 +249,9 @@ just before the run it reads, checks every count, and (but 15, whose
 host loop) runs the same path once more through the plain versions.  On
 the card `AdvectionDiffusion.run`, `step` and `run_chunk` and
 `Poisson.solve` replay captured graphs in every single-device
-configuration (the route is part of a graph's key, so the plain run
+configuration, and `distributed_run` and the born-partitioned model's
+entry points under NCCL or on one rank (phase 19; gloo ranks stay
+eager) (the route is part of a graph's key, so the plain run
 captures its own; the plain route keeps mg_while_set, XLA's while); a
 replay adds the launch counts its capture recorded, and each WHILE
 node's body counts times its trips, and phases 17 and 18 hold each to
@@ -1192,7 +1227,7 @@ def _dist_rank(n: int, steps: int) -> dict:
         return uT, stats, time.perf_counter() - t0
 
     run(False)  # warm-up: CUDA context, kernel library, allocator
-    out = {}
+    out = {"reason": model.last_run_reason}
     for tag, overlap in (("plain", False), ("overlap", True)):
         torch.cuda.reset_peak_memory_stats()
         cuda.reset_launches()
@@ -1201,6 +1236,7 @@ def _dist_rank(n: int, steps: int) -> dict:
         peaks = [None] * dist.get_world_size()
         dist.all_gather_object(peaks, torch.cuda.max_memory_allocated())
         out[tag] = dict(uT=uT.cpu().numpy(), wall=wall, counts=counts,
+                        collectives=dict(cuda.COLLECTIVES),
                         peaks_mib=[b / 2**20 for b in peaks],
                         stats={k: v.cpu().numpy() for k, v in stats.items()})
     with cuda.plain_route():
@@ -1259,6 +1295,7 @@ def _born_partitioned_runs(n: int, steps: int) -> dict:
                                torch.cuda.max_memory_allocated() - base)
         out[tag] = dict(uT=uT.cpu().numpy(), counts=counts, build_s=build_s,
                         peaks_mib=[b / 2**20 for b in peaks],
+                        reason=model.last_run_reason,
                         level0_rows=model.levels[0].padded[0],
                         stats={k: v.cpu().numpy() for k, v in stats.items()})
         model = uT = stats = None
@@ -1333,11 +1370,12 @@ def _nccl_rank(n: int, steps: int) -> dict:
     model = AdvectionDiffusion(ProblemConfig(n=n, num_steps=steps),
                                delta_config(certify_every=10), device="cuda")
     uT_dist, _ = distributed_run(model, mesh, min_local=DIST_MIN_LOCAL)
+    compiled = model.last_run_compiled
     uT_single, _ = model.run(warn=False)
     x = torch.arange(12.0, device="cuda").reshape(3, 4)
     gathered = distributed.all_gather_rows(x, mesh)
     total = distributed.all_sum(x.sum(), mesh)
-    return dict(backend=mesh.backend, world=mesh.world,
+    return dict(backend=mesh.backend, world=mesh.world, compiled=compiled,
                 max_diff=float((uT_dist - uT_single).abs().max()),
                 collectives_ok=bool(torch.equal(gathered, x)
                                     and float(total) == 66.0))
@@ -1362,9 +1400,13 @@ def phase_distributed(n: int, steps: int, uT_single) -> int:
             "overlap": {"smooth_rows": 18 * steps}}
     comm = res.pop("comm_ms")
     born = res.pop("born")
+    reason = res.pop("reason")
     print("[distributed] collectives per call, ms (rank 0, mean of 100, "
           "no kernel between them): " + ", ".join(
               f"{k} {v:.4f}" for k, v in comm.items()))
+    print(f"[distributed] eager, as it must be under gloo: {reason}")
+    require(_gloo_reason(reason), f"distributed: the gloo run's reason "
+            f"{reason!r}")
     for tag, got in res.items():
         du = float(np.abs(got["uT"] - single).max())
         line = (f"[distributed] {tag}: wall {got['wall']:.4f} s (rank 0), "
@@ -1374,8 +1416,10 @@ def phase_distributed(n: int, steps: int, uT_single) -> int:
             expect = {k: 0 for k in counts}
             expect.update(want[tag], tower_descent=steps,
                           tower_ascent=steps)
-            line += (f"; launches per rank {counts}; peak device memory per "
-                     f"rank {[round(m, 1) for m in got['peaks_mib']]} MiB")
+            per_step = {k: v / steps for k, v in got["collectives"].items()}
+            line += (f"; launches per rank {counts}; collectives a step "
+                     f"{per_step}; peak device memory per rank "
+                     f"{[round(m, 1) for m in got['peaks_mib']]} MiB")
             print(line)
             require(counts == expect, f"distributed {tag}: launch counts "
                     f"{counts}, expected {expect}")
@@ -1391,12 +1435,20 @@ def phase_distributed(n: int, steps: int, uT_single) -> int:
     nccl = launch_local(_nccl_rank, 1, (n, NCCL_STEPS), backend="nccl",
                         device="cuda:0")
     print(f"[distributed] one NCCL rank ({nccl['backend']}, world "
-          f"{nccl['world']}): {NCCL_STEPS} steps, max|uT_dist - "
+          f"{nccl['world']}): {NCCL_STEPS} steps, distributed_run a "
+          f"replay: {nccl['compiled']}, max|uT_dist - "
           f"uT_single| {nccl['max_diff']!r} (expected 0); all_gather_rows "
           f"and all_sum on device tensors right: {nccl['collectives_ok']}")
     require(nccl["backend"] == "nccl" and nccl["max_diff"] == 0.0
-            and nccl["collectives_ok"], "the one-rank NCCL run")
+            and nccl["compiled"] and nccl["collectives_ok"],
+            "the one-rank NCCL run")
     return res["plain"]["counts"]["smooth_rows"]
+
+
+def _gloo_reason(reason) -> bool:
+    """A run partitioned under gloo on the card is eager, for the reason
+    that its collectives stage through the host."""
+    return reason is not None and "under gloo" in reason
 
 
 def _check_born_partitioned(born: dict, n: int, steps: int, single) -> None:
@@ -1417,6 +1469,8 @@ def _check_born_partitioned(born: dict, n: int, steps: int, single) -> None:
               f" MiB; max|uT - uT_single(host build)| {du:.3g}")
         require(counts == {k: expect.get(k, 0) for k in counts},
                 f"distributed {tag}: launch counts {counts}")
+        require(_gloo_reason(got["reason"]),
+                f"distributed {tag}: the gloo run's reason {got['reason']!r}")
         stats = {k: torch.from_numpy(v) for k, v in got["stats"].items()}
         _check_advection(f"distributed {tag}", n, steps,
                          torch.from_numpy(got["uT"]), stats, CENTER_1024,
@@ -2041,6 +2095,74 @@ def _count_collectives() -> dict:
     return counts
 
 
+def _eager_distributed(model, **kw):
+    """`parallel.distributed_run`'s eager form on the card: the model's
+    partition (`parallel.partition`), `timestepper` called directly and
+    the gather of uT, which its compiled program holds."""
+    from hpcclassmultigridproject_tpu_torch.core.layout import crop_field
+    from hpcclassmultigridproject_tpu_torch.mg.timestepper import timestepper
+    from hpcclassmultigridproject_tpu_torch.parallel import fetch, partition
+
+    part = partition(model, **kw)
+    uT, stats = timestepper(part.levels, part.u0, model.problem.num_steps,
+                            model.solver, part.fine_hi,
+                            shardings=part.shardings)
+    return crop_field(fetch(uT, part.shardings[0]), model.problem.n), stats
+
+
+def _eager_counts() -> dict:
+    """LAUNCHES and COLLECTIVES as an eager run left them, its host tests
+    standing for the while_set launches a replay makes in their place."""
+    from hpcclassmultigridproject_tpu_torch.ops import cuda
+    from hpcclassmultigridproject_tpu_torch.utils import graphs
+
+    return dict(graphs.counts(), while_set=cuda.HOST_TESTS["while_set"])
+
+
+def _replayed(model, call, want, want_counts) -> dict:
+    """Phase 19: `call()` (a compiled partitioned call of `model`) from
+    its capture and replay, against the eager run's (uT, stats) `want` and
+    counts `want_counts` (`_eager_counts`), on every rank: whether it ran
+    compiled, its outputs to the bit, its counts, the program's capture
+    seconds, nodes and WHILE nodes.  A capture or a replay that fails
+    raises on its rank."""
+    from hpcclassmultigridproject_tpu_torch.ops import cuda
+    from hpcclassmultigridproject_tpu_torch.utils import graphs
+
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    got = call()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    counts = graphs.counts()
+    program = model.programs.last
+    return _all_ranks(dict(
+        compiled=model.last_run_compiled, reason=model.last_run_reason,
+        equal=_equal_out(got, want), counts_equal=counts == want_counts,
+        while_set=counts["while_set"], tests=want_counts["while_set"],
+        collectives={k: counts[k] for k in cuda.COLLECTIVES},
+        first_s=first,
+        capture_s=None if program is None else program.seconds,
+        nodes=None if program is None else program.nodes,
+        whiles=None if program is None else len(program.loops),
+        body_nodes=None if program is None else program.body_nodes))
+
+
+def _require_replayed(tag: str, ranks: list) -> None:
+    """Phase 19: every rank's `_replayed` record compiled, equal to the
+    eager run to the bit with equal counts (while_set: the eager run's
+    host tests), the same collectives on every rank."""
+    for rank, rec in enumerate(ranks):
+        require(rec["compiled"], f"{tag}: rank {rank} ran eagerly "
+                f"({rec['reason']})")
+        require(rec["equal"], f"{tag}: rank {rank}'s replay differs from "
+                "its eager run")
+        require(rec["counts_equal"], f"{tag}: rank {rank}'s replay counts "
+                "differ from its eager run's")
+        require(rec["collectives"] == ranks[0]["collectives"],
+                f"{tag}: the ranks posted different collectives")
+
+
 def _peaks_mib(base: int = 0) -> list:
     """Every rank's peak device memory since the last reset, in MiB."""
     import torch.distributed as dist
@@ -2054,7 +2176,9 @@ def _grid_rank(n: int, steps: int) -> dict:
     """Phase 14 (a), one rank on cuda:0: the main path through
     distributed_run in the 2-D layout, plain and with sharded_overlap
     (halo.py's overlapped sweep), each run read between a reset and a read
-    of this rank's launch counts, collectives and peak memory.  A timed
+    of this rank's launch counts, collectives (`ops.cuda.COLLECTIVES`, and
+    the dist calls counted by `_count_collectives`, which must agree) and
+    peak memory.  A timed
     warm-up of GRID_WARM_STEPS steps picks the step count: `steps` if a
     run would take under GRID_MAX_RUN_S, else as many as take about half
     that, a multiple of 10 (rank 0 decides for all)."""
@@ -2091,16 +2215,17 @@ def _grid_rank(n: int, steps: int) -> dict:
         fit = GRID_MAX_RUN_S / 2 / warm * GRID_WARM_STEPS
         pick = [max(10, int(fit) // 10 * 10)]
     dist.broadcast_object_list(pick, src=0)
-    out = {"steps": pick[0], "warm_s": warm}
+    out = {"steps": pick[0], "warm_s": warm, "reason": model.last_run_reason}
     for tag, overlap in (("plain", False), ("overlap", True)):
         torch.cuda.reset_peak_memory_stats()
         cuda.reset_launches()
         for k in colls:
             colls[k] = 0
         uT, stats, wall = run(overlap, pick[0])
-        counts, moved = dict(cuda.LAUNCHES), dict(colls)
+        counts, moved = dict(cuda.LAUNCHES), dict(cuda.COLLECTIVES)
         out[tag] = dict(uT=uT.cpu().numpy(), wall=wall, counts=counts,
-                        collectives=moved, peaks_mib=_peaks_mib(),
+                        collectives=moved, wrapped=dict(colls),
+                        peaks_mib=_peaks_mib(),
                         stats={k: v.cpu().numpy() for k, v in stats.items()})
     return out
 
@@ -2126,31 +2251,50 @@ def _grid_configs() -> dict:
 
 def _configs_rank(n: int, steps: int, min_local: int) -> dict:
     """Phase 14 (b), one rank on cuda:0: each configuration through
-    distributed_run in both layouts, and the main one born 2-D-partitioned
-    against the same run of the whole device-built model."""
+    distributed_run in both layouts (eager under gloo), and the main one
+    born 2-D-partitioned against the same run of the whole device-built
+    model.  Under NCCL (phase 16 (b), one card a rank) each run is the
+    eager form (`_eager_distributed`), and phase 19 (c) then runs it
+    through distributed_run, captured, against it, with the adaptive
+    SolverConfig(dtype=float64) beside the rest."""
     import dataclasses
 
-    from hpcclassmultigridproject_tpu_torch import ProblemConfig
+    import torch.distributed as dist
+
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig, SolverConfig
     from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+    from hpcclassmultigridproject_tpu_torch.ops import cuda
     from hpcclassmultigridproject_tpu_torch.parallel import (
         distributed_run,
         make_mesh,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    nccl = dist.get_backend() == "nccl"
     problem = ProblemConfig(n=n, num_steps=steps)
     as_np = lambda uT, stats: (uT.cpu().numpy(), {
         k: v.cpu().numpy() for k, v in stats.items()})
+    configs = _grid_configs()
+    if nccl:
+        configs["adaptive f64"] = SolverConfig(dtype=torch.float64)
     out = {}
-    for name, cfg in _grid_configs().items():
+    for name, cfg in configs.items():
         for layout in ("rows", "2d"):
             model = AdvectionDiffusion(problem, cfg, device="cuda")
+            kw = dict(min_local=min_local, layout=layout)
+            cuda.reset_launches()
             t0 = time.perf_counter()
-            uT, stats = distributed_run(model, min_local=min_local,
-                                        layout=layout)
+            uT, stats = (_eager_distributed if nccl else distributed_run)(
+                model, **kw)
             torch.cuda.synchronize()
             out[name, layout] = (*as_np(uT, stats),
                                  time.perf_counter() - t0)
+            if nccl:
+                out["captured", name, layout] = _replayed(
+                    model, lambda: distributed_run(model, **kw),
+                    (uT, stats), _eager_counts())
+            else:
+                out["reason", name, layout] = model.last_run_reason
     main = _grid_configs()["main"]
     born = AdvectionDiffusion(problem, main, device="cuda", mesh=make_mesh(),
                               layout="2d", min_local=min_local)
@@ -2269,9 +2413,19 @@ def _phase_grid_main(n: int, steps: int, uT_single, smi: str) -> None:
         uT_single = model.run(warn=False)[0]
     single = uT_single.cpu().numpy()
     expect = {"tower_descent": ran, "tower_ascent": ran}
+    print(f"[grid] (a) eager, as it must be under gloo: {res['reason']}")
+    require(_gloo_reason(res["reason"]),
+            f"grid (a): the gloo run's reason {res['reason']!r}")
     for tag in ("plain", "overlap"):
         got = res[tag]
         counts = got["counts"]
+        print(f"[grid] (a) {tag}: ops.cuda.COLLECTIVES {got['collectives']}"
+              f" equal to the torch.distributed calls counted by wrapping "
+              f"them {got['wrapped']}: "
+              f"{got['collectives'] == got['wrapped']}")
+        require(got["collectives"] == got["wrapped"],
+                f"grid (a) {tag}: COLLECTIVES {got['collectives']} against "
+                f"the dist calls {got['wrapped']}")
         du = float(np.abs(got["uT"] - single).max())
         print(f"[grid] (a) {tag}: wall {got['wall']:.4f} s (rank 0, {ran} "
               f"steps; {smi}), max|uT - uT_single| {du!r} (bound 1e-09); "
@@ -2297,8 +2451,9 @@ def _phase_grid_main(n: int, steps: int, uT_single, smi: str) -> None:
 def _phase_grid_configs(smi: str, backend: str = "gloo",
                         device: str = "cuda:0",
                         label: str = "[grid] (b)") -> None:
-    """Phase 14 (b), and phase 16 (b) over NCCL with one card a rank."""
-    from hpcclassmultigridproject_tpu_torch import ProblemConfig
+    """Phase 14 (b), and phase 16 (b) over NCCL with one card a rank,
+    with phase 19 (c) (each run captured against its eager form)."""
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig, SolverConfig
     from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
     from hpcclassmultigridproject_tpu_torch.parallel import launch_local
 
@@ -2310,7 +2465,10 @@ def _phase_grid_configs(smi: str, backend: str = "gloo",
           f"{CONFIG_MIN_LOCAL}, W={GRID_WORLD}, both layouts: "
           f"{time.perf_counter() - t0:.1f} s in all, {backend}; {smi}")
     problem = ProblemConfig(n=CONFIG_N, num_steps=CONFIG_STEPS)
-    for name, cfg in _grid_configs().items():
+    configs = _grid_configs()
+    if backend == "nccl":
+        configs["adaptive f64"] = SolverConfig(dtype=torch.float64)
+    for name, cfg in configs.items():
         single, _ = AdvectionDiffusion(problem, cfg, device="cuda").run(
             warn=False)
         single = single.cpu().numpy()
@@ -2320,10 +2478,36 @@ def _phase_grid_configs(smi: str, backend: str = "gloo",
             line = _certified_run(f"{label} {name} {layout}", stats,
                                   cfg.delta_form)
             print(f"{label} {name}, {layout}: wall {wall:.3f} s (rank "
-                  f"0), max|uT - uT_single(card)| {du!r} (bound 1e-09, "
-                  f"bitwise {du == 0.0}); {line}")
+                  f"0, eager), max|uT - uT_single(card)| {du!r} (bound "
+                  f"1e-09, bitwise {du == 0.0}); {line}")
             require(du <= 1e-9, f"{label} {name} {layout}: uT off the "
                     f"single-device run by {du:.3g}")
+            if backend != "nccl":
+                reason = res["reason", name, layout]
+                require(_gloo_reason(reason), f"{label} {name} {layout}: "
+                        f"the gloo run's reason {reason!r}")
+                continue
+            ranks = res["captured", name, layout]
+            tag = f"[compiled-multi] (c) {name}, {layout}"
+            if cfg.cycle_mode == "adaptive":
+                for rank, rec in enumerate(ranks):
+                    require(not rec["compiled"] and rec["equal"]
+                            and "WHILE body" in (rec["reason"] or ""),
+                            f"{tag}: rank {rank}: {rec}")
+                print(f"{tag}: eager on every rank, as decided from the "
+                      f"configuration ({ranks[0]['reason']}); equal to the "
+                      f"first eager run to the bit; {smi}")
+                continue
+            _require_replayed(tag, ranks)
+            rec = ranks[0]
+            print(f"{tag}: a replay on "
+                  f"every rank, equal to its eager run to the bit with equal "
+                  f"launch and collective counts; capture "
+                  f"{rec['capture_s']:.3f} s, {rec['nodes']} top nodes, "
+                  f"{rec['whiles']} WHILE nodes ({rec['body_nodes']} body "
+                  f"nodes), while_set {rec['while_set']} = host tests "
+                  f"{rec['tests']}; collectives {rec['collectives']} "
+                  f"(rank 0); {smi}")
     born, whole = res["born"], res["whole"]
     same = np.array_equal(born[0], whole[0])
     _certified_run(f"{label} born", born[1], True)
@@ -2357,11 +2541,14 @@ def _phase_grid_halo(n: int, smi: str) -> None:
 def _phase_grid_scaling(smi: str, strong_n: int = MAIN_N,
                         weak_n: int = MAIN_N // 2,
                         weak_layouts=("auto",), cycles: int | None = 1,
-                        reps: int = 1, label: str = "[grid] (d)") -> None:
+                        reps: int = 1, label: str = "[grid] (d)",
+                        nccl: bool = False) -> None:
     """Phase 14 (d): `cli scaling` on the card, strong in both layouts and
     weak, each line against a single-device run of its n at `cycles`
-    V-cycles a step (None: the auto count); phase 16 (d) runs it over
-    NCCL, one card a rank, at its own sizes."""
+    V-cycles a step (None: the auto count); phase 19 (e) runs it over
+    NCCL (`nccl`), one card a rank, at its own sizes.  A point of one
+    rank, or of NCCL ranks, is a replay of its captured program; gloo
+    ranks on one card run eagerly."""
     import dataclasses
 
     from hpcclassmultigridproject_tpu_torch import ProblemConfig
@@ -2395,13 +2582,21 @@ def _phase_grid_scaling(smi: str, strong_n: int = MAIN_N,
                 f"cli scaling {mode} {layout}: points {lines}")
         for rec in lines:
             keys = SCALING_KEYS + (["speedup"] if mode == "strong" else [])
+            keys += ["compiled", "capture_seconds"]
             dc = abs(rec["center_uT"] - center(rec["n"]))
+            capture = ("" if rec["capture_seconds"] is None
+                       else f", capture {rec['capture_seconds']:.3f} s")
             print(f"{label} scaling --mode {mode} --layout {layout}: "
                   f"{rec['devices']} ranks, n={rec['n']}, mesh "
                   f"{rec['mesh']}: {rec['seconds']:.4f} s ({SCALING_STEPS} "
                   f"steps; {smi}), efficiency {rec['efficiency']}, speedup "
-                  f"{rec.get('speedup')}; |center_uT - single| {dc:.3g}")
+                  f"{rec.get('speedup')}; compiled {rec['compiled']}"
+                  f"{capture}; |center_uT - single| {dc:.3g}")
             require(list(rec) == keys, f"cli scaling keys {list(rec)}")
+            # one rank, or NCCL: one captured program; gloo ranks: eager
+            require(rec["compiled"] == (rec["devices"] == 1 or nccl),
+                    f"cli scaling: {rec['devices']} ranks compiled "
+                    f"{rec['compiled']}")
             require(rec["mesh"] == meshes[rec["devices"]]
                     and rec["layout"] == layout,
                     f"cli scaling mesh/layout {rec}")
@@ -2696,7 +2891,9 @@ def phase_routes_oracle(device, n: int, steps: int, uT_main) -> None:
 
 
 # phase 16: the partitioned run over four cards, one NCCL rank a card
-MULTI_WORLD, MULTI_REPS = 4, 5  # (a): timed runs a case, after a warm-up
+MULTI_WORLD, MULTI_REPS = 4, 3  # (a): timed runs a case, after a warm-up
+# phase 19: the partitioned run captured under NCCL
+COMPILED_MULTI_REPLAYS = 5  # (b): timed replays a case, after the capture
 HUGE_N, HUGE_MAX_CYCLES = 32768, 12  # (c): a grid no single card holds
 STRONG_N, WEAK_N, MULTI_SCALING_REPS = 8192, 4096, 3  # (d)
 FINGERPRINT_STRIDE = 64
@@ -2715,6 +2912,15 @@ def _fingerprint(uT: torch.Tensor) -> dict:
                            ::FINGERPRINT_STRIDE].copy()}
 
 
+def _progress(line: str) -> None:
+    """Rank 0 says what its ranks start on, at once (a spawn's results
+    print only when it returns, so this names where a hang is)."""
+    import torch.distributed as dist
+
+    if dist.get_rank() == 0:
+        print(f"{line} (rank 0)", flush=True)
+
+
 def _all_ranks(value) -> list:
     """`value` of every rank, in rank order, on every rank."""
     import torch.distributed as dist
@@ -2725,13 +2931,17 @@ def _all_ranks(value) -> list:
 
 
 def _multi_main_rank(n: int, steps: int) -> dict:
-    """Phase 16 (a), one NCCL rank on its own card: the main path through
-    distributed_run in both layouts, built whole and born partitioned, in
-    the plain and the overlapped schedule.  Each case runs a warm-up, then
-    MULTI_REPS timed runs built whole and one born; the first timed run
-    is read between a reset and a read of this rank's launch counts and
-    collectives, which every rank reports.  Then the ms of each
-    collective at the path's shapes."""
+    """Phase 16 (a), one NCCL rank on its own card: the main path's eager
+    partitioned run (`_eager_distributed`) in both layouts, built whole
+    and born partitioned, in the plain and the overlapped schedule.  Each
+    case runs a warm-up, then MULTI_REPS timed runs built whole and one
+    born; the first timed run is read between a reset and a read of this
+    rank's launch counts and collectives, which every rank reports.  Then
+    the ms of each collective at the path's shapes.  Phase 19 (b) follows
+    each case in the same spawn: distributed_run, captured at its first
+    call, against the first timed eager run (`_replayed`), then
+    COMPILED_MULTI_REPLAYS timed replays, each equal to it, with the
+    peak MiB per rank, the pool held."""
     import dataclasses
 
     import torch.distributed as dist
@@ -2747,7 +2957,6 @@ def _multi_main_rank(n: int, steps: int) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"cards": _all_ranks(torch.cuda.current_device()),
            "backend": dist.get_backend()}
-    colls = _count_collectives()
     mesh = make_mesh()
     problem = ProblemConfig(n=n, num_steps=steps)
     cfg = delta_config(certify_every=10)
@@ -2762,6 +2971,8 @@ def _multi_main_rank(n: int, steps: int) -> dict:
                                            min_local=DIST_MIN_LOCAL)
                 kw = {}
             for overlap in (False, True):
+                _progress(f"[multi-gpu] (a) {layout}, {build}, overlap "
+                          f"{overlap}: eager, then captured (19 (b))")
                 model.solver = dataclasses.replace(model.solver,
                                                    sharded_overlap=overlap)
                 case = out[layout, build, overlap] = {"walls": []}
@@ -2769,29 +2980,48 @@ def _multi_main_rank(n: int, steps: int) -> dict:
                 for rep in range(timed + 1):
                     torch.cuda.reset_peak_memory_stats()
                     cuda.reset_launches()
-                    for k in colls:
-                        colls[k] = 0
                     dist.barrier()
                     t0 = time.perf_counter()
-                    uT, stats = distributed_run(model, **kw)
+                    uT, stats = _eager_distributed(model, **kw)
                     torch.cuda.synchronize()
                     wall = time.perf_counter() - t0
                     if rep == 1:
+                        want, want_counts = (uT, stats), _eager_counts()
                         case["counts"] = _all_ranks(dict(cuda.LAUNCHES))
-                        case["collectives"] = _all_ranks(dict(colls))
+                        case["collectives"] = _all_ranks(
+                            dict(cuda.COLLECTIVES))
                     if rep:
                         case["walls"].append(wall)
                 case.update(uT=uT.cpu().numpy(), peaks_mib=_peaks_mib(),
                             stats={k: v.cpu().numpy()
                                    for k, v in stats.items()})
+                # phase 19 (b): the same call, captured and replayed
+                held = _fresh_peaks()
+                dist.barrier()
+                comp = case["captured"] = {"ranks": _replayed(
+                    model, lambda: distributed_run(model, **kw), want,
+                    want_counts), "walls": []}
+                equal = True
+                for _ in range(COMPILED_MULTI_REPLAYS):
+                    dist.barrier()
+                    t0 = time.perf_counter()
+                    got = distributed_run(model, **kw)
+                    torch.cuda.synchronize()
+                    comp["walls"].append(time.perf_counter() - t0)
+                    equal = equal and _equal_out(got, want)
+                comp["replays_equal"] = _all_ranks(equal)
+                comp["peak_mib"] = _all_ranks(_peak_mib(held))
+                want = got = None
             if layout == "rows" and build == "whole":
                 out["comm_ms"] = _collective_costs(model, grid=True)
             model = None
     return out
 
 
-def _phase_multi_main(n: int, steps: int, uT_single, smi: str) -> None:
-    """Phase 16 (a)."""
+def _phase_multi_main(n: int, steps: int, uT_single, smi: str,
+                      single_wall: float) -> None:
+    """Phase 16 (a), and phase 19 (b) against it; `single_wall` is one
+    card's captured main path (phase 17 (a))."""
     from hpcclassmultigridproject_tpu_torch.parallel import launch_local
 
     t0 = time.perf_counter()
@@ -2847,15 +3077,40 @@ def _phase_multi_main(n: int, steps: int, uT_single, smi: str) -> None:
                   f"the device) against whole (host build): max|uT diff| "
                   f"{du!r}; the same collectives: "
                   f"{whole['collectives'] == born['collectives']}")
+    for (layout, build, overlap), got in res.items():
+        tag = (f"[compiled-multi] (b) {layout}, {build}, "
+               f"{'overlap' if overlap else 'plain'}")
+        comp = got["captured"]
+        ranks = comp["ranks"]
+        _require_replayed(tag, ranks)
+        require(all(comp["replays_equal"]), f"{tag}: a timed replay "
+                "differs from the eager run")
+        rec, walls = ranks[0], comp["walls"]
+        eager = statistics.median(got["walls"])
+        med = statistics.median(walls)
+        peaks = [f"{a:.1f}/{r:.1f}" for a, r in comp["peak_mib"]]
+        print(f"{tag}: a replay on every rank, equal to the eager run to "
+              f"the bit (and {len(walls)} more), launches and collectives "
+              f"equal ({rec['collectives']} a run); replay wall "
+              f"{med:.5f} s (rank 0, median of {len(walls)}: {walls}) "
+              f"against eager {eager:.4f} s ({eager / med:.2f}x) and one "
+              f"card's captured {single_wall:.5f} s (phase 17 (a); "
+              f"{single_wall / med:.2f}x); capture {rec['capture_s']:.3f} s"
+              f" (first call {rec['first_s']:.3f} s), {rec['nodes']} top "
+              f"nodes; peak MiB per rank allocated/reserved above what each "
+              f"held, the pool held: {peaks}; {smi}")
 
 
 def _multi_scale_rank(big_n: int, big_cycles: int, huge_n: int) -> dict:
-    """Phase 16 (c), one NCCL rank on its own card: n=big_n born
+    """Phase 19 (d), one NCCL rank on its own card: n=big_n born
     partitioned in each layout at big_cycles V-cycles a step (rank 0
     fingerprints uT), then n=huge_n born row-partitioned at the auto
     cycle count and, if that does not certify, at each larger count up
-    to HUGE_MAX_CYCLES until one does.  Build seconds, walls, stats and
-    every rank's peak device memory, reset before each build."""
+    to HUGE_MAX_CYCLES until one does; each run captured at its first
+    call and replayed once more (equal to the first to the bit).  Build
+    seconds, the first call's and the replay's walls, capture seconds,
+    stats and every rank's peak device memory (reset before each build)
+    and reserved memory with the graph's pool held."""
     import dataclasses
     import gc
     import warnings
@@ -2868,6 +3123,7 @@ def _multi_scale_rank(big_n: int, big_cycles: int, huge_n: int) -> dict:
         distributed_run,
         make_mesh,
     )
+    from hpcclassmultigridproject_tpu_torch.utils import graphs
 
     mesh = make_mesh()
 
@@ -2891,12 +3147,30 @@ def _multi_scale_rank(big_n: int, big_cycles: int, huge_n: int) -> dict:
                            notices=[str(w.message) for w in said])
 
     def run(model, cycles):
+        # a new cycle count is a new program: the last one's graph, pool
+        # and outputs are dropped first
+        model.programs = graphs.Programs()
         model.solver = dataclasses.replace(model.solver, num_cycles=cycles)
         dist.barrier()
         t0 = time.perf_counter()
         uT, stats = distributed_run(model)
         torch.cuda.synchronize()
-        return uT, dict(cycles=cycles, wall=time.perf_counter() - t0,
+        first = time.perf_counter() - t0
+        program = model.programs.last
+        dist.barrier()
+        t0 = time.perf_counter()
+        again = distributed_run(model)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        same = _all_ranks(_equal_out(again, (uT, stats)))
+        again = None
+        return uT, dict(cycles=cycles, wall=wall, first_s=first,
+                        compiled=_all_ranks(model.last_run_compiled),
+                        replay_equal=same,
+                        capture_s=None if program is None else program.seconds,
+                        nodes=None if program is None else program.nodes,
+                        reserved_mib=_all_ranks(
+                            torch.cuda.memory_reserved() / 2**20),
                         stats={k: v.cpu().numpy()
                                for k, v in stats.items()})
 
@@ -2925,8 +3199,21 @@ def _multi_scale_rank(big_n: int, big_cycles: int, huge_n: int) -> dict:
     return out
 
 
+def _replayed_line(tag: str, ran: dict) -> str:
+    """Phase 19 (d): require a big run compiled on every rank, its second
+    replay equal to the first; the line of its walls and memory."""
+    require(all(ran["compiled"]) and all(ran["replay_equal"]),
+            f"{tag}: compiled on each rank {ran['compiled']}, replays "
+            f"equal {ran['replay_equal']}")
+    return (f"first call (warm-up, capture, replay) {ran['first_s']:.3f} s, "
+            f"capture {ran['capture_s']:.3f} s, {ran['nodes']} top nodes, "
+            f"a replay {ran['wall']:.3f} s (rank 0), equal to the first to "
+            f"the bit; reserved per rank, the pool held "
+            f"{[round(m, 1) for m in ran['reserved_mib']]} MiB")
+
+
 def _phase_multi_scale(big: tuple[int, dict], smi: str) -> None:
-    """Phase 16 (c)."""
+    """Phase 19 (d): phase 16's large grids, captured."""
     from hpcclassmultigridproject_tpu_torch.parallel import launch_local
 
     big_cycles, want = big
@@ -2934,8 +3221,10 @@ def _phase_multi_scale(big: tuple[int, dict], smi: str) -> None:
     res = launch_local(_multi_scale_rank, MULTI_WORLD,
                        (BIG_N, big_cycles, HUGE_N), backend="nccl",
                        device="cuda")
-    print(f"[multi-gpu] (c) n={BIG_N} and n={HUGE_N} born partitioned over "
-          f"{MULTI_WORLD} cards, {BIG_STEPS} steps: spawn, builds and runs "
+    label = "[compiled-multi] (d)"
+    print(f"{label} n={BIG_N} and n={HUGE_N} born partitioned over "
+          f"{MULTI_WORLD} cards, {BIG_STEPS} steps, each run captured and "
+          f"replayed: spawn, builds and runs "
           f"{time.perf_counter() - t0:.1f} s; {smi}")
     for layout in ("rows", "2d"):
         got = res[BIG_N, layout]
@@ -2944,23 +3233,23 @@ def _phase_multi_scale(big: tuple[int, dict], smi: str) -> None:
             "shape"] and fp["dtype"] == want["dtype"])
         dsample = float(np.abs(fp["sample"] - want["sample"]).max())
         ok, rel, mid, final = _certified(got["stats"])
-        print(f"[multi-gpu] (c) n={BIG_N}, {layout}, {big_cycles} V-cycles "
+        line = _replayed_line(f"{label} n={BIG_N} {layout}", got)
+        print(f"{label} n={BIG_N}, {layout}, {big_cycles} V-cycles "
               f"a step: built in {got['build_s']:.3f} s (rank 0's level 0 "
-              f"{got['level0']}), wall {got['wall']:.3f} s (rank 0, the "
-              f"first run; {smi}); certificates f32 {rel:.3e} / f64 "
-              f"mid-run {mid:.3e} / final {final:.3e}; uT equal to phase "
-              f"13's one-card run to the bit (SHA-256 of {fp['shape']} "
-              f"{fp['dtype']}): {same}; max|diff| on every "
+              f"{got['level0']}); {line} ({smi}); certificates f32 "
+              f"{rel:.3e} / f64 mid-run {mid:.3e} / final {final:.3e}; uT "
+              f"equal to phase 13's one-card run to the bit (SHA-256 of "
+              f"{fp['shape']} {fp['dtype']}): {same}; max|diff| on every "
               f"{FINGERPRINT_STRIDE}th node {dsample!r}; center "
               f"{fp['center']!r}; peak device memory per rank, after the "
               f"build {[round(m, 1) for m in got['built_mib']]} MiB, "
-              f"build through run {[round(m, 1) for m in got['peaks_mib']]}"
-              f" MiB")
-        require(ok, f"multi-gpu (c) n={BIG_N} {layout}: not certified")
-        require(same, f"multi-gpu (c) n={BIG_N} {layout}: uT differs from "
+              f"build through the runs "
+              f"{[round(m, 1) for m in got['peaks_mib']]} MiB")
+        require(ok, f"{label} n={BIG_N} {layout}: not certified")
+        require(same, f"{label} n={BIG_N} {layout}: uT differs from "
                 "phase 13's one-card run")
     got = res[HUGE_N]
-    print(f"[multi-gpu] (c) n={HUGE_N} born row-partitioned: built in "
+    print(f"{label} n={HUGE_N} born row-partitioned: built in "
           f"{got['build_s']:.3f} s (rank 0), rank 0's level 0 "
           f"{got['level0']}; peak device memory per rank after the build "
           f"{[round(m, 1) for m in got['built_mib']]} MiB; auto cycle count "
@@ -2968,38 +3257,44 @@ def _phase_multi_scale(big: tuple[int, dict], smi: str) -> None:
     for ran in got["runs"]:
         ok, rel, mid, final = _certified(ran["stats"])
         auto = " (auto)" if ran["cycles"] == got["auto"] else ""
-        print(f"[multi-gpu] (c) n={HUGE_N}, {BIG_STEPS} steps, "
-              f"{ran['cycles']} V-cycles a step{auto}: wall "
-              f"{ran['wall']:.3f} s (rank 0, the first run at this count; "
-              f"{smi}), certificates f32 {rel:.3e} / f64 mid-run "
+        line = _replayed_line(f"{label} n={HUGE_N}", ran)
+        print(f"{label} n={HUGE_N}, {BIG_STEPS} steps, "
+              f"{ran['cycles']} V-cycles a step{auto}: {line} ({smi}); "
+              f"certificates f32 {rel:.3e} / f64 mid-run "
               f"{mid:.3e} / final {final:.3e}: "
               f"{'certified' if ok else 'NOT certified'}")
     last = got["runs"][-1]
     ok = _certified(last["stats"])[0]
     if last["cycles"] != got["auto"]:
-        print(f"[multi-gpu] (c) n={HUGE_N}: the auto count {got['auto']} "
+        print(f"{label} n={HUGE_N}: the auto count {got['auto']} "
               f"does not certify; the fewest cycles above it that do: "
               f"{last['cycles'] if ok else 'none up to ' + str(HUGE_MAX_CYCLES)}")
-    print(f"[multi-gpu] (c) n={HUGE_N}: uT {got['shape']}, finite "
+    print(f"{label} n={HUGE_N}: uT {got['shape']}, finite "
           f"{got['finite']}, center {got['center']!r}; peak device memory "
-          f"per rank, build through the runs and the gather of uT "
-          f"{[round(m, 1) for m in got['peaks_mib']]} MiB ({smi})")
+          f"per rank, build through the runs and the gather of uT, the "
+          f"graph's pool held {[round(m, 1) for m in got['peaks_mib']]} MiB"
+          f" ({smi})")
     require(got["shape"] == (HUGE_N + 1, HUGE_N + 1) and got["finite"],
-            f"multi-gpu (c) n={HUGE_N}: uT")
-    require(ok, f"multi-gpu (c) n={HUGE_N}: no cycle count up to "
+            f"{label} n={HUGE_N}: uT")
+    require(ok, f"{label} n={HUGE_N}: no cycle count up to "
             f"{HUGE_MAX_CYCLES} certifies")
 
 
-def phase_multi_gpu(n: int, steps: int, uT_single, big) -> None:
-    """Phase 16: the partitioned run over MULTI_WORLD cards, one NCCL rank
-    a card (module docstring); on fewer cards one line says it was not
-    run.  `big` is phase 13's (cycle count, uT fingerprint) at n=16384."""
+def phase_multi_gpu(n: int, steps: int, uT_single, big,
+                    single_wall: float) -> None:
+    """Phases 16 and 19: the partitioned run over MULTI_WORLD cards, one
+    NCCL rank a card, eager (16) and captured (19) (module docstring); on
+    fewer cards one line each says it was not run.  `big` is phase 13's
+    (cycle count, uT fingerprint) at n=16384, `single_wall` phase 17 (a)'s
+    replay wall."""
     import gc
 
     count = torch.cuda.device_count()
     if count < MULTI_WORLD:
-        print(f"[multi-gpu] not run: it takes {MULTI_WORLD} cards, one NCCL "
-              f"rank a card, and torch.cuda.device_count() is {count}")
+        for phase in ("multi-gpu", "compiled-multi"):
+            print(f"[{phase}] not run: it takes {MULTI_WORLD} cards, one "
+                  f"NCCL rank a card, and torch.cuda.device_count() is "
+                  f"{count}")
         return
     cards = subprocess.run(
         ["nvidia-smi", "--query-gpu=index,name,power.limit",
@@ -3014,7 +3309,8 @@ def phase_multi_gpu(n: int, steps: int, uT_single, big) -> None:
     smi = "; ".join(cards)
     gc.collect()
     torch.cuda.empty_cache()  # this process's cache on cuda:0 is rank 0's
-    _phase_multi_main(n, steps, uT_single, smi)
+    _phase_capture_probes(smi)
+    _phase_multi_main(n, steps, uT_single, smi, single_wall)
     _phase_grid_configs(smi, backend="nccl", device="cuda",
                         label="[multi-gpu] (b)")
     gc.collect()
@@ -3022,7 +3318,145 @@ def phase_multi_gpu(n: int, steps: int, uT_single, big) -> None:
     _phase_multi_scale(big, smi)
     _phase_grid_scaling(smi, strong_n=STRONG_N, weak_n=WEAK_N,
                         weak_layouts=("rows", "2d"), cycles=None,
-                        reps=MULTI_SCALING_REPS, label="[multi-gpu] (d)")
+                        reps=MULTI_SCALING_REPS,
+                        label="[compiled-multi] (e)", nccl=True)
+
+
+def _same(got, want) -> bool:
+    """Every tensor of two results (nested tuples, None kept) equal to
+    the bit."""
+    from torch.utils._pytree import tree_flatten
+
+    a, b = tree_flatten(got)[0], tree_flatten(want)[0]
+    return len(a) == len(b) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(a, b))
+
+
+def _capture_probe_rank() -> dict:
+    """Phase 19 (a), one NCCL rank on its own card: three programs
+    (utils/graphs.py), each captured at its first call and replayed from
+    every input against its eager form (the function called directly):
+    outputs to the bit, LAUNCHES and COLLECTIVES equal.  The probes: one
+    `start_exchange` batch (the deep halo of two blocks), an `all_sum`,
+    and K7's overlapped schedule on the main path's level-0 block (the
+    exchange's fork to NCCL's stream and its join around K7's launches).
+    The exchange probe also records whether, inside the capture,
+    allocations made after the wait take the receive buffers' memory.
+    An `all_sum` inside a `while_loop` (a WHILE body) is no probe: its
+    capture did not finish on four H100s, and adaptive partitioned runs
+    are eager (`parallel.capture_reason`)."""
+    import os
+
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig
+    from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+    from hpcclassmultigridproject_tpu_torch.ops import cuda
+    from hpcclassmultigridproject_tpu_torch.parallel import (
+        distributed,
+        make_mesh,
+        partition,
+        rows_halo,
+    )
+    from hpcclassmultigridproject_tpu_torch.utils import graphs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh()
+    model = AdvectionDiffusion(ProblemConfig(n=MAIN_N, num_steps=1),
+                               delta_config(), device="cuda")
+    dev = model.device
+
+    def seeded(shape, seed):
+        gen = torch.Generator().manual_seed(1000 * seed + mesh.rank)
+        return torch.randn(shape, generator=gen).to(dev)
+
+    reused = []
+
+    def exchange(x):
+        pairs = rows_halo.start_exchange([x, 2.0 * x], 8, mesh).wait()
+        out = torch.cat([t for pair in pairs for t in pair])
+        if graphs.CAPTURE.capturing(x.device):
+            held = {t.data_ptr() for pair in pairs for t in pair}
+            del pairs
+            fresh = [torch.empty_like(out[:8]) for _ in range(16)]
+            reused.append(any(f.data_ptr() in held for f in fresh))
+        return out
+
+    def all_sum(x):
+        return distributed.all_sum(x.sum(), mesh) * x
+
+    part = partition(model, min_local=DIST_MIN_LOCAL, layout="rows")
+    level, p0 = part.levels[0], part.shardings[0]
+
+    def k7(u, rhs):
+        return rows_halo.fused_smooth_sharded(p0, level, u, rhs, 3,
+                                              want_residual=True,
+                                              overlap=True)
+
+    probes = {
+        "exchange": (exchange, [(seeded(p0.shape, s),) for s in (1, 2)]),
+        "all_sum": (all_sum, [(seeded((64, 64), s),) for s in (3, 4)]),
+        "K7 overlapped": (k7, [(seeded(p0.shape, s), seeded(p0.shape, s + 1))
+                               for s in (5, 7)]),
+    }
+    out = {}
+    for tag, (fn, inputs) in probes.items():
+        _progress(f"[compiled-multi] (a) {tag}: eager, then captured")
+        programs = graphs.Programs()
+        rec = {"equal": [], "counts_equal": [], "counts": []}
+        for args in inputs:
+            cuda.reset_launches()
+            want = fn(*args)
+            torch.cuda.synchronize()
+            eager = _eager_counts()
+            cuda.reset_launches()
+            got = programs(tag, fn, args)
+            torch.cuda.synchronize()
+            rec["equal"].append(_same(got, want))
+            rec["counts_equal"].append(graphs.counts() == eager)
+            rec["counts"].append({k: v for k, v in eager.items() if v})
+        program = programs.last
+        rec.update(captures=len(programs), capture_s=program.seconds,
+                   nodes=program.nodes, whiles=len(program.loops),
+                   body_nodes=program.body_nodes)
+        out[tag] = _all_ranks(rec)
+    out["reused"] = _all_ranks(reused)
+    out["avoid_record_streams"] = os.environ.get(
+        "TORCH_NCCL_AVOID_RECORD_STREAMS")
+    out["nccl"] = ".".join(map(str, torch.cuda.nccl.version()))
+    return out
+
+
+def _phase_capture_probes(smi: str) -> None:
+    """Phase 19 (a)."""
+    from hpcclassmultigridproject_tpu_torch.parallel import launch_local
+    from hpcclassmultigridproject_tpu_torch.utils import graphs
+
+    t0 = time.perf_counter()
+    res = launch_local(_capture_probe_rank, MULTI_WORLD, (),
+                       backend="nccl", device="cuda")
+    print(f"[compiled-multi] (a) probes over {MULTI_WORLD} NCCL ranks "
+          f"(NCCL {res.pop('nccl')}, CUDA {torch.version.cuda}, capture "
+          f"mode {graphs.CAPTURE_ERROR_MODE!r}): {time.perf_counter() - t0:.1f}"
+          f" s with the spawn; {smi}")
+    reused = res.pop("reused")
+    avoid = res.pop("avoid_record_streams")
+    for tag, ranks in res.items():
+        for rank, rec in enumerate(ranks):
+            require(all(rec["equal"]) and all(rec["counts_equal"])
+                    and rec["captures"] == 1,
+                    f"compiled-multi (a) {tag}: rank {rank}: {rec}")
+            require(rec["counts"] == ranks[0]["counts"],
+                    f"compiled-multi (a) {tag}: counts differ by rank")
+        rec = ranks[0]
+        print(f"[compiled-multi] (a) {tag}: captured once, "
+              f"{len(rec['equal'])} replays on every rank each equal to "
+              f"the eager form to the bit with equal counts "
+              f"{rec['counts']}; capture {rec['capture_s']:.3f} s, "
+              f"{rec['nodes']} top nodes, {rec['whiles']} WHILE nodes "
+              f"({rec['body_nodes']} body nodes)")
+    print(f"[compiled-multi] (a) inside the capture, allocations after the "
+          f"exchange's wait took its receive buffers' memory: {reused} "
+          f"(per rank; TORCH_NCCL_AVOID_RECORD_STREAMS={avoid})")
 
 
 # phase 17: the compiled run, each model entry point one CUDA graph
@@ -3254,7 +3688,7 @@ def _compiled_main(device, n, steps, uT_main, counts_main, smi):
           f"{peak_c[0]:.1f} / {peak_c[1]:.1f} (held {held_c[0]:.1f} / "
           f"{held_c[1]:.1f}), replays {peak_r[0]:.1f} / {peak_r[1]:.1f} "
           f"(held {held_r[0]:.1f} / {held_r[1]:.1f}: the graph's pool)")
-    return model
+    return model, med_c
 
 
 def _compiled_semantics(model, uT_main, smi) -> None:
@@ -3491,14 +3925,16 @@ def _compiled_big(device, big, smi) -> None:
             "phase 13's, or not certified")
 
 
-def phase_compiled(device, n, steps, uT_main, counts_main, big) -> None:
+def phase_compiled(device, n, steps, uT_main, counts_main, big) -> float:
     """Phase 17: the compiled run (module docstring).  Frees its models
     and graphs and empties the allocator's cache at the end: phase 16's
-    rank 0 takes cuda:0."""
+    rank 0 takes cuda:0.  Returns the main path's replay wall (median in
+    turns), which phase 19 (b) sets the four cards against."""
     import gc
 
     smi = _smi()
-    model = _compiled_main(device, n, steps, uT_main, counts_main, smi)
+    model, wall = _compiled_main(device, n, steps, uT_main, counts_main,
+                                 smi)
     _compiled_semantics(model, uT_main, smi)
     model = None
     gc.collect()
@@ -3506,6 +3942,7 @@ def phase_compiled(device, n, steps, uT_main, counts_main, big) -> None:
     _compiled_big(device, big, smi)
     gc.collect()
     torch.cuda.empty_cache()
+    return wall
 
 
 # phase 18: the compiled loops, each adaptive solve a graph of WHILE nodes
@@ -4009,9 +4446,10 @@ def main() -> None:
                              main_counts)
     phase_grid(MAIN_N, MAIN_STEPS, uT_main)
     phase_routes_oracle(device, MAIN_N, MAIN_STEPS, uT_main)
-    phase_compiled(device, MAIN_N, MAIN_STEPS, uT_main, main_counts, big)
+    single_wall = phase_compiled(device, MAIN_N, MAIN_STEPS, uT_main,
+                                 main_counts, big)
     loops = phase_loops(device, MAIN_N, MAIN_STEPS)
-    phase_multi_gpu(MAIN_N, MAIN_STEPS, uT_main, big)
+    phase_multi_gpu(MAIN_N, MAIN_STEPS, uT_main, big, single_wall)
     kernels = []
     for key, label, source, replaces in KERNELS:
         if key in probes:

@@ -258,8 +258,11 @@ def scaling_point(args) -> dict:
     """One point of `scaling` in each rank of the process group (or alone,
     on one rank): the model built over every rank, and its
     `distributed_run` timed by `time_run` (best of `--reps`, synchronized,
-    after a warm-up).  Returns the point's seconds, center value and mesh
-    shape, as plain Python values."""
+    after a warm-up).  On the card under NCCL (or on one rank) the run is
+    one compiled program: the warm-up captures it, and the seconds are a
+    replay's.  Returns the point's seconds, center value, mesh shape,
+    whether it ran compiled and the capture's seconds (None where eager),
+    as plain Python values."""
     from hpcclassmultigridproject_tpu_torch.parallel import (
         distributed_run,
         make_mesh,
@@ -274,8 +277,11 @@ def scaling_point(args) -> dict:
                       reps=args.reps)
     uT, _ = timing.pop("out")
     rows, cols = mesh.shape
+    program = model.programs.last if model.last_run_compiled else None
     return {"seconds": timing["best_s"], "center_uT": model.center_value(uT),
-            "mesh": {"x": rows, "y": cols}}
+            "mesh": {"x": rows, "y": cols},
+            "compiled": program is not None,
+            "capture_seconds": None if program is None else program.seconds}
 
 
 def _point_backend(args, world: int) -> str:
@@ -346,6 +352,8 @@ def cmd_scaling(args) -> int:
                              if args.mode == "weak" and have_ratio else None)
         if args.mode == "strong" and have_ratio:
             rec["speedup"] = base_t / point["seconds"]
+        rec["compiled"] = point["compiled"]
+        rec["capture_seconds"] = point["capture_seconds"]
         emit(json.dumps(rec), flush=True)
     args.n = base_n
     return 0

@@ -93,9 +93,11 @@ extern "C" int mg_while_begin(void* stream, unsigned long long handle,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaGraph_t body = params.conditional.phGraph_out[0];
   *body_graph = body;
+  // thread-local, as utils/graphs.py's captures: a global capture would
+  // also refuse the CUDA calls of ProcessGroupNCCL's watchdog thread
   return static_cast<int>(cudaStreamBeginCaptureToGraph(
       static_cast<cudaStream_t>(body_stream), body, nullptr, nullptr, 0,
-      cudaStreamCaptureModeGlobal));
+      cudaStreamCaptureModeThreadLocal));
 }
 
 extern "C" int mg_while_end(void* body_stream) {

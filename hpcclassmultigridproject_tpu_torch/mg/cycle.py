@@ -25,7 +25,12 @@ with the same carry and predicate: eagerly a host loop that reads one norm
 per test, and inside a captured program a conditional WHILE node on the
 card whose predicate is set on the device (csrc/loop.cu), so that
 `SolverConfig()`'s default runs as one graph.  Their cycle counts are int32
-counters on the device either way.
+counters on the device either way.  Partitioned, `mg_solve`'s test reads
+the fine residual's norm, an `all_sum` over the ranks
+(`parallel/blocks.py::interior_norm`), inside the loop's body: the sum
+adds the ranks' parts in rank order, so every rank holds the same bits,
+tests the same predicate and takes the same trips, and the collectives in
+the ranks' bodies pair.
 
 With `shardings` (one partition or None per level, from
 `parallel.distributed_run`: a `parallel.sharding.RowBlocks` in the rows

@@ -27,6 +27,8 @@ from hpcclassmultigridproject_tpu_torch.mg.levels import (
 )
 from hpcclassmultigridproject_tpu_torch.mg.timestepper import timestep, timestepper
 from hpcclassmultigridproject_tpu_torch.parallel import (
+    Mesh,
+    capture_reason,
     fetch,
     level_shardings_for_ns,
     resolve_layout,
@@ -104,14 +106,17 @@ class AdvectionDiffusion:
     `run`, `step` and `run_chunk` are compiled programs on the card, as
     the JAX model's are `jax.jit` programs: each step count (and the step)
     is captured once as a CUDA graph and replayed (utils/graphs.py), in
-    every single-device configuration: the adaptive solvers and the GS
-    coarse solve are conditional WHILE nodes in it
-    (`utils.graphs.while_loop`), as they are `lax.while_loop`s in the JAX
-    programs.  A run on the CPU or a partitioned one is eager.  After
-    each call, `last_run_compiled` says which way it ran and
-    `last_run_reason` why it was eager (None when it was compiled).  Eager
-    on the card means calling `mg.timestepper.timestepper` or `timestep`
-    directly.
+    every configuration: the adaptive solvers and the GS coarse solve are
+    conditional WHILE nodes in it (`utils.graphs.while_loop`), as they are
+    `lax.while_loop`s in the JAX programs.  Born partitioned under NCCL,
+    every rank captures and replays its own graph, with the step's halo
+    exchanges and norms in it, as the JAX model's sharded programs hold
+    theirs; the program's key adds the mesh, layout and min_local.  A run
+    on the CPU, partitioned under gloo with CUDA tensors, or partitioned
+    with an adaptive solve, is eager (`eager_reason`).  After each call, `last_run_compiled` says which way
+    it ran and `last_run_reason` why it was eager (None when it was
+    compiled).  Eager on the card means calling
+    `mg.timestepper.timestepper` or `timestep` directly.
     """
 
     def __init__(self, problem: ProblemConfig, solver: SolverConfig, *,
@@ -133,6 +138,8 @@ class AdvectionDiffusion:
         self.num_levels = s.resolved_num_levels(p.n)
         self.mesh, self.shardings = mesh, None
         self.layout = self.min_local = None
+        # parallel.partition's parts of a model built whole, per partition
+        self.partitions = {}
         if mesh is not None:
             self.layout = resolve_layout(layout, s)
             self.min_local = min_local
@@ -225,23 +232,36 @@ class AdvectionDiffusion:
                     f"true high-dtype relative residual {hi:.3e} > tol "
                     f"{tol:g} (certify_every={self.solver.certify_every})")
 
-    def eager_reason(self) -> str | None:
+    def eager_reason(self, mesh=None) -> str | None:
         """Why this model's calls run eagerly, or None where each replays
-        a captured program: the CPU, or a partitioned model."""
-        if not graphs.on_card(self.device):
-            return "the CPU was asked for: the function is called directly"
-        if self.shardings is not None:
-            return ("partitioned over ranks: a step's collectives are not "
-                    "captured (gloo cannot be; NCCL capture is later work)")
-        return None
+        a captured program: the CPU, or a run partitioned over `mesh`
+        (default: the mesh the model was born on) under gloo with CUDA
+        tensors, whose collectives stage through the host, or under NCCL
+        with an adaptive solve, whose norm would sit in a WHILE body
+        (`parallel.capture_reason`).  Under NCCL a fixed-cycle or FMG
+        partitioned run is captured, as on one device."""
+        mesh = self.mesh if mesh is None else mesh
+        return capture_reason(Mesh(1) if mesh is None else mesh, self.device,
+                              self.solver)
 
-    def _compiled(self, key, fn, u, warm=None):
-        """`fn(u)` as the compiled program of `key` (the counterpart of the
-        JAX model's `_jit_*` programs), or called directly where
-        `eager_reason` gives a reason; records which way it ran."""
-        reason = self.eager_reason()
+    def _key(self) -> tuple:
+        """What a program's key holds of the partition: the mesh, layout
+        and min_local of a model born partitioned (empty for a whole
+        one)."""
+        if self.mesh is None:
+            return ()
+        return self.mesh.key, self.layout, self.min_local
+
+    def compiled(self, key, fn, u, warm=None, keep=None, mesh=None):
+        """`fn(u)` as the compiled program of `key` in `self.programs`
+        (the counterpart of the JAX model's `_jit_*` programs), or called
+        directly where `eager_reason(mesh)` gives a reason; records which
+        way it ran.  `keep` (default the model's levels and fine_hi) are
+        the tensors the program reads besides u."""
+        reason = self.eager_reason(mesh)
+        keep = (self.levels, self.fine_hi) if keep is None else keep
         out = fn(u) if reason is not None else self.programs(
-            key, fn, (u,), warm, keep=(self.levels, self.fine_hi))
+            key, fn, (u,), warm, keep=keep)
         self.last_run_compiled, self.last_run_reason = reason is None, reason
         return out
 
@@ -251,8 +271,8 @@ class AdvectionDiffusion:
         program, as the JAX model's `_jit_step`."""
         levels, cfg = self.levels, self.solver
         fine_hi, shardings = self.fine_hi, self.shardings
-        return self._compiled(
-            ("step", cfg),
+        return self.compiled(
+            ("step", cfg, *self._key()),
             lambda u: timestep(levels, u, cfg, fine_hi, shardings), u)
 
     def run_chunk(self, u_padded: torch.Tensor, nsteps: int):
@@ -263,8 +283,8 @@ class AdvectionDiffusion:
         `_jit_run` and `_chunk_cache`), warmed up by one step."""
         levels, cfg = self.levels, self.solver
         fine_hi, shardings = self.fine_hi, self.shardings
-        return self._compiled(
-            ("steps", nsteps, cfg),
+        return self.compiled(
+            ("steps", nsteps, cfg, *self._key()),
             lambda u: timestepper(levels, u, nsteps, cfg, fine_hi,
                                   shardings),
             u_padded,

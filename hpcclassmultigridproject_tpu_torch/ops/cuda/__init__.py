@@ -35,13 +35,21 @@ LAUNCHES = {"delta_open": 0, "open_presmooth": 0, "smooth": 0, "smooth5": 0,
 # count here.
 HOST_TESTS = {"while_set": 0}
 
+# The collectives of a partitioned run, one per call that posted it:
+# `batch_isend_irecv` batches and `all_gather` calls, counted by the
+# wrappers of parallel/distributed.py (`start_exchange`, `all_sum`,
+# `all_gather_blocks`).  A captured program's replay adds them as it adds
+# LAUNCHES (utils/graphs.py).
+COLLECTIVES = {"batch_isend_irecv": 0, "all_gather": 0}
+
 _plain_on_cuda = False
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    HOST_TESTS["while_set"] = 0
+    """Zero LAUNCHES, HOST_TESTS and COLLECTIVES."""
+    for counts in (LAUNCHES, HOST_TESTS, COLLECTIVES):
+        for k in counts:
+            counts[k] = 0
 
 
 @contextlib.contextmanager

@@ -16,7 +16,10 @@
                    agglomeration, the Jacobi and Chebyshev smoothers)
 """
 
+from typing import NamedTuple
+
 from hpcclassmultigridproject_tpu_torch.parallel.distributed import (
+    capture_reason,
     fetch,
     initialize,
     is_multiprocess,
@@ -59,9 +62,9 @@ def resolve_layout(layout: str, solver) -> str:
 
 
 def _born_partitioned(model, mesh, min_local, layout):
-    """The levels, shardings, fine_hi and u0 of a model born partitioned,
-    which holds its blocks already; a mesh, `min_local` or layout other
-    than the model's raises ValueError."""
+    """The partition of a model born partitioned, which holds its blocks
+    already; a mesh, `min_local` or layout other than the model's raises
+    ValueError."""
     built = ("row-partitioned" if model.layout == "rows"
              else "2-D-partitioned")
     if mesh is not None and mesh != model.mesh:
@@ -77,7 +80,48 @@ def _born_partitioned(model, mesh, min_local, layout):
         raise ValueError(
             f"layout={layout!r}: the model was built {built} in "
             f"layout {model.layout!r}")
-    return model.levels, model.shardings, model.fine_hi, model.u0
+    return Partition(model.levels, model.shardings, model.fine_hi, model.u0,
+                     model.mesh, model.layout, model.min_local)
+
+
+class Partition(NamedTuple):
+    """A model's levels, shardings, fine_hi and u0 on this rank, over
+    `mesh` in `layout` with `min_local`."""
+
+    levels: tuple
+    shardings: tuple
+    fine_hi: object
+    u0: object
+    mesh: Mesh
+    layout: str
+    min_local: int
+
+
+def partition(model, mesh: Mesh | None = None, min_local: int = _UNSET,
+              layout: str = _UNSET) -> Partition:
+    """This rank's part of `model` over `mesh` (default `make_mesh()`), as
+    `distributed_run` runs it.  A model born partitioned gives its own
+    parts (another mesh, `min_local` or layout raises ValueError).  A
+    model built whole is partitioned once per (mesh, `min_local`, layout,
+    sweeps a smoothing), and the parts are kept on the model
+    (`model.partitions`), so the programs that read them see the same
+    tensors on every call."""
+    if getattr(model, "shardings", None) is not None:
+        return _born_partitioned(model, mesh, min_local, layout)
+    cfg = model.solver
+    mesh = make_mesh() if mesh is None else mesh
+    min_local = 64 if min_local is _UNSET else min_local
+    layout = resolve_layout("auto" if layout is _UNSET else layout, cfg)
+    key = (mesh, min_local, layout, cfg.niter)
+    if key not in model.partitions:
+        levels, shardings = shard_hierarchy(model.levels, mesh, min_local,
+                                            layout, nsweeps=cfg.niter)
+        fine_hi = (None if model.fine_hi is None
+                   else shard_level_data(model.fine_hi, shardings[0]))
+        model.partitions[key] = Partition(
+            levels, shardings, fine_hi, make_global(model.u0, shardings[0]),
+            mesh, layout, min_local)
+    return model.partitions[key]
 
 
 def distributed_run(model, mesh: Mesh | None = None, min_local: int = _UNSET,
@@ -87,11 +131,11 @@ def distributed_run(model, mesh: Mesh | None = None, min_local: int = _UNSET,
     2-D layout.
 
     Every rank calls this with the same model.  Built whole, the model is
-    partitioned here: levels whose block holds at least `min_local`
-    (default 64) grid nodes along each axis it is split on are
-    partitioned (each rank keeps its block, and the coefficients of its
-    halo); coarser ones are replicated on every rank
-    (parallel/sharding.py).  A model born partitioned
+    partitioned (`partition`, once per mesh, `min_local` and layout):
+    levels whose block holds at least `min_local` (default 64) grid nodes
+    along each axis it is split on are partitioned (each rank keeps its
+    block, and the coefficients of its halo); coarser ones are replicated
+    on every rank (parallel/sharding.py).  A model born partitioned
     (`AdvectionDiffusion(..., mesh=...)`) holds only its blocks already
     and runs as built: a mesh, `min_local` or layout passed here that
     differs from its own raises ValueError.
@@ -109,28 +153,35 @@ def distributed_run(model, mesh: Mesh | None = None, min_local: int = _UNSET,
     one-line exchanges with corners (parallel/blocks.py).  The replicated
     levels run as on one device, the coarse tower included.
 
+    The run is one compiled program, as the JAX package's is one jitted
+    program: on the card under NCCL (or on one rank) each rank captures
+    the call (the steps, their halo exchanges and norms, and the gather
+    of uT) once per key as a CUDA graph in `model.programs`, and replays
+    it (utils/graphs.py), keyed by the step count, the SolverConfig, the
+    mesh, layout and `min_local`.  On the CPU, and under gloo with CUDA
+    tensors (whose collectives stage through the host), it runs eagerly
+    (`distributed.capture_reason`).  `model.last_run_compiled` and
+    `last_run_reason` say which.
+
     Returns (uT cropped to the logical grid, stats) on every rank: the
     blocks are gathered (`fetch`), and the stats, computed from norms
     added over the ranks, are the same on every rank."""
     from hpcclassmultigridproject_tpu_torch.core.layout import crop_field
     from hpcclassmultigridproject_tpu_torch.mg.timestepper import timestepper
 
-    cfg = model.solver
-    if getattr(model, "shardings", None) is not None:
-        levels, shardings, fine_hi, u0 = _born_partitioned(
-            model, mesh, min_local, layout)
-    else:
-        levels, shardings = shard_hierarchy(
-            model.levels, make_mesh() if mesh is None else mesh,
-            64 if min_local is _UNSET else min_local,
-            resolve_layout("auto" if layout is _UNSET else layout, cfg),
-            nsweeps=cfg.niter)
-        fine_hi = (None if model.fine_hi is None
-                   else shard_level_data(model.fine_hi, shardings[0]))
-        u0 = make_global(model.u0, shardings[0])
-    uT, stats = timestepper(levels, u0, model.problem.num_steps, cfg,
-                            fine_hi, shardings=shardings)
-    return crop_field(fetch(uT, shardings[0]), model.problem.n), stats
+    cfg, n, steps = model.solver, model.problem.n, model.problem.num_steps
+    part = partition(model, mesh, min_local, layout)
+    levels, shardings, fine_hi = part.levels, part.shardings, part.fine_hi
+
+    def run(u, nsteps=steps):
+        uT, stats = timestepper(levels, u, nsteps, cfg, fine_hi,
+                                shardings=shardings)
+        return crop_field(fetch(uT, shardings[0]), n), stats
+
+    key = ("distributed", steps, cfg, part.mesh.key, part.layout,
+           part.min_local)
+    return model.compiled(key, run, part.u0, lambda u: run(u, 1),
+                          keep=(levels, fine_hi), mesh=part.mesh)
 
 
 __all__ = [
@@ -145,6 +196,9 @@ __all__ = [
     "shard_level_data",
     "shard_windows",
     "distributed_run",
+    "partition",
+    "Partition",
+    "capture_reason",
     "resolve_layout",
     "smooth_distributed",
     "initialize",

@@ -16,6 +16,8 @@ package's `parallel/distributed.py`.
     JAX package's `ppermute` (a rank with no neighbour gets zeros);
   * `rank_device(device, rank, world, backend)`: the card a rank runs
     on (one card a rank under NCCL);
+  * `capture_reason(mesh, device)`: why a partitioned call on `device`
+    cannot be one captured program, or None where it can;
   * `launch_local(fn, world, ...)`: `world` spawned processes on this
     host, each in the process group on its own card, returning rank 0's
     result.
@@ -26,6 +28,14 @@ a collective raises.  Gloo has no CUDA send/recv, so under gloo a CUDA
 tensor is copied to the host, exchanged there and copied back: that is
 how several ranks share one card, for testing the program and not for
 speed.  The group's backend picks the branch.
+
+Every call that posts a collective counts it in `COLLECTIVES`
+(`ops.cuda.COLLECTIVES`: `batch_isend_irecv` batches, `all_gather`
+calls), which a captured program's replay adds as it adds the kernels'
+launches (utils/graphs.py).  Under NCCL the collectives of a step can be
+captured into a CUDA graph with its kernels; an `Exchange` posted inside
+a capture must be waited on inside it, and a collective that would stage
+through the host raises there.
 """
 
 from __future__ import annotations
@@ -40,7 +50,9 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from hpcclassmultigridproject_tpu_torch.ops.cuda import COLLECTIVES
 from hpcclassmultigridproject_tpu_torch.parallel.mesh import Mesh
+from hpcclassmultigridproject_tpu_torch.utils import graphs
 
 
 # process-group timeout of the ranks `launch_local` spawns
@@ -97,7 +109,8 @@ def host_staged(mesh: Mesh, t: torch.Tensor) -> bool:
     """True where a collective on `t` goes through host memory: a CUDA
     tensor under gloo.  Under NCCL nothing is staged: `t` must lie on this
     rank's card, and a tensor elsewhere (the CPU, another card) raises
-    ValueError, a fault of the caller's."""
+    ValueError, a fault of the caller's.  Inside a capture a staged
+    collective raises RuntimeError: a graph cannot hold the host's copy."""
     backend = mesh.backend
     if backend == "nccl" and t.device != torch.device(
             "cuda", torch.cuda.current_device()):
@@ -105,7 +118,43 @@ def host_staged(mesh: Mesh, t: torch.Tensor) -> bool:
             f"a tensor on {t.device} reached an NCCL collective of rank "
             f"{mesh.rank}, whose card is cuda:{torch.cuda.current_device()}"
             ": under NCCL every collective moves this card's tensors")
-    return t.is_cuda and backend == "gloo"
+    staged = t.is_cuda and backend == "gloo"
+    if staged and graphs.CAPTURE.capturing(t.device):
+        raise RuntimeError(
+            f"a collective of rank {mesh.rank} would stage a tensor on "
+            f"{t.device} through the host under gloo inside a CUDA graph "
+            "capture: a captured partitioned run needs NCCL")
+    return staged
+
+
+def capture_reason(mesh: Mesh, device, solver=None) -> str | None:
+    """Why a call partitioned over `mesh` with tensors on `device` runs
+    eagerly, or None where it can be one captured program: the CPU (called
+    directly); CUDA tensors under gloo, whose collectives stage through
+    the host; and under NCCL an adaptive `solver` (cycle_mode neither
+    "fixed" nor "fmg"), whose loop tests a norm, an all-gather, inside a
+    CUDA WHILE body: on four H100s (PyTorch 2.11, NCCL 2.28) a capture of
+    an NCCL all-gather in a WHILE body never finished (chip_smoke phase 19
+    (a), where the capture of the top-level probes went through).  Under
+    NCCL otherwise, or on one rank (no collective), None.  It reads only
+    what every rank shares (the device type, the world, the backend, the
+    solver), so the ranks decide alike."""
+    device = torch.device(device)
+    if not graphs.on_card(device):
+        return "the CPU was asked for: the function is called directly"
+    if mesh.world == 1 or device.type != "cuda":
+        return None
+    if mesh.backend == "gloo":
+        return (f"partitioned over {mesh.world} ranks under gloo: its "
+                "collectives stage CUDA tensors through the host, which no "
+                "graph can hold (NCCL runs captured)")
+    if (mesh.backend == "nccl" and solver is not None
+            and solver.cycle_mode not in ("fixed", "fmg")):
+        return (f"an adaptive solve partitioned over {mesh.world} ranks "
+                "under NCCL: its loop's norm, an NCCL all-gather, would sit "
+                "in a CUDA WHILE body, and such a capture did not finish on "
+                "four H100s (NCCL 2.28), so the run is eager")
+    return None
 
 
 def all_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -119,6 +168,7 @@ def all_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     src = (x.cpu() if staged else x).reshape(1)
     parts = [torch.empty_like(src) for _ in range(mesh.world)]
     dist.all_gather(parts, src)
+    COLLECTIVES["all_gather"] += 1
     total = parts[0]
     for p in parts[1:]:
         total = total + p
@@ -143,6 +193,7 @@ def all_gather_blocks(x: torch.Tensor, mesh: Mesh) -> list[torch.Tensor]:
     src = (x.cpu() if staged else x).contiguous()
     parts = [torch.empty_like(src) for _ in range(mesh.world)]
     dist.all_gather(parts, src)
+    COLLECTIVES["all_gather"] += 1
     return [p.to(x.device) for p in parts]
 
 
@@ -192,7 +243,8 @@ def fetch(x: torch.Tensor, part) -> torch.Tensor:
 class Exchange:
     """Edge lines of some blocks in flight: `wait()` returns a (before,
     after) pair per block and side, the lines of the neighbour before it
-    and of the one after it."""
+    and of the one after it.  One posted inside a capture stays in
+    `graphs.POSTED` until it is waited on."""
 
     def __init__(self, pairs, reqs=(), device=None, sends=()):
         self._pairs, self._reqs, self._device = pairs, list(reqs), device
@@ -206,6 +258,7 @@ class Exchange:
     def wait(self):
         for req in self._reqs:
             req.wait()
+        graphs.POSTED.discard(self)
         self._reqs, self._sends = [], []
         if self._device is not None:
             self._pairs = [(t.to(self._device), b.to(self._device))
@@ -274,8 +327,15 @@ def start_exchange(blocks, k: int, mesh: Mesh, sides) -> Exchange:
                 ops += [dist.P2POp(dist.isend, tail, after, tag=2 * t + 1),
                         dist.P2POp(dist.irecv, bot, after, tag=2 * t)]
             pairs.append((top, bot))
-    reqs = dist.batch_isend_irecv(ops) if ops else []
-    return Exchange(pairs, reqs, blocks[0].device if staged else None, sends)
+    device = blocks[0].device if staged else None
+    if not ops:
+        return Exchange(pairs, device=device)
+    reqs = dist.batch_isend_irecv(ops)
+    COLLECTIVES["batch_isend_irecv"] += 1
+    out = Exchange(pairs, reqs, device, sends)
+    if graphs.CAPTURE.capturing(buf_dev):
+        graphs.POSTED.add(out)
+    return out
 
 
 def rank_device(device, rank: int, world: int,

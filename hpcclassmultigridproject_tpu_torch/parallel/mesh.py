@@ -74,6 +74,12 @@ class Mesh:
         process group."""
         return dist.get_backend() if dist.is_initialized() else None
 
+    @property
+    def key(self) -> tuple:
+        """(world, rank, shape, backend): what a captured program of a
+        partitioned run is keyed by (utils/graphs.py)."""
+        return self.world, self.rank, self.shape, self.backend
+
 
 def make_mesh() -> Mesh:
     """The mesh of every rank of the default process group; one rank when

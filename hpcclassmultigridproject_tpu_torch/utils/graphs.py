@@ -32,6 +32,50 @@ captured once into a `torch.cuda.CUDAGraph` and replayed:
   capture's side by side (at n=16384 each is some 30 GB).  Dropping the
   `Programs` drops the graphs and their memory.
 
+A program may hold a partitioned run's collectives (parallel/
+distributed.py), the counterpart of the JAX package's jitted
+`distributed_run` and sharded `_jit_*` programs, whose halo exchanges and
+norms are in the one XLA program:
+
+- Each rank captures and replays its own graph; NCCL's kernels in the
+  graphs of the ranks meet across the cards.  So every rank captures the
+  same keys, in the same order, the same number of times, and replays
+  them in step: the callers key a partitioned program by its mesh (world,
+  rank, shape, backend), layout and `min_local`, and decide to capture
+  from nothing that differs between ranks (`parallel.distributed.
+  capture_reason`).  A rank that captured while another replayed, or
+  ran eagerly while the others replayed, would leave NCCL's calls
+  unpaired: nothing here decides that per rank, and a failed capture
+  raises on its rank.
+- The warm-up makes every exchange the capture makes, with the same peers
+  and shapes: NCCL sets up the communicator at the group's first call and
+  connects each peer at its first message, host work that must not fall
+  inside the capture.
+- A collective forks onto NCCL's stream and its wait joins it back; a
+  capture whose fork is never joined fails ("unjoined").  An `Exchange`
+  posted inside a capture is recorded in `POSTED` until it is waited on,
+  and a capture (or a WHILE body) that ends with one outstanding raises
+  here, naming it.  A collective that would stage a CUDA tensor through
+  the host (gloo) raises inside a capture: a graph holds no host copy.
+- `ops.cuda.COLLECTIVES` (point-to-point batches and all-gathers) is
+  counted by the collectives' wrappers at the capture, and a replay adds
+  it as it adds LAUNCHES, WHILE bodies times their trips.
+- Capture mode: "thread_local" (`CAPTURE_ERROR_MODE`, and the WHILE
+  bodies' captures in csrc/loop.cu), not `torch.cuda.graph`'s default
+  "global", which also refuses unsafe CUDA calls of other threads while a
+  capture runs.  ProcessGroupNCCL's watchdog thread queries the events of
+  collectives meanwhile.  Under "global", four NCCL ranks on four H100s
+  (PyTorch 2.11, NCCL 2.28) did not get through the first capture
+  probes of chip_smoke phase 19 (a): on ranks 0 and 2 the log said
+  "ProcessGroupNCCL's watchdog got stuck for 480 seconds without making
+  progress in monitoring enqueued collectives", and the run hung until
+  it was killed.
+- Memory: a receive buffer that NCCL's stream used is freed by the
+  allocator only after the capture ends (torch defers a block with
+  another stream's use while a capture is under way), so no later
+  temporary of the same graph takes it while NCCL may still write it
+  (chip_smoke phase 19 (a) checks the addresses).
+
 A body may hold data-dependent loops, `while_loop`, the counterpart of
 `jax.lax.while_loop`: outside a capture it is a host loop that reads its
 predicate once a test; inside one it becomes a CUDA conditional WHILE node
@@ -62,6 +106,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import time
 
 import torch
@@ -74,6 +119,59 @@ from hpcclassmultigridproject_tpu_torch.ops.cuda import loop
 # capture (the port's loops nest two deep: the GS coarse solve inside an
 # adaptive solve).
 MAX_DEPTH = 2
+
+# torch.cuda.graph's capture_error_mode for every capture (module
+# docstring: what a partitioned capture needs of it)
+CAPTURE_ERROR_MODE = "thread_local"
+
+# the Exchanges posted inside the capture under way and not yet waited on
+POSTED: set = set()
+
+
+def require_joined(where: str) -> None:
+    """Raise if an Exchange posted inside the capture was never waited on:
+    NCCL's stream would stay forked from the capture, which then fails as
+    "unjoined"."""
+    if POSTED:
+        n = len(POSTED)
+        POSTED.clear()
+        raise RuntimeError(
+            f"{n} halo exchange(s) posted inside {where} were never waited "
+            "on: a capture must wait on every exchange it posts "
+            "(Exchange.wait), or NCCL's stream is left unjoined")
+
+
+def _joined(fn, *args):
+    """`fn(*args)`, which must wait on every exchange it posts."""
+    out = fn(*args)
+    require_joined("the capture")
+    return out
+
+
+def counts() -> dict:
+    """LAUNCHES and COLLECTIVES as they stand, in one dict (their names
+    differ)."""
+    return {**cuda.LAUNCHES, **cuda.COLLECTIVES}
+
+
+def counts_since(before: dict) -> dict:
+    """What LAUNCHES and COLLECTIVES gained since `before` (`counts()`),
+    the counts that changed only."""
+    return {k: v - before[k] for k, v in counts().items() if v != before[k]}
+
+
+def restore_counts(before: dict) -> None:
+    """LAUNCHES and COLLECTIVES set back to `before`."""
+    for table in (cuda.LAUNCHES, cuda.COLLECTIVES):
+        table.update({k: before[k] for k in table})
+
+
+def add_counts(made: dict, times: int = 1) -> None:
+    """Add `made` (launch and collective counts) `times` over to LAUNCHES
+    and COLLECTIVES, each name to its own table."""
+    for name, count in made.items():
+        table = cuda.LAUNCHES if name in cuda.LAUNCHES else cuda.COLLECTIVES
+        table[name] += count * times
 
 
 def route_key() -> tuple:
@@ -108,7 +206,8 @@ class Loops:
     buffer a capture allocates holds nothing before that point of the
     graph (the pool may lend its memory to earlier temporaries), so every
     replay zeroes it there, before any node counts.  `fold` after a
-    replay gives LAUNCHES each node's counts times its trips."""
+    replay gives LAUNCHES and COLLECTIVES each node's counts times its
+    trips."""
 
     MAX_NODES = 1 << 18
 
@@ -137,19 +236,18 @@ class Loops:
         self.bodies.append(None)
         return k, self.trips[k]
 
-    def record(self, k: int, counts: dict, body=None) -> None:
-        """Node k's launches a trip and its body graph."""
-        self.counts[k], self.bodies[k] = counts, body
+    def record(self, k: int, made: dict, body=None) -> None:
+        """Node k's launches and collectives a trip and its body graph."""
+        self.counts[k], self.bodies[k] = made, body
 
     def fold(self) -> None:
-        """Add each node's body counts times its trips to LAUNCHES: the one
-        read of a replay."""
+        """Add each node's body counts times its trips to LAUNCHES and
+        COLLECTIVES: the one read of a replay."""
         if not self.counts:
             return
         trips = self.trips[:len(self.counts)].tolist()
-        for counts, t in zip(self.counts, trips, strict=True):
-            for name, count in counts.items():
-                cuda.LAUNCHES[name] += count * t
+        for made, t in zip(self.counts, trips, strict=True):
+            add_counts(made, t)
 
 
 def static_carry(carry):
@@ -165,18 +263,18 @@ def static_carry(carry):
 def capture_trip(cond, body, state, static, test) -> dict:
     """Capture one trip of a loop on its static carry: the body, its
     results copied into the carry, then `test(cond(carry))`.  Returns the
-    launches this made, taken back out of LAUNCHES (a replay adds them once
-    a trip)."""
-    before = dict(cuda.LAUNCHES)
+    launches and collectives this made, taken back out of LAUNCHES and
+    COLLECTIVES (a replay adds them once a trip)."""
+    before = counts()
     try:
         new = tree_flatten(body(state))[0]
         for buf, x in zip(static, new, strict=True):
             buf.copy_(x)
         test(cond(state))
-        return {k: v - before[k] for k, v in cuda.LAUNCHES.items()
-                if v != before[k]}
+        require_joined("a WHILE body")
+        return counts_since(before)
     finally:
-        cuda.LAUNCHES.update(before)
+        restore_counts(before)
 
 
 def while_loop(cond, body, carry):
@@ -184,8 +282,9 @@ def while_loop(cond, body, carry):
     each `body`, so zero trips are possible; `cond(carry)` is a bool
     tensor and `body(carry)` returns a carry of the same structure.
 
-    Outside a capture (the CPU, an eager call on the card, a partitioned
-    rank) a host loop that reads the predicate once a test.  Inside one, a
+    Outside a capture (the CPU, an eager call on the card, a rank
+    partitioned under gloo) a host loop that reads the predicate once a
+    test.  Inside one, a
     conditional WHILE node (`CAPTURE.while_node`): the carry's tensors
     become static buffers, the body is captured once, and `mg_while_set`
     tests the same predicate on the device."""
@@ -264,7 +363,8 @@ class CudaGraphs:
         try:
             with torch.cuda.device(device):
                 graph = torch.cuda.CUDAGraph(keep_graph=True)
-                with torch.cuda.graph(graph, pool=mem.id, stream=side):
+                with torch.cuda.graph(graph, pool=mem.id, stream=side,
+                                      capture_error_mode=CAPTURE_ERROR_MODE):
                     out = fn(*args)
                 nodes = _node_count(graph.raw_cuda_graph())
                 loops.body_nodes = sum(_node_count(b) for b in loops.bodies
@@ -336,7 +436,8 @@ def on_card(device) -> bool:
 @dataclasses.dataclass
 class Program:
     """One captured call: its graph, static input and output buffers, the
-    launch counts its capture made outside loop bodies, the seconds the
+    launch and collective counts its capture made outside loop bodies
+    (`launches`), the seconds the
     warm-up, capture and instantiation took, the graph's top-level node
     count, and its WHILE nodes (`loops`; `body_nodes` the nodes of their
     bodies).  `keep` holds the tensors the graph reads besides its inputs
@@ -360,8 +461,7 @@ class Program:
         for buf, x in zip(self.inputs, args, strict=True):
             buf.copy_(x)
         self.graph.replay()
-        for name, count in self.launches.items():
-            cuda.LAUNCHES[name] += count
+        add_counts(self.launches)
         self.loops.fold()
         return tree_unflatten(
             [t.clone() if isinstance(t, torch.Tensor) else t
@@ -407,17 +507,17 @@ class Programs:
             self._pool = CAPTURE.pool(device)
         t0 = time.perf_counter()
         inputs = [a.clone() for a in args]
-        before = dict(cuda.LAUNCHES)
+        before = counts()
         tests = dict(cuda.HOST_TESTS)
         try:
             CAPTURE.warm_up(warm, inputs, self._pool, device)
-            cuda.LAUNCHES.update(before)
-            graph, out, nodes, loops = CAPTURE.capture(fn, inputs,
-                                                       self._pool, device)
-            launches = {k: v - before[k] for k, v in cuda.LAUNCHES.items()
-                        if v != before[k]}
+            restore_counts(before)
+            graph, out, nodes, loops = CAPTURE.capture(
+                functools.partial(_joined, fn), inputs, self._pool, device)
+            launches = counts_since(before)
         finally:
-            cuda.LAUNCHES.update(before)
+            POSTED.clear()
+            restore_counts(before)
             cuda.HOST_TESTS.update(tests)
         outputs, spec = tree_flatten(out)
         return Program(graph, inputs, outputs, spec, launches,

@@ -231,7 +231,8 @@ def test_scaling_runs_and_matches(capsys, mode):
     n=64, 2 steps, f64, --max-devices 4: the port spawns each point's
     ranks over gloo, the JAX package takes that many devices.  The same
     lines (strong: 1, 2, 4 devices; weak: 1 and 4, n times 2) with the
-    same keys, devices, n, mesh and layout, and center_uT within 1e-12."""
+    same keys (the port's add `compiled` and `capture_seconds`: eager on
+    the CPU), devices, n, mesh and layout, and center_uT within 1e-12."""
     argv = ["scaling", "--n", "64", "--steps", "2", "--dtype", "f64",
             "--reps", "1", "--max-devices", "4", "--mode", mode]
     assert j_main(argv) == 0
@@ -244,7 +245,8 @@ def test_scaling_runs_and_matches(capsys, mode):
         [1, 2, 4] if mode == "strong" else [1, 4])
     assert len(got) == len(want)
     for g, w in zip(got, want):
-        assert list(g) == list(w)
+        assert list(g) == [*w, "compiled", "capture_seconds"]
+        assert g["compiled"] is False and g["capture_seconds"] is None
         for key in ("devices", "n", "mesh", "layout"):
             assert g[key] == w[key], key
         assert g["center_uT"] == pytest.approx(w["center_uT"], rel=0,

@@ -37,7 +37,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_compiled import HostRead, StandIn, no_host_reads
 
 from hpcclassmultigridproject_tpu import ProblemConfig as JProblem
 from hpcclassmultigridproject_tpu import SolverConfig as JSolver
@@ -54,6 +53,8 @@ from hpcclassmultigridproject_tpu_torch.ops import cuda
 from hpcclassmultigridproject_tpu_torch.ops.cuda import _build, loop
 from hpcclassmultigridproject_tpu_torch.ops.cuda import smoother
 from hpcclassmultigridproject_tpu_torch.utils import graphs
+
+from capture_stand_in import HostRead, StandIn, no_host_reads
 
 
 @pytest.fixture(autouse=True)
@@ -386,7 +387,8 @@ typedef unsigned long long cudaGraphConditionalHandle;
 enum cudaError_t { cudaSuccess = 0, cudaErrorStreamCaptureImplicit = 906 };
 enum cudaStreamCaptureStatus { cudaStreamCaptureStatusNone = 0,
                                cudaStreamCaptureStatusActive = 1 };
-enum cudaStreamCaptureMode { cudaStreamCaptureModeGlobal = 0 };
+enum cudaStreamCaptureMode { cudaStreamCaptureModeGlobal = 0,
+                             cudaStreamCaptureModeThreadLocal = 1 };
 enum cudaGraphNodeType { cudaGraphNodeTypeKernel = 0,
                          cudaGraphNodeTypeConditional = 13 };
 enum cudaGraphConditionalNodeType { cudaGraphCondTypeIf = 0,

@@ -100,6 +100,11 @@ CONFIGS = {
                  dict(dtype="float64", coarse_operator="galerkin",
                       num_levels=3)),
 }
+# n=32, 3-step forms of five of them, for the captured partitioned runs of
+# tests/test_torch_partitioned_compiled.py
+CONFIGS.update({f"{name}_32": (dict(n=32, num_steps=3), CONFIGS[name][1])
+                for name in ("delta", "delta_overlap", "adaptive_f64", "fmg",
+                             "jacobi")})
 # the configurations the port ran on one device only until the 2-D
 # layout: each runs at W=4, min_local 8, in both layouts; the bound
 # against the JAX package's run
