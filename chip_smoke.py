@@ -134,24 +134,32 @@ raising on failure:
     (ops) on the card against the oracle in float64 at
     tests/test_ops.py's tolerances.
 
-16. multi-gpu: the partitioned run over four cards, eager, one NCCL rank
-    a card (`launch_local(..., backend="nccl", device="cuda")`: rank r on
-    cuda:r, halos and norms on the device).  On fewer than four cards one
-    line says it was not run, with the device count, and nothing else
-    runs (nor phase 19).  On four it prints nvidia-smi's index, name and
-    power limit of each card and `nvidia-smi topo -m`, then, after phase
-    19 (a): (a) the main path at n=1024, 100 steps, min_local 64, in the
-    eager form of distributed_run (the partition, `timestepper` and the
-    gather called directly) in the rows layout (K7, plain and overlapped
-    schedule) and the 2-D layout (plain and overlapped sweep), built
-    whole and born partitioned: uT within 1e-9 of phase 4's (bitwise
-    printed), every certificate, every rank's launch counts exact (K7 6
-    a step plain, 18 overlapped; K3/K4 one a step), every rank posting
-    the same collectives (counted a step), rank 0's wall (built whole:
-    median of 3 after a warm-up; born: one run), peak MiB per rank, and
-    the ms of each exchange and all-gather at the path's shapes; (b)
-    phase 14 (b) over NCCL, eager.  Its large grids and `cli scaling`
-    run captured, in phase 19 (d) and (e).
+16. multi-gpu: the partitioned run over four cards, one NCCL rank a card
+    (`launch_local(..., backend="nccl", device="cuda")`: rank r on
+    cuda:r, halos and norms on the device), eager (the captured form is
+    off, `parallel.distributed.CAPTURE_NCCL`, and each run says so).  On
+    fewer than four cards one line says it was not run, with the device
+    count, and nothing else runs (nor phase 19).  On four it prints
+    nvidia-smi's index, name and power limit of each card and
+    `nvidia-smi topo -m`, then: (a) the main path at n=1024, 100 steps,
+    min_local 64, through distributed_run in the rows layout (K7, plain
+    and overlapped schedule) and the 2-D layout (plain and overlapped
+    sweep), built whole and born partitioned: uT within 1e-9 of phase
+    4's (bitwise printed), every certificate, every rank's launch counts
+    exact (K7 6 a step plain, 18 overlapped; K3/K4 one a step), every
+    rank posting the same collectives (`ops.cuda.COLLECTIVES`, counted a
+    step), rank 0's wall (built whole: median of 3 after a warm-up;
+    born: one run), peak MiB per rank, and the ms of each exchange and
+    all-gather at the path's shapes; (b) phase 14 (b) over NCCL; (c)
+    n=16384 born partitioned in each layout, 10 steps at phase 13's
+    cycle count, uT equal to phase 13's one-card uT to the bit
+    (SHA-256), and n=32768 born row-partitioned, 10 steps at the auto
+    cycle count (if it does not certify, at each larger count until one
+    does), every certificate <= 1e-6, build seconds and peak MiB per
+    rank; (d) `cli scaling` over NCCL, strong at n=8192 over 1, 2, 4
+    ranks and weak at n=4096 and 8192 over 1 and 4, in both layouts, at
+    the auto cycle count, each center within 1e-9 of a single-device
+    run.
 17. compiled (run before phase 16, whose rank 0 takes cuda:0): the
     models' entry points as compiled programs, each captured once as a
     CUDA graph and replayed (utils/graphs.py), against their eager runs
@@ -203,38 +211,37 @@ raising on failure:
     sweeps, both backends, captured against the eager loop: the bits, µs a
     sweep and GDOF/s.
 
-19. compiled multi-gpu (on four cards, with phase 16; on fewer one line
-    says it was not run): the partitioned run captured under NCCL, each
-    rank replaying its own CUDA graph whose NCCL kernels meet across the
-    cards.  Each rank 0 progress line is printed as its ranks start on
-    it.  (a) probes, each captured once and replayed from two inputs on
-    four ranks against its eager form, to the bit, with LAUNCHES and
-    COLLECTIVES equal: one `start_exchange` batch, an `all_sum`, and K7's
-    overlapped schedule (the fork to NCCL's stream and the join around
-    K7's launches); and whether the capture's later allocations take the
+19. compiled multi-gpu (on four cards, after phase 16; on fewer one
+    line says it was not run): the partitioned run captured under NCCL,
+    each rank replaying its own CUDA graph whose NCCL kernels meet across
+    the cards, with `parallel.distributed.CAPTURE_NCCL` set in its ranks
+    (it is off by default: this phase is what it waits on).  Rank 0
+    prints a progress line as its ranks start on each case.  (a) probes,
+    each captured once and replayed from two inputs on four ranks
+    against its eager form, to the bit, with LAUNCHES and COLLECTIVES
+    equal: one `start_exchange` batch, an `all_sum`, and K7's overlapped
+    schedule (the fork to NCCL's stream and the join around K7's
+    launches); no later allocation of the capture may take the
     exchange's receive buffers' memory.  (An `all_sum` inside a
     `while_loop` is not probed: its capture in a WHILE body did not
-    finish on four H100s, and an adaptive partitioned run is eager.)  (b) in phase 16 (a)'s spawn, each of its eight cases through
-    distributed_run, captured: on every rank the replay equal to the
-    eager run to the bit with equal launch and collective counts and
+    finish on four H100s, and an adaptive partitioned run is eager.)
+    (b) phase 16 (a)'s eight cases through distributed_run, captured: on
+    every rank the replay equal to phase 16 (a)'s eager uT and stats to
+    the bit, with its launch and collective counts, and
     `last_run_compiled`, then 5 timed replays, each equal; rank 0's
-    replay wall against the eager wall and phase 17 (a)'s one-card
-    replay, capture seconds, top nodes, peak MiB per rank with the pool
-    held.  (c) in phase 16 (b)'s spawn, each configuration captured
-    against its eager run (FMG's GS coarse solve a WHILE node in the
-    graph), and SolverConfig(dtype=float64), adaptive: eager on every
-    rank with the reason `parallel.capture_reason` gives it.  (d) n=16384 born partitioned in
-    each layout, 10 steps at phase 13's cycle count, replayed, uT equal
-    to phase 13's one-card uT to the bit (SHA-256), and n=32768 born
-    row-partitioned, 10 steps at the auto cycle count (if it does not
-    certify, at each larger count until one does), every certificate
-    <= 1e-6; first call, capture and replay seconds, build seconds, peak
-    MiB per rank and reserved MiB with the graph's pool held.  (e) `cli
-    scaling` over NCCL, every point a replay: strong at n=8192 over 1,
-    2, 4 ranks and weak at n=4096 and 8192 over 1 and 4, in both
-    layouts, at the auto cycle count, each center within 1e-9 of a
-    single-device run, with capture seconds; the speedup is against the
-    one-rank point, one card's replay.
+    replay wall against phase 16 (a)'s eager wall and phase 17 (a)'s
+    one-card replay, capture seconds, top nodes, peak MiB per rank with
+    the pool held.  (c) phase 16 (b)'s configurations, each run eagerly
+    then captured against it (FMG's GS coarse solve a WHILE node in the
+    graph), with SolverConfig(dtype=float64) beside them; the adaptive
+    ones (Jacobi, Chebyshev and that one): eager on every rank with the
+    reason `parallel.capture_reason` gives them.  (d) phase
+    16 (c)'s grids, captured: n=16384 in each layout, uT equal to phase
+    13's one-card uT to the bit, and n=32768 at the cycle count that
+    certified in 16 (c), every certificate <= 1e-6; first call, capture
+    and replay seconds, reserved MiB per rank with the graph's pool
+    held.  `cli scaling` over NCCL is not run captured: the CLI has no
+    switch for the captured form.
 
 Phase 9 also builds the main path's model born row-partitioned over its
 W=4 ranks (AdvectionDiffusion(mesh=...), min_local=64; phase 13's (c)):
@@ -250,9 +257,10 @@ host loop) runs the same path once more through the plain versions.  On
 the card `AdvectionDiffusion.run`, `step` and `run_chunk` and
 `Poisson.solve` replay captured graphs in every single-device
 configuration, and `distributed_run` and the born-partitioned model's
-entry points under NCCL or on one rank (phase 19; gloo ranks stay
-eager) (the route is part of a graph's key, so the plain run
-captures its own; the plain route keeps mg_while_set, XLA's while); a
+entry points on one rank, or under NCCL with the captured form on
+(phase 19; gloo ranks stay eager) (the route is part of a graph's key,
+so the plain run captures its own; the plain route keeps mg_while_set,
+XLA's while); a
 replay adds the launch counts its capture recorded, and each WHILE
 node's body counts times its trips, and phases 17 and 18 hold each to
 its eager run.  Phase 14 (a) resets and checks each rank's
@@ -1405,7 +1413,7 @@ def phase_distributed(n: int, steps: int, uT_single) -> int:
           "no kernel between them): " + ", ".join(
               f"{k} {v:.4f}" for k, v in comm.items()))
     print(f"[distributed] eager, as it must be under gloo: {reason}")
-    require(_gloo_reason(reason), f"distributed: the gloo run's reason "
+    require(_eager_reason(reason), f"distributed: the gloo run's reason "
             f"{reason!r}")
     for tag, got in res.items():
         du = float(np.abs(got["uT"] - single).max())
@@ -1445,10 +1453,12 @@ def phase_distributed(n: int, steps: int, uT_single) -> int:
     return res["plain"]["counts"]["smooth_rows"]
 
 
-def _gloo_reason(reason) -> bool:
-    """A run partitioned under gloo on the card is eager, for the reason
-    that its collectives stage through the host."""
-    return reason is not None and "under gloo" in reason
+def _eager_reason(reason, backend: str = "gloo") -> bool:
+    """A run partitioned over several ranks on the card is eager, and says
+    why: under gloo its collectives stage through the host; under NCCL
+    the captured form is off (`parallel.distributed.CAPTURE_NCCL`)."""
+    word = "under gloo" if backend == "gloo" else "CAPTURE_NCCL"
+    return reason is not None and word in reason
 
 
 def _check_born_partitioned(born: dict, n: int, steps: int, single) -> None:
@@ -1469,7 +1479,7 @@ def _check_born_partitioned(born: dict, n: int, steps: int, single) -> None:
               f" MiB; max|uT - uT_single(host build)| {du:.3g}")
         require(counts == {k: expect.get(k, 0) for k in counts},
                 f"distributed {tag}: launch counts {counts}")
-        require(_gloo_reason(got["reason"]),
+        require(_eager_reason(got["reason"]),
                 f"distributed {tag}: the gloo run's reason {got['reason']!r}")
         stats = {k: torch.from_numpy(v) for k, v in got["stats"].items()}
         _check_advection(f"distributed {tag}", n, steps,
@@ -2095,21 +2105,6 @@ def _count_collectives() -> dict:
     return counts
 
 
-def _eager_distributed(model, **kw):
-    """`parallel.distributed_run`'s eager form on the card: the model's
-    partition (`parallel.partition`), `timestepper` called directly and
-    the gather of uT, which its compiled program holds."""
-    from hpcclassmultigridproject_tpu_torch.core.layout import crop_field
-    from hpcclassmultigridproject_tpu_torch.mg.timestepper import timestepper
-    from hpcclassmultigridproject_tpu_torch.parallel import fetch, partition
-
-    part = partition(model, **kw)
-    uT, stats = timestepper(part.levels, part.u0, model.problem.num_steps,
-                            model.solver, part.fine_hi,
-                            shardings=part.shardings)
-    return crop_field(fetch(uT, part.shardings[0]), model.problem.n), stats
-
-
 def _eager_counts() -> dict:
     """LAUNCHES and COLLECTIVES as an eager run left them, its host tests
     standing for the while_set launches a replay makes in their place."""
@@ -2249,33 +2244,33 @@ def _grid_configs() -> dict:
     }
 
 
-def _configs_rank(n: int, steps: int, min_local: int) -> dict:
+def _configs_rank(n: int, steps: int, min_local: int,
+                  captured: bool = False) -> dict:
     """Phase 14 (b), one rank on cuda:0: each configuration through
-    distributed_run in both layouts (eager under gloo), and the main one
-    born 2-D-partitioned against the same run of the whole device-built
-    model.  Under NCCL (phase 16 (b), one card a rank) each run is the
-    eager form (`_eager_distributed`), and phase 19 (c) then runs it
-    through distributed_run, captured, against it, with the adaptive
-    SolverConfig(dtype=float64) beside the rest."""
+    distributed_run in both layouts (eager: gloo, or NCCL with the
+    captured form off), and the main one born 2-D-partitioned against the
+    same run of the whole device-built model.  With `captured` (phase 19
+    (c), NCCL ranks, one card each) each eager run is followed by the same
+    call with `parallel.distributed.CAPTURE_NCCL` on, captured and
+    replayed (`_replayed`), the adaptive SolverConfig(dtype=float64)
+    beside the rest, and the born model is left out."""
     import dataclasses
-
-    import torch.distributed as dist
 
     from hpcclassmultigridproject_tpu_torch import ProblemConfig, SolverConfig
     from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
     from hpcclassmultigridproject_tpu_torch.ops import cuda
     from hpcclassmultigridproject_tpu_torch.parallel import (
+        distributed,
         distributed_run,
         make_mesh,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    nccl = dist.get_backend() == "nccl"
     problem = ProblemConfig(n=n, num_steps=steps)
     as_np = lambda uT, stats: (uT.cpu().numpy(), {
         k: v.cpu().numpy() for k, v in stats.items()})
     configs = _grid_configs()
-    if nccl:
+    if captured:
         configs["adaptive f64"] = SolverConfig(dtype=torch.float64)
     out = {}
     for name, cfg in configs.items():
@@ -2284,17 +2279,22 @@ def _configs_rank(n: int, steps: int, min_local: int) -> dict:
             kw = dict(min_local=min_local, layout=layout)
             cuda.reset_launches()
             t0 = time.perf_counter()
-            uT, stats = (_eager_distributed if nccl else distributed_run)(
-                model, **kw)
+            uT, stats = distributed_run(model, **kw)
             torch.cuda.synchronize()
             out[name, layout] = (*as_np(uT, stats),
                                  time.perf_counter() - t0)
-            if nccl:
-                out["captured", name, layout] = _replayed(
-                    model, lambda: distributed_run(model, **kw),
-                    (uT, stats), _eager_counts())
-            else:
-                out["reason", name, layout] = model.last_run_reason
+            out["reason", name, layout] = model.last_run_reason
+            if captured:
+                want_counts = _eager_counts()
+                distributed.CAPTURE_NCCL = True
+                try:
+                    out["captured", name, layout] = _replayed(
+                        model, lambda: distributed_run(model, **kw),
+                        (uT, stats), want_counts)
+                finally:
+                    distributed.CAPTURE_NCCL = False
+    if captured:
+        return out
     main = _grid_configs()["main"]
     born = AdvectionDiffusion(problem, main, device="cuda", mesh=make_mesh(),
                               layout="2d", min_local=min_local)
@@ -2414,7 +2414,7 @@ def _phase_grid_main(n: int, steps: int, uT_single, smi: str) -> None:
     single = uT_single.cpu().numpy()
     expect = {"tower_descent": ran, "tower_ascent": ran}
     print(f"[grid] (a) eager, as it must be under gloo: {res['reason']}")
-    require(_gloo_reason(res["reason"]),
+    require(_eager_reason(res["reason"]),
             f"grid (a): the gloo run's reason {res['reason']!r}")
     for tag in ("plain", "overlap"):
         got = res[tag]
@@ -2449,24 +2449,25 @@ def _phase_grid_main(n: int, steps: int, uT_single, smi: str) -> None:
 
 
 def _phase_grid_configs(smi: str, backend: str = "gloo",
-                        device: str = "cuda:0",
-                        label: str = "[grid] (b)") -> None:
-    """Phase 14 (b), and phase 16 (b) over NCCL with one card a rank,
-    with phase 19 (c) (each run captured against its eager form)."""
+                        device: str = "cuda:0", label: str = "[grid] (b)",
+                        captured: bool = False) -> None:
+    """Phase 14 (b), phase 16 (b) over NCCL with one card a rank, and
+    with `captured` phase 19 (c): each run captured against its eager
+    form."""
     from hpcclassmultigridproject_tpu_torch import ProblemConfig, SolverConfig
     from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
     from hpcclassmultigridproject_tpu_torch.parallel import launch_local
 
     t0 = time.perf_counter()
     res = launch_local(_configs_rank, GRID_WORLD,
-                       (CONFIG_N, CONFIG_STEPS, CONFIG_MIN_LOCAL),
+                       (CONFIG_N, CONFIG_STEPS, CONFIG_MIN_LOCAL, captured),
                        backend=backend, device=device)
     print(f"{label} n={CONFIG_N}, {CONFIG_STEPS} steps, min_local "
           f"{CONFIG_MIN_LOCAL}, W={GRID_WORLD}, both layouts: "
           f"{time.perf_counter() - t0:.1f} s in all, {backend}; {smi}")
     problem = ProblemConfig(n=CONFIG_N, num_steps=CONFIG_STEPS)
     configs = _grid_configs()
-    if backend == "nccl":
+    if captured:
         configs["adaptive f64"] = SolverConfig(dtype=torch.float64)
     for name, cfg in configs.items():
         single, _ = AdvectionDiffusion(problem, cfg, device="cuda").run(
@@ -2482,32 +2483,32 @@ def _phase_grid_configs(smi: str, backend: str = "gloo",
                   f"1e-09, bitwise {du == 0.0}); {line}")
             require(du <= 1e-9, f"{label} {name} {layout}: uT off the "
                     f"single-device run by {du:.3g}")
-            if backend != "nccl":
-                reason = res["reason", name, layout]
-                require(_gloo_reason(reason), f"{label} {name} {layout}: "
-                        f"the gloo run's reason {reason!r}")
+            reason = res["reason", name, layout]
+            require(_eager_reason(reason, backend), f"{label} {name} "
+                    f"{layout}: the {backend} run's reason {reason!r}")
+            if not captured:
                 continue
             ranks = res["captured", name, layout]
-            tag = f"[compiled-multi] (c) {name}, {layout}"
-            if cfg.cycle_mode == "adaptive":
+            if cfg.cycle_mode not in ("fixed", "fmg"):
                 for rank, rec in enumerate(ranks):
                     require(not rec["compiled"] and rec["equal"]
                             and "WHILE body" in (rec["reason"] or ""),
-                            f"{tag}: rank {rank}: {rec}")
-                print(f"{tag}: eager on every rank, as decided from the "
-                      f"configuration ({ranks[0]['reason']}); equal to the "
-                      f"first eager run to the bit; {smi}")
+                            f"{label} {name}, {layout}: rank {rank}: {rec}")
+                print(f"{label} {name}, {layout}: eager on every rank, as "
+                      f"decided from the configuration ({ranks[0]['reason']}"
+                      f"); equal to the first eager run to the bit; {smi}")
                 continue
-            _require_replayed(tag, ranks)
+            _require_replayed(f"{label} {name}, {layout}", ranks)
             rec = ranks[0]
-            print(f"{tag}: a replay on "
-                  f"every rank, equal to its eager run to the bit with equal "
-                  f"launch and collective counts; capture "
-                  f"{rec['capture_s']:.3f} s, {rec['nodes']} top nodes, "
-                  f"{rec['whiles']} WHILE nodes ({rec['body_nodes']} body "
-                  f"nodes), while_set {rec['while_set']} = host tests "
-                  f"{rec['tests']}; collectives {rec['collectives']} "
-                  f"(rank 0); {smi}")
+            print(f"{label} {name}, {layout}: a replay on every rank, equal "
+                  f"to its eager run to the bit with equal launch and "
+                  f"collective counts; capture {rec['capture_s']:.3f} s, "
+                  f"{rec['nodes']} top nodes, {rec['whiles']} WHILE nodes "
+                  f"({rec['body_nodes']} body nodes), while_set "
+                  f"{rec['while_set']} = host tests {rec['tests']}; "
+                  f"collectives {rec['collectives']} (rank 0); {smi}")
+    if captured:
+        return
     born, whole = res["born"], res["whole"]
     same = np.array_equal(born[0], whole[0])
     _certified_run(f"{label} born", born[1], True)
@@ -2541,14 +2542,15 @@ def _phase_grid_halo(n: int, smi: str) -> None:
 def _phase_grid_scaling(smi: str, strong_n: int = MAIN_N,
                         weak_n: int = MAIN_N // 2,
                         weak_layouts=("auto",), cycles: int | None = 1,
-                        reps: int = 1, label: str = "[grid] (d)",
-                        nccl: bool = False) -> None:
+                        reps: int = 1,
+                        label: str = "[grid] (d)") -> None:
     """Phase 14 (d): `cli scaling` on the card, strong in both layouts and
     weak, each line against a single-device run of its n at `cycles`
-    V-cycles a step (None: the auto count); phase 19 (e) runs it over
-    NCCL (`nccl`), one card a rank, at its own sizes.  A point of one
-    rank, or of NCCL ranks, is a replay of its captured program; gloo
-    ranks on one card run eagerly."""
+    V-cycles a step (None: the auto count); phase 16 (d) runs it over
+    NCCL, one card a rank, at its own sizes.  A point of one rank is a
+    replay of its captured program; a point of several ranks runs eagerly
+    (gloo stages through the host; the NCCL captured form is off,
+    `parallel.distributed.CAPTURE_NCCL`)."""
     import dataclasses
 
     from hpcclassmultigridproject_tpu_torch import ProblemConfig
@@ -2593,8 +2595,8 @@ def _phase_grid_scaling(smi: str, strong_n: int = MAIN_N,
                   f"{rec.get('speedup')}; compiled {rec['compiled']}"
                   f"{capture}; |center_uT - single| {dc:.3g}")
             require(list(rec) == keys, f"cli scaling keys {list(rec)}")
-            # one rank, or NCCL: one captured program; gloo ranks: eager
-            require(rec["compiled"] == (rec["devices"] == 1 or nccl),
+            # one rank: one captured program; several ranks: eager
+            require(rec["compiled"] == (rec["devices"] == 1),
                     f"cli scaling: {rec['devices']} ranks compiled "
                     f"{rec['compiled']}")
             require(rec["mesh"] == meshes[rec["devices"]]
@@ -2931,17 +2933,14 @@ def _all_ranks(value) -> list:
 
 
 def _multi_main_rank(n: int, steps: int) -> dict:
-    """Phase 16 (a), one NCCL rank on its own card: the main path's eager
-    partitioned run (`_eager_distributed`) in both layouts, built whole
-    and born partitioned, in the plain and the overlapped schedule.  Each
-    case runs a warm-up, then MULTI_REPS timed runs built whole and one
-    born; the first timed run is read between a reset and a read of this
-    rank's launch counts and collectives, which every rank reports.  Then
-    the ms of each collective at the path's shapes.  Phase 19 (b) follows
-    each case in the same spawn: distributed_run, captured at its first
-    call, against the first timed eager run (`_replayed`), then
-    COMPILED_MULTI_REPLAYS timed replays, each equal to it, with the
-    peak MiB per rank, the pool held."""
+    """Phase 16 (a), one NCCL rank on its own card: the main path through
+    distributed_run (eager: the NCCL captured form is off) in both
+    layouts, built whole and born partitioned, in the plain and the
+    overlapped schedule.  Each case runs a warm-up, then MULTI_REPS timed
+    runs built whole and one born; the first timed run is read between a
+    reset and a read of this rank's launch counts and collectives
+    (`ops.cuda.COLLECTIVES`), which every rank reports.  Then the ms of
+    each collective at the path's shapes."""
     import dataclasses
 
     import torch.distributed as dist
@@ -2972,7 +2971,7 @@ def _multi_main_rank(n: int, steps: int) -> dict:
                 kw = {}
             for overlap in (False, True):
                 _progress(f"[multi-gpu] (a) {layout}, {build}, overlap "
-                          f"{overlap}: eager, then captured (19 (b))")
+                          f"{overlap}")
                 model.solver = dataclasses.replace(model.solver,
                                                    sharded_overlap=overlap)
                 case = out[layout, build, overlap] = {"walls": []}
@@ -2982,46 +2981,28 @@ def _multi_main_rank(n: int, steps: int) -> dict:
                     cuda.reset_launches()
                     dist.barrier()
                     t0 = time.perf_counter()
-                    uT, stats = _eager_distributed(model, **kw)
+                    uT, stats = distributed_run(model, **kw)
                     torch.cuda.synchronize()
                     wall = time.perf_counter() - t0
                     if rep == 1:
-                        want, want_counts = (uT, stats), _eager_counts()
                         case["counts"] = _all_ranks(dict(cuda.LAUNCHES))
                         case["collectives"] = _all_ranks(
                             dict(cuda.COLLECTIVES))
                     if rep:
                         case["walls"].append(wall)
                 case.update(uT=uT.cpu().numpy(), peaks_mib=_peaks_mib(),
+                            reason=model.last_run_reason,
                             stats={k: v.cpu().numpy()
                                    for k, v in stats.items()})
-                # phase 19 (b): the same call, captured and replayed
-                held = _fresh_peaks()
-                dist.barrier()
-                comp = case["captured"] = {"ranks": _replayed(
-                    model, lambda: distributed_run(model, **kw), want,
-                    want_counts), "walls": []}
-                equal = True
-                for _ in range(COMPILED_MULTI_REPLAYS):
-                    dist.barrier()
-                    t0 = time.perf_counter()
-                    got = distributed_run(model, **kw)
-                    torch.cuda.synchronize()
-                    comp["walls"].append(time.perf_counter() - t0)
-                    equal = equal and _equal_out(got, want)
-                comp["replays_equal"] = _all_ranks(equal)
-                comp["peak_mib"] = _all_ranks(_peak_mib(held))
-                want = got = None
             if layout == "rows" and build == "whole":
                 out["comm_ms"] = _collective_costs(model, grid=True)
             model = None
     return out
 
 
-def _phase_multi_main(n: int, steps: int, uT_single, smi: str,
-                      single_wall: float) -> None:
-    """Phase 16 (a), and phase 19 (b) against it; `single_wall` is one
-    card's captured main path (phase 17 (a))."""
+def _phase_multi_main(n: int, steps: int, uT_single, smi: str) -> dict:
+    """Phase 16 (a); returns its cases, each with rank 0's uT and stats
+    and every rank's launch counts and collectives, for phase 19 (b)."""
     from hpcclassmultigridproject_tpu_torch.parallel import launch_local
 
     t0 = time.perf_counter()
@@ -3054,7 +3035,9 @@ def _phase_multi_main(n: int, steps: int, uT_single, smi: str,
               f"{du == 0.0}); launches per rank (rank 0) {got['counts'][0]};"
               f" collectives a step per rank {per_step}; peak device "
               f"memory per rank {[round(m, 1) for m in got['peaks_mib']]} "
-              "MiB")
+              f"MiB; eager: {got['reason']}")
+        require(_eager_reason(got["reason"], "nccl"),
+                f"multi-gpu (a) {tag}: the run's reason {got['reason']!r}")
         for rank, counts in enumerate(got["counts"]):
             require(counts == {k: expect.get(k, 0) for k in counts},
                     f"multi-gpu (a) {tag}: rank {rank}'s launch counts "
@@ -3077,40 +3060,24 @@ def _phase_multi_main(n: int, steps: int, uT_single, smi: str,
                   f"the device) against whole (host build): max|uT diff| "
                   f"{du!r}; the same collectives: "
                   f"{whole['collectives'] == born['collectives']}")
-    for (layout, build, overlap), got in res.items():
-        tag = (f"[compiled-multi] (b) {layout}, {build}, "
-               f"{'overlap' if overlap else 'plain'}")
-        comp = got["captured"]
-        ranks = comp["ranks"]
-        _require_replayed(tag, ranks)
-        require(all(comp["replays_equal"]), f"{tag}: a timed replay "
-                "differs from the eager run")
-        rec, walls = ranks[0], comp["walls"]
-        eager = statistics.median(got["walls"])
-        med = statistics.median(walls)
-        peaks = [f"{a:.1f}/{r:.1f}" for a, r in comp["peak_mib"]]
-        print(f"{tag}: a replay on every rank, equal to the eager run to "
-              f"the bit (and {len(walls)} more), launches and collectives "
-              f"equal ({rec['collectives']} a run); replay wall "
-              f"{med:.5f} s (rank 0, median of {len(walls)}: {walls}) "
-              f"against eager {eager:.4f} s ({eager / med:.2f}x) and one "
-              f"card's captured {single_wall:.5f} s (phase 17 (a); "
-              f"{single_wall / med:.2f}x); capture {rec['capture_s']:.3f} s"
-              f" (first call {rec['first_s']:.3f} s), {rec['nodes']} top "
-              f"nodes; peak MiB per rank allocated/reserved above what each "
-              f"held, the pool held: {peaks}; {smi}")
+    return res
 
 
-def _multi_scale_rank(big_n: int, big_cycles: int, huge_n: int) -> dict:
-    """Phase 19 (d), one NCCL rank on its own card: n=big_n born
+def _multi_scale_rank(big_n: int, big_cycles: int, huge_n: int,
+                      huge_cycles: int | None = None) -> dict:
+    """Phase 16 (c), one NCCL rank on its own card: n=big_n born
     partitioned in each layout at big_cycles V-cycles a step (rank 0
     fingerprints uT), then n=huge_n born row-partitioned at the auto
     cycle count and, if that does not certify, at each larger count up
-    to HUGE_MAX_CYCLES until one does; each run captured at its first
-    call and replayed once more (equal to the first to the bit).  Build
-    seconds, the first call's and the replay's walls, capture seconds,
-    stats and every rank's peak device memory (reset before each build)
-    and reserved memory with the graph's pool held."""
+    to HUGE_MAX_CYCLES until one does.  Build seconds, walls, stats and
+    every rank's peak device memory, reset before each build.
+
+    With `huge_cycles` (phase 19 (d)) the captured form is on
+    (`parallel.distributed.CAPTURE_NCCL`), n=huge_n runs at that count
+    only (phase 16 (c)'s certified one), and each run is captured at its
+    first call and replayed once more (equal to the first to the bit),
+    with capture seconds and reserved memory with the graph's pool
+    held."""
     import dataclasses
     import gc
     import warnings
@@ -3120,11 +3087,14 @@ def _multi_scale_rank(big_n: int, big_cycles: int, huge_n: int) -> dict:
     from hpcclassmultigridproject_tpu_torch import ProblemConfig
     from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
     from hpcclassmultigridproject_tpu_torch.parallel import (
+        distributed,
         distributed_run,
         make_mesh,
     )
     from hpcclassmultigridproject_tpu_torch.utils import graphs
 
+    captured = huge_cycles is not None
+    distributed.CAPTURE_NCCL = captured
     mesh = make_mesh()
 
     def build(n, cycles, layout):
@@ -3151,28 +3121,30 @@ def _multi_scale_rank(big_n: int, big_cycles: int, huge_n: int) -> dict:
         # and outputs are dropped first
         model.programs = graphs.Programs()
         model.solver = dataclasses.replace(model.solver, num_cycles=cycles)
+        if captured:
+            _progress(f"[compiled-multi] (d) n={model.problem.n}, "
+                      f"{model.layout}, {cycles} V-cycles: captured")
         dist.barrier()
         t0 = time.perf_counter()
         uT, stats = distributed_run(model)
         torch.cuda.synchronize()
-        first = time.perf_counter() - t0
+        ran = dict(cycles=cycles, wall=time.perf_counter() - t0,
+                   compiled=_all_ranks(model.last_run_compiled),
+                   stats={k: v.cpu().numpy() for k, v in stats.items()})
+        if not captured:
+            return uT, ran
         program = model.programs.last
         dist.barrier()
         t0 = time.perf_counter()
         again = distributed_run(model)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        same = _all_ranks(_equal_out(again, (uT, stats)))
-        again = None
-        return uT, dict(cycles=cycles, wall=wall, first_s=first,
-                        compiled=_all_ranks(model.last_run_compiled),
-                        replay_equal=same,
-                        capture_s=None if program is None else program.seconds,
-                        nodes=None if program is None else program.nodes,
-                        reserved_mib=_all_ranks(
-                            torch.cuda.memory_reserved() / 2**20),
-                        stats={k: v.cpu().numpy()
-                               for k, v in stats.items()})
+        ran.update(first_s=ran["wall"], wall=time.perf_counter() - t0,
+                   replay_equal=_all_ranks(_equal_out(again, (uT, stats))),
+                   capture_s=None if program is None else program.seconds,
+                   nodes=None if program is None else program.nodes,
+                   reserved_mib=_all_ranks(
+                       torch.cuda.memory_reserved() / 2**20))
+        return uT, ran
 
     out = {}
     for layout in ("rows", "2d"):
@@ -3185,8 +3157,9 @@ def _multi_scale_rank(big_n: int, big_cycles: int, huge_n: int) -> dict:
     model, got = build(huge_n, None, "rows")
     got["auto"] = model.solver.num_cycles
     got["runs"] = []
-    for cycles in [got["auto"], *range(got["auto"] + 1,
-                                       HUGE_MAX_CYCLES + 1)]:
+    counts = ([huge_cycles] if captured else
+              [got["auto"], *range(got["auto"] + 1, HUGE_MAX_CYCLES + 1)])
+    for cycles in counts:
         uT = None
         uT, ran = run(model, cycles)
         got["runs"].append(ran)
@@ -3199,32 +3172,40 @@ def _multi_scale_rank(big_n: int, big_cycles: int, huge_n: int) -> dict:
     return out
 
 
-def _replayed_line(tag: str, ran: dict) -> str:
-    """Phase 19 (d): require a big run compiled on every rank, its second
-    replay equal to the first; the line of its walls and memory."""
+def _run_line(label: str, ran: dict, smi: str) -> str:
+    """Phase 16 (c) / 19 (d): a big run's walls (and, captured, its
+    capture and memory) as one line's middle; a captured run must be a
+    replay on every rank, its second replay equal to the first, and an
+    eager one eager on every rank."""
+    if "capture_s" not in ran:
+        require(not any(ran["compiled"]),
+                f"{label}: phase 16 runs eagerly, compiled {ran['compiled']}")
+        return f"wall {ran['wall']:.3f} s (rank 0, the first run; {smi})"
     require(all(ran["compiled"]) and all(ran["replay_equal"]),
-            f"{tag}: compiled on each rank {ran['compiled']}, replays "
+            f"{label}: compiled on each rank {ran['compiled']}, replays "
             f"equal {ran['replay_equal']}")
     return (f"first call (warm-up, capture, replay) {ran['first_s']:.3f} s, "
             f"capture {ran['capture_s']:.3f} s, {ran['nodes']} top nodes, "
             f"a replay {ran['wall']:.3f} s (rank 0), equal to the first to "
             f"the bit; reserved per rank, the pool held "
-            f"{[round(m, 1) for m in ran['reserved_mib']]} MiB")
+            f"{[round(m, 1) for m in ran['reserved_mib']]} MiB; {smi}")
 
 
-def _phase_multi_scale(big: tuple[int, dict], smi: str) -> None:
-    """Phase 19 (d): phase 16's large grids, captured."""
+def _phase_multi_scale(big: tuple[int, dict], smi: str,
+                       huge_cycles: int | None = None) -> int:
+    """Phase 16 (c), or with `huge_cycles` phase 19 (d) (the same grids,
+    captured); returns the cycle count at which n=HUGE_N certified."""
     from hpcclassmultigridproject_tpu_torch.parallel import launch_local
 
     big_cycles, want = big
+    label = ("[multi-gpu] (c)" if huge_cycles is None
+             else "[compiled-multi] (d)")
     t0 = time.perf_counter()
     res = launch_local(_multi_scale_rank, MULTI_WORLD,
-                       (BIG_N, big_cycles, HUGE_N), backend="nccl",
-                       device="cuda")
-    label = "[compiled-multi] (d)"
+                       (BIG_N, big_cycles, HUGE_N, huge_cycles),
+                       backend="nccl", device="cuda")
     print(f"{label} n={BIG_N} and n={HUGE_N} born partitioned over "
-          f"{MULTI_WORLD} cards, {BIG_STEPS} steps, each run captured and "
-          f"replayed: spawn, builds and runs "
+          f"{MULTI_WORLD} cards, {BIG_STEPS} steps: spawn, builds and runs "
           f"{time.perf_counter() - t0:.1f} s; {smi}")
     for layout in ("rows", "2d"):
         got = res[BIG_N, layout]
@@ -3233,18 +3214,18 @@ def _phase_multi_scale(big: tuple[int, dict], smi: str) -> None:
             "shape"] and fp["dtype"] == want["dtype"])
         dsample = float(np.abs(fp["sample"] - want["sample"]).max())
         ok, rel, mid, final = _certified(got["stats"])
-        line = _replayed_line(f"{label} n={BIG_N} {layout}", got)
+        line = _run_line(f"{label} n={BIG_N} {layout}", got, smi)
         print(f"{label} n={BIG_N}, {layout}, {big_cycles} V-cycles "
               f"a step: built in {got['build_s']:.3f} s (rank 0's level 0 "
-              f"{got['level0']}); {line} ({smi}); certificates f32 "
-              f"{rel:.3e} / f64 mid-run {mid:.3e} / final {final:.3e}; uT "
-              f"equal to phase 13's one-card run to the bit (SHA-256 of "
-              f"{fp['shape']} {fp['dtype']}): {same}; max|diff| on every "
+              f"{got['level0']}), {line}; certificates f32 {rel:.3e} / f64 "
+              f"mid-run {mid:.3e} / final {final:.3e}; uT equal to phase "
+              f"13's one-card run to the bit (SHA-256 of {fp['shape']} "
+              f"{fp['dtype']}): {same}; max|diff| on every "
               f"{FINGERPRINT_STRIDE}th node {dsample!r}; center "
               f"{fp['center']!r}; peak device memory per rank, after the "
               f"build {[round(m, 1) for m in got['built_mib']]} MiB, "
-              f"build through the runs "
-              f"{[round(m, 1) for m in got['peaks_mib']]} MiB")
+              f"build through run {[round(m, 1) for m in got['peaks_mib']]}"
+              f" MiB")
         require(ok, f"{label} n={BIG_N} {layout}: not certified")
         require(same, f"{label} n={BIG_N} {layout}: uT differs from "
                 "phase 13's one-card run")
@@ -3257,36 +3238,36 @@ def _phase_multi_scale(big: tuple[int, dict], smi: str) -> None:
     for ran in got["runs"]:
         ok, rel, mid, final = _certified(ran["stats"])
         auto = " (auto)" if ran["cycles"] == got["auto"] else ""
-        line = _replayed_line(f"{label} n={HUGE_N}", ran)
+        line = _run_line(f"{label} n={HUGE_N}", ran, smi)
         print(f"{label} n={HUGE_N}, {BIG_STEPS} steps, "
-              f"{ran['cycles']} V-cycles a step{auto}: {line} ({smi}); "
-              f"certificates f32 {rel:.3e} / f64 mid-run "
-              f"{mid:.3e} / final {final:.3e}: "
-              f"{'certified' if ok else 'NOT certified'}")
+              f"{ran['cycles']} V-cycles a step{auto}: {line}; "
+              f"certificates f32 {rel:.3e} / f64 mid-run {mid:.3e} / final "
+              f"{final:.3e}: {'certified' if ok else 'NOT certified'}")
     last = got["runs"][-1]
     ok = _certified(last["stats"])[0]
-    if last["cycles"] != got["auto"]:
+    if last["cycles"] != got["auto"] and huge_cycles is None:
         print(f"{label} n={HUGE_N}: the auto count {got['auto']} "
               f"does not certify; the fewest cycles above it that do: "
               f"{last['cycles'] if ok else 'none up to ' + str(HUGE_MAX_CYCLES)}")
     print(f"{label} n={HUGE_N}: uT {got['shape']}, finite "
           f"{got['finite']}, center {got['center']!r}; peak device memory "
-          f"per rank, build through the runs and the gather of uT, the "
-          f"graph's pool held {[round(m, 1) for m in got['peaks_mib']]} MiB"
-          f" ({smi})")
+          f"per rank, build through the runs and the gather of uT "
+          f"{[round(m, 1) for m in got['peaks_mib']]} MiB ({smi})")
     require(got["shape"] == (HUGE_N + 1, HUGE_N + 1) and got["finite"],
             f"{label} n={HUGE_N}: uT")
-    require(ok, f"{label} n={HUGE_N}: no cycle count up to "
-            f"{HUGE_MAX_CYCLES} certifies")
+    require(ok, f"{label} n={HUGE_N}: not certified at "
+            f"{[r['cycles'] for r in got['runs']]} cycles")
+    return last["cycles"]
 
 
 def phase_multi_gpu(n: int, steps: int, uT_single, big,
                     single_wall: float) -> None:
     """Phases 16 and 19: the partitioned run over MULTI_WORLD cards, one
-    NCCL rank a card, eager (16) and captured (19) (module docstring); on
-    fewer cards one line each says it was not run.  `big` is phase 13's
-    (cycle count, uT fingerprint) at n=16384, `single_wall` phase 17 (a)'s
-    replay wall."""
+    NCCL rank a card, eager (16), then captured (19), after phase 16 so
+    that a fault of the captured form cannot hide phase 16's results
+    (module docstring); on fewer cards one line each says it was not run.
+    `big` is phase 13's (cycle count, uT fingerprint) at n=16384,
+    `single_wall` phase 17 (a)'s replay wall."""
     import gc
 
     count = torch.cuda.device_count()
@@ -3309,17 +3290,22 @@ def phase_multi_gpu(n: int, steps: int, uT_single, big,
     smi = "; ".join(cards)
     gc.collect()
     torch.cuda.empty_cache()  # this process's cache on cuda:0 is rank 0's
-    _phase_capture_probes(smi)
-    _phase_multi_main(n, steps, uT_single, smi, single_wall)
+    eager = _phase_multi_main(n, steps, uT_single, smi)
     _phase_grid_configs(smi, backend="nccl", device="cuda",
                         label="[multi-gpu] (b)")
     gc.collect()
     torch.cuda.empty_cache()
-    _phase_multi_scale(big, smi)
+    huge_cycles = _phase_multi_scale(big, smi)
     _phase_grid_scaling(smi, strong_n=STRONG_N, weak_n=WEAK_N,
                         weak_layouts=("rows", "2d"), cycles=None,
-                        reps=MULTI_SCALING_REPS,
-                        label="[compiled-multi] (e)", nccl=True)
+                        reps=MULTI_SCALING_REPS, label="[multi-gpu] (d)")
+    _phase_capture_probes(smi)
+    _phase_compiled_main(n, steps, eager, smi, single_wall)
+    _phase_grid_configs(smi, backend="nccl", device="cuda",
+                        label="[compiled-multi] (c)", captured=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase_multi_scale(big, smi, huge_cycles)
 
 
 def _same(got, want) -> bool:
@@ -3333,6 +3319,114 @@ def _same(got, want) -> bool:
         for x, y in zip(a, b))
 
 
+def _compiled_main_rank(n: int, steps: int, eager: dict) -> dict:
+    """Phase 19 (b), one NCCL rank on its own card, with the captured form
+    on (`parallel.distributed.CAPTURE_NCCL`): phase 16 (a)'s eight cases
+    through distributed_run, each captured at its first call and held
+    against phase 16 (a)'s eager run of the case (`eager`: rank 0's uT
+    and stats, the same on every rank, and every rank's launch counts
+    and collectives), then COMPILED_MULTI_REPLAYS timed replays, each
+    equal to it, with the peak MiB per rank, the pool held."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig
+    from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+    from hpcclassmultigridproject_tpu_torch.parallel import (
+        distributed,
+        distributed_run,
+        make_mesh,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.CAPTURE_NCCL = True
+    mesh = make_mesh()
+    problem = ProblemConfig(n=n, num_steps=steps)
+    cfg = delta_config(certify_every=10)
+    out = {}
+    for layout in ("rows", "2d"):
+        for build in ("whole", "born"):
+            if build == "whole":
+                model = AdvectionDiffusion(problem, cfg, device="cuda")
+                kw = dict(min_local=DIST_MIN_LOCAL, layout=layout)
+            else:
+                model = AdvectionDiffusion(problem, cfg, device="cuda",
+                                           mesh=mesh, layout=layout,
+                                           min_local=DIST_MIN_LOCAL)
+                kw = {}
+            for overlap in (False, True):
+                _progress(f"[compiled-multi] (b) {layout}, {build}, overlap "
+                          f"{overlap}: captured")
+                model.solver = dataclasses.replace(model.solver,
+                                                   sharded_overlap=overlap)
+                ref = eager[layout, build, overlap]
+                dev = model.device
+                want = (torch.from_numpy(ref["uT"]).to(dev),
+                        {k: torch.from_numpy(v).to(dev)
+                         for k, v in ref["stats"].items()})
+                want_counts = {**ref["counts"][mesh.rank],
+                               **ref["collectives"][mesh.rank],
+                               "while_set": 0}
+                held = _fresh_peaks()
+                dist.barrier()
+                comp = out[layout, build, overlap] = {"ranks": _replayed(
+                    model, lambda: distributed_run(model, **kw), want,
+                    want_counts), "walls": []}
+                equal = True
+                for _ in range(COMPILED_MULTI_REPLAYS):
+                    dist.barrier()
+                    t0 = time.perf_counter()
+                    got = distributed_run(model, **kw)
+                    torch.cuda.synchronize()
+                    comp["walls"].append(time.perf_counter() - t0)
+                    equal = equal and _equal_out(got, want)
+                comp["replays_equal"] = _all_ranks(equal)
+                comp["peak_mib"] = _all_ranks(_peak_mib(held))
+                want = got = None
+            model = None
+    return out
+
+
+def _phase_compiled_main(n: int, steps: int, eager: dict, smi: str,
+                         single_wall: float) -> None:
+    """Phase 19 (b) against phase 16 (a)'s eager runs (`eager`, from
+    `_phase_multi_main`); `single_wall` is one card's captured main path
+    (phase 17 (a))."""
+    from hpcclassmultigridproject_tpu_torch.parallel import launch_local
+
+    keep = ("uT", "stats", "counts", "collectives")
+    ref = {case: {k: got[k] for k in keep} for case, got in eager.items()}
+    t0 = time.perf_counter()
+    res = launch_local(_compiled_main_rank, MULTI_WORLD, (n, steps, ref),
+                       backend="nccl", device="cuda")
+    print(f"[compiled-multi] (b) main path, n={n}, {steps} steps, min_local "
+          f"{DIST_MIN_LOCAL}, {MULTI_WORLD} NCCL ranks, captured: spawn, "
+          f"builds, captures and replays {time.perf_counter() - t0:.1f} s; "
+          f"{smi}")
+    for (layout, build, overlap), comp in res.items():
+        tag = (f"[compiled-multi] (b) {layout}, {build}, "
+               f"{'overlap' if overlap else 'plain'}")
+        ranks = comp["ranks"]
+        _require_replayed(tag, ranks)
+        require(all(comp["replays_equal"]), f"{tag}: a timed replay "
+                "differs from the eager run")
+        rec, walls = ranks[0], comp["walls"]
+        wall = statistics.median(eager[layout, build, overlap]["walls"])
+        med = statistics.median(walls)
+        peaks = [f"{a:.1f}/{r:.1f}" for a, r in comp["peak_mib"]]
+        print(f"{tag}: a replay on every rank, equal to phase 16 (a)'s "
+              f"eager run to the bit (and {len(walls)} more), launches and "
+              f"collectives equal ({rec['collectives']} a run); replay wall "
+              f"{med:.5f} s (rank 0, median of {len(walls)}: {walls}) "
+              f"against eager {wall:.4f} s ({wall / med:.2f}x) and one "
+              f"card's captured {single_wall:.5f} s (phase 17 (a); "
+              f"{single_wall / med:.2f}x); capture {rec['capture_s']:.3f} s"
+              f" (first call {rec['first_s']:.3f} s), {rec['nodes']} top "
+              f"nodes; peak MiB per rank allocated/reserved above what each "
+              f"held, the pool held: {peaks}; {smi}")
+
+
 def _capture_probe_rank() -> dict:
     """Phase 19 (a), one NCCL rank on its own card: three programs
     (utils/graphs.py), each captured at its first call and replayed from
@@ -3342,7 +3436,8 @@ def _capture_probe_rank() -> dict:
     and K7's overlapped schedule on the main path's level-0 block (the
     exchange's fork to NCCL's stream and its join around K7's launches).
     The exchange probe also records whether, inside the capture,
-    allocations made after the wait take the receive buffers' memory.
+    allocations made after the wait take the memory of the buffers NCCL
+    received into.
     An `all_sum` inside a `while_loop` (a WHILE body) is no probe: its
     capture did not finish on four H100s, and adaptive partitioned runs
     are eager (`parallel.capture_reason`)."""
@@ -3375,7 +3470,11 @@ def _capture_probe_rank() -> dict:
         pairs = rows_halo.start_exchange([x, 2.0 * x], 8, mesh).wait()
         out = torch.cat([t for pair in pairs for t in pair])
         if graphs.CAPTURE.capturing(x.device):
-            held = {t.data_ptr() for pair in pairs for t in pair}
+            # the buffers NCCL received into: rank 0's tops and the last
+            # rank's bottoms are zeros made here, which NCCL never touches
+            peers = (mesh.rank > 0, mesh.rank < mesh.world - 1)
+            held = {t.data_ptr() for pair in pairs
+                    for t, peer in zip(pair, peers) if peer}
             del pairs
             fresh = [torch.empty_like(out[:8]) for _ in range(16)]
             reused.append(any(f.data_ptr() in held for f in fresh))
@@ -3457,6 +3556,9 @@ def _phase_capture_probes(smi: str) -> None:
     print(f"[compiled-multi] (a) inside the capture, allocations after the "
           f"exchange's wait took its receive buffers' memory: {reused} "
           f"(per rank; TORCH_NCCL_AVOID_RECORD_STREAMS={avoid})")
+    require(not any(any(r) for r in reused),
+            f"compiled-multi (a): a later allocation of the capture took "
+            f"an NCCL receive buffer's memory, per rank {reused}")
 
 
 # phase 17: the compiled run, each model entry point one CUDA graph

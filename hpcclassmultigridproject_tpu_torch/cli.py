@@ -258,9 +258,9 @@ def scaling_point(args) -> dict:
     """One point of `scaling` in each rank of the process group (or alone,
     on one rank): the model built over every rank, and its
     `distributed_run` timed by `time_run` (best of `--reps`, synchronized,
-    after a warm-up).  On the card under NCCL (or on one rank) the run is
-    one compiled program: the warm-up captures it, and the seconds are a
-    replay's.  Returns the point's seconds, center value, mesh shape,
+    after a warm-up).  Where the run is one compiled program (on the card
+    on one rank; under NCCL only with `parallel.distributed.CAPTURE_NCCL`
+    on) the warm-up captures it, and the seconds are a replay's.  Returns the point's seconds, center value, mesh shape,
     whether it ran compiled and the capture's seconds (None where eager),
     as plain Python values."""
     from hpcclassmultigridproject_tpu_torch.parallel import (

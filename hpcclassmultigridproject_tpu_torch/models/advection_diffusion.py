@@ -109,14 +109,15 @@ class AdvectionDiffusion:
     every configuration: the adaptive solvers and the GS coarse solve are
     conditional WHILE nodes in it (`utils.graphs.while_loop`), as they are
     `lax.while_loop`s in the JAX programs.  Born partitioned under NCCL,
-    every rank captures and replays its own graph, with the step's halo
-    exchanges and norms in it, as the JAX model's sharded programs hold
-    theirs; the program's key adds the mesh, layout and min_local.  A run
-    on the CPU, partitioned under gloo with CUDA tensors, or partitioned
-    with an adaptive solve, is eager (`eager_reason`).  After each call, `last_run_compiled` says which way
-    it ran and `last_run_reason` why it was eager (None when it was
-    compiled).  Eager on the card means calling
-    `mg.timestepper.timestepper` or `timestep` directly.
+    with `parallel.distributed.CAPTURE_NCCL` on, every rank captures and
+    replays its own graph, with the step's halo exchanges and norms in
+    it, as the JAX model's sharded programs hold theirs; the program's
+    key adds the mesh, layout and min_local.  A run on the CPU, or
+    partitioned otherwise (gloo with CUDA tensors, NCCL with the switch
+    off, an adaptive solve), is eager (`eager_reason`).  After each call,
+    `last_run_compiled` says which way it ran and `last_run_reason` why
+    it was eager (None when it was compiled).  Eager on the card means
+    calling `mg.timestepper.timestepper` or `timestep` directly.
     """
 
     def __init__(self, problem: ProblemConfig, solver: SolverConfig, *,
@@ -237,9 +238,10 @@ class AdvectionDiffusion:
         a captured program: the CPU, or a run partitioned over `mesh`
         (default: the mesh the model was born on) under gloo with CUDA
         tensors, whose collectives stage through the host, or under NCCL
-        with an adaptive solve, whose norm would sit in a WHILE body
-        (`parallel.capture_reason`).  Under NCCL a fixed-cycle or FMG
-        partitioned run is captured, as on one device."""
+        while `parallel.distributed.CAPTURE_NCCL` is off, or with an
+        adaptive solve, whose norm would sit in a WHILE body
+        (`parallel.capture_reason`).  With the switch on, a fixed-cycle or
+        FMG run partitioned under NCCL is captured, as on one device."""
         mesh = self.mesh if mesh is None else mesh
         return capture_reason(Mesh(1) if mesh is None else mesh, self.device,
                               self.solver)

@@ -153,15 +153,17 @@ def distributed_run(model, mesh: Mesh | None = None, min_local: int = _UNSET,
     one-line exchanges with corners (parallel/blocks.py).  The replicated
     levels run as on one device, the coarse tower included.
 
-    The run is one compiled program, as the JAX package's is one jitted
-    program: on the card under NCCL (or on one rank) each rank captures
-    the call (the steps, their halo exchanges and norms, and the gather
-    of uT) once per key as a CUDA graph in `model.programs`, and replays
-    it (utils/graphs.py), keyed by the step count, the SolverConfig, the
-    mesh, layout and `min_local`.  On the CPU, and under gloo with CUDA
-    tensors (whose collectives stage through the host), it runs eagerly
-    (`distributed.capture_reason`).  `model.last_run_compiled` and
-    `last_run_reason` say which.
+    The run can be one compiled program, as the JAX package's is one
+    jitted program: on one rank, and under NCCL with
+    `distributed.CAPTURE_NCCL` on (it is off by default), each rank
+    captures the call (the steps, their halo exchanges and norms, and the
+    gather of uT) once per key as a CUDA graph in `model.programs`, and
+    replays it (utils/graphs.py), keyed by the step count, the
+    SolverConfig, the mesh, layout and `min_local`.  Otherwise it runs
+    eagerly (`distributed.capture_reason`: the CPU; gloo with CUDA
+    tensors, whose collectives stage through the host; NCCL with the
+    switch off).  `model.last_run_compiled` and `last_run_reason` say
+    which.
 
     Returns (uT cropped to the logical grid, stats) on every rank: the
     blocks are gathered (`fetch`), and the stats, computed from norms

@@ -16,8 +16,9 @@ package's `parallel/distributed.py`.
     JAX package's `ppermute` (a rank with no neighbour gets zeros);
   * `rank_device(device, rank, world, backend)`: the card a rank runs
     on (one card a rank under NCCL);
-  * `capture_reason(mesh, device)`: why a partitioned call on `device`
-    cannot be one captured program, or None where it can;
+  * `capture_reason(mesh, device, solver)`: why a partitioned call on
+    `device` runs eagerly, or None where it can be one captured program
+    (under NCCL only with `CAPTURE_NCCL` on);
   * `launch_local(fn, world, ...)`: `world` spawned processes on this
     host, each in the process group on its own card, returning rank 0's
     result.
@@ -32,10 +33,10 @@ speed.  The group's backend picks the branch.
 Every call that posts a collective counts it in `COLLECTIVES`
 (`ops.cuda.COLLECTIVES`: `batch_isend_irecv` batches, `all_gather`
 calls), which a captured program's replay adds as it adds the kernels'
-launches (utils/graphs.py).  Under NCCL the collectives of a step can be
-captured into a CUDA graph with its kernels; an `Exchange` posted inside
-a capture must be waited on inside it, and a collective that would stage
-through the host raises there.
+launches (utils/graphs.py).  Under NCCL, with `CAPTURE_NCCL` on, the
+collectives of a step are captured into a CUDA graph with its kernels;
+an `Exchange` posted inside a capture must be waited on inside it, and a
+collective that would stage through the host raises there.
 """
 
 from __future__ import annotations
@@ -127,33 +128,47 @@ def host_staged(mesh: Mesh, t: torch.Tensor) -> bool:
     return staged
 
 
+# Whether a call partitioned over NCCL ranks may be one captured program.
+# Off: such a call runs eagerly, with the reason `capture_reason` gives.
+# The captured form (each rank replaying its own graph, NCCL's kernels in
+# it) has not yet run to its end on four cards: on four H100s its probes
+# and the main path's whole-built plain runs in both layouts replayed
+# equal to their eager runs to the bit, but the born models, the
+# overlapped schedules, the other configurations and the large grids
+# have not run captured there (chip_smoke phase 19, which sets it in its
+# ranks, runs them).
+CAPTURE_NCCL = False
+
+
 def capture_reason(mesh: Mesh, device, solver=None) -> str | None:
     """Why a call partitioned over `mesh` with tensors on `device` runs
     eagerly, or None where it can be one captured program: the CPU (called
     directly); CUDA tensors under gloo, whose collectives stage through
-    the host; and under NCCL an adaptive `solver` (cycle_mode neither
-    "fixed" nor "fmg"), whose loop tests a norm, an all-gather, inside a
-    CUDA WHILE body: on four H100s (PyTorch 2.11, NCCL 2.28) a capture of
-    an NCCL all-gather in a WHILE body never finished (chip_smoke phase 19
-    (a), where the capture of the top-level probes went through).  Under
-    NCCL otherwise, or on one rank (no collective), None.  It reads only
-    what every rank shares (the device type, the world, the backend, the
-    solver), so the ranks decide alike."""
-    device = torch.device(device)
-    if not graphs.on_card(device):
+    the host; under NCCL, while `CAPTURE_NCCL` is off, every partitioned
+    call; and with it on, an adaptive `solver` (cycle_mode neither "fixed"
+    nor "fmg"), whose loop tests a norm, an all-gather, inside a CUDA
+    WHILE body: on four H100s (PyTorch 2.11, NCCL 2.28) a probe of such a
+    capture had not finished when its run was cut at 110 s.  On one rank
+    (no collective), None.  It reads only what every rank shares (the
+    device, the world, the backend, the solver and `CAPTURE_NCCL`), so
+    the ranks decide alike."""
+    if not graphs.on_card(torch.device(device)):
         return "the CPU was asked for: the function is called directly"
-    if mesh.world == 1 or device.type != "cuda":
+    if mesh.world == 1:
         return None
     if mesh.backend == "gloo":
         return (f"partitioned over {mesh.world} ranks under gloo: its "
                 "collectives stage CUDA tensors through the host, which no "
-                "graph can hold (NCCL runs captured)")
-    if (mesh.backend == "nccl" and solver is not None
-            and solver.cycle_mode not in ("fixed", "fmg")):
+                "graph can hold")
+    if not CAPTURE_NCCL:
+        return (f"partitioned over {mesh.world} ranks: the captured form "
+                "under NCCL is off (parallel.distributed.CAPTURE_NCCL) "
+                "until it has run to its end on four cards")
+    if solver is not None and solver.cycle_mode not in ("fixed", "fmg"):
         return (f"an adaptive solve partitioned over {mesh.world} ranks "
                 "under NCCL: its loop's norm, an NCCL all-gather, would sit "
-                "in a CUDA WHILE body, and such a capture did not finish on "
-                "four H100s (NCCL 2.28), so the run is eager")
+                "in a CUDA WHILE body, and a probe of such a capture did not "
+                "finish on four H100s (NCCL 2.28), so the run is eager")
     return None
 
 

@@ -35,7 +35,8 @@ captured once into a `torch.cuda.CUDAGraph` and replayed:
 A program may hold a partitioned run's collectives (parallel/
 distributed.py), the counterpart of the JAX package's jitted
 `distributed_run` and sharded `_jit_*` programs, whose halo exchanges and
-norms are in the one XLA program:
+norms are in the one XLA program.  The models capture such a run only
+under NCCL with `parallel.distributed.CAPTURE_NCCL` on (off by default):
 
 - Each rank captures and replays its own graph; NCCL's kernels in the
   graphs of the ranks meet across the cards.  So every rank captures the
@@ -69,12 +70,18 @@ norms are in the one XLA program:
   probes of chip_smoke phase 19 (a): on ranks 0 and 2 the log said
   "ProcessGroupNCCL's watchdog got stuck for 480 seconds without making
   progress in monitoring enqueued collectives", and the run hung until
-  it was killed.
-- Memory: a receive buffer that NCCL's stream used is freed by the
-  allocator only after the capture ends (torch defers a block with
-  another stream's use while a capture is under way), so no later
-  temporary of the same graph takes it while NCCL may still write it
-  (chip_smoke phase 19 (a) checks the addresses).
+  it was killed.  Under "thread_local" the probes and the main path's
+  rows and 2-D runs captured and replayed there.
+- Memory, partly verified on the card: torch's allocator defers the
+  free of a block that another stream (NCCL's) used while a capture is
+  under way, so no later temporary of the same graph should take a
+  receive buffer while NCCL may still write it.  On four H100s the two
+  middle ranks' receive buffers were not taken by 16 later allocations
+  of the capture; on the edge ranks one of the four buffers read was
+  taken, but that reading also counted their zero sides (made locally,
+  never NCCL's), so it does not say which.  chip_smoke phase 19 (a)
+  reads the received buffers alone and fails if a later allocation of
+  the capture takes one.
 
 A body may hold data-dependent loops, `while_loop`, the counterpart of
 `jax.lax.while_loop`: outside a capture it is a host loop that reads its

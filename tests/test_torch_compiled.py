@@ -380,11 +380,12 @@ def test_backend_between_calls_is_its_own_program(stand_in):
 
 
 def test_eager_reasons_on_the_card(stand_in):
-    """On the card only a model partitioned under gloo runs eagerly (its
-    collectives stage through the host): the adaptive solves, the GS
-    coarse solve, Poisson's "gs" and a model partitioned under NCCL are
-    compiled."""
-    from hpcclassmultigridproject_tpu_torch.parallel import Mesh
+    """On the card only a partitioned model runs eagerly: under gloo its
+    collectives stage through the host, and under NCCL the captured form
+    is off until `CAPTURE_NCCL` is set; the adaptive solves, the GS
+    coarse solve, Poisson's "gs", and a model partitioned under NCCL with
+    the switch on are compiled."""
+    from hpcclassmultigridproject_tpu_torch.parallel import Mesh, distributed
 
     assert _model(_DELTA).eager_reason() is None
     assert _model(HOST_LOOPS[0][1]).eager_reason() is None
@@ -407,6 +408,8 @@ def test_eager_reasons_on_the_card(stand_in):
         mp.setattr(Mesh, "backend", property(lambda self: "gloo"))
         assert "partitioned over 2 ranks under gloo" in parted.eager_reason()
         mp.setattr(Mesh, "backend", property(lambda self: "nccl"))
+        assert "partitioned over 2 ranks" in parted.eager_reason()
+        mp.setattr(distributed, "CAPTURE_NCCL", True)
         assert parted.eager_reason() is None
 
 

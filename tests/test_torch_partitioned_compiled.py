@@ -2,14 +2,17 @@
 (`parallel.distributed_run` and the born-partitioned model's `run`,
 `step` and `run_chunk` through utils/graphs.py), on the CPU.
 
-On the card under NCCL every rank captures its partitioned call once as a
+On the card under NCCL, with `parallel.distributed.CAPTURE_NCCL` on (it
+is off by default), every rank captures its partitioned call once as a
 CUDA graph, halo exchanges and norms included, and replays it.  Here the
 ranks are spawned processes over gloo on CPU tensors (not staged through
-the host, so capturable), each with one torch thread, and the stand-in of
-tests/capture_stand_in.py takes the place of torch's CUDA graph in every
-rank: its capture runs the call once inside `no_host_reads`, its replay
-runs it again, collectives and all, so the ranks' replays meet as NCCL's
-kernels do on the cards.
+the host, so capturable), each with one torch thread; in every rank the
+stand-in of tests/capture_stand_in.py takes the place of torch's CUDA
+graph, and the models read the capture rule as a rank on its card under
+NCCL with the switch on reads it (`_as_on_card`).  The stand-in's
+capture runs the call once inside `no_host_reads`, its replay runs it
+again, collectives and all, so the ranks' replays meet as NCCL's kernels
+do on the cards.
 
 Each case (W=2 and W=4, n=32, 3 steps; the configurations are
 tests/test_torch_parallel.py's `CONFIGS` "*_32") runs eagerly (the real
@@ -18,7 +21,11 @@ stand-in, and on every rank: the capture reads nothing back to the host;
 the replay equals the eager run to the bit (uT and every stats tensor);
 the replay's LAUNCHES and COLLECTIVES equal the eager run's (`while_set`
 against its host tests); and the WHILE nodes' trips are the same on
-every rank.  Rank 0's replay also meets the JAX package's
+every rank.  The adaptive configurations (adaptive_f64_32, and
+jacobi_32, whose cycle_mode is the adaptive default) are no capture: the
+rule keeps them eager with its reason (the norm's all-gather would sit
+in a WHILE body), and the case checks that reason on every rank.  Rank
+0's result also meets the JAX package's
 `distributed_run` on its CPU mesh (test_torch_parallel.py's `_jax_dist`)
 at that file's bars: 1e-12 in float64, 1e-8 for the delta path
 (9.313e-9 measured there), with equal cycle counts.
@@ -29,6 +36,7 @@ host-staged collective; the rules of `capture_reason` /
 `eager_reason`; and a replay adds COLLECTIVES as it adds LAUNCHES.
 """
 
+import contextlib
 import types
 
 import numpy as np
@@ -38,6 +46,7 @@ import torch.distributed as dist
 
 from hpcclassmultigridproject_tpu_torch import ProblemConfig, SolverConfig
 from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+from hpcclassmultigridproject_tpu_torch.models import advection_diffusion
 from hpcclassmultigridproject_tpu_torch.ops import cuda
 from hpcclassmultigridproject_tpu_torch.parallel import (
     Mesh,
@@ -102,24 +111,42 @@ def _eager_counts() -> dict:
     return dict(graphs.counts(), while_set=cuda.HOST_TESTS["while_set"])
 
 
+@contextlib.contextmanager
+def _as_on_card(stand_in):
+    """`graphs.CAPTURE` replaced by `stand_in`, and the models' capture
+    rule read as a rank of the same world on its card under NCCL, with
+    `CAPTURE_NCCL` on, reads it (CPU tensors under gloo are not staged
+    through the host, so the stand-in can capture their collectives)."""
+    def rule(mesh, device, solver=None):
+        nccl = types.SimpleNamespace(world=mesh.world, backend="nccl")
+        return capture_reason(nccl, "cuda", solver)
+
+    real = (graphs.CAPTURE, advection_diffusion.capture_reason,
+            distributed.CAPTURE_NCCL)
+    graphs.CAPTURE, advection_diffusion.capture_reason = stand_in, rule
+    distributed.CAPTURE_NCCL = True
+    try:
+        yield stand_in
+    finally:
+        (graphs.CAPTURE, advection_diffusion.capture_reason,
+         distributed.CAPTURE_NCCL) = real
+
+
 def _eager_and_replayed(model, call):
-    """`call()` eagerly and then through a stand-in capture (run inside
-    `no_host_reads`) on this rank: (eager out, its counts, replayed out,
-    the replay's counts, the program, the stand-in)."""
+    """`call()` eagerly and then as a rank on its card under NCCL would
+    run it (`_as_on_card`, the stand-in's capture inside `no_host_reads`)
+    on this rank: (eager out, its counts, the second out, its counts,
+    the program, the stand-in)."""
     cuda.reset_launches()
     eager = call()
     assert not model.last_run_compiled
     assert model.last_run_reason == CPU_REASON
     want = _eager_counts()
-    real, fake = graphs.CAPTURE, StandIn(guard=no_host_reads)
-    graphs.CAPTURE = fake
-    try:
+    with _as_on_card(StandIn(guard=no_host_reads)) as fake:
         cuda.reset_launches()
         got = call()
-        counts = graphs.counts()
-    finally:
-        graphs.CAPTURE = real
-    assert model.last_run_compiled and model.last_run_reason is None
+        counts = (graphs.counts() if model.last_run_compiled
+                  else _eager_counts())
     return eager, want, got, counts, model.programs.last, fake
 
 
@@ -134,13 +161,13 @@ def _case(mesh, name, layout, build, min_local) -> dict:
         kw = dict(min_local=min_local, layout=layout)
     eager, want, got, counts, program, fake = _eager_and_replayed(
         model, lambda: distributed_run(model, **kw))
-    loops = program.loops
-    trips = loops.trips[:len(loops)].tolist() if len(loops) else []
+    loops = None if program is None else program.loops
+    trips = loops.trips[:len(loops)].tolist() if loops else []
     checks = {"bits": _equal(eager, got), "counts": counts == want,
-              "captures": fake.captures == 1, "trips": trips,
-              "collectives": {k: counts[k] for k in cuda.COLLECTIVES},
-              "collectives_in_bodies": sum(
-                  c.get("all_gather", 0) for c in loops.counts)}
+              "captures": fake.captures, "trips": trips,
+              "compiled": model.last_run_compiled,
+              "reason": model.last_run_reason,
+              "collectives": {k: counts[k] for k in cuda.COLLECTIVES}}
     if build == "born":
         run = _eager_and_replayed(model, lambda: model.run(warn=False))
         step = _eager_and_replayed(model, lambda: model.step(model.u0))
@@ -158,16 +185,13 @@ def _keys(mesh) -> dict:
     (one rank, rows, 8), then (world, rows, 8) again: the count after each
     call, and the partition part of each program's key."""
     model = _model("delta_32")
-    real, graphs.CAPTURE = graphs.CAPTURE, StandIn()
     sizes = []
-    try:
+    with _as_on_card(StandIn()):
         for m, layout, min_local in ((mesh, "rows", 8), (mesh, "2d", 8),
                                      (mesh, "rows", 16), (Mesh(1), "rows", 8),
                                      (mesh, "rows", 8)):
             distributed_run(model, m, min_local=min_local, layout=layout)
             sizes.append(len(model.programs))
-    finally:
-        graphs.CAPTURE = real
     return {"sizes": sizes,
             "parts": [full[0][3:] for full in model.programs._programs]}
 
@@ -226,20 +250,24 @@ def test_replay_equals_eager_and_jax(spawned, world, case):
     got = spawned[world][case]
     checks = got["checks"]
     assert len(checks) == world
+    # an adaptive solve (Jacobi's too): its norm would sit in a WHILE body
+    adaptive = _model(name).solver.cycle_mode not in ("fixed", "fmg")
     for rank, c in enumerate(checks):
         assert c["bits"], f"rank {rank}: replay differs from eager"
         assert c["counts"], f"rank {rank}: counts differ from eager"
-        assert c["captures"], f"rank {rank}: not one capture"
         assert c["trips"] == checks[0]["trips"], "trips differ by rank"
         assert c["collectives"] == checks[0]["collectives"]
+        if adaptive:
+            # eager on every rank, decided from the configuration
+            assert not c["compiled"] and c["captures"] == 0
+            assert "WHILE body" in c["reason"], c["reason"]
+        else:
+            assert c["compiled"] and c["reason"] is None
+            assert c["captures"] == 1, f"rank {rank}: not one capture"
         if build == "born":
             assert c["run"] and c["step"] and c["run_equals_distributed_run"]
     assert checks[0]["collectives"]["batch_isend_irecv"] > 0
     assert checks[0]["collectives"]["all_gather"] > 0
-    if name.startswith("adaptive"):
-        # a WHILE node whose body holds all_sum's all-gather, trips > 0
-        assert checks[0]["collectives_in_bodies"] > 0
-        assert sum(checks[0]["trips"]) > 0
     juT, jstats = _jax_dist(name, world, min_local)
     np.testing.assert_allclose(got["uT"], juT, rtol=0, atol=BOUNDS[name])
     np.testing.assert_array_equal(got["stats"]["cycles"], jstats["cycles"])
@@ -278,33 +306,36 @@ def test_host_staged_collective_in_a_capture_raises():
 
 
 def test_capture_and_eager_reasons():
-    """NCCL: None (captured) for fixed-cycle and FMG solves, the WHILE
-    body's reason for an adaptive one; gloo with CUDA tensors: the staging
-    reason; the CPU: the CPU's reason; one rank: None on the card."""
+    """The CPU: the CPU's reason.  On the card: one rank, None; gloo with
+    CUDA tensors, the staging reason; NCCL with CAPTURE_NCCL off (the
+    default), the switch's reason for every solver; with it on, None for
+    fixed-cycle and FMG solves and the WHILE body's reason for an
+    adaptive one."""
     parted = _model("delta_32", Mesh(2, 0), "rows", 8)
     adaptive = _model("adaptive_f64_32").solver
-    fmg = _model("fmg_32").solver
+    fixed, fmg = parted.solver, _model("fmg_32").solver
+    assert not distributed.CAPTURE_NCCL
     assert parted.eager_reason() == CPU_REASON
     assert capture_reason(Mesh(2, 0), "cpu") == CPU_REASON
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(graphs, "CAPTURE", StandIn())
-        for backend, cpu, card in (("nccl", None, None),
-                                   ("gloo", None, "under gloo")):
-            mp.setattr(Mesh, "backend", property(lambda self, b=backend: b))
-            assert capture_reason(Mesh(2, 0), "cpu") is cpu
-            assert capture_reason(Mesh(2, 0), "cpu", adaptive) is cpu
-            assert parted.eager_reason() is cpu
-            for solver in (None, parted.solver, fmg):
-                reason = capture_reason(Mesh(2, 0), "cuda", solver)
-                assert reason is None if card is None else card in reason
-            assert capture_reason(Mesh(1), "cuda", adaptive) is None
-        reason = capture_reason(Mesh(2, 0), "cuda", adaptive)
-        assert "gloo" in reason  # the last backend set
-        mp.setattr(Mesh, "backend", property(lambda self: "nccl"))
-        assert "WHILE body" in capture_reason(Mesh(2, 0), "cuda", adaptive)
+        assert capture_reason(Mesh(1), "cuda", adaptive) is None
         mp.setattr(Mesh, "backend", property(lambda self: "gloo"))
-        parted.device = torch.device("cuda")  # the rule reads the type
+        for solver in (None, fixed, fmg, adaptive):
+            assert "under gloo" in capture_reason(Mesh(2, 0), "cuda", solver)
+        parted.device = torch.device("cuda")
         assert "stage CUDA tensors through the host" in parted.eager_reason()
+        mp.setattr(Mesh, "backend", property(lambda self: "nccl"))
+        for solver in (None, fixed, fmg, adaptive):
+            reason = capture_reason(Mesh(2, 0), "cuda", solver)
+            assert "CAPTURE_NCCL" in reason, reason
+        assert "CAPTURE_NCCL" in parted.eager_reason()
+        mp.setattr(distributed, "CAPTURE_NCCL", True)
+        for solver in (None, fixed, fmg):
+            assert capture_reason(Mesh(2, 0), "cuda", solver) is None
+        assert parted.eager_reason() is None
+        assert "WHILE body" in capture_reason(Mesh(2, 0), "cuda", adaptive)
+        assert capture_reason(Mesh(1), "cuda", adaptive) is None
 
 
 def test_replays_add_collectives_and_the_reset_clears_them():
