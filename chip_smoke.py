@@ -2,9 +2,14 @@
 H100; the kernels are built for sm_90a).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --multi-gpu
 
-Run from the repository root.  Phases, each printing its results and each
-raising on failure:
+Run from the repository root.  With no argument it runs every phase below
+(16 and 19 only on four cards).  With --multi-gpu, on four cards, it runs
+phases 1 and 2, the one-card references that phases 16 and 19 are held to
+(phase 4's run, 13 (b) and 17 (a)), then 16 and 19, and prints the same
+last line.  Phases, each printing its results and each raising on
+failure:
 
 1. device: the card's name, the device count, and nvidia-smi's name and
    power limit;
@@ -135,9 +140,10 @@ raising on failure:
     tests/test_ops.py's tolerances.
 
 16. multi-gpu: the partitioned run over four cards, one NCCL rank a card
-    (`launch_local(..., backend="nccl", device="cuda")`: rank r on
-    cuda:r, halos and norms on the device), eager (the captured form is
-    off, `parallel.distributed.CAPTURE_NCCL`, and each run says so).  On
+    (`launch_local(..., backend="nccl", device="cuda")`, with a
+    deadline: rank r on cuda:r, halos and norms on the device), eager
+    (each rank switches the captured form off,
+    `parallel.distributed.CAPTURE_NCCL`, and each run says so).  On
     fewer than four cards one line says it was not run, with the device
     count, and nothing else runs (nor phase 19).  On four it prints
     nvidia-smi's index, name and power limit of each card and
@@ -159,7 +165,8 @@ raising on failure:
     rank; (d) `cli scaling` over NCCL, strong at n=8192 over 1, 2, 4
     ranks and weak at n=4096 and 8192 over 1 and 4, in both layouts, at
     the auto cycle count, each center within 1e-9 of a single-device
-    run.
+    run; each CLI call killed with the ranks it spawned if it outlives
+    its deadline.
 17. compiled (run before phase 16, whose rank 0 takes cuda:0): the
     models' entry points as compiled programs, each captured once as a
     CUDA graph and replayed (utils/graphs.py), against their eager runs
@@ -216,7 +223,10 @@ raising on failure:
     each rank replaying its own CUDA graph whose NCCL kernels meet across
     the cards, with `parallel.distributed.CAPTURE_NCCL` set in its ranks
     (it is off by default: this phase is what it waits on).  Rank 0
-    prints a progress line as its ranks start on each case.  (a) probes,
+    prints a progress line as its ranks start on each case; a spawn that
+    outlives its deadline (`DEADLINE_S`: NCCL's watchdog does not see a
+    hung replay) has its ranks killed and raises, naming that case
+    (`launch_local`'s deadline, `parallel.distributed.note`).  (a) probes,
     each captured once and replayed from two inputs on four ranks
     against its eager form, to the bit, with LAUNCHES and COLLECTIVES
     equal: one `start_exchange` batch, an `all_sum`, and K7's overlapped
@@ -240,8 +250,11 @@ raising on failure:
     13's one-card uT to the bit, and n=32768 at the cycle count that
     certified in 16 (c), every certificate <= 1e-6; first call, capture
     and replay seconds, reserved MiB per rank with the graph's pool
-    held.  `cli scaling` over NCCL is not run captured: the CLI has no
-    switch for the captured form.
+    held.  (e) `cli scaling`'s sweeps of phase 16 (d) captured: the
+    CLI's own sweep (`cli.scaling_records`), each multi-rank point's
+    ranks spawned here with the switch on (`cli.scaling_point`), every
+    point a replay (`compiled` true, a `capture_seconds`), each center
+    within 1e-9 of a single-device run.
 
 Phase 9 also builds the main path's model born row-partitioned over its
 W=4 ranks (AdvectionDiffusion(mesh=...), min_local=64; phase 13's (c)):
@@ -275,6 +288,7 @@ repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import hashlib
 import json
@@ -1456,7 +1470,8 @@ def phase_distributed(n: int, steps: int, uT_single) -> int:
 def _eager_reason(reason, backend: str = "gloo") -> bool:
     """A run partitioned over several ranks on the card is eager, and says
     why: under gloo its collectives stage through the host; under NCCL
-    the captured form is off (`parallel.distributed.CAPTURE_NCCL`)."""
+    (phase 16) its rank switched the captured form off
+    (`parallel.distributed.CAPTURE_NCCL`)."""
     word = "under gloo" if backend == "gloo" else "CAPTURE_NCCL"
     return reason is not None and word in reason
 
@@ -1578,18 +1593,49 @@ def phase_open_smooth(device, n: int, steps: int, uT_main):
     return counts
 
 
+def _descendants(pid: int) -> list[int]:
+    """The processes below `pid` (children, their children, ...), from the
+    parent links in /proc/<pid>/stat."""
+    children = {}
+    for stat in pathlib.Path("/proc").glob("[0-9]*/stat"):
+        with contextlib.suppress(OSError, IndexError, ValueError):
+            parent = int(stat.read_text().rsplit(")", 1)[1].split()[1])
+            children.setdefault(parent, []).append(int(stat.parent.name))
+    out, todo = [], [pid]
+    while todo:
+        kids = children.get(todo.pop(), [])
+        out += kids
+        todo += kids
+    return out
+
+
 def _cli(*argv, timeout=600) -> list[dict]:
     """The port's CLI in a subprocess from the repository root; its JSON
-    lines.  A non-zero exit raises."""
+    lines.  A non-zero exit raises; so does a run past `timeout` seconds,
+    after the CLI and the ranks it spawned (`_descendants`) are killed,
+    naming the last line it printed.  The CLI stays in this process's
+    group, so a signal to the group (an outer `timeout`) reaches its
+    ranks too."""
     cmd = [sys.executable, "-m", f"{PKG}.cli", *argv]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                          timeout=timeout,
-                          env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        for pid in [*_descendants(proc.pid), proc.pid]:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, 9)  # SIGKILL
+        out, err = proc.communicate()
+        last = (out.strip().splitlines() or ["nothing"])[-1]
+        raise RuntimeError(f"cli {' '.join(argv)}: not ended after "
+                           f"{timeout} s, killed with the ranks it spawned;"
+                           f" its last line: {last}\n{err[-4000:]}")
     require(proc.returncode == 0,
-            f"cli {' '.join(argv)}: exit {proc.returncode}\n{proc.stderr}")
+            f"cli {' '.join(argv)}: exit {proc.returncode}\n{err}")
     print(f"[cli] {' '.join(argv)}: {time.perf_counter() - t0:.1f} s in all")
-    return [json.loads(line) for line in proc.stdout.splitlines()
+    return [json.loads(line) for line in out.splitlines()
             if line.startswith("{")]
 
 
@@ -2248,12 +2294,13 @@ def _configs_rank(n: int, steps: int, min_local: int,
                   captured: bool = False) -> dict:
     """Phase 14 (b), one rank on cuda:0: each configuration through
     distributed_run in both layouts (eager: gloo, or NCCL with the
-    captured form off), and the main one born 2-D-partitioned against the
-    same run of the whole device-built model.  With `captured` (phase 19
-    (c), NCCL ranks, one card each) each eager run is followed by the same
-    call with `parallel.distributed.CAPTURE_NCCL` on, captured and
-    replayed (`_replayed`), the adaptive SolverConfig(dtype=float64)
-    beside the rest, and the born model is left out."""
+    captured form switched off in this rank), and the main one born
+    2-D-partitioned against the same run of the whole device-built model.
+    With `captured` (phase 19 (c), NCCL ranks, one card each) each eager
+    run is followed by the same call with `parallel.distributed.
+    CAPTURE_NCCL` on, captured and replayed (`_replayed`), the adaptive
+    SolverConfig(dtype=float64) beside the rest, and the born model is
+    left out."""
     import dataclasses
 
     from hpcclassmultigridproject_tpu_torch import ProblemConfig, SolverConfig
@@ -2266,6 +2313,7 @@ def _configs_rank(n: int, steps: int, min_local: int,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.CAPTURE_NCCL = False
     problem = ProblemConfig(n=n, num_steps=steps)
     as_np = lambda uT, stats: (uT.cpu().numpy(), {
         k: v.cpu().numpy() for k, v in stats.items()})
@@ -2275,6 +2323,8 @@ def _configs_rank(n: int, steps: int, min_local: int,
     out = {}
     for name, cfg in configs.items():
         for layout in ("rows", "2d"):
+            _progress(f"[configs] {name}, {layout}"
+                      + (": eager, then captured" if captured else ""))
             model = AdvectionDiffusion(problem, cfg, device="cuda")
             kw = dict(min_local=min_local, layout=layout)
             cuda.reset_launches()
@@ -2461,7 +2511,8 @@ def _phase_grid_configs(smi: str, backend: str = "gloo",
     t0 = time.perf_counter()
     res = launch_local(_configs_rank, GRID_WORLD,
                        (CONFIG_N, CONFIG_STEPS, CONFIG_MIN_LOCAL, captured),
-                       backend=backend, device=device)
+                       backend=backend, device=device,
+                       deadline=DEADLINE_S["configs"])
     print(f"{label} n={CONFIG_N}, {CONFIG_STEPS} steps, min_local "
           f"{CONFIG_MIN_LOCAL}, W={GRID_WORLD}, both layouts: "
           f"{time.perf_counter() - t0:.1f} s in all, {backend}; {smi}")
@@ -2539,18 +2590,63 @@ def _phase_grid_halo(n: int, smi: str) -> None:
           f"{EXCHANGE_REPS}, gloo staged through the host; {smi})")
 
 
+def _captured_scaling_point(args) -> dict:
+    """Phase 19 (e), one NCCL rank on its own card: `cli.scaling_point`
+    with the captured form switched on in this rank
+    (`parallel.distributed.CAPTURE_NCCL`), so that the point replays."""
+    import torch.distributed as dist
+
+    from hpcclassmultigridproject_tpu_torch import cli
+    from hpcclassmultigridproject_tpu_torch.parallel import distributed
+
+    distributed.CAPTURE_NCCL = True
+    _progress(f"[compiled-multi] (e) scaling --mode {args.mode} --layout "
+              f"{args.layout}: n={args.n} over {dist.get_world_size()} "
+              "ranks, captured")
+    return cli.scaling_point(args)
+
+
+def _captured_scaling(argv: list, counts: list) -> list[dict]:
+    """Phase 19 (e): `cli scaling`'s records of `argv` at the rank counts
+    `counts` (`cli.scaling_records`, the CLI's own sweep), the one-rank
+    point in this process as the CLI runs it, each multi-rank point in
+    NCCL ranks spawned here with a deadline, running
+    `_captured_scaling_point`.  Spawned ranks read the module's default
+    (off), so the switch is set in them, not here."""
+    import gc
+
+    from hpcclassmultigridproject_tpu_torch import cli
+    from hpcclassmultigridproject_tpu_torch.parallel import launch_local
+
+    def point(args, c):
+        if c == 1:
+            got = cli.scaling_point(args)
+        else:
+            got = launch_local(_captured_scaling_point, c, (args,),
+                               backend="nccl", device="cuda",
+                               deadline=DEADLINE_S["point"])
+        gc.collect()
+        torch.cuda.empty_cache()  # this process's cache on cuda:0
+        return got
+
+    args = cli.parser().parse_args(["scaling", *argv])
+    return list(cli.scaling_records(args, counts, point))
+
+
 def _phase_grid_scaling(smi: str, strong_n: int = MAIN_N,
                         weak_n: int = MAIN_N // 2,
                         weak_layouts=("auto",), cycles: int | None = 1,
-                        reps: int = 1,
-                        label: str = "[grid] (d)") -> None:
-    """Phase 14 (d): `cli scaling` on the card, strong in both layouts and
-    weak, each line against a single-device run of its n at `cycles`
-    V-cycles a step (None: the auto count); phase 16 (d) runs it over
-    NCCL, one card a rank, at its own sizes.  A point of one rank is a
-    replay of its captured program; a point of several ranks runs eagerly
-    (gloo stages through the host; the NCCL captured form is off,
-    `parallel.distributed.CAPTURE_NCCL`)."""
+                        reps: int = 1, label: str = "[grid] (d)",
+                        captured: bool = False) -> None:
+    """`cli scaling` on the card, strong in both layouts and weak, each
+    line against a single-device run of its n at `cycles` V-cycles a step
+    (None: the auto count).  A point of one rank is a replay of its
+    captured program.  Phase 14 (d): the CLI in a subprocess, gloo ranks
+    sharing the one card, eager (gloo stages through the host); phase 16
+    (d) the same over NCCL, one card a rank, eager (the NCCL captured form
+    is off, `parallel.distributed.CAPTURE_NCCL`); with `captured`, phase
+    19 (e): the CLI's sweep with every point a replay
+    (`_captured_scaling`)."""
     import dataclasses
 
     from hpcclassmultigridproject_tpu_torch import ProblemConfig
@@ -2578,8 +2674,9 @@ def _phase_grid_scaling(smi: str, strong_n: int = MAIN_N,
     sweeps += [("weak", layout, weak_n, [(1, weak_n), (4, 2 * weak_n)])
                for layout in weak_layouts]
     for mode, layout, n, want in sweeps:
-        lines = _cli("scaling", "--mode", mode, "--layout", layout, "--n",
-                     str(n), *flags)
+        argv = ["--mode", mode, "--layout", layout, "--n", str(n), *flags]
+        lines = (_captured_scaling(argv, [c for c, _ in want]) if captured
+                 else _cli("scaling", *argv, timeout=DEADLINE_S["cli"]))
         require([(r["devices"], r["n"]) for r in lines] == want,
                 f"cli scaling {mode} {layout}: points {lines}")
         for rec in lines:
@@ -2595,10 +2692,13 @@ def _phase_grid_scaling(smi: str, strong_n: int = MAIN_N,
                   f"{rec.get('speedup')}; compiled {rec['compiled']}"
                   f"{capture}; |center_uT - single| {dc:.3g}")
             require(list(rec) == keys, f"cli scaling keys {list(rec)}")
-            # one rank: one captured program; several ranks: eager
-            require(rec["compiled"] == (rec["devices"] == 1),
+            # one rank: one captured program; several ranks: eager, but
+            # replays with the NCCL captured form on (phase 19 (e))
+            compiled = rec["devices"] == 1 or captured
+            require(rec["compiled"] == compiled
+                    and (rec["capture_seconds"] is not None) == compiled,
                     f"cli scaling: {rec['devices']} ranks compiled "
-                    f"{rec['compiled']}")
+                    f"{rec['compiled']}, capture {rec['capture_seconds']}")
             require(rec["mesh"] == meshes[rec["devices"]]
                     and rec["layout"] == layout,
                     f"cli scaling mesh/layout {rec}")
@@ -2894,6 +2994,13 @@ def phase_routes_oracle(device, n: int, steps: int, uT_main) -> None:
 
 # phase 16: the partitioned run over four cards, one NCCL rank a card
 MULTI_WORLD, MULTI_REPS = 4, 3  # (a): timed runs a case, after a warm-up
+# --multi-gpu: timed runs of a case in 16 (a) and of a point in 16 (d) and
+# 19 (e), so that the four-card mode fits one call
+MULTI_GPU_REPS = 1
+# seconds a spawn of phases 16 and 19 may run before its ranks are killed
+# (`launch_local`'s deadline); a hung replay is not seen by NCCL's watchdog
+DEADLINE_S = {"main": 480, "configs": 480, "scale": 720, "probes": 240,
+              "point": 240, "cli": 600}
 # phase 19: the partitioned run captured under NCCL
 COMPILED_MULTI_REPLAYS = 5  # (b): timed replays a case, after the capture
 HUGE_N, HUGE_MAX_CYCLES = 32768, 12  # (c): a grid no single card holds
@@ -2916,11 +3023,16 @@ def _fingerprint(uT: torch.Tensor) -> dict:
 
 def _progress(line: str) -> None:
     """Rank 0 says what its ranks start on, at once (a spawn's results
-    print only when it returns, so this names where a hang is)."""
+    print only when it returns, so this names where a hang is), and
+    leaves the line where a missed deadline names it
+    (`parallel.distributed.note`)."""
     import torch.distributed as dist
+
+    from hpcclassmultigridproject_tpu_torch.parallel import distributed
 
     if dist.get_rank() == 0:
         print(f"{line} (rank 0)", flush=True)
+        distributed.note(line)
 
 
 def _all_ranks(value) -> list:
@@ -2932,15 +3044,16 @@ def _all_ranks(value) -> list:
     return out
 
 
-def _multi_main_rank(n: int, steps: int) -> dict:
+def _multi_main_rank(n: int, steps: int, reps: int = MULTI_REPS) -> dict:
     """Phase 16 (a), one NCCL rank on its own card: the main path through
-    distributed_run (eager: the NCCL captured form is off) in both
-    layouts, built whole and born partitioned, in the plain and the
-    overlapped schedule.  Each case runs a warm-up, then MULTI_REPS timed
-    runs built whole and one born; the first timed run is read between a
-    reset and a read of this rank's launch counts and collectives
-    (`ops.cuda.COLLECTIVES`), which every rank reports.  Then the ms of
-    each collective at the path's shapes."""
+    distributed_run (eager: this rank switches the captured form off,
+    `parallel.distributed.CAPTURE_NCCL`) in both layouts, built whole and
+    born partitioned, in the plain and the overlapped schedule.  Each
+    case runs a warm-up, then `reps` timed runs built whole and one
+    born; the first timed run is read between a reset and a read of this
+    rank's launch counts and collectives (`ops.cuda.COLLECTIVES`), which
+    every rank reports.  Then the ms of each collective at the path's
+    shapes."""
     import dataclasses
 
     import torch.distributed as dist
@@ -2949,11 +3062,13 @@ def _multi_main_rank(n: int, steps: int) -> dict:
     from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
     from hpcclassmultigridproject_tpu_torch.ops import cuda
     from hpcclassmultigridproject_tpu_torch.parallel import (
+        distributed,
         distributed_run,
         make_mesh,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.CAPTURE_NCCL = False
     out = {"cards": _all_ranks(torch.cuda.current_device()),
            "backend": dist.get_backend()}
     mesh = make_mesh()
@@ -2975,7 +3090,7 @@ def _multi_main_rank(n: int, steps: int) -> dict:
                 model.solver = dataclasses.replace(model.solver,
                                                    sharded_overlap=overlap)
                 case = out[layout, build, overlap] = {"walls": []}
-                timed = MULTI_REPS if build == "whole" else 1
+                timed = reps if build == "whole" else 1
                 for rep in range(timed + 1):
                     torch.cuda.reset_peak_memory_stats()
                     cuda.reset_launches()
@@ -3000,14 +3115,17 @@ def _multi_main_rank(n: int, steps: int) -> dict:
     return out
 
 
-def _phase_multi_main(n: int, steps: int, uT_single, smi: str) -> dict:
-    """Phase 16 (a); returns its cases, each with rank 0's uT and stats
-    and every rank's launch counts and collectives, for phase 19 (b)."""
+def _phase_multi_main(n: int, steps: int, uT_single, smi: str,
+                      reps: int = MULTI_REPS) -> dict:
+    """Phase 16 (a), `reps` timed runs a case built whole; returns its
+    cases, each with rank 0's uT and stats and every rank's launch counts
+    and collectives, for phase 19 (b)."""
     from hpcclassmultigridproject_tpu_torch.parallel import launch_local
 
     t0 = time.perf_counter()
-    res = launch_local(_multi_main_rank, MULTI_WORLD, (n, steps),
-                       backend="nccl", device="cuda")
+    res = launch_local(_multi_main_rank, MULTI_WORLD, (n, steps, reps),
+                       backend="nccl", device="cuda",
+                       deadline=DEADLINE_S["main"])
     cards, backend = res.pop("cards"), res.pop("backend")
     comm = res.pop("comm_ms")
     print(f"[multi-gpu] (a) main path, n={n}, {steps} steps, min_local "
@@ -3203,7 +3321,8 @@ def _phase_multi_scale(big: tuple[int, dict], smi: str,
     t0 = time.perf_counter()
     res = launch_local(_multi_scale_rank, MULTI_WORLD,
                        (BIG_N, big_cycles, HUGE_N, huge_cycles),
-                       backend="nccl", device="cuda")
+                       backend="nccl", device="cuda",
+                       deadline=DEADLINE_S["scale"])
     print(f"{label} n={BIG_N} and n={HUGE_N} born partitioned over "
           f"{MULTI_WORLD} cards, {BIG_STEPS} steps: spawn, builds and runs "
           f"{time.perf_counter() - t0:.1f} s; {smi}")
@@ -3261,13 +3380,16 @@ def _phase_multi_scale(big: tuple[int, dict], smi: str,
 
 
 def phase_multi_gpu(n: int, steps: int, uT_single, big,
-                    single_wall: float) -> None:
+                    single_wall: float, reps: int | None = None) -> None:
     """Phases 16 and 19: the partitioned run over MULTI_WORLD cards, one
     NCCL rank a card, eager (16), then captured (19), after phase 16 so
     that a fault of the captured form cannot hide phase 16's results
     (module docstring); on fewer cards one line each says it was not run.
     `big` is phase 13's (cycle count, uT fingerprint) at n=16384,
-    `single_wall` phase 17 (a)'s replay wall."""
+    `single_wall` phase 17 (a)'s replay wall.  `reps` (default
+    MULTI_REPS and MULTI_SCALING_REPS) is the timed runs of a case in 16
+    (a) and of a point in 16 (d) and 19 (e); the checks do not depend on
+    it.  Each spawn has a deadline (`DEADLINE_S`)."""
     import gc
 
     count = torch.cuda.device_count()
@@ -3290,15 +3412,17 @@ def phase_multi_gpu(n: int, steps: int, uT_single, big,
     smi = "; ".join(cards)
     gc.collect()
     torch.cuda.empty_cache()  # this process's cache on cuda:0 is rank 0's
-    eager = _phase_multi_main(n, steps, uT_single, smi)
+    eager = _phase_multi_main(n, steps, uT_single, smi,
+                              reps or MULTI_REPS)
     _phase_grid_configs(smi, backend="nccl", device="cuda",
                         label="[multi-gpu] (b)")
     gc.collect()
     torch.cuda.empty_cache()
     huge_cycles = _phase_multi_scale(big, smi)
-    _phase_grid_scaling(smi, strong_n=STRONG_N, weak_n=WEAK_N,
-                        weak_layouts=("rows", "2d"), cycles=None,
-                        reps=MULTI_SCALING_REPS, label="[multi-gpu] (d)")
+    scaling = dict(strong_n=STRONG_N, weak_n=WEAK_N,
+                   weak_layouts=("rows", "2d"), cycles=None,
+                   reps=reps or MULTI_SCALING_REPS)
+    _phase_grid_scaling(smi, label="[multi-gpu] (d)", **scaling)
     _phase_capture_probes(smi)
     _phase_compiled_main(n, steps, eager, smi, single_wall)
     _phase_grid_configs(smi, backend="nccl", device="cuda",
@@ -3306,6 +3430,10 @@ def phase_multi_gpu(n: int, steps: int, uT_single, big,
     gc.collect()
     torch.cuda.empty_cache()
     _phase_multi_scale(big, smi, huge_cycles)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase_grid_scaling(smi, label="[compiled-multi] (e)", captured=True,
+                        **scaling)
 
 
 def _same(got, want) -> bool:
@@ -3399,7 +3527,8 @@ def _phase_compiled_main(n: int, steps: int, eager: dict, smi: str,
     ref = {case: {k: got[k] for k in keep} for case, got in eager.items()}
     t0 = time.perf_counter()
     res = launch_local(_compiled_main_rank, MULTI_WORLD, (n, steps, ref),
-                       backend="nccl", device="cuda")
+                       backend="nccl", device="cuda",
+                       deadline=DEADLINE_S["main"])
     print(f"[compiled-multi] (b) main path, n={n}, {steps} steps, min_local "
           f"{DIST_MIN_LOCAL}, {MULTI_WORLD} NCCL ranks, captured: spawn, "
           f"builds, captures and replays {time.perf_counter() - t0:.1f} s; "
@@ -3532,7 +3661,8 @@ def _phase_capture_probes(smi: str) -> None:
 
     t0 = time.perf_counter()
     res = launch_local(_capture_probe_rank, MULTI_WORLD, (),
-                       backend="nccl", device="cuda")
+                       backend="nccl", device="cuda",
+                       deadline=DEADLINE_S["probes"])
     print(f"[compiled-multi] (a) probes over {MULTI_WORLD} NCCL ranks "
           f"(NCCL {res.pop('nccl')}, CUDA {torch.version.cuda}, capture "
           f"mode {graphs.CAPTURE_ERROR_MODE!r}): {time.perf_counter() - t0:.1f}"
@@ -4521,7 +4651,50 @@ def phase_loops(device, n, steps) -> tuple:
     return err, ms, plain_ms, bound, bound_by, counts["while_set"]
 
 
-def main() -> None:
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(
+        description="Smoke test of the PyTorch/CUDA port on the card "
+                    "(the module docstring lists the phases).")
+    parser.add_argument(
+        "--multi-gpu", action="store_true",
+        help="on four cards, only phases 16 and 19, after phases 1 and 2 "
+             "and the one-card references they compare against (phase 4's "
+             "run, phase 13 (b), phase 17 (a))")
+    return parser.parse_args(argv)
+
+
+def main_multi_gpu(device, name: str) -> None:
+    """`--multi-gpu`: phases 16 and 19 on MULTI_WORLD cards, after the
+    one-card references they are held to: phase 4's n=1024 uT and launch
+    counts, phase 13 (b)'s n=16384 cycle count and uT fingerprint, and
+    phase 17 (a)'s replay wall.  Each case of 16 (a) and each point of 16
+    (d) and 19 (e) is timed once (MULTI_GPU_REPS); every check is made as
+    with no argument."""
+    import gc
+
+    count = torch.cuda.device_count()
+    require(count >= MULTI_WORLD, f"--multi-gpu takes {MULTI_WORLD} cards "
+            f"and torch.cuda.device_count() is {count}")
+    counts, uT_main = phase_main_path(device, MAIN_N, MAIN_STEPS,
+                                      CENTER_1024)
+    big = _phase_big(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, single_wall = _compiled_main(device, MAIN_N, MAIN_STEPS, uT_main,
+                                        counts, _smi())
+    model = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_multi_gpu(MAIN_N, MAIN_STEPS, uT_main, big, single_wall,
+                    reps=MULTI_GPU_REPS)
+    print(f"[multi-gpu] done; {_smi()}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
                  "False); nothing was run")
@@ -4532,6 +4705,9 @@ def main() -> None:
     device = torch.device("cuda", 0)
     name = phase_device()
     phase_build()
+    if args.multi_gpu:
+        main_multi_gpu(device, name)
+        return
     measured = phase_kernels(device, MAIN_N)
     counts, uT_main = phase_main_path(device, MAIN_N, MAIN_STEPS, CENTER_1024)
     main_counts = dict(counts)

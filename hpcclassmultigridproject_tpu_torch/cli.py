@@ -330,33 +330,48 @@ def cmd_scaling(args) -> int:
         counts = [c for c in (1, 4, 16, 64) if c <= args.max_devices]
     else:
         counts = [c for c in (1, 2, 4, 8, 16, 32) if c <= args.max_devices]
-    base_n, base_t = args.n, None
-    for c in counts:
-        if args.mode == "weak":
-            args.n = base_n * int(round(c ** 0.5))
+
+    def point(args, c):
         if args.distributed or c == 1:
-            point = scaling_point(args)
-        else:
-            point = launch_local(scaling_point, c, (args,),
-                                 backend=_point_backend(args, c),
-                                 device=args.device)
-        if base_t is None and len(counts) > 1:
-            base_t = point["seconds"]
-        if args.baseline_seconds:
-            base_t = args.baseline_seconds
-        rec = {"devices": c, "n": args.n, "mesh": point["mesh"],
-               "layout": args.layout, "seconds": point["seconds"],
-               "center_uT": point["center_uT"]}
-        have_ratio = base_t is not None
-        rec["efficiency"] = (base_t / point["seconds"]
-                             if args.mode == "weak" and have_ratio else None)
-        if args.mode == "strong" and have_ratio:
-            rec["speedup"] = base_t / point["seconds"]
-        rec["compiled"] = point["compiled"]
-        rec["capture_seconds"] = point["capture_seconds"]
+            return scaling_point(args)
+        return launch_local(scaling_point, c, (args,),
+                            backend=_point_backend(args, c),
+                            device=args.device)
+
+    for rec in scaling_records(args, counts, point):
         emit(json.dumps(rec), flush=True)
-    args.n = base_n
     return 0
+
+
+def scaling_records(args, counts, point):
+    """`cmd_scaling`'s sweep: for each rank count c of `counts` (args.n
+    grown by √c in weak mode, and restored at the end), the record it
+    prints of `point(args, c)`, a `scaling_point` result; the ratios
+    against the first point, or --baseline-seconds."""
+    base_n, base_t = args.n, None
+    try:
+        for c in counts:
+            if args.mode == "weak":
+                args.n = base_n * int(round(c ** 0.5))
+            got = point(args, c)
+            if base_t is None and len(counts) > 1:
+                base_t = got["seconds"]
+            if args.baseline_seconds:
+                base_t = args.baseline_seconds
+            rec = {"devices": c, "n": args.n, "mesh": got["mesh"],
+                   "layout": args.layout, "seconds": got["seconds"],
+                   "center_uT": got["center_uT"]}
+            have_ratio = base_t is not None
+            rec["efficiency"] = (base_t / got["seconds"]
+                                 if args.mode == "weak" and have_ratio
+                                 else None)
+            if args.mode == "strong" and have_ratio:
+                rec["speedup"] = base_t / got["seconds"]
+            rec["compiled"] = got["compiled"]
+            rec["capture_seconds"] = got["capture_seconds"]
+            yield rec
+    finally:
+        args.n = base_n
 
 
 def gsbench_sweeps(n: int, sweeps: int, backend: str, dtype, device):
@@ -587,7 +602,8 @@ def cmd_diff(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def parser() -> argparse.ArgumentParser:
+    """The CLI's argument parser: a subcommand each, its handler in `fn`."""
     top = argparse.ArgumentParser(prog="hpcclassmultigridproject_tpu_torch")
     sub = top.add_subparsers(dest="cmd", required=True)
 
@@ -670,7 +686,11 @@ def main(argv=None) -> int:
     p.add_argument("b")
     p.set_defaults(fn=cmd_diff)
 
-    args = top.parse_args(argv)
+    return top
+
+
+def main(argv=None) -> int:
+    args = parser().parse_args(argv)
     return args.fn(args)
 
 

@@ -21,7 +21,8 @@ package's `parallel/distributed.py`.
     (under NCCL only with `CAPTURE_NCCL` on);
   * `launch_local(fn, world, ...)`: `world` spawned processes on this
     host, each in the process group on its own card, returning rank 0's
-    result.
+    result, optionally within a deadline; `note(line)`: what a rank works
+    on, which a missed deadline names.
 
 Under NCCL the collectives move device tensors, each on its rank's own
 card, and nothing goes through host memory: a tensor elsewhere reaching
@@ -58,6 +59,8 @@ from hpcclassmultigridproject_tpu_torch.utils import graphs
 
 # process-group timeout of the ranks `launch_local` spawns
 LOCAL_TIMEOUT = datetime.timedelta(seconds=300)
+# in a rank `launch_local` spawned: the file `note` writes
+_NOTE_FILE: pathlib.Path | None = None
 
 
 def initialize(backend: str, coordinator: str | None = None,
@@ -131,12 +134,12 @@ def host_staged(mesh: Mesh, t: torch.Tensor) -> bool:
 # Whether a call partitioned over NCCL ranks may be one captured program.
 # Off: such a call runs eagerly, with the reason `capture_reason` gives.
 # The captured form (each rank replaying its own graph, NCCL's kernels in
-# it) has not yet run to its end on four cards: on four H100s its probes
-# and the main path's whole-built plain runs in both layouts replayed
-# equal to their eager runs to the bit, but the born models, the
-# overlapped schedules, the other configurations and the large grids
-# have not run captured there (chip_smoke phase 19, which sets it in its
-# ranks, runs them).
+# it) has not yet run to its end on four cards: on four H100s its probes,
+# the main path in both layouts (built whole and born, plain and
+# overlapped) and the other configurations replayed equal to their eager
+# runs to the bit, but the large grids (n=16384, n=32768) and `cli
+# scaling`'s points have not run captured there (chip_smoke phase 19
+# (d) and (e), which set it in their ranks, run them).
 CAPTURE_NCCL = False
 
 
@@ -383,8 +386,17 @@ def rank_device(device, rank: int, world: int,
     return torch.device("cuda", rank % count)
 
 
+def note(line: str) -> None:
+    """In a rank that `launch_local` spawned, leave `line` (what the rank
+    starts on) where a missed deadline reads it; elsewhere nothing."""
+    if _NOTE_FILE is not None:
+        _NOTE_FILE.write_text(line)
+
+
 def _rank_main(rank: int, fn, world: int, args: tuple, backend: str,
                tmp: str, device) -> None:
+    global _NOTE_FILE
+    _NOTE_FILE = pathlib.Path(tmp) / "note"
     device = rank_device(device, rank, world, backend)
     if device is not None and device.type == "cuda":
         torch.cuda.set_device(device)
@@ -401,7 +413,7 @@ def _rank_main(rank: int, fn, world: int, args: tuple, backend: str,
 
 
 def launch_local(fn, world: int, args: tuple = (), *, backend: str = "gloo",
-                 device=None):
+                 device=None, deadline: float | None = None):
     """Run fn(*args) in `world` spawned processes of one process group on
     this host (rendezvous through a file in a temporary directory) and
     return rank 0's result, which must pickle (numpy, not CUDA tensors).
@@ -409,7 +421,15 @@ def launch_local(fn, world: int, args: tuple = (), *, backend: str = "gloo",
     `make_mesh()`.  With a CUDA `device`, each process selects its card
     (`rank_device`: "cuda" gives rank r cuda:r) before any CUDA work, and
     this process builds the kernel library first, so the ranks only load
-    it.  A failed rank raises here."""
+    it.  A failed rank raises here, the others killed.
+
+    With `deadline` (seconds), ranks still running that long after the
+    spawn are killed and TimeoutError names the line a rank last gave
+    `note`.  The process group's timeout does not reach a hung replay of
+    a captured graph (its collectives were never enqueued), so a caller
+    replaying one under NCCL sets a deadline."""
+    import time
+
     import torch.multiprocessing as mp
 
     if device is not None and torch.device(device).type == "cuda":
@@ -418,8 +438,27 @@ def launch_local(fn, world: int, args: tuple = (), *, backend: str = "gloo",
         rank_device(device, 0, world, backend)  # raises before spawning
         _build.build()
     with tempfile.TemporaryDirectory() as tmp:
-        mp.spawn(_rank_main,
-                 args=(fn, world, tuple(args), backend, tmp, device),
-                 nprocs=world, join=True)
+        spawn = dict(args=(fn, world, tuple(args), backend, tmp, device),
+                     nprocs=world)
+        if deadline is None:
+            mp.spawn(_rank_main, **spawn, join=True)
+        else:
+            ctx = mp.spawn(_rank_main, **spawn, join=False)
+            end = time.monotonic() + deadline
+            try:
+                while not ctx.join(timeout=max(0.0, end - time.monotonic())):
+                    if time.monotonic() >= end:
+                        noted = pathlib.Path(tmp) / "note"
+                        raise TimeoutError(
+                            f"{getattr(fn, '__name__', fn)}: {world} ranks "
+                            f"still running {deadline} s after the spawn, "
+                            "killed; last noted: " + (
+                                noted.read_text() if noted.exists()
+                                else "nothing"))
+            finally:
+                for proc in ctx.processes:
+                    if proc.is_alive():
+                        proc.kill()
+                    proc.join()
         with open(pathlib.Path(tmp) / "result.pkl", "rb") as f:
             return pickle.load(f)

@@ -7,7 +7,10 @@ group and no card.
     takes one card a rank, refuses more ranks than cards or one card for
     every rank;
   * `launch_local` builds the kernel library in the calling process before
-    it spawns the ranks, and each rank selects its own card;
+    it spawns the ranks, and each rank selects its own card; with a
+    deadline (real gloo ranks on the CPU here) it returns rank 0's result,
+    kills ranks still running at the deadline and names what a rank last
+    gave `note`, and kills the others when a rank fails;
   * the pairing of the halo exchanges.  NCCL ignores the tags of
     point-to-point ops: it pairs the sends from rank A to rank B with the
     receives B posts from A in the order each posts them.  Each rank of a
@@ -29,9 +32,11 @@ group and no card.
 """
 
 import concurrent.futures
+import multiprocessing
 import pathlib
 import pickle
 import threading
+import time
 import types
 
 import pytest
@@ -132,6 +137,61 @@ def test_launch_local_refuses_before_building(monkeypatch):
     with pytest.raises(ValueError, match="8 ranks, 4 cards"):
         distributed.launch_local(print, 8, backend="nccl", device="cuda")
     assert calls == []
+
+
+def _world_sum(x: int) -> int:
+    t = torch.tensor([x + dist.get_rank()])
+    dist.all_reduce(t)
+    return int(t)
+
+
+def _hang(tag: str):
+    """A rank that notes a case and never ends."""
+    distributed.note(f"case {tag}")
+    time.sleep(600)
+
+
+def _fail_on_rank_one():
+    if dist.get_rank() == 1:
+        raise ValueError("rank 1 fails")
+    time.sleep(600)
+
+
+def test_launch_local_deadline_returns_rank_zeros_result():
+    assert distributed.launch_local(_world_sum, 2, (3,), deadline=120) == 7
+    assert not multiprocessing.active_children()
+
+
+def test_launch_local_deadline_kills_the_ranks_and_names_the_case():
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError, match="_hang: 2 ranks still running "
+                       "20 s after the spawn, killed; last noted: case hung"):
+        distributed.launch_local(_hang, 2, ("hung",), deadline=20)
+    assert time.monotonic() - t0 < 90
+    assert not multiprocessing.active_children()
+
+
+def test_launch_local_deadline_kills_the_others_when_a_rank_fails():
+    import torch.multiprocessing as mp
+
+    t0 = time.monotonic()
+    with pytest.raises(mp.ProcessRaisedException, match="rank 1 fails"):
+        distributed.launch_local(_fail_on_rank_one, 2, (), deadline=300)
+    assert time.monotonic() - t0 < 120
+    assert not multiprocessing.active_children()
+
+
+def test_note_writes_only_in_a_spawned_rank(tmp_path, monkeypatch):
+    """In a rank (`_rank_main` set the file) `note` leaves its line there,
+    the last one kept; outside a rank it writes nothing."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(distributed, "_NOTE_FILE", None)
+    distributed.note("nothing to name")
+    assert list(tmp_path.iterdir()) == []
+    monkeypatch.setattr(distributed, "_NOTE_FILE", tmp_path / "note")
+    distributed.note("case a")
+    distributed.note("case b")
+    assert (tmp_path / "note").read_text() == "case b"
 
 
 @pytest.mark.parametrize("rank", range(4))

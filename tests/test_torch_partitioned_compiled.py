@@ -30,6 +30,13 @@ in a WHILE body), and the case checks that reason on every rank.  Rank
 at that file's bars: 1e-12 in float64, 1e-8 for the delta path
 (9.313e-9 measured there), with equal cycle counts.
 
+Each entry point (a whole model's `distributed_run`, a born model's
+`run`, `step` and `run_chunk`) is captured once with the switch on, and
+its replay equals its eager run to the bit with equal LAUNCHES and
+COLLECTIVES on every rank, while an adaptive solve is eager with the
+WHILE body's reason; at the module's default (off, as every spawned rank
+finds it) each of them is eager with the switch's reason.
+
 The unit tests: a program's key differs by mesh, layout and min_local;
 an exchange left unwaited inside a capture raises, and so does a
 host-staged collective; the rules of `capture_reason` /
@@ -112,11 +119,12 @@ def _eager_counts() -> dict:
 
 
 @contextlib.contextmanager
-def _as_on_card(stand_in):
+def _as_on_card(stand_in, switch: bool | None = True):
     """`graphs.CAPTURE` replaced by `stand_in`, and the models' capture
     rule read as a rank of the same world on its card under NCCL, with
-    `CAPTURE_NCCL` on, reads it (CPU tensors under gloo are not staged
-    through the host, so the stand-in can capture their collectives)."""
+    `CAPTURE_NCCL` set to `switch` (None: as the module has it), reads it
+    (CPU tensors under gloo are not staged through the host, so the
+    stand-in can capture their collectives)."""
     def rule(mesh, device, solver=None):
         nccl = types.SimpleNamespace(world=mesh.world, backend="nccl")
         return capture_reason(nccl, "cuda", solver)
@@ -124,7 +132,8 @@ def _as_on_card(stand_in):
     real = (graphs.CAPTURE, advection_diffusion.capture_reason,
             distributed.CAPTURE_NCCL)
     graphs.CAPTURE, advection_diffusion.capture_reason = stand_in, rule
-    distributed.CAPTURE_NCCL = True
+    if switch is not None:
+        distributed.CAPTURE_NCCL = switch
     try:
         yield stand_in
     finally:
@@ -132,17 +141,17 @@ def _as_on_card(stand_in):
          distributed.CAPTURE_NCCL) = real
 
 
-def _eager_and_replayed(model, call):
+def _eager_and_replayed(model, call, switch: bool | None = True):
     """`call()` eagerly and then as a rank on its card under NCCL would
-    run it (`_as_on_card`, the stand-in's capture inside `no_host_reads`)
-    on this rank: (eager out, its counts, the second out, its counts,
-    the program, the stand-in)."""
+    run it (`_as_on_card`, the stand-in's capture inside `no_host_reads`,
+    `CAPTURE_NCCL` set to `switch`) on this rank: (eager out, its counts,
+    the second out, its counts, the program, the stand-in)."""
     cuda.reset_launches()
     eager = call()
     assert not model.last_run_compiled
     assert model.last_run_reason == CPU_REASON
     want = _eager_counts()
-    with _as_on_card(StandIn(guard=no_host_reads)) as fake:
+    with _as_on_card(StandIn(guard=no_host_reads), switch) as fake:
         cuda.reset_launches()
         got = call()
         counts = (graphs.counts() if model.last_run_compiled
@@ -219,15 +228,58 @@ def _unwaited(mesh) -> str:
     return "no error"
 
 
+# the entry points run with the switch on and at its default
+ENTRY_POINTS = ("distributed_run", "run", "step", "run_chunk", "adaptive")
+
+
+def _entry_points(mesh) -> dict:
+    """name -> (model, call): a whole model's 2-D `distributed_run`, a
+    model born row-partitioned's `run`, `step` and `run_chunk` (2 steps,
+    a program of its own), and an adaptive whole model's
+    `distributed_run`."""
+    whole, adaptive = _model("delta_32"), _model("adaptive_f64_32")
+    born = _model("delta_32", mesh, "rows", 8)
+    return {
+        "distributed_run": (whole, lambda: distributed_run(
+            whole, min_local=8, layout="2d")),
+        "run": (born, lambda: born.run(warn=False)),
+        "step": (born, lambda: born.step(born.u0)),
+        "run_chunk": (born, lambda: born.run_chunk(born.u0, 2)),
+        "adaptive": (adaptive, lambda: distributed_run(
+            adaptive, min_local=8, layout="rows")),
+    }
+
+
+def _on_and_default(mesh) -> dict:
+    """Each entry point eagerly, then as a rank on its card under NCCL
+    runs it (`_as_on_card`), first with `CAPTURE_NCCL` on, then at the
+    module's default: {"default": the switch as this rank found it, name:
+    every rank's {"on": checks, "default": checks}}."""
+    out = {"default": distributed.CAPTURE_NCCL}
+
+    def checks(model, call, switch):
+        eager, want, got, counts, _, fake = _eager_and_replayed(
+            model, call, switch)
+        return {"bits": _equal(eager, got), "counts": counts == want,
+                "compiled": model.last_run_compiled,
+                "reason": model.last_run_reason, "captures": fake.captures}
+
+    for name, (model, call) in _entry_points(mesh).items():
+        out[name] = _all_ranks({"on": checks(model, call, True),
+                                "default": checks(model, call, None)})
+    return out
+
+
 def rank_cases(cases, units: bool) -> dict:
-    """One rank: every case, and with `units` the key and unwaited
-    checks."""
+    """One rank: every case, and with `units` the key, unwaited and
+    switch checks."""
     torch.set_num_threads(1)
     mesh = make_mesh()
     out = {case: _case(mesh, *case) for case in cases}
     if units:
         out["keys"] = _keys(mesh)
         out["unwaited"] = _unwaited(mesh)
+        out["switch"] = _on_and_default(mesh)
     assert not graphs.POSTED
     return out
 
@@ -284,6 +336,38 @@ def test_key_holds_mesh_layout_and_min_local(spawned):
 
 def test_unwaited_exchange_in_a_capture_raises(spawned):
     assert "never waited on" in spawned[2]["unwaited"]
+
+
+@pytest.mark.parametrize("entry", ENTRY_POINTS)
+def test_switch_on_captures_under_nccl(spawned, entry):
+    """With `CAPTURE_NCCL` on, a rank on its card under NCCL captures the
+    call once and its replay equals the eager run to the bit with equal
+    LAUNCHES and COLLECTIVES; an adaptive solve is eager with the WHILE
+    body's reason."""
+    assert len(spawned[2]["switch"][entry]) == 2
+    for rank, c in enumerate(spawned[2]["switch"][entry]):
+        on = c["on"]
+        assert on["bits"], f"rank {rank}: differs from its eager run"
+        assert on["counts"], f"rank {rank}: counts differ from eager"
+        if entry == "adaptive":
+            assert not on["compiled"] and on["captures"] == 0
+            assert "WHILE body" in on["reason"], on["reason"]
+        else:
+            assert on["compiled"] and on["reason"] is None
+            assert on["captures"] == 1, f"rank {rank}: not one capture"
+
+
+@pytest.mark.parametrize("entry", ENTRY_POINTS)
+def test_default_runs_eagerly(spawned, entry):
+    """At the module's default (off, as every spawned rank finds it) the
+    same calls are eager on every rank with the switch's reason, and
+    equal to their eager runs."""
+    assert spawned[2]["switch"]["default"] is False
+    for rank, c in enumerate(spawned[2]["switch"][entry]):
+        got = c["default"]
+        assert not got["compiled"] and got["captures"] == 0
+        assert "CAPTURE_NCCL" in got["reason"], got["reason"]
+        assert got["bits"] and got["counts"], f"rank {rank}"
 
 
 def test_host_staged_collective_in_a_capture_raises():
