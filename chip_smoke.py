@@ -5,11 +5,11 @@ H100; the kernels are built for sm_90a).
     python3 chip_smoke.py --multi-gpu
 
 Run from the repository root.  With no argument it runs every phase below
-(16 and 19 only on four cards).  With --multi-gpu, on four cards, it runs
-phases 1 and 2, the one-card references that phases 16 and 19 are held to
-(phase 4's run, 13 (b) and 17 (a)), then 16 and 19, and prints the same
-last line.  Phases, each printing its results and each raising on
-failure:
+(16, 19 and 20 only on four cards).  With --multi-gpu, on four cards, it
+runs phases 1 and 2, the one-card references that phases 16 and 19 are
+held to (phase 4's run, 13 (b) and 17 (a)), then 16, 19 and 20, and
+prints the same last line.  Phases, each printing its results and each
+raising on failure:
 
 1. device: the card's name, the device count, and nvidia-smi's name and
    power limit;
@@ -219,7 +219,8 @@ failure:
     sweep and GDOF/s.
 
 19. compiled multi-gpu (on four cards, after phase 16; on fewer one
-    line says it was not run): the partitioned run captured under NCCL,
+    line says it was not run, as for phase 20's four-card part): the
+    partitioned run captured under NCCL,
     each rank replaying its own CUDA graph whose NCCL kernels meet across
     the cards, with `parallel.distributed.CAPTURE_NCCL` set in its ranks
     (it is off by default: this phase is what it waits on).  Rank 0
@@ -232,20 +233,18 @@ failure:
     equal: one `start_exchange` batch, an `all_sum`, and K7's overlapped
     schedule (the fork to NCCL's stream and the join around K7's
     launches); no later allocation of the capture may take the
-    exchange's receive buffers' memory.  (An `all_sum` inside a
-    `while_loop` is not probed: its capture in a WHILE body did not
-    finish on four H100s, and an adaptive partitioned run is eager.)
+    exchange's receive buffers' memory.  (Collectives inside a
+    `while_loop` are phase 20's.)
     (b) phase 16 (a)'s eight cases through distributed_run, captured: on
     every rank the replay equal to phase 16 (a)'s eager uT and stats to
     the bit, with its launch and collective counts, and
     `last_run_compiled`, then 5 timed replays, each equal; rank 0's
     replay wall against phase 16 (a)'s eager wall and phase 17 (a)'s
     one-card replay, capture seconds, top nodes, peak MiB per rank with
-    the pool held.  (c) phase 16 (b)'s configurations, each run eagerly
-    then captured against it (FMG's GS coarse solve a WHILE node in the
-    graph), with SolverConfig(dtype=float64) beside them; the adaptive
-    ones (Jacobi, Chebyshev and that one): eager on every rank with the
-    reason `parallel.capture_reason` gives them.  (d) phase
+    the pool held.  (c) phase 16 (b)'s fixed-cycle and FMG
+    configurations, each run eagerly then captured against it (FMG's GS
+    coarse solve a WHILE node in the graph; the adaptive ones are phase
+    20's).  (d) phase
     16 (c)'s grids, captured: n=16384 in each layout, uT equal to phase
     13's one-card uT to the bit, and n=32768 at the cycle count that
     certified in 16 (c), every certificate <= 1e-6; first call, capture
@@ -255,6 +254,39 @@ failure:
     ranks spawned here with the switch on (`cli.scaling_point`), every
     point a replay (`compiled` true, a `capture_seconds`), each center
     within 1e-9 of a single-device run.
+20. peer transport (the one-card part after 18; the rest on four cards,
+    after 19): the collectives of a partitioned run's WHILE bodies on
+    hand-written kernels (csrc/peer.cu: `mg_peer_exchange`,
+    `mg_peer_gather`) that store into the other ranks' mailboxes.  On one
+    card (`phase_peer`): two ranks as two streams of this process, with
+    local mailboxes, make every exchange and gather of main's rows
+    layout at n=1024 over two ranks (SolverConfig(dtype=float64)), each
+    against the blocks it comes from and bit for bit against the plain
+    versions (thread ranks, CPU mailboxes), launches counted over that
+    drive; then each kernel's ms a call at level 0's deep halo and one
+    float64 value, beside the plain version's and the bytes over
+    NVLink's 450 GB/s (no library time on one card: NCCL takes one card
+    a rank).  On four cards (`phase_peer_multi`, with
+    `parallel.distributed.CAPTURE_NCCL` set in its ranks): (a) the
+    cards' cudaDeviceCanAccessPeer matrix, then probes, each a
+    `while_loop` captured once (the peer transport set up first,
+    `distributed.prepare_peer`) and replayed from two inputs at the
+    device-set trip counts 0, 1 and 37 against its eager NCCL form: the
+    rows deep halo, the 2-D four edges, the 2-D extension with corners,
+    an `all_sum` and an `all_gather_blocks`, each to the bit, LAUNCHES
+    (the peer kernels aside) and COLLECTIVES equal, one peer launch a
+    collective of a trip, the epochs moved by the trips; (b) phase 16
+    (b)'s adaptive configurations (Jacobi, Chebyshev,
+    SolverConfig(dtype=float64)) in both layouts, captured against their
+    eager runs, every collective of a WHILE body on the peer transport;
+    (c) main n=1024, 100 steps, SolverConfig(dtype=float64), built whole,
+    in both layouts: eager, then captured and replayed PEER_MAIN_REPLAYS
+    times, every replay equal to the eager run to the bit on every rank,
+    uT within 1e-9 of one card's replay, rank 0's replay wall against the
+    eager one and one card's, capture seconds, top and body nodes, peak
+    MiB a rank with the pool held, and the µs a call of the peer kernels
+    and of NCCL's at the path's shapes, each in a graph of PEER_CALLS
+    calls.
 
 Phase 9 also builds the main path's model born row-partitioned over its
 W=4 ranks (AdvectionDiffusion(mesh=...), min_local=64; phase 13's (c)):
@@ -333,7 +365,13 @@ KERNELS = [  # (counter, name, source, the TPU kernel's pallas_call)
     # no pallas_call: XLA's while of lax.while_loop (mg_solve's here; also
     # mg/cycle.py:317, mg/refine.py:117, models/poisson.py:148)
     ("while_set", "L while node test", f"{PKG}/csrc/loop.cu",
-     "hpcclassmultigridproject_tpu/mg/cycle.py:457")]
+     "hpcclassmultigridproject_tpu/mg/cycle.py:457"),
+    # no pallas_call: the ppermute and psum XLA places inside the jitted
+    # loop of the adaptive distributed run
+    ("peer_exchange", "X peer halo exchange", f"{PKG}/csrc/peer.cu",
+     "hpcclassmultigridproject_tpu/parallel/halo.py:31"),
+    ("peer_gather", "G peer gather", f"{PKG}/csrc/peer.cu",
+     "hpcclassmultigridproject_tpu/parallel/halo.py:210")]
 MAIN_N, MAIN_STEPS = 1024, 100
 CENTER_1024 = 4.60419316843316e-5  # delta form at n=1024 (BENCH_r05.json)
 # the JAX package's values on the CPU under x64, at n=1024
@@ -2179,7 +2217,10 @@ def _replayed(model, call, want, want_counts) -> dict:
     program = model.programs.last
     return _all_ranks(dict(
         compiled=model.last_run_compiled, reason=model.last_run_reason,
-        equal=_equal_out(got, want), counts_equal=counts == want_counts,
+        equal=_equal_out(got, want),
+        counts_equal=_no_peer(counts) == _no_peer(want_counts),
+        peer={k: counts[k] for k in PEER_KEYS},
+        peer_routed=_peer_routed(program),
         while_set=counts["while_set"], tests=want_counts["while_set"],
         collectives={k: counts[k] for k in cuda.COLLECTIVES},
         first_s=first,
@@ -2189,10 +2230,35 @@ def _replayed(model, call, want, want_counts) -> dict:
         body_nodes=None if program is None else program.body_nodes))
 
 
+PEER_KEYS = ("peer_exchange", "peer_gather")
+
+
+def _no_peer(counts: dict) -> dict:
+    """Counts without the peer transport's launches (an eager run's
+    collectives go to NCCL, a replay's WHILE bodies to the peer kernels;
+    COLLECTIVES counts both alike)."""
+    return {k: v for k, v in counts.items() if k not in PEER_KEYS}
+
+
+def _peer_routed(program) -> bool:
+    """Whether every collective the program's WHILE bodies made took the
+    peer transport (a launch of its kernel each) and no collective
+    outside them did."""
+    if program is None:
+        return False
+    top = not any(program.launches.get(k, 0) for k in PEER_KEYS)
+    return top and all(
+        made.get("peer_exchange", 0) == made.get("batch_isend_irecv", 0)
+        and made.get("peer_gather", 0) == made.get("all_gather", 0)
+        for made in program.loops.counts)
+
+
 def _require_replayed(tag: str, ranks: list) -> None:
-    """Phase 19: every rank's `_replayed` record compiled, equal to the
-    eager run to the bit with equal counts (while_set: the eager run's
-    host tests), the same collectives on every rank."""
+    """Phases 19 and 20: every rank's `_replayed` record compiled, equal
+    to the eager run to the bit with equal counts (while_set: the eager
+    run's host tests; the peer kernels aside), every collective of a
+    WHILE body on the peer transport, the same collectives on every
+    rank."""
     for rank, rec in enumerate(ranks):
         require(rec["compiled"], f"{tag}: rank {rank} ran eagerly "
                 f"({rec['reason']})")
@@ -2200,6 +2266,8 @@ def _require_replayed(tag: str, ranks: list) -> None:
                 "its eager run")
         require(rec["counts_equal"], f"{tag}: rank {rank}'s replay counts "
                 "differ from its eager run's")
+        require(rec["peer_routed"], f"{tag}: rank {rank}: a collective of "
+                "a WHILE body did not take the peer transport")
         require(rec["collectives"] == ranks[0]["collectives"],
                 f"{tag}: the ranks posted different collectives")
 
@@ -2291,7 +2359,7 @@ def _grid_configs() -> dict:
 
 
 def _configs_rank(n: int, steps: int, min_local: int,
-                  captured: bool = False) -> dict:
+                  captured: bool = False, names=None) -> dict:
     """Phase 14 (b), one rank on cuda:0: each configuration through
     distributed_run in both layouts (eager: gloo, or NCCL with the
     captured form switched off in this rank), and the main one born
@@ -2300,7 +2368,7 @@ def _configs_rank(n: int, steps: int, min_local: int,
     run is followed by the same call with `parallel.distributed.
     CAPTURE_NCCL` on, captured and replayed (`_replayed`), the adaptive
     SolverConfig(dtype=float64) beside the rest, and the born model is
-    left out."""
+    left out.  `names` (default all) picks the configurations."""
     import dataclasses
 
     from hpcclassmultigridproject_tpu_torch import ProblemConfig, SolverConfig
@@ -2322,6 +2390,8 @@ def _configs_rank(n: int, steps: int, min_local: int,
         configs["adaptive f64"] = SolverConfig(dtype=torch.float64)
     out = {}
     for name, cfg in configs.items():
+        if names is not None and name not in names:
+            continue
         for layout in ("rows", "2d"):
             _progress(f"[configs] {name}, {layout}"
                       + (": eager, then captured" if captured else ""))
@@ -2500,17 +2570,20 @@ def _phase_grid_main(n: int, steps: int, uT_single, smi: str) -> None:
 
 def _phase_grid_configs(smi: str, backend: str = "gloo",
                         device: str = "cuda:0", label: str = "[grid] (b)",
-                        captured: bool = False) -> None:
+                        captured: bool = False, names=None) -> None:
     """Phase 14 (b), phase 16 (b) over NCCL with one card a rank, and
-    with `captured` phase 19 (c): each run captured against its eager
-    form."""
+    with `captured` phase 19 (c) (the fixed-cycle and FMG
+    configurations) and 20 (b) (the adaptive ones): each run captured
+    against its eager form.  `names` (default all) picks the
+    configurations."""
     from hpcclassmultigridproject_tpu_torch import ProblemConfig, SolverConfig
     from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
     from hpcclassmultigridproject_tpu_torch.parallel import launch_local
 
     t0 = time.perf_counter()
     res = launch_local(_configs_rank, GRID_WORLD,
-                       (CONFIG_N, CONFIG_STEPS, CONFIG_MIN_LOCAL, captured),
+                       (CONFIG_N, CONFIG_STEPS, CONFIG_MIN_LOCAL, captured,
+                        names),
                        backend=backend, device=device,
                        deadline=DEADLINE_S["configs"])
     print(f"{label} n={CONFIG_N}, {CONFIG_STEPS} steps, min_local "
@@ -2521,6 +2594,8 @@ def _phase_grid_configs(smi: str, backend: str = "gloo",
     if captured:
         configs["adaptive f64"] = SolverConfig(dtype=torch.float64)
     for name, cfg in configs.items():
+        if names is not None and name not in names:
+            continue
         single, _ = AdvectionDiffusion(problem, cfg, device="cuda").run(
             warn=False)
         single = single.cpu().numpy()
@@ -2540,15 +2615,6 @@ def _phase_grid_configs(smi: str, backend: str = "gloo",
             if not captured:
                 continue
             ranks = res["captured", name, layout]
-            if cfg.cycle_mode not in ("fixed", "fmg"):
-                for rank, rec in enumerate(ranks):
-                    require(not rec["compiled"] and rec["equal"]
-                            and "WHILE body" in (rec["reason"] or ""),
-                            f"{label} {name}, {layout}: rank {rank}: {rec}")
-                print(f"{label} {name}, {layout}: eager on every rank, as "
-                      f"decided from the configuration ({ranks[0]['reason']}"
-                      f"); equal to the first eager run to the bit; {smi}")
-                continue
             _require_replayed(f"{label} {name}, {layout}", ranks)
             rec = ranks[0]
             print(f"{label} {name}, {layout}: a replay on every rank, equal "
@@ -2557,7 +2623,8 @@ def _phase_grid_configs(smi: str, backend: str = "gloo",
                   f"{rec['nodes']} top nodes, {rec['whiles']} WHILE nodes "
                   f"({rec['body_nodes']} body nodes), while_set "
                   f"{rec['while_set']} = host tests {rec['tests']}; "
-                  f"collectives {rec['collectives']} (rank 0); {smi}")
+                  f"collectives {rec['collectives']}, of them on the peer "
+                  f"transport {rec['peer']} (rank 0); {smi}")
     if captured:
         return
     born, whole = res["born"], res["whole"]
@@ -2637,10 +2704,12 @@ def _phase_grid_scaling(smi: str, strong_n: int = MAIN_N,
                         weak_n: int = MAIN_N // 2,
                         weak_layouts=("auto",), cycles: int | None = 1,
                         reps: int = 1, label: str = "[grid] (d)",
-                        captured: bool = False) -> None:
+                        captured: bool = False,
+                        strong_layouts=("rows", "2d")) -> None:
     """`cli scaling` on the card, strong in both layouts and weak, each
     line against a single-device run of its n at `cycles` V-cycles a step
-    (None: the auto count).  A point of one rank is a replay of its
+    (None: the auto count); `strong_layouts` and `weak_layouts` pick the
+    sweeps.  A point of one rank is a replay of its
     captured program.  Phase 14 (d): the CLI in a subprocess, gloo ranks
     sharing the one card, eager (gloo stages through the host); phase 16
     (d) the same over NCCL, one card a rank, eager (the NCCL captured form
@@ -2670,7 +2739,7 @@ def _phase_grid_scaling(smi: str, strong_n: int = MAIN_N,
     meshes = {1: {"x": 1, "y": 1}, 2: {"x": 1, "y": 2}, 4: {"x": 2, "y": 2}}
     sweeps = [("strong", layout, strong_n, [(1, strong_n), (2, strong_n),
                                             (4, strong_n)])
-              for layout in ("rows", "2d")]
+              for layout in strong_layouts]
     sweeps += [("weak", layout, weak_n, [(1, weak_n), (4, 2 * weak_n)])
                for layout in weak_layouts]
     for mode, layout, n, want in sweeps:
@@ -3381,10 +3450,11 @@ def _phase_multi_scale(big: tuple[int, dict], smi: str,
 
 def phase_multi_gpu(n: int, steps: int, uT_single, big,
                     single_wall: float, reps: int | None = None) -> None:
-    """Phases 16 and 19: the partitioned run over MULTI_WORLD cards, one
-    NCCL rank a card, eager (16), then captured (19), after phase 16 so
-    that a fault of the captured form cannot hide phase 16's results
-    (module docstring); on fewer cards one line each says it was not run.
+    """Phases 16, 19 and 20: the partitioned run over MULTI_WORLD cards,
+    one NCCL rank a card, eager (16), then captured (19), after phase 16
+    so that a fault of the captured form cannot hide phase 16's results,
+    then the adaptive runs captured (20) (module docstring); on fewer
+    cards one line each says it was not run.
     `big` is phase 13's (cycle count, uT fingerprint) at n=16384,
     `single_wall` phase 17 (a)'s replay wall.  `reps` (default
     MULTI_REPS and MULTI_SCALING_REPS) is the timed runs of a case in 16
@@ -3394,7 +3464,7 @@ def phase_multi_gpu(n: int, steps: int, uT_single, big,
 
     count = torch.cuda.device_count()
     if count < MULTI_WORLD:
-        for phase in ("multi-gpu", "compiled-multi"):
+        for phase in ("multi-gpu", "compiled-multi", "peer-multi"):
             print(f"[{phase}] not run: it takes {MULTI_WORLD} cards, one "
                   f"NCCL rank a card, and torch.cuda.device_count() is "
                   f"{count}")
@@ -3426,7 +3496,8 @@ def phase_multi_gpu(n: int, steps: int, uT_single, big,
     _phase_capture_probes(smi)
     _phase_compiled_main(n, steps, eager, smi, single_wall)
     _phase_grid_configs(smi, backend="nccl", device="cuda",
-                        label="[compiled-multi] (c)", captured=True)
+                        label="[compiled-multi] (c)", captured=True,
+                        names=FIXED_CONFIGS)
     gc.collect()
     torch.cuda.empty_cache()
     _phase_multi_scale(big, smi, huge_cycles)
@@ -3434,6 +3505,9 @@ def phase_multi_gpu(n: int, steps: int, uT_single, big,
     torch.cuda.empty_cache()
     _phase_grid_scaling(smi, label="[compiled-multi] (e)", captured=True,
                         **scaling)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_peer_multi(n, steps, smi, PEER_MAIN_REPLAYS)
 
 
 def _same(got, want) -> bool:
@@ -3567,9 +3641,8 @@ def _capture_probe_rank() -> dict:
     The exchange probe also records whether, inside the capture,
     allocations made after the wait take the memory of the buffers NCCL
     received into.
-    An `all_sum` inside a `while_loop` (a WHILE body) is no probe: its
-    capture did not finish on four H100s, and adaptive partitioned runs
-    are eager (`parallel.capture_reason`)."""
+    Collectives inside a `while_loop` (a WHILE body) are phase 20's
+    probes (`_peer_probe_rank`)."""
     import os
 
     from hpcclassmultigridproject_tpu_torch import ProblemConfig
@@ -4651,6 +4724,634 @@ def phase_loops(device, n, steps) -> tuple:
     return err, ms, plain_ms, bound, bound_by, counts["while_set"]
 
 
+# the peer transport (ops/cuda/peer.py): the one-card check's ranks and
+# timed calls, and NVLink's rate a direction (its bound)
+PEER_WORLD, PEER_REPS, NVLINK_BYTES_S = 2, 200, 450e9
+
+
+def _peer_cases(n: int) -> tuple[list, list]:
+    """The peer transport's calls on main's rows layout at n over
+    PEER_WORLD ranks, SolverConfig(dtype=float64) (the adaptive main path
+    of phase 20 (c), min_local DIST_MIN_LOCAL): exchanges (name, block
+    shape, dtype, blocks, k) of every partitioned level, the deep halo of
+    (u, rhs) and the one-row halo of one block; gathers (name, shape,
+    dtype): the norms (one float32, one float64 value) and the
+    agglomeration into the first replicated level."""
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig, SolverConfig
+    from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+    from hpcclassmultigridproject_tpu_torch.parallel import (
+        Mesh,
+        level_shardings,
+    )
+
+    cfg = SolverConfig(dtype=torch.float64)
+    model = AdvectionDiffusion(ProblemConfig(n=n, num_steps=1), cfg,
+                               device="cpu")
+    parts = level_shardings(model.levels, Mesh(PEER_WORLD, 0),
+                            DIST_MIN_LOCAL, "rows", cfg.niter)
+    f64 = torch.float64
+    exchanges, gathers = [], [("norm f32", (), torch.float32),
+                              ("norm f64", (), f64)]
+    for lvl, part in enumerate(parts):
+        if part is None:
+            rows = parts[lvl - 1].local // 2
+            gathers.append((f"agglomeration into level {lvl}",
+                            (rows, model.levels[lvl].padded[1]), f64))
+            break
+        exchanges += [(f"level {lvl} deep halo (u, rhs)", part.shape, f64, 2,
+                       part.halo),
+                      (f"level {lvl} one row (u)", part.shape, f64, 1, 1)]
+    return exchanges, gathers
+
+
+def _peer_ranks(fn, world: int):
+    """fn(rank) for each rank in a thread of its own (the plain
+    version's ranks); the results in rank order."""
+    import concurrent.futures
+
+    with concurrent.futures.ThreadPoolExecutor(world) as pool:
+        return [f.result() for f in [pool.submit(fn, r)
+                                     for r in range(world)]]
+
+
+def phase_peer(device) -> dict:
+    """The peer transport's kernels on one card: PEER_WORLD ranks as as
+    many streams of this process, each with a mailbox on the card reached
+    directly by the others (no IPC), at main's rows layout at n=MAIN_N
+    (`_peer_cases`).  Every exchange and gather is launched by the ranks'
+    streams at once (a rank's kernel waits for the other's message), its
+    halos and parts held to the blocks they come from, and to the plain
+    version (thread ranks, CPU mailboxes) to the bit; launches are
+    counted over that drive.  Then each kernel is timed a call (CUDA
+    events over PEER_REPS calls of every rank) at the main path's
+    shapes: level 0's deep halo and one float64 value, with the plain
+    version's host time.  Returns each kernel's row of the kernel line.
+    NCCL takes one card a rank, so there is no library call to time on
+    one card: phase 20 times NCCL's captured call on four."""
+    from hpcclassmultigridproject_tpu_torch.ops import cuda
+    from hpcclassmultigridproject_tpu_torch.ops.cuda import peer
+    from hpcclassmultigridproject_tpu_torch.parallel import distributed
+
+    world = PEER_WORLD
+    exchanges, gathers = _peer_cases(MAIN_N)
+    capacity = max(
+        distributed._side_bytes([torch.empty(shape, dtype=dt)] * nb, k, 0)
+        for _, shape, dt, nb, k in exchanges)
+    links = peer.local_links(world, device, capacity)
+    plain = peer.local_links(world, "cpu", capacity)
+    streams = [torch.cuda.Stream(device) for _ in range(world)]
+    gen = torch.Generator().manual_seed(20)
+    sides = [[(0, r - 1 if r > 0 else None, r + 1 if r < world - 1
+               else None)] for r in range(world)]
+
+    def on_streams(calls):
+        """calls[r]() on rank r's stream, every rank's issued at once."""
+        here = torch.cuda.current_stream(device)
+        for s in streams:
+            s.wait_stream(here)
+        outs = []
+        for r, call in enumerate(calls):
+            with torch.cuda.stream(streams[r]):
+                outs.append(call())
+        for s in streams:
+            here.wait_stream(s)
+        torch.cuda.synchronize(device)
+        return outs
+
+    cuda.reset_launches()
+    err = {"peer_exchange": 0.0, "peer_gather": 0.0}
+    ran = []
+
+    def drive() -> None:
+        """Every exchange and gather on the card and in the plain
+        version, into `err` and `ran`."""
+        for name, shape, dt, nb, k in exchanges:
+            blocks = [[torch.randn(shape, generator=gen, dtype=dt)
+                       for _ in range(nb)] for _ in range(world)]
+            got = on_streams([
+                lambda r=r: distributed._peer_exchange(
+                    links[r], [b.to(device) for b in blocks[r]], k,
+                    sides[r]).wait() for r in range(world)])
+            want = _peer_ranks(lambda r: distributed._peer_exchange(
+                plain[r], blocks[r], k, sides[r]).wait(), world)
+            for r in range(world):
+                for i, (top, bot) in enumerate(got[r]):
+                    ptop, pbot = want[r][i]
+                    above = (blocks[r - 1][i][-k:] if r > 0
+                             else torch.zeros_like(ptop))
+                    below = (blocks[r + 1][i][:k] if r < world - 1
+                             else torch.zeros_like(pbot))
+                    require(torch.equal(ptop, above)
+                            and torch.equal(pbot, below),
+                            f"peer: the plain exchange {name} of rank {r}")
+                    err["peer_exchange"] = max(
+                        err["peer_exchange"],
+                        float((top.cpu() - ptop).abs().max()),
+                        float((bot.cpu() - pbot).abs().max()))
+            ran.append(f"{name} {tuple(shape)} x{nb}, k={k}")
+        for name, shape, dt in gathers:
+            xs = [torch.randn(shape, generator=gen, dtype=dt)
+                  for _ in range(world)]
+            outs = [torch.empty((world, *shape), dtype=dt, device=device)
+                    for _ in range(world)]
+            on_streams([lambda r=r: peer.gather(
+                links[r], xs[r].to(device), outs[r]) for r in range(world)])
+            pouts = [torch.empty((world, *shape), dtype=dt)
+                     for _ in range(world)]
+            _peer_ranks(lambda r: peer.gather(plain[r], xs[r], pouts[r]),
+                        world)
+            for r in range(world):
+                require(torch.equal(pouts[r], torch.stack(xs)),
+                        f"peer: the plain gather {name} of rank {r}")
+                err["peer_gather"] = max(err["peer_gather"], float(
+                    (outs[r].cpu() - pouts[r]).abs().max()))
+            ran.append(f"gather {name} {tuple(shape)} {dt}")
+    try:
+        drive()
+    except RuntimeError as fault:
+        # a spin past its budget traps; its record names the wait
+        raise RuntimeError(f"peer: {fault}; the ranks' error records "
+                           f"{[lk.fault() for lk in links]}") from fault
+    launches = {k: cuda.LAUNCHES[k] for k in err}
+    smi = _smi()
+    print(f"[peer] {world} ranks as streams of one card, local mailboxes "
+          f"({capacity} bytes a slot): {'; '.join(ran)}; launches "
+          f"{launches}; max|kernel - plain| {err} ({smi})")
+    require(all(v == 0.0 for v in err.values()),
+            f"peer: the kernels differ from their plain versions: {err}")
+    require(all(launches.values()), f"peer: launches {launches}")
+
+    _, shape, dt, nb, k = exchanges[0]
+    blocks = [[torch.randn(shape, generator=gen, dtype=dt).to(device)
+               for _ in range(nb)] for _ in range(world)]
+    pblocks = [[b.cpu() for b in bs] for bs in blocks]
+
+    def msgs_of(r, bs):
+        out = []
+        for p, edge in ((r - 1, slice(0, k)), (r + 1, slice(-k, None))):
+            if 0 <= p < world:
+                out.append((p, [(b[edge], torch.empty_like(b[edge]))
+                                for b in bs]))
+        return out
+
+    msgs = [msgs_of(r, blocks[r]) for r in range(world)]
+    pmsgs = [msgs_of(r, pblocks[r]) for r in range(world)]
+    x = [torch.randn((), generator=gen, dtype=torch.float64).to(device)
+         for _ in range(world)]
+    parts = [torch.empty(world, dtype=torch.float64, device=device)
+             for _ in range(world)]
+    px = [t.cpu() for t in x]
+    pparts = [p.cpu() for p in parts]
+    timed = {"peer_exchange": (
+        [lambda r=r: peer.exchange(links[r], msgs[r]) for r in range(world)],
+        lambda r: peer.exchange(plain[r], pmsgs[r]),
+        sum(b[:k].numel() * b.element_size() for b in blocks[0]),
+        f"level 0 deep halo {tuple(shape)} x{nb}, k={k}"),
+        "peer_gather": (
+        [lambda r=r: peer.gather(links[r], x[r], parts[r])
+         for r in range(world)],
+        lambda r: peer.gather(plain[r], px[r], pparts[r]),
+        (world - 1) * 8, "one float64 value")}
+    rows = {}
+    for key, (calls, plain_call, nbytes, what) in timed.items():
+        on_streams(calls)
+        here = torch.cuda.current_stream(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        for s in streams:
+            s.wait_stream(here)
+        start.record(streams[0])
+        for s in streams[1:]:
+            s.wait_event(start)
+        for _ in range(PEER_REPS):
+            for r, call in enumerate(calls):
+                with torch.cuda.stream(streams[r]):
+                    call()
+        for s in streams[1:]:
+            streams[0].wait_stream(s)
+        end.record(streams[0])
+        end.synchronize()
+        ms = start.elapsed_time(end) / PEER_REPS
+        t0 = time.perf_counter()
+        for _ in range(PEER_REPS // 10):
+            _peer_ranks(plain_call, world)
+        plain_ms = (time.perf_counter() - t0) / (PEER_REPS // 10) * 1e3
+        bound = nbytes / NVLINK_BYTES_S * 1e3
+        print(f"[peer] {key} at {what}: {ms:.5f} ms a call (every rank's "
+              f"kernel issued at once, {PEER_REPS} calls; two ranks on one "
+              f"card, so the stores stay in its memory), plain (thread "
+              f"ranks on the host) {plain_ms:.5f} ms, bound {bound:.3g} ms "
+              f"({nbytes} bytes a rank sends over NVLink at 450 GB/s); "
+              f"library: none on one card (NCCL takes one card a rank; "
+              f"phase 20 times NCCL's captured call on four cards); {smi}")
+        rows[key] = (err[key], ms, plain_ms, bound, "bytes", None,
+                     launches[key])
+    for lk in links:
+        lk.close()
+    return rows
+
+
+# phase 20: adaptive partitioned runs captured, the collectives of their
+# WHILE bodies on the peer transport
+PEER_TRIPS = (0, 1, 37)  # (a): the probes' device-set trip counts
+FIXED_CONFIGS = ("fmg", "fmg refined", "galerkin", "main")  # 19 (c)
+ADAPTIVE_CONFIGS = ("jacobi", "chebyshev", "adaptive f64")  # 20 (b)
+PEER_MAIN_REPLAYS = 3  # (c): timed replays a layout, after the capture
+PEER_CALLS = 100  # (c): calls in the graphs that time one call
+
+
+def _peer_matrix() -> list:
+    """cudaDeviceCanAccessPeer of every ordered pair of this host's cards
+    (a card and itself: "-")."""
+    count = torch.cuda.device_count()
+    return [["-" if i == j else int(torch.cuda.can_device_access_peer(i, j))
+             for j in range(count)] for i in range(count)]
+
+
+def _looped(step):
+    """fn(x, trips): `trips` (an int32 on the card) trips of a
+    `while_loop` whose body folds `step(x)` (a collective's result,
+    reduced to one value) into a sum and x, so each trip sends what the
+    last one received."""
+    from hpcclassmultigridproject_tpu_torch.utils import graphs
+
+    def fn(x, trips):
+        def cond(carry):
+            return carry[2] < trips
+
+        def body(carry):
+            x, acc, i = carry
+            acc = acc + step(x)
+            return x + 1e-3 * acc, acc, i + 1
+
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        return graphs.while_loop(cond, body, (
+            x, zero, torch.zeros((), dtype=torch.int32, device=x.device)))
+
+    return fn
+
+
+def _peer_probe_rank() -> dict:
+    """Phase 20 (a), one NCCL rank on its own card: each collective of a
+    partitioned run inside a `while_loop` (`_looped`), captured once (its
+    WHILE body on the peer transport, set up first: `distributed.
+    prepare_peer`) and replayed from two inputs at each device-set trip
+    count of PEER_TRIPS, against its eager form (the host loop, NCCL):
+    the outputs to the bit, LAUNCHES (the peer kernels aside) and
+    COLLECTIVES equal, one peer launch a collective of a trip, and this
+    rank's epochs with each peer advanced by the trips, continuing from
+    replay to replay.  The probes, at main's shapes over four ranks at
+    n=1024 in float64: the rows layout's deep halo of two blocks, the
+    2-D four-edge exchange, the 2-D one-line extension with corners, an
+    all_sum and an all_gather_blocks."""
+    from hpcclassmultigridproject_tpu_torch.ops import cuda
+    from hpcclassmultigridproject_tpu_torch.ops.cuda import peer
+    from hpcclassmultigridproject_tpu_torch.parallel import (
+        GridBlocks,
+        blocks,
+        distributed,
+        halo,
+        make_mesh,
+        rows_halo,
+    )
+    from hpcclassmultigridproject_tpu_torch.utils import graphs
+
+    mesh = make_mesh()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    f64 = torch.float64
+    rows, cols, k = 1032, 1152, 7
+    nx, ny = mesh.shape
+    gpart = GridBlocks(mesh, local=rows // nx, local_cols=cols // ny,
+                       rows=rows, cols=cols)
+    row_block, grid_block = (rows // mesh.world, cols), gpart.shape
+
+    def seeded(shape, seed):
+        gen = torch.Generator().manual_seed(1000 * seed + mesh.rank)
+        return torch.randn(shape, generator=gen, dtype=f64).to(dev)
+
+    def deep(x):
+        pairs = rows_halo.exchange([x, 2.0 * x], k, mesh)
+        return sum((i + 1) * (t.sum() + 3.0 * b.sum())
+                   for i, (t, b) in enumerate(pairs))
+
+    def edges(x):
+        (t, b), (lf, rt) = halo._start_halo(x, mesh).wait()
+        return t.sum() + 2.0 * b.sum() + 3.0 * lf.sum() + 4.0 * rt.sum()
+
+    def corners(x):
+        (e,) = blocks.extend([x], gpart)
+        return (e[0].sum() + 2.0 * e[-1].sum() + 3.0 * e[:, 0].sum()
+                + 4.0 * e[:, -1].sum())
+
+    def total(x):
+        return distributed.all_sum((x * x).sum(), mesh)
+
+    def gathered(x):
+        parts = distributed.all_gather_blocks(x[:4, :8].contiguous(), mesh)
+        return sum((r + 1) * p.sum() for r, p in enumerate(parts))
+
+    probes = {"rows deep halo (u, rhs)": (deep, row_block),
+              "2-D four edges": (edges, grid_block),
+              "2-D extension with corners": (corners, grid_block),
+              "all_sum": (total, grid_block),
+              "all_gather_blocks": (gathered, grid_block)}
+    out = {}
+    for seed, (tag, (step, shape)) in enumerate(probes.items()):
+        _progress(f"[peer-multi] (a) {tag}: eager, then captured in a "
+                  "WHILE body")
+        fn = _looped(step)
+        programs = graphs.Programs()
+        distributed.prepare_peer(programs, mesh, dev)
+        links = programs.resources[distributed._peer_key(mesh, dev)][-1]
+        rec = {"equal": [], "counts_equal": [], "routed": [], "epochs": [],
+               "counts": []}
+        inputs = [seeded(shape, 2 * seed + s) for s in (1, 2)]
+        for trips in PEER_TRIPS:
+            t = torch.tensor(trips, dtype=torch.int32, device=dev)
+            for x in inputs:
+                cuda.reset_launches()
+                want = fn(x, t)
+                torch.cuda.synchronize()
+                eager = _eager_counts()
+                before = peer.epochs(links)
+                cuda.reset_launches()
+                got = programs(tag, fn, (x, t))
+                torch.cuda.synchronize()
+                counts = graphs.counts()
+                moved = [a - b for a, b in zip(peer.epochs(links), before)]
+                rec["equal"].append(_same(got, want))
+                rec["counts_equal"].append(_no_peer(counts)
+                                           == _no_peer(eager))
+                rec["routed"].append(
+                    counts["peer_exchange"] == eager["batch_isend_irecv"]
+                    and counts["peer_gather"] == eager["all_gather"])
+                # the first call's warm-up and capture moved them too
+                rec["epochs"].append((trips, moved))
+                rec["counts"].append({k: v for k, v in counts.items() if v})
+        program = programs.last
+        rec.update(captures=len(programs), capture_s=program.seconds,
+                   nodes=program.nodes, whiles=len(program.loops),
+                   body_nodes=program.body_nodes,
+                   peer_routed=_peer_routed(program),
+                   final_epochs=peer.epochs(links))
+        out[tag] = _all_ranks(rec)
+    out["nccl"] = ".".join(map(str, torch.cuda.nccl.version()))
+    return out
+
+
+def _phase_peer_probes(smi: str) -> None:
+    """Phase 20 (a)."""
+    from hpcclassmultigridproject_tpu_torch.parallel import launch_local
+
+    matrix = _peer_matrix()
+    print(f"[peer-multi] (a) cudaDeviceCanAccessPeer, row i column j: "
+          f"{matrix}")
+    t0 = time.perf_counter()
+    res = launch_local(_peer_probe_rank, MULTI_WORLD, (), backend="nccl",
+                       device="cuda", deadline=DEADLINE_S["probes"])
+    print(f"[peer-multi] (a) probes over {MULTI_WORLD} NCCL ranks (NCCL "
+          f"{res.pop('nccl')}): {time.perf_counter() - t0:.1f} s with the "
+          f"spawn; {smi}")
+    for tag, ranks in res.items():
+        for rank, rec in enumerate(ranks):
+            ok = (all(rec["equal"]) and all(rec["counts_equal"])
+                  and all(rec["routed"]) and rec["peer_routed"]
+                  and rec["captures"] == 1)
+            for i, (trips, moved) in enumerate(rec["epochs"]):
+                steps = {m for m in moved if m}
+                # replays after the first move each peer's epoch by the
+                # trips, and peers that are no neighbour not at all
+                ok = ok and (i == 0 or steps <= {trips})
+                ok = ok and (trips == 0 or i == 0 or bool(steps))
+            require(ok, f"peer-multi (a) {tag}: rank {rank}: {rec}")
+        rec = ranks[0]
+        print(f"[peer-multi] (a) {tag}: captured once, {len(rec['equal'])} "
+              f"replays (trips {list(PEER_TRIPS)}, two inputs each) on "
+              f"every rank equal to the eager NCCL form to the bit, counts "
+              f"equal but the peer kernels, one a collective of a trip "
+              f"{rec['counts'][-1]}; rank 0's epochs a replay "
+              f"{[m for _, m in rec['epochs']]}, at the end "
+              f"{rec['final_epochs']}; capture {rec['capture_s']:.3f} s, "
+              f"{rec['nodes']} top nodes, {rec['whiles']} WHILE nodes "
+              f"({rec['body_nodes']} body nodes)")
+
+
+def _graph_call_us(fn, args, calls: int = PEER_CALLS) -> float:
+    """µs a call of fn(*args) (a collective), from a captured graph of
+    `calls` calls: the replay timed by CUDA events, after a barrier."""
+    import torch.distributed as dist
+
+    from hpcclassmultigridproject_tpu_torch.utils import graphs
+
+    def many(*xs):
+        out = None
+        for _ in range(calls):
+            out = fn(*xs)
+        return out
+
+    programs = graphs.Programs()
+    programs("calls", many, args)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    dist.barrier()
+    torch.cuda.synchronize()
+    start.record()
+    programs("calls", many, args)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls * 1e3
+
+
+def _peer_call_costs(model, mesh, layout: str) -> dict:
+    """Phase 20 (c): µs a call of the path's collectives in a graph, on
+    the peer transport (the model's links) and on NCCL: level 0's deep
+    halo of (u, rhs) (rows) or four-edge exchange (2-D), and the norm's
+    gather of one float64 value."""
+    from hpcclassmultigridproject_tpu_torch.ops.cuda import peer
+    from hpcclassmultigridproject_tpu_torch.parallel import (
+        distributed,
+        halo,
+        partition,
+        rows_halo,
+    )
+
+    dev = model.device
+    links = model.programs.resources[distributed._peer_key(mesh, dev)][-1]
+    part = partition(model, min_local=DIST_MIN_LOCAL, layout=layout)
+    p0 = part.shardings[0]
+    x = torch.ones(p0.shape, dtype=torch.float64, device=dev)
+    one = torch.ones(1, dtype=torch.float64, device=dev)
+    if layout == "rows":
+        k, r = p0.halo, mesh.rank
+        before = r - 1 if r > 0 else None
+        after = r + 1 if r < mesh.world - 1 else None
+        name = f"level 0 deep halo (u, rhs) {tuple(p0.shape)}, k={k}"
+        nccl = lambda x: rows_halo.exchange([x, x], k, mesh)[0][0]
+        own = lambda x: distributed._peer_exchange(
+            links, [x, x], k, [(0, before, after)]).wait()[0][0]
+    else:
+        up, down, left, right = mesh.neighbors
+        name = f"level 0 four edges {tuple(p0.shape)}"
+        nccl = lambda x: halo._start_halo(x, mesh).wait()[0][0]
+        own = lambda x: distributed._peer_exchange(
+            links, [x], 1, [(0, up, down), (1, left, right)]).wait()[0][0]
+    out = torch.empty(mesh.world, dtype=torch.float64, device=dev)
+    return {name: (_graph_call_us(own, (x,)), _graph_call_us(nccl, (x,))),
+            "gather of one float64": (
+                _graph_call_us(lambda y: peer.gather(links, y[0], out) or y,
+                               (one,)),
+                _graph_call_us(lambda y: distributed.all_gather_blocks(
+                    y, mesh)[0], (one,)))}
+
+
+def _peer_main_rank(n: int, steps: int, reps: int) -> dict:
+    """Phase 20 (c), one NCCL rank on its own card: the main path's
+    adaptive float64 run (SolverConfig(dtype=float64)) at n, `steps`
+    steps, min_local DIST_MIN_LOCAL, built whole, through distributed_run
+    in each layout: eagerly (the captured form off), then captured
+    (`_replayed`: the first call against the eager run) and replayed
+    `reps` times, each equal; walls, capture seconds, nodes, peak MiB
+    with the pool held, and `_peer_call_costs`."""
+    import gc
+
+    import torch.distributed as dist
+
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig, SolverConfig
+    from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+    from hpcclassmultigridproject_tpu_torch.ops import cuda
+    from hpcclassmultigridproject_tpu_torch.parallel import (
+        distributed,
+        distributed_run,
+        make_mesh,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh()
+    cfg = SolverConfig(dtype=torch.float64)
+    out = {}
+    for layout in ("rows", "2d"):
+        distributed.CAPTURE_NCCL = False
+        model = AdvectionDiffusion(ProblemConfig(n=n, num_steps=steps), cfg,
+                                   device="cuda")
+        kw = dict(min_local=DIST_MIN_LOCAL, layout=layout)
+        _progress(f"[peer-multi] (c) {layout}: eager")
+        cuda.reset_launches()
+        dist.barrier()
+        t0 = time.perf_counter()
+        uT, stats = distributed_run(model, **kw)
+        torch.cuda.synchronize()
+        eager_wall = time.perf_counter() - t0
+        want = _eager_counts()
+        distributed.CAPTURE_NCCL = True
+        _progress(f"[peer-multi] (c) {layout}: captured")
+        held = _fresh_peaks()
+        rec = _replayed(model, lambda: distributed_run(model, **kw),
+                        (uT, stats), want)
+        walls, equal = [], []
+        for _ in range(reps):
+            dist.barrier()
+            t0 = time.perf_counter()
+            got = distributed_run(model, **kw)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            equal.append(_equal_out(got, (uT, stats)))
+        got = None
+        peak = _peak_mib(held)
+        _progress(f"[peer-multi] (c) {layout}: the calls' costs")
+        costs = _peer_call_costs(model, mesh, layout)
+        program = model.programs.last
+        out[layout] = dict(
+            replayed=rec, eager_wall=eager_wall, walls=walls,
+            replays_equal=_all_ranks(all(equal)),
+            peak_mib=_all_ranks(peak), costs=costs,
+            uT=uT.cpu().numpy() if mesh.rank == 0 else None,
+            cycles=stats["cycles"].cpu().numpy(),
+            max_rel=float(stats["rel_residual"].max()),
+            body_nodes=program.body_nodes, whiles=len(program.loops))
+        model = uT = stats = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    distributed.CAPTURE_NCCL = False
+    return out
+
+
+def _phase_peer_main(n: int, steps: int, smi: str, reps: int) -> None:
+    """Phase 20 (c), against one card's replay of the same run."""
+    import statistics as st
+
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig, SolverConfig
+    from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+    from hpcclassmultigridproject_tpu_torch.parallel import launch_local
+
+    single = AdvectionDiffusion(ProblemConfig(n=n, num_steps=steps),
+                                SolverConfig(dtype=torch.float64),
+                                device="cuda")
+    uT_single, _ = single.run(warn=False)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        single.run(warn=False)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    one_card = st.median(walls)
+    uT_single = uT_single.cpu().numpy()
+    single = None
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = launch_local(_peer_main_rank, MULTI_WORLD, (n, steps, reps),
+                       backend="nccl", device="cuda",
+                       deadline=DEADLINE_S["main"])
+    print(f"[peer-multi] (c) n={n}, {steps} steps, SolverConfig(dtype="
+          f"float64), {MULTI_WORLD} NCCL ranks, both layouts: "
+          f"{time.perf_counter() - t0:.1f} s with the spawn; one card's "
+          f"replay {one_card:.5f} s (median of {reps}); {smi}")
+    for layout, got in res.items():
+        ranks = got["replayed"]
+        _require_replayed(f"peer-multi (c) {layout}", ranks)
+        require(all(got["replays_equal"]), f"peer-multi (c) {layout}: a "
+                f"replay differs from the first, per rank "
+                f"{got['replays_equal']}")
+        du = float(np.abs(got["uT"] - uT_single).max())
+        require(du <= 1e-9 and got["max_rel"] <= TOL, f"peer-multi (c) "
+                f"{layout}: uT off one card's by {du:.3g}, max relative "
+                f"residual {got['max_rel']:.3g}")
+        rec = ranks[0]
+        wall = st.median(got["walls"])
+        costs = "; ".join(f"{name}: peer {a:.2f} µs, NCCL {b:.2f} µs"
+                          for name, (a, b) in got["costs"].items())
+        peaks = [tuple(round(v, 1) for v in m) for m in got["peak_mib"]]
+        print(f"[peer-multi] (c) {layout}: replay {wall:.5f} s (rank 0, "
+              f"median of {reps}: {[round(w, 5) for w in got['walls']]}) "
+              f"against eager {got['eager_wall']:.5f} s and one card's "
+              f"replay {one_card:.5f} s; every replay equal to the eager "
+              f"run to the bit on every rank, counts equal but the peer "
+              f"kernels {rec['peer']}; collectives {rec['collectives']}; "
+              f"cycles a step {sorted(set(got['cycles'].tolist()))}, max "
+              f"relative residual {got['max_rel']:.3e}, max|uT - one "
+              f"card| {du!r}; first call {rec['first_s']:.3f} s, capture "
+              f"{rec['capture_s']:.3f} s, {rec['nodes']} top nodes, "
+              f"{got['whiles']} WHILE nodes ({got['body_nodes']} body "
+              f"nodes); peak MiB a rank (allocated, reserved) with the pool "
+              f"held {peaks}; a call in a graph of {PEER_CALLS}, rank 0: "
+              f"{costs}; "
+              f"{smi}")
+
+
+def phase_peer_multi(n: int, steps: int, smi: str, reps: int) -> None:
+    """Phase 20: adaptive partitioned runs captured, on MULTI_WORLD cards
+    (module docstring); `reps` timed replays in (c)."""
+    import gc
+
+    _phase_peer_probes(smi)
+    _phase_grid_configs(smi, backend="nccl", device="cuda",
+                        label="[peer-multi] (b)", captured=True,
+                        names=ADAPTIVE_CONFIGS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase_peer_main(n, steps, smi, reps)
+
+
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(
         description="Smoke test of the PyTorch/CUDA port on the card "
@@ -4727,11 +5428,14 @@ def main(argv=None) -> None:
     single_wall = phase_compiled(device, MAIN_N, MAIN_STEPS, uT_main,
                                  main_counts, big)
     loops = phase_loops(device, MAIN_N, MAIN_STEPS)
+    peers = phase_peer(device)
     phase_multi_gpu(MAIN_N, MAIN_STEPS, uT_main, big, single_wall)
     kernels = []
     for key, label, source, replaces in KERNELS:
         if key in probes:
             err, ms, plain_ms, bound, bound_by, library, launches = probes[key]
+        elif key in peers:
+            err, ms, plain_ms, bound, bound_by, library, launches = peers[key]
         elif key == "while_set":
             err, ms, plain_ms, bound, bound_by, launches = loops
             library = None

@@ -34,6 +34,9 @@ from hpcclassmultigridproject_tpu_torch.parallel import (
     resolve_layout,
     shard_windows,
 )
+from hpcclassmultigridproject_tpu_torch.parallel.distributed import (
+    prepare_peer,
+)
 from hpcclassmultigridproject_tpu_torch.utils import graphs
 
 # auto (device_build None) builds on the device from this n up
@@ -111,10 +114,12 @@ class AdvectionDiffusion:
     `lax.while_loop`s in the JAX programs.  Born partitioned under NCCL,
     with `parallel.distributed.CAPTURE_NCCL` on, every rank captures and
     replays its own graph, with the step's halo exchanges and norms in
-    it, as the JAX model's sharded programs hold theirs; the program's
-    key adds the mesh, layout and min_local.  A run on the CPU, or
-    partitioned otherwise (gloo with CUDA tensors, NCCL with the switch
-    off, an adaptive solve), is eager (`eager_reason`).  After each call,
+    it, as the JAX model's sharded programs hold theirs, in every
+    configuration: those inside a WHILE body take the peer transport
+    (parallel/distributed.py); the program's key adds the mesh, layout
+    and min_local.  A run on the CPU, or partitioned otherwise (gloo with
+    CUDA tensors, NCCL with the switch off), is eager (`eager_reason`).
+    After each call,
     `last_run_compiled` says which way it ran and `last_run_reason` why
     it was eager (None when it was compiled).  Eager on the card means
     calling `mg.timestepper.timestepper` or `timestep` directly.
@@ -238,13 +243,12 @@ class AdvectionDiffusion:
         a captured program: the CPU, or a run partitioned over `mesh`
         (default: the mesh the model was born on) under gloo with CUDA
         tensors, whose collectives stage through the host, or under NCCL
-        while `parallel.distributed.CAPTURE_NCCL` is off, or with an
-        adaptive solve, whose norm would sit in a WHILE body
-        (`parallel.capture_reason`).  With the switch on, a fixed-cycle or
-        FMG run partitioned under NCCL is captured, as on one device."""
+        while `parallel.distributed.CAPTURE_NCCL` is off
+        (`parallel.capture_reason`).  With the switch on, every run
+        partitioned under NCCL is captured, as on one device, the
+        adaptive solves too."""
         mesh = self.mesh if mesh is None else mesh
-        return capture_reason(Mesh(1) if mesh is None else mesh, self.device,
-                              self.solver)
+        return capture_reason(Mesh(1) if mesh is None else mesh, self.device)
 
     def _key(self) -> tuple:
         """What a program's key holds of the partition: the mesh, layout
@@ -261,6 +265,11 @@ class AdvectionDiffusion:
         way it ran.  `keep` (default the model's levels and fine_hi) are
         the tensors the program reads besides u."""
         reason = self.eager_reason(mesh)
+        mesh = self.mesh if mesh is None else mesh
+        if (reason is None and mesh is not None
+                and self.solver.cycle_mode not in ("fixed", "fmg")):
+            # its loop bodies hold collectives: the peer transport
+            prepare_peer(self.programs, mesh, self.device)
         keep = (self.levels, self.fine_hi) if keep is None else keep
         out = fn(u) if reason is not None else self.programs(
             key, fn, (u,), warm, keep=keep)

@@ -1,10 +1,11 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their routing.
 
-Each kernel module (delta_step, smoother, tower, probe, loop) holds its
+Each kernel module (delta_step, smoother, tower, probe, loop, peer) holds its
 wrappers and the kernels' plain PyTorch versions.  The wrapper launches
 the kernel for CUDA tensors and runs the plain version for CPU tensors,
 or for every tensor inside `plain_route()`, which a solve of
-`SolverConfig.backend="jnp"` enters (`routed`; `loop.while_set` aside);
+`SolverConfig.backend="jnp"` enters (`routed`; `loop.while_set` and the
+peer transport aside);
 there is no other route and no fallback.  Each launch
 adds one to its entry of `LAUNCHES`, so a run can show which kernels
 carried it.
@@ -27,7 +28,8 @@ LAUNCHES = {"delta_open": 0, "open_presmooth": 0, "smooth": 0, "smooth5": 0,
             "tower_ascent": 0, "probe_stride2_rows": 0,
             "probe_dot_decimate": 0, "probe_interleave_rows": 0,
             "probe_flatten": 0, "probe_dot_decimate_rows": 0,
-            "probe_dot_prolong_rows": 0, "while_set": 0}
+            "probe_dot_prolong_rows": 0, "while_set": 0,
+            "peer_exchange": 0, "peer_gather": 0}
 
 # The predicate tests that the host form of `utils.graphs.while_loop` made,
 # one host read each: where the loop is captured, each test is a launch of
@@ -38,8 +40,10 @@ HOST_TESTS = {"while_set": 0}
 # The collectives of a partitioned run, one per call that posted it:
 # `batch_isend_irecv` batches and `all_gather` calls, counted by the
 # wrappers of parallel/distributed.py (`start_exchange`, `all_sum`,
-# `all_gather_blocks`).  A captured program's replay adds them as it adds
-# LAUNCHES (utils/graphs.py).
+# `all_gather_blocks`), whichever transport carries them (NCCL, gloo, or
+# inside a captured WHILE body the peer kernels, which count their
+# launches in LAUNCHES too).  A captured program's replay adds them as it
+# adds LAUNCHES (utils/graphs.py).
 COLLECTIVES = {"batch_isend_irecv": 0, "all_gather": 0}
 
 _plain_on_cuda = False

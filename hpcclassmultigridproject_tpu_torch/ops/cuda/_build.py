@@ -58,6 +58,17 @@ _LOOP_SIGNATURES = {
     "mg_while_begin": [_P, _U64, _P, _P],
     "mg_while_end": [_P],
 }
+# the peer transport's entry points (csrc/peer.cu), of no dtype: a kernel
+# takes its arguments as one packed array (peer.cuh's ExchangeArgs,
+# GatherArgs) and the stream
+_PEER_SIGNATURES = {
+    "mg_peer_exchange": [_P, _P],
+    "mg_peer_gather": [_P, _P],
+    "mg_peer_alloc": [_I, _U64, _P, _P, _P, _P],
+    "mg_peer_handle": [_P, _P],
+    "mg_peer_open": [_P, _I, _I, _P],
+    "mg_peer_close": [_P, _P, _I],
+}
 
 
 def _nvcc() -> str:
@@ -104,8 +115,8 @@ def library() -> ctypes.CDLL:
     names = {f"{base}_{suffix}": argtypes
              for base, argtypes in _SIGNATURES.items()
              for suffix in ("f32", "f64")}
-    for name, argtypes in {**names, **_F32_SIGNATURES,
-                           **_LOOP_SIGNATURES}.items():
+    for name, argtypes in {**names, **_F32_SIGNATURES, **_LOOP_SIGNATURES,
+                           **_PEER_SIGNATURES}.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

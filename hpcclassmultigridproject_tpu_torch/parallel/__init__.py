@@ -155,15 +155,16 @@ def distributed_run(model, mesh: Mesh | None = None, min_local: int = _UNSET,
 
     The run can be one compiled program, as the JAX package's is one
     jitted program: on one rank, and under NCCL with
-    `distributed.CAPTURE_NCCL` on (it is off by default), each rank
-    captures the call (the steps, their halo exchanges and norms, and the
-    gather of uT) once per key as a CUDA graph in `model.programs`, and
-    replays it (utils/graphs.py), keyed by the step count, the
-    SolverConfig, the mesh, layout and `min_local`.  Otherwise it runs
-    eagerly (`distributed.capture_reason`: the CPU; gloo with CUDA
-    tensors, whose collectives stage through the host; NCCL with the
-    switch off).  `model.last_run_compiled` and `last_run_reason` say
-    which.
+    `distributed.CAPTURE_NCCL` on, each rank captures the call (the
+    steps, their halo exchanges and norms, and the gather of uT) once per
+    key as a CUDA graph in `model.programs`, and replays it
+    (utils/graphs.py), keyed by the step count, the SolverConfig, the
+    mesh, layout and `min_local`: every configuration, the adaptive ones
+    with the collectives of their WHILE bodies on the peer transport
+    (parallel/distributed.py).  Otherwise it runs eagerly
+    (`distributed.capture_reason`: the CPU; gloo with CUDA tensors, whose
+    collectives stage through the host; NCCL with the switch off).
+    `model.last_run_compiled` and `last_run_reason` say which.
 
     Returns (uT cropped to the logical grid, stats) on every rank: the
     blocks are gathered (`fetch`), and the stats, computed from norms

@@ -16,9 +16,10 @@ package's `parallel/distributed.py`.
     JAX package's `ppermute` (a rank with no neighbour gets zeros);
   * `rank_device(device, rank, world, backend)`: the card a rank runs
     on (one card a rank under NCCL);
-  * `capture_reason(mesh, device, solver)`: why a partitioned call on
-    `device` runs eagerly, or None where it can be one captured program
-    (under NCCL only with `CAPTURE_NCCL` on);
+  * `capture_reason(mesh, device)`: why a partitioned call on `device`
+    runs eagerly, or None where it can be one captured program (under
+    NCCL only with `CAPTURE_NCCL` on);
+  * `connect(mesh, device, capacity)`: this rank's peer transport (below);
   * `launch_local(fn, world, ...)`: `world` spawned processes on this
     host, each in the process group on its own card, returning rank 0's
     result, optionally within a deadline; `note(line)`: what a rank works
@@ -38,6 +39,30 @@ launches (utils/graphs.py).  Under NCCL, with `CAPTURE_NCCL` on, the
 collectives of a step are captured into a CUDA graph with its kernels;
 an `Exchange` posted inside a capture must be waited on inside it, and a
 collective that would stage through the host raises there.
+
+The peer transport.  An NCCL call captured inside a CUDA WHILE body (an
+adaptive solve's loop, which tests a norm summed over the ranks) did not
+finish on four H100s.  So the collectives of a `while_loop` body take
+hand-written kernels instead (ops/cuda/peer.py, csrc/peer.cu), the
+counterpart of the remote copies a TPU makes for the `ppermute` and
+`psum` in the JAX package's jitted loop: each rank has a mailbox on its
+card, mapped by every other rank over CUDA IPC, and a message is stored
+straight into the receiver's mailbox over NVLink, under an epoch-tagged
+flag.  The rule is the simplest that keeps the bits and the pairing:
+inside a `while_loop` body of a program being compiled (its warm-up's
+host loops as well as its WHILE nodes' captures, `graphs.compiling()`
+and `graphs.in_body()`), every collective takes the peer transport, and
+every other collective the process group's own.  The ranks run the same
+program, so they meet every collective on the same transport at the same
+point; the warm-up sets the transport up (`connect`, kept in the
+program's `Programs.resources` and freed with its graphs), so nothing is
+allocated or mapped inside a capture (it raises there).  An eager run
+never takes it: the eager NCCL form is the reference a replay is held to.
+`start_exchange` sends each neighbour one message holding its lines of
+every block, `all_gather_blocks` one message to every rank, and
+`all_sum` adds the gathered parts in rank order, so the sum has the NCCL
+form's bits; `COLLECTIVES` counts each under its usual name, and the
+kernels count their launches in `LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -48,11 +73,12 @@ import pathlib
 import pickle
 import tempfile
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from hpcclassmultigridproject_tpu_torch.ops.cuda import COLLECTIVES
+from hpcclassmultigridproject_tpu_torch.ops.cuda import COLLECTIVES, peer
 from hpcclassmultigridproject_tpu_torch.parallel.mesh import Mesh
 from hpcclassmultigridproject_tpu_torch.utils import graphs
 
@@ -133,28 +159,25 @@ def host_staged(mesh: Mesh, t: torch.Tensor) -> bool:
 
 # Whether a call partitioned over NCCL ranks may be one captured program.
 # Off: such a call runs eagerly, with the reason `capture_reason` gives.
-# The captured form (each rank replaying its own graph, NCCL's kernels in
-# it) has not yet run to its end on four cards: on four H100s its probes,
-# the main path in both layouts (built whole and born, plain and
-# overlapped) and the other configurations replayed equal to their eager
-# runs to the bit, but the large grids (n=16384, n=32768) and `cli
-# scaling`'s points have not run captured there (chip_smoke phase 19
-# (d) and (e), which set it in their ranks, run them).
+# The captured form has not yet run to its end on four cards: on four
+# H100s every configuration replayed equal to its eager run, the adaptive
+# ones too, but n=16384's capture in the 2-D layout did not finish (its
+# sends pinned whole blocks, which `_lines` now copies), so phase 19 (d)
+# and (e)'s weak sweeps of chip_smoke.py, which set it in their ranks,
+# have not passed.
 CAPTURE_NCCL = False
 
 
-def capture_reason(mesh: Mesh, device, solver=None) -> str | None:
+def capture_reason(mesh: Mesh, device) -> str | None:
     """Why a call partitioned over `mesh` with tensors on `device` runs
     eagerly, or None where it can be one captured program: the CPU (called
     directly); CUDA tensors under gloo, whose collectives stage through
-    the host; under NCCL, while `CAPTURE_NCCL` is off, every partitioned
-    call; and with it on, an adaptive `solver` (cycle_mode neither "fixed"
-    nor "fmg"), whose loop tests a norm, an all-gather, inside a CUDA
-    WHILE body: on four H100s (PyTorch 2.11, NCCL 2.28) a probe of such a
-    capture had not finished when its run was cut at 110 s.  On one rank
-    (no collective), None.  It reads only what every rank shares (the
-    device, the world, the backend, the solver and `CAPTURE_NCCL`), so
-    the ranks decide alike."""
+    the host; under NCCL, every partitioned call while `CAPTURE_NCCL` is
+    off.  Under NCCL with it on every solver is captured, the adaptive
+    ones too: the collectives inside their WHILE bodies take the peer
+    transport (module docstring).  On one rank (no collective), None.  It
+    reads only what every rank shares (the device, the world, the backend
+    and `CAPTURE_NCCL`), so the ranks decide alike."""
     if not graphs.on_card(torch.device(device)):
         return "the CPU was asked for: the function is called directly"
     if mesh.world == 1:
@@ -165,32 +188,123 @@ def capture_reason(mesh: Mesh, device, solver=None) -> str | None:
                 "graph can hold")
     if not CAPTURE_NCCL:
         return (f"partitioned over {mesh.world} ranks: the captured form "
-                "under NCCL is off (parallel.distributed.CAPTURE_NCCL) "
-                "until it has run to its end on four cards")
-    if solver is not None and solver.cycle_mode not in ("fixed", "fmg"):
-        return (f"an adaptive solve partitioned over {mesh.world} ranks "
-                "under NCCL: its loop's norm, an NCCL all-gather, would sit "
-                "in a CUDA WHILE body, and a probe of such a capture did not "
-                "finish on four H100s (NCCL 2.28), so the run is eager")
+                "under NCCL is off (parallel.distributed.CAPTURE_NCCL)")
     return None
+
+
+# a new mailbox's bytes a slot, at least (main's deep halo at n=1024, two
+# float64 blocks of 8 rows, takes 144 KiB)
+PEER_MIN_CAPACITY = 1 << 20
+
+
+def _card(device) -> torch.device:
+    """`device` with its index: "cuda" is this rank's current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _peer_key(mesh: Mesh, device) -> tuple:
+    return "peer", mesh.key, str(_card(device))
+
+
+def connect(mesh: Mesh, device, capacity: int) -> peer.Links:
+    """This rank's peer transport over `mesh`, with slots of `capacity`
+    bytes: every rank calls it at the same point, outside any capture (it
+    raises inside one).  On the card each rank allocates its mailbox
+    (`peer.alloc`, outside torch's allocator and any graph pool), the
+    ranks all-gather their (card, IPC handle) over the process group, and
+    each maps every peer's mailbox (`peer.open_peer`, which raises for a
+    pair of cards without peer access).  On the CPU (tests) the mailboxes
+    are files of a directory rank 0 makes, each mapped by every rank and
+    unlinked once all have mapped it."""
+    device = _card(device)
+    graphs.require_no_capture(device, "the peer transport's set-up")
+    world, rank = mesh.world, mesh.rank
+    capacity = peer.round_up(capacity, peer.ALIGN)
+    if device.type == "cuda":
+        address, err_host, err_device, hz = peer.alloc(world, capacity,
+                                                       device)
+        shared = [None] * world
+        dist.all_gather_object(shared, (device.index,
+                                        peer.handle(address)))
+        remote = [address if r == rank else
+                  peer.open_peer(h, device.index, card)
+                  for r, (card, h) in enumerate(shared)]
+
+        def release():
+            for r, ptr in enumerate(remote):
+                if r != rank:
+                    peer.close(ptr, opened=True)
+            peer.close(address, err_host)
+
+        return peer.Links(world, rank, capacity, device, address, remote,
+                          err_host, err_device,
+                          int(peer.SPIN_SECONDS * hz), release)
+    where = [tempfile.mkdtemp(prefix="mg-peer-") if rank == 0 else None]
+    dist.broadcast_object_list(where, src=0)
+    paths = [os.path.join(where[0], f"mailbox{r}") for r in range(world)]
+    nbytes = peer.mailbox_bytes(world, capacity)
+    with open(paths[rank], "wb") as f:
+        f.truncate(nbytes)
+    dist.barrier()
+    boxes = [np.memmap(path, np.uint8, "r+", shape=(nbytes,))
+             for path in paths]
+    dist.barrier()
+    os.remove(paths[rank])
+    dist.barrier()
+    if rank == 0:
+        os.rmdir(where[0])
+    return peer.Links(world, rank, capacity, device, boxes[rank], boxes)
+
+
+def prepare_peer(programs: graphs.Programs, mesh: Mesh, device) -> None:
+    """Set this rank's peer transport up for `programs` over `mesh`
+    before their first capture, if it is not (a collective: every rank
+    calls it at the same point).  The models call it for a solve whose
+    loop bodies hold collectives (an adaptive one), so that a warm-up
+    whose loops take no trip leaves nothing to set up inside the
+    capture."""
+    if mesh.world > 1:
+        held = programs.resources.setdefault(_peer_key(mesh, device), [])
+        if not held:
+            held.append(connect(mesh, device, PEER_MIN_CAPACITY))
+
+
+def _peer_links(mesh: Mesh, device, need: int) -> peer.Links | None:
+    """The peer transport a collective of `need` bytes a message takes,
+    or None for the process group's own (NCCL, gloo): the peer transport
+    inside a `while_loop` body of a program being compiled (its warm-up's
+    host loops and its WHILE nodes' captures alike, so that the set-up
+    happens in the warm-up).  The links live in the program's
+    `Programs.resources`; a message past their slots replaces them with
+    larger ones (all ranks meet it at the same call: the shapes are the
+    same on every rank), the old kept for the graphs that read them."""
+    owner = graphs.compiling()
+    if owner is None or not graphs.in_body():
+        return None
+    held = owner.resources.setdefault(_peer_key(mesh, device), [])
+    if not held or held[-1].capacity < need:
+        size = max(need, 2 * held[-1].capacity if held else
+                   PEER_MIN_CAPACITY)
+        held.append(connect(mesh, device, size))
+    return held[-1]
 
 
 def all_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Σ over the ranks of the 0-d tensor x, the same bits on every rank:
-    each rank gathers every rank's x and adds them in rank order (an
-    all-reduce may add in another order on another rank, and the adaptive
-    loops branch on the sum).  On one rank it is x."""
+    each rank gathers every rank's x (`all_gather_blocks`) and adds them
+    in rank order (an all-reduce may add in another order on another
+    rank, and the adaptive loops branch on the sum).  On one rank it is
+    x."""
     if _single_rank(mesh):
         return x
-    staged = host_staged(mesh, x)
-    src = (x.cpu() if staged else x).reshape(1)
-    parts = [torch.empty_like(src) for _ in range(mesh.world)]
-    dist.all_gather(parts, src)
-    COLLECTIVES["all_gather"] += 1
+    parts = all_gather_blocks(x.reshape(1), mesh)
     total = parts[0]
     for p in parts[1:]:
         total = total + p
-    return total.reshape(()).to(x.device)
+    return total.reshape(())
 
 
 def all_max(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -209,6 +323,14 @@ def all_gather_blocks(x: torch.Tensor, mesh: Mesh) -> list[torch.Tensor]:
         return [x]
     staged = host_staged(mesh, x)
     src = (x.cpu() if staged else x).contiguous()
+    links = None if staged else _peer_links(
+        mesh, x.device, src.numel() * src.element_size())
+    if links is not None:
+        out = torch.empty((mesh.world, *src.shape), dtype=src.dtype,
+                          device=src.device)
+        peer.gather(links, src, out)
+        COLLECTIVES["all_gather"] += 1
+        return list(out.unbind(0))
     parts = [torch.empty_like(src) for _ in range(mesh.world)]
     dist.all_gather(parts, src)
     COLLECTIVES["all_gather"] += 1
@@ -285,11 +407,21 @@ class Exchange:
         return self._pairs
 
 
-def _lines(x: torch.Tensor, axis: int, first: bool, k: int) -> torch.Tensor:
-    """The first or last k lines of x along `axis`, contiguous (a column
-    edge is a strided view)."""
+def _edge(x: torch.Tensor, axis: int, first: bool, k: int) -> torch.Tensor:
+    """The first or last k lines of x along `axis`, a view (strided for a
+    column edge)."""
     sl = slice(0, k) if first else slice(x.shape[axis] - k, None)
-    return (x[sl] if axis == 0 else x[:, sl]).contiguous()
+    return x[sl] if axis == 0 else x[:, sl]
+
+
+def _lines(x: torch.Tensor, axis: int, first: bool, k: int) -> torch.Tensor:
+    """The first or last k lines of x along `axis`, in a tensor of their
+    own: a row edge's `contiguous()` would be a view of the whole block,
+    and a send buffer is recorded on NCCL's stream, which inside a
+    capture keeps its memory from reuse until the capture ends (a block
+    a send: at n=16384 in the 2-D layout that filled the card)."""
+    return _edge(x, axis, first, k).clone(
+        memory_format=torch.contiguous_format)
 
 
 def start_exchange(blocks, k: int, mesh: Mesh, sides) -> Exchange:
@@ -321,13 +453,20 @@ def start_exchange(blocks, k: int, mesh: Mesh, sides) -> Exchange:
     pairing on meshes of 2 to 8 ranks."""
     # under NCCL, host_staged raises for a block off this rank's card
     staged = [host_staged(mesh, b) for b in blocks][0]
+    for axis, _, _ in sides:
+        for b in blocks:
+            if b.shape[axis] < k:
+                raise ValueError(f"block of {b.shape[axis]} lines along "
+                                 f"axis {axis}, halo of {k}")
+    links = None if staged else _peer_links(
+        mesh, blocks[0].device, max(_side_bytes(blocks, k, axis)
+                                    for axis, _, _ in sides))
+    if links is not None:
+        return _peer_exchange(links, blocks, k, sides)
     buf_dev = torch.device("cpu") if staged else blocks[0].device
     ops, pairs, sends = [], [], []
     for s, (axis, before, after) in enumerate(sides):
         for i, b in enumerate(blocks):
-            if b.shape[axis] < k:
-                raise ValueError(f"block of {b.shape[axis]} lines along "
-                                 f"axis {axis}, halo of {k}")
             shape = (k, b.shape[1]) if axis == 0 else (b.shape[0], k)
             top = torch.zeros(shape, dtype=b.dtype, device=buf_dev)
             bot = torch.zeros_like(top)
@@ -354,6 +493,40 @@ def start_exchange(blocks, k: int, mesh: Mesh, sides) -> Exchange:
     if graphs.CAPTURE.capturing(buf_dev):
         graphs.POSTED.add(out)
     return out
+
+
+def _side_bytes(blocks, k: int, axis: int) -> int:
+    """The bytes of one side's message to a peer, in a mailbox's slot:
+    every block's k lines along `axis` (the same on every rank)."""
+    off = 0
+    for b in blocks:
+        lines = k * (b.shape[1] if axis == 0 else b.shape[0])
+        off = peer.next_piece(off, lines * b.element_size())
+    return off
+
+
+def _peer_exchange(links: peer.Links, blocks, k: int, sides) -> Exchange:
+    """`start_exchange` over the peer transport: one `peer.exchange` a
+    call, whose message to each neighbour holds the lines of every block
+    in block order (a neighbour is on one side of a call only), waited on
+    inside it.  A side with no neighbour gets zeros."""
+    msgs: dict = {}
+    pairs = []
+    for axis, before, after in sides:
+        for b in blocks:
+            b = b if b.stride(-1) == 1 else b.contiguous()
+            head, tail = _edge(b, axis, True, k), _edge(b, axis, False, k)
+            top = torch.zeros(head.shape, dtype=b.dtype, device=b.device)
+            bot = torch.zeros_like(top)
+            if before is not None:
+                msgs.setdefault(before, []).append((head, top))
+            if after is not None:
+                msgs.setdefault(after, []).append((tail, bot))
+            pairs.append((top, bot))
+    if msgs:
+        peer.exchange(links, list(msgs.items()))
+        COLLECTIVES["batch_isend_irecv"] += 1
+    return Exchange.given(pairs)
 
 
 def rank_device(device, rank: int, world: int,

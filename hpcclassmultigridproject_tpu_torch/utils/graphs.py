@@ -61,6 +61,16 @@ under NCCL with `parallel.distributed.CAPTURE_NCCL` on (off by default):
 - `ops.cuda.COLLECTIVES` (point-to-point batches and all-gathers) is
   counted by the collectives' wrappers at the capture, and a replay adds
   it as it adds LAUNCHES, WHILE bodies times their trips.
+- Inside a WHILE body no NCCL call is captured: an NCCL call there did
+  not finish on four H100s.  Every collective inside a `while_loop` body
+  of a program being compiled takes the peer transport instead
+  (parallel/distributed.py), which reads `compiling()` (the `Programs`
+  whose warm-up or capture is under way) and `in_body()` (inside a loop
+  body, in either form).  Its set-up allocates and maps memory and talks
+  to the other ranks, so it runs in the warm-up (or before it,
+  `distributed.prepare_peer`): inside a capture it raises
+  (`require_no_capture`).  Its mailboxes live in the programs'
+  `resources` and are freed with them.
 - Capture mode: "thread_local" (`CAPTURE_ERROR_MODE`, and the WHILE
   bodies' captures in csrc/loop.cu), not `torch.cuda.graph`'s default
   "global", which also refuses unsafe CUDA calls of other threads while a
@@ -111,6 +121,7 @@ or a replay that fails raises, and nothing retries eagerly.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -133,6 +144,42 @@ CAPTURE_ERROR_MODE = "thread_local"
 
 # the Exchanges posted inside the capture under way and not yet waited on
 POSTED: set = set()
+
+# the Programs whose warm-up or capture is under way (innermost last), and
+# how deep in while_loop bodies the call under way is, in either form
+_COMPILING: list = []
+_BODY_DEPTH = [0]
+
+
+def compiling():
+    """The `Programs` whose warm-up or capture is under way, else None."""
+    return _COMPILING[-1] if _COMPILING else None
+
+
+def in_body() -> bool:
+    """True inside a `while_loop`'s body: the host form's body call, or a
+    WHILE node's body (and its test) being captured."""
+    return _BODY_DEPTH[0] > 0
+
+
+@contextlib.contextmanager
+def loop_body():
+    """Mark the code it wraps as a `while_loop` body (`in_body`)."""
+    _BODY_DEPTH[0] += 1
+    try:
+        yield
+    finally:
+        _BODY_DEPTH[0] -= 1
+
+
+def require_no_capture(device: torch.device, what: str) -> None:
+    """Raise if a capture on `device` is under way: `what` (set-up that
+    allocates or maps memory, or talks to the other ranks) must happen
+    before it, in the warm-up."""
+    if CAPTURE.capturing(torch.device(device)):
+        raise RuntimeError(
+            f"{what} inside a CUDA graph capture: it must run before the "
+            "capture (the warm-up makes every call the capture makes)")
 
 
 def require_joined(where: str) -> None:
@@ -274,10 +321,11 @@ def capture_trip(cond, body, state, static, test) -> dict:
     COLLECTIVES (a replay adds them once a trip)."""
     before = counts()
     try:
-        new = tree_flatten(body(state))[0]
-        for buf, x in zip(static, new, strict=True):
-            buf.copy_(x)
-        test(cond(state))
+        with loop_body():
+            new = tree_flatten(body(state))[0]
+            for buf, x in zip(static, new, strict=True):
+                buf.copy_(x)
+            test(cond(state))
         require_joined("a WHILE body")
         return counts_since(before)
     finally:
@@ -303,7 +351,8 @@ def while_loop(cond, body, carry):
         cuda.HOST_TESTS["while_set"] += 1
         if not bool(cond(carry)):
             return carry
-        carry = body(carry)
+        with loop_body():
+            carry = body(carry)
 
 
 class CudaGraphs:
@@ -490,6 +539,10 @@ class Programs:
         self._programs: dict = {}
         self._pool = None
         self.last: Program | None = None
+        # what the programs' graphs use besides their tensors, made during
+        # a warm-up and freed with the programs (the peer transport's
+        # mailboxes, parallel/distributed.py)
+        self.resources: dict = {}
 
     def __len__(self) -> int:
         return len(self._programs)
@@ -516,6 +569,7 @@ class Programs:
         inputs = [a.clone() for a in args]
         before = counts()
         tests = dict(cuda.HOST_TESTS)
+        _COMPILING.append(self)
         try:
             CAPTURE.warm_up(warm, inputs, self._pool, device)
             restore_counts(before)
@@ -523,6 +577,7 @@ class Programs:
                 functools.partial(_joined, fn), inputs, self._pool, device)
             launches = counts_since(before)
         finally:
+            _COMPILING.pop()
             POSTED.clear()
             restore_counts(before)
             cuda.HOST_TESTS.update(tests)

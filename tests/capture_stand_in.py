@@ -57,18 +57,22 @@ class StandInGraph:
     loops replay as the stand-in's conditional nodes (`StandIn.while_node`),
     from the tree of nodes the capture recorded."""
 
-    def __init__(self, owner, fn, args, out, roots, loops):
+    def __init__(self, owner, fn, args, out, roots, loops, programs):
         self.owner, self.fn, self.args, self.out = owner, fn, args, out
-        self.roots, self.loops = roots, loops
+        self.roots, self.loops, self.programs = roots, loops, programs
 
     def replay(self):
         saved = graphs.counts()
         if self.loops.trips is not None:  # the graph's own zeroing
             self.loops.trips.zero_()
         self.owner._frames = [[self.roots, 0]]
+        # the collectives of the loop bodies take the transport they took
+        # in the capture (the peer transport of the capturing programs)
+        graphs._COMPILING.append(self.programs)
         try:
             new = self.fn(*self.args)
         finally:
+            graphs._COMPILING.pop()
             self.owner._frames = None
             graphs.restore_counts(saved)
         for static, fresh in zip(tree_flatten(self.out)[0],
@@ -127,7 +131,9 @@ class StandIn:
         finally:
             self._loops = self._tree = None
         loops.body_nodes = 3 * len(loops)
-        return StandInGraph(self, fn, args, out, roots, loops), out, 7, loops
+        graph = StandInGraph(self, fn, args, out, roots, loops,
+                             graphs.compiling())
+        return graph, out, 7, loops
 
     @staticmethod
     def _test(pred):
@@ -143,7 +149,8 @@ class StandIn:
                 node.trips += 1
                 self._frames.append([node.children, 0])
                 try:
-                    carry = body(carry)
+                    with graphs.loop_body():
+                        carry = body(carry)
                 finally:
                     self._frames.pop()
             return carry

@@ -26,7 +26,7 @@ ONE_CARD = ["phase_device", "phase_build", "phase_kernels", "phase_main_path",
             "phase_refined", "phase_distributed", "phase_open_smooth",
             "phase_cli", "phase_probe", "phase_device_build", "phase_grid",
             "phase_routes_oracle", "phase_compiled", "phase_loops",
-            "phase_multi_gpu"]
+            "phase_peer", "phase_multi_gpu"]
 # phases 1 and 2, phase 4's run, 13 (b), 17 (a), then 16 and 19
 MULTI_GPU = ["phase_device", "phase_build", "phase_main_path", "_phase_big",
              "_compiled_main", "phase_multi_gpu"]
@@ -62,6 +62,8 @@ STUBS = {
     "phase_routes_oracle": None,
     "phase_compiled": 0.02,
     "phase_loops": (0.0, 1.0, 2.0, 0.5, "bytes", 3),
+    "phase_peer": {k: (0.0, 1.0, 2.0, 0.5, "bytes", None, 3)
+                   for k in ("peer_exchange", "peer_gather")},
     "phase_multi_gpu": None,
     "_phase_big": (5, {}),
     "_compiled_main": (None, 0.02),

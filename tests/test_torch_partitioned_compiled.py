@@ -22,10 +22,12 @@ the replay equals the eager run to the bit (uT and every stats tensor);
 the replay's LAUNCHES and COLLECTIVES equal the eager run's (`while_set`
 against its host tests); and the WHILE nodes' trips are the same on
 every rank.  The adaptive configurations (adaptive_f64_32, and
-jacobi_32, whose cycle_mode is the adaptive default) are no capture: the
-rule keeps them eager with its reason (the norm's all-gather would sit
-in a WHILE body), and the case checks that reason on every rank.  Rank
-0's result also meets the JAX package's
+jacobi_32, whose cycle_mode is the adaptive default) are captured too:
+every collective of their WHILE bodies takes the peer transport (the
+plain version over mailbox files every rank maps, parallel/
+distributed.py), every other collective gloo, which each rank's count of
+its collectives by transport shows.  Rank 0's result also meets the JAX
+package's
 `distributed_run` on its CPU mesh (test_torch_parallel.py's `_jax_dist`)
 at that file's bars: 1e-12 in float64, 1e-8 for the delta path
 (9.313e-9 measured there), with equal cycle counts.
@@ -33,9 +35,9 @@ at that file's bars: 1e-12 in float64, 1e-8 for the delta path
 Each entry point (a whole model's `distributed_run`, a born model's
 `run`, `step` and `run_chunk`) is captured once with the switch on, and
 its replay equals its eager run to the bit with equal LAUNCHES and
-COLLECTIVES on every rank, while an adaptive solve is eager with the
-WHILE body's reason; at the module's default (off, as every spawned rank
-finds it) each of them is eager with the switch's reason.
+COLLECTIVES on every rank, an adaptive solve's too; at the module's
+default (off, as every spawned rank finds it) each of them is eager
+with the switch's reason.
 
 The unit tests: a program's key differs by mesh, layout and min_local;
 an exchange left unwaited inside a capture raises, and so does a
@@ -55,6 +57,7 @@ from hpcclassmultigridproject_tpu_torch import ProblemConfig, SolverConfig
 from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
 from hpcclassmultigridproject_tpu_torch.models import advection_diffusion
 from hpcclassmultigridproject_tpu_torch.ops import cuda
+from hpcclassmultigridproject_tpu_torch.ops.cuda import peer
 from hpcclassmultigridproject_tpu_torch.parallel import (
     Mesh,
     capture_reason,
@@ -125,9 +128,9 @@ def _as_on_card(stand_in, switch: bool | None = True):
     `CAPTURE_NCCL` set to `switch` (None: as the module has it), reads it
     (CPU tensors under gloo are not staged through the host, so the
     stand-in can capture their collectives)."""
-    def rule(mesh, device, solver=None):
+    def rule(mesh, device):
         nccl = types.SimpleNamespace(world=mesh.world, backend="nccl")
-        return capture_reason(nccl, "cuda", solver)
+        return capture_reason(nccl, "cuda")
 
     real = (graphs.CAPTURE, advection_diffusion.capture_reason,
             distributed.CAPTURE_NCCL)
@@ -159,9 +162,36 @@ def _eager_and_replayed(model, call, switch: bool | None = True):
     return eager, want, got, counts, model.programs.last, fake
 
 
+# this rank's collectives by transport (`_log_transports`)
+TRANSPORTS = {"peer": 0, "peer_outside_body": 0, "group_in_body": 0}
+
+
+def _log_transports() -> None:
+    """Count, in TRANSPORTS, the collectives that take the peer transport
+    (`peer.exchange`, `peer.gather`), those of them made outside a loop
+    body or a compiled program, and the process group's collectives made
+    inside a loop body of a program being compiled."""
+    def counted(fn, peer_call):
+        def call(*args, **kwargs):
+            inside = graphs.in_body() and graphs.compiling() is not None
+            if peer_call:
+                TRANSPORTS["peer"] += 1
+                TRANSPORTS["peer_outside_body"] += not inside
+            elif inside:
+                TRANSPORTS["group_in_body"] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    peer.exchange = counted(peer.exchange, True)
+    peer.gather = counted(peer.gather, True)
+    dist.all_gather = counted(dist.all_gather, False)
+    dist.batch_isend_irecv = counted(dist.batch_isend_irecv, False)
+
+
 def _case(mesh, name, layout, build, min_local) -> dict:
     """One case on this rank: distributed_run eagerly and replayed; a
     born model's `run` and `step` too."""
+    before = dict(TRANSPORTS)
     if build == "born":
         model = _model(name, mesh, layout, min_local)
         kw = {}
@@ -176,7 +206,12 @@ def _case(mesh, name, layout, build, min_local) -> dict:
               "captures": fake.captures, "trips": trips,
               "compiled": model.last_run_compiled,
               "reason": model.last_run_reason,
-              "collectives": {k: counts[k] for k in cuda.COLLECTIVES}}
+              "collectives": {k: counts[k] for k in cuda.COLLECTIVES},
+              "body_collectives": sum(
+                  made.get(k, 0) for made in (loops.counts if loops else [])
+                  for k in cuda.COLLECTIVES),
+              "transports": {k: TRANSPORTS[k] - before[k]
+                             for k in TRANSPORTS}}
     if build == "born":
         run = _eager_and_replayed(model, lambda: model.run(warn=False))
         step = _eager_and_replayed(model, lambda: model.step(model.u0))
@@ -274,6 +309,7 @@ def rank_cases(cases, units: bool) -> dict:
     """One rank: every case, and with `units` the key, unwaited and
     switch checks."""
     torch.set_num_threads(1)
+    _log_transports()
     mesh = make_mesh()
     out = {case: _case(mesh, *case) for case in cases}
     if units:
@@ -302,20 +338,23 @@ def test_replay_equals_eager_and_jax(spawned, world, case):
     got = spawned[world][case]
     checks = got["checks"]
     assert len(checks) == world
-    # an adaptive solve (Jacobi's too): its norm would sit in a WHILE body
+    # an adaptive solve (Jacobi's too): its norm sits in a WHILE body
     adaptive = _model(name).solver.cycle_mode not in ("fixed", "fmg")
     for rank, c in enumerate(checks):
         assert c["bits"], f"rank {rank}: replay differs from eager"
         assert c["counts"], f"rank {rank}: counts differ from eager"
         assert c["trips"] == checks[0]["trips"], "trips differ by rank"
         assert c["collectives"] == checks[0]["collectives"]
-        if adaptive:
-            # eager on every rank, decided from the configuration
-            assert not c["compiled"] and c["captures"] == 0
-            assert "WHILE body" in c["reason"], c["reason"]
-        else:
-            assert c["compiled"] and c["reason"] is None
-            assert c["captures"] == 1, f"rank {rank}: not one capture"
+        # captured on every rank, whatever the solver
+        assert c["compiled"] and c["reason"] is None
+        assert c["captures"] == 1, f"rank {rank}: not one capture"
+        # every collective of a loop body took the peer transport, and
+        # none outside one
+        moved = c["transports"]
+        assert moved["group_in_body"] == 0, moved
+        assert moved["peer_outside_body"] == 0, moved
+        assert (moved["peer"] > 0) == adaptive, moved
+        assert (c["body_collectives"] > 0) == adaptive, c
         if build == "born":
             assert c["run"] and c["step"] and c["run_equals_distributed_run"]
     assert checks[0]["collectives"]["batch_isend_irecv"] > 0
@@ -342,19 +381,15 @@ def test_unwaited_exchange_in_a_capture_raises(spawned):
 def test_switch_on_captures_under_nccl(spawned, entry):
     """With `CAPTURE_NCCL` on, a rank on its card under NCCL captures the
     call once and its replay equals the eager run to the bit with equal
-    LAUNCHES and COLLECTIVES; an adaptive solve is eager with the WHILE
-    body's reason."""
+    LAUNCHES and COLLECTIVES, an adaptive solve too (its WHILE bodies'
+    collectives on the peer transport)."""
     assert len(spawned[2]["switch"][entry]) == 2
     for rank, c in enumerate(spawned[2]["switch"][entry]):
         on = c["on"]
         assert on["bits"], f"rank {rank}: differs from its eager run"
         assert on["counts"], f"rank {rank}: counts differ from eager"
-        if entry == "adaptive":
-            assert not on["compiled"] and on["captures"] == 0
-            assert "WHILE body" in on["reason"], on["reason"]
-        else:
-            assert on["compiled"] and on["reason"] is None
-            assert on["captures"] == 1, f"rank {rank}: not one capture"
+        assert on["compiled"] and on["reason"] is None
+        assert on["captures"] == 1, f"rank {rank}: not one capture"
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
@@ -392,34 +427,33 @@ def test_host_staged_collective_in_a_capture_raises():
 def test_capture_and_eager_reasons():
     """The CPU: the CPU's reason.  On the card: one rank, None; gloo with
     CUDA tensors, the staging reason; NCCL with CAPTURE_NCCL off (the
-    default), the switch's reason for every solver; with it on, None for
-    fixed-cycle and FMG solves and the WHILE body's reason for an
-    adaptive one."""
+    default), the switch's reason for every model; with it on, None for
+    every model, fixed-cycle, FMG and adaptive alike (the rule reads no
+    solver)."""
     parted = _model("delta_32", Mesh(2, 0), "rows", 8)
-    adaptive = _model("adaptive_f64_32").solver
-    fixed, fmg = parted.solver, _model("fmg_32").solver
+    models = [parted, _model("adaptive_f64_32", Mesh(2, 0), "rows", 8),
+              _model("fmg_32", Mesh(2, 0), "rows", 8)]
     assert not distributed.CAPTURE_NCCL
     assert parted.eager_reason() == CPU_REASON
     assert capture_reason(Mesh(2, 0), "cpu") == CPU_REASON
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(graphs, "CAPTURE", StandIn())
-        assert capture_reason(Mesh(1), "cuda", adaptive) is None
+        assert capture_reason(Mesh(1), "cuda") is None
         mp.setattr(Mesh, "backend", property(lambda self: "gloo"))
-        for solver in (None, fixed, fmg, adaptive):
-            assert "under gloo" in capture_reason(Mesh(2, 0), "cuda", solver)
-        parted.device = torch.device("cuda")
-        assert "stage CUDA tensors through the host" in parted.eager_reason()
+        assert "under gloo" in capture_reason(Mesh(2, 0), "cuda")
+        for model in models:
+            model.device = torch.device("cuda")
+            assert ("stage CUDA tensors through the host"
+                    in model.eager_reason())
         mp.setattr(Mesh, "backend", property(lambda self: "nccl"))
-        for solver in (None, fixed, fmg, adaptive):
-            reason = capture_reason(Mesh(2, 0), "cuda", solver)
-            assert "CAPTURE_NCCL" in reason, reason
-        assert "CAPTURE_NCCL" in parted.eager_reason()
+        assert "CAPTURE_NCCL" in capture_reason(Mesh(2, 0), "cuda")
+        for model in models:
+            assert "CAPTURE_NCCL" in model.eager_reason()
         mp.setattr(distributed, "CAPTURE_NCCL", True)
-        for solver in (None, fixed, fmg):
-            assert capture_reason(Mesh(2, 0), "cuda", solver) is None
-        assert parted.eager_reason() is None
-        assert "WHILE body" in capture_reason(Mesh(2, 0), "cuda", adaptive)
-        assert capture_reason(Mesh(1), "cuda", adaptive) is None
+        assert capture_reason(Mesh(2, 0), "cuda") is None
+        for model in models:
+            assert model.eager_reason() is None
+        assert capture_reason(Mesh(1), "cuda") is None
 
 
 def test_replays_add_collectives_and_the_reset_clears_them():

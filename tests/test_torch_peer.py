@@ -1,0 +1,501 @@
+"""PyTorch port: the peer transport (ops/cuda/peer.py, csrc/peer.cu), on
+the CPU, with the ranks as threads of this process.
+
+The kernels store a message straight into the receiver's mailbox, in the
+slot, under the flag and at the epoch that csrc/peer.cuh lays out; their
+plain versions run the same protocol on CPU mailboxes.  Here:
+
+  * the arithmetic of peer.cuh, built by g++ against the stand-in CUDA
+    runtime of tests/test_torch_probe_maps.py, equals the plain
+    version's on every index (slots, flags, epochs, pieces, the packed
+    argument words), so the kernel and its twin cannot disagree unseen;
+    and the C entry points' arities equal the ctypes table's;
+  * `start_exchange` over the peer transport gives every halo of
+    tests/test_torch_multigpu.py's cases (the rows deep halo of two
+    blocks in f32 and f64, one row, the 2-D four edges, both extensions)
+    bit for bit as the NCCL pairing emulated there does, on meshes of 2
+    to 8 ranks, with the same collective counts;
+  * the gather gives every rank's block in rank order, and `all_sum`
+    through it has the bits of the NCCL form (an emulated all-gather) in
+    float32 and float64;
+  * a rank held back before each of three consecutive receives never
+    has a slot overwritten before it reads it: its peer runs ahead by one
+    message at most, and every message arrives whole;
+  * the epochs and flags continue across calls, with no reset;
+  * set-up (a mailbox made or mapped) inside a capture raises, and so
+    does a message past the slots there; outside one such a message sets
+    up larger links and keeps the old;
+  * the wrappers refuse what the kernels do not take.
+
+tests/test_torch_partitioned_compiled.py routes the adaptive partitioned
+runs through the transport in spawned gloo ranks (the plain version over
+mailbox files every rank maps), under the capture stand-in.
+"""
+
+import concurrent.futures
+import ctypes
+import re
+import shutil
+import subprocess
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from hpcclassmultigridproject_tpu_torch.ops.cuda import _build, peer
+from hpcclassmultigridproject_tpu_torch.parallel import Mesh, distributed
+from hpcclassmultigridproject_tpu_torch.utils import graphs
+
+from capture_stand_in import StandIn
+from test_torch_multigpu import (
+    CASES,
+    WORLDS,
+    _global,
+    _NcclEmulation,
+    _p2p_op,
+    _part,
+)
+from test_torch_probe_maps import SHIM
+
+CAPACITY = 1 << 14
+
+# extern "C" wrappers of peer.cuh's functions, built with the stand-in
+# runtime header
+HOST = r"""
+#include <cuda_runtime.h>
+#include <cstddef>
+#include "peer.cuh"
+using namespace mg::peer;
+typedef unsigned long long u64;
+extern "C" {
+u64 h_slot_of(u64 e) { return slot_of(e); }
+u64 h_flag_value(u64 e) { return flag_value(e); }
+u64 h_flag_offset(int sender, u64 slot) { return flag_offset(sender, slot); }
+u64 h_epoch_offset(int world, int p) { return epoch_offset(world, p); }
+u64 h_header_bytes(int world) { return header_bytes(world); }
+u64 h_slot_offset(int world, int sender, u64 slot, u64 cap) {
+  return slot_offset(world, sender, slot, cap);
+}
+u64 h_mailbox_bytes(int world, u64 cap) { return mailbox_bytes(world, cap); }
+u64 h_next_piece(u64 off, u64 bytes) { return next_piece(off, bytes); }
+int h_exchange_word(int m, int p, int f) { return exchange_word(m, p, f); }
+// the word of ExchangeArgs a field lies at, from the struct itself
+u64 h_field_word(int m, int p, int f) {
+  ExchangeArgs a;
+  const uint64_t* at =
+      p < 0 ? &a.msgs[m].peer + f : &a.msgs[m].pieces[p].src + f;
+  return at - reinterpret_cast<const uint64_t*>(&a);
+}
+u64 h_sizes(int which) {
+  switch (which) {
+    case 0: return sizeof(ExchangeArgs);
+    case 1: return sizeof(GatherArgs);
+    case 2: return offsetof(GatherArgs, remote);
+    default: return 0;
+  }
+}
+u64 h_limits(int which) {
+  const u64 v[] = {MAX_WORLD, MAX_PEERS, MAX_PIECES, ALIGN, PIECE_ALIGN,
+                   ERROR_WORDS};
+  return v[which];
+}
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def cuh(tmp_path_factory):
+    """peer.cuh's functions built for the host."""
+    gxx = shutil.which("g++")
+    assert gxx, "g++ builds peer.cuh for the host"
+    d = tmp_path_factory.mktemp("peer_cuh")
+    (d / "cuda_runtime.h").write_text(SHIM)
+    (d / "host.cpp").write_text(HOST)
+    lib = d / "libpeer_host.so"
+    subprocess.run([gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I",
+                    str(d), "-I", str(_build.CSRC), "-o", str(lib),
+                    str(d / "host.cpp")], check=True, capture_output=True,
+                   text=True)
+    cdll = ctypes.CDLL(str(lib))
+    u64, i = ctypes.c_ulonglong, ctypes.c_int
+    for name, args in {"h_slot_of": [u64], "h_flag_value": [u64],
+                       "h_flag_offset": [i, u64], "h_epoch_offset": [i, i],
+                       "h_header_bytes": [i],
+                       "h_slot_offset": [i, i, u64, u64],
+                       "h_mailbox_bytes": [i, u64],
+                       "h_next_piece": [u64, u64], "h_field_word": [i, i, i],
+                       "h_sizes": [i], "h_limits": [i]}.items():
+        getattr(cdll, name).argtypes = args
+        getattr(cdll, name).restype = u64
+    cdll.h_exchange_word.argtypes = [i, i, i]
+    cdll.h_exchange_word.restype = i
+    return cdll
+
+
+def test_header_arithmetic_equals_the_plain_versions(cuh):
+    assert [cuh.h_limits(k) for k in range(6)] == [
+        peer.MAX_WORLD, peer.MAX_PEERS, peer.MAX_PIECES, peer.ALIGN,
+        peer.PIECE_ALIGN, peer.ERROR_WORDS]
+    for e in (0, 1, 2, 3, 37, 2**31 + 5, 2**40 + 2):
+        assert cuh.h_slot_of(e) == peer.slot_of(e)
+        assert cuh.h_flag_value(e) == peer.flag_value(e)
+    for world in range(2, peer.MAX_WORLD + 1):
+        assert cuh.h_header_bytes(world) == peer.header_bytes(world)
+        for cap in (256, 4096, CAPACITY, 3 << 20):
+            assert cuh.h_mailbox_bytes(world, cap) == peer.mailbox_bytes(
+                world, cap)
+        for r in range(world):
+            assert cuh.h_epoch_offset(world, r) == peer.epoch_offset(world,
+                                                                     r)
+            for slot in (0, 1):
+                assert cuh.h_flag_offset(r, slot) == peer.flag_offset(r,
+                                                                      slot)
+                assert cuh.h_slot_offset(world, r, slot, CAPACITY) == (
+                    peer.slot_offset(world, r, slot, CAPACITY))
+        # flags and epochs fit the header, slots do not overlap it
+        last_epoch = peer.epoch_offset(world, world - 1) + 8
+        assert last_epoch <= peer.header_bytes(world)
+        assert peer.flag_offset(world - 1, 1) + 8 <= peer.epoch_offset(
+            world, 0)
+    for off in (0, 4, 16, 100):
+        for nbytes in (0, 4, 8, 12, 44, 4096):
+            assert cuh.h_next_piece(off, nbytes) == peer.next_piece(off,
+                                                                    nbytes)
+
+
+def test_packed_arguments_match_the_structs(cuh):
+    """The words the wrappers pack are the structs' fields, and the
+    arrays have the structs' sizes."""
+    words = peer.exchange_word(peer.MAX_PEERS, -1, 0)
+    assert cuh.h_sizes(0) == 8 * words
+    assert cuh.h_sizes(1) == 8 * (9 + peer.MAX_WORLD)
+    assert cuh.h_sizes(2) == 8 * 9
+    for m in range(peer.MAX_PEERS):
+        for f in range(3):
+            assert cuh.h_exchange_word(m, -1, f) == peer.exchange_word(m, -1,
+                                                                       f)
+            assert cuh.h_field_word(m, -1, f) == peer.exchange_word(m, -1, f)
+        for p in range(peer.MAX_PIECES):
+            for f in range(5):
+                assert cuh.h_field_word(m, p, f) == peer.exchange_word(m, p,
+                                                                       f)
+
+
+def test_c_entry_points_match_the_ctypes_table():
+    text = (_build.CSRC / "peer.cu").read_text()
+    found = {name: len([p for p in params.split(",") if p.strip()])
+             for name, params in re.findall(
+                 r'extern "C" \w+\*? (\w+)\(([^)]*)\)', text, flags=re.S)}
+    assert found == {k: len(v) for k, v in _build._PEER_SIGNATURES.items()}
+
+
+def _threads(world: int, fn):
+    """fn(rank) in one thread a rank; the results in rank order."""
+    with concurrent.futures.ThreadPoolExecutor(world) as pool:
+        return [f.result() for f in [pool.submit(fn, r)
+                                     for r in range(world)]]
+
+
+class _ThreadLinks:
+    """`distributed._peer_links` for thread ranks: rank r's links."""
+
+    def __init__(self, world: int):
+        self.links = peer.local_links(world, "cpu", CAPACITY)
+        self.local = threading.local()
+
+    def __call__(self, mesh, device, need):
+        assert need <= CAPACITY
+        return self.links[self.local.rank]
+
+    def run(self, world: int, fn):
+        def as_rank(rank):
+            self.local.rank = rank
+            return fn(rank)
+
+        return _threads(world, as_rank)
+
+
+def _flat(xs):
+    return [t for x in xs for t in (x if isinstance(x, tuple) else (x,))]
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("world", WORLDS)
+def test_exchange_equals_the_nccl_pairing(monkeypatch, world, case):
+    layout, run_case = CASES[case]
+    shape = _part(layout, Mesh(world, 0))
+    fields = [_global((shape.rows, shape.cols), torch.float32),
+              _global((shape.rows, shape.cols), torch.float64, sign=-1.0)]
+    one = lambda r: run_case(_part(layout, Mesh(world, r)), fields)
+
+    nccl = _NcclEmulation(world)
+    with monkeypatch.context() as m:
+        m.setattr(dist, "batch_isend_irecv", nccl.batch)
+        m.setattr(dist, "P2POp", _p2p_op)
+        distributed.COLLECTIVES["batch_isend_irecv"] = 0
+        want = nccl.run(world, one)
+        nccl_batches = distributed.COLLECTIVES["batch_isend_irecv"]
+
+    links = _ThreadLinks(world)
+    monkeypatch.setattr(distributed, "_peer_links", links)
+    monkeypatch.setattr(dist, "batch_isend_irecv", None)  # not reached
+    distributed.COLLECTIVES["batch_isend_irecv"] = 0
+    got = links.run(world, one)
+    assert distributed.COLLECTIVES["batch_isend_irecv"] == nccl_batches
+    for (g, expect), (w, _) in zip(got, want):
+        g, w, expect = _flat(g), _flat(w), _flat(expect)
+        assert len(g) == len(w) == len(expect)
+        for a, b, c in zip(g, w, expect):
+            assert a.dtype == b.dtype == c.dtype
+            assert torch.equal(a, b) and torch.equal(a, c)
+
+
+class _AllGatherEmulation:
+    """`dist.all_gather` for thread ranks (NCCL's all-gather: every rank's
+    tensor, in rank order)."""
+
+    def __init__(self, world: int, local):
+        self.barrier = threading.Barrier(world, timeout=20)
+        self.posted, self.local = {}, local
+
+    def __call__(self, parts, src):
+        self.posted[self.local.rank] = src
+        self.barrier.wait()
+        for r, p in enumerate(parts):
+            p.copy_(self.posted[r])
+        self.barrier.wait()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("world", WORLDS)
+def test_gather_in_rank_order_and_all_sum_bits(monkeypatch, world, dtype):
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(Mesh, "backend", property(lambda self: "gloo"))
+    rng = np.random.default_rng(world)
+    # terms whose sum depends on the order of addition
+    scalars = [torch.tensor(v, dtype=dtype) for v in
+               rng.standard_normal(world) * 10.0 ** rng.integers(-6, 6,
+                                                                 world)]
+    blocks_ = [torch.tensor(rng.standard_normal((3, 5)), dtype=dtype)
+               for _ in range(world)]
+
+    def rank(r):
+        mesh = Mesh(world, r)
+        return (distributed.all_sum(scalars[r], mesh),
+                distributed.all_gather_blocks(blocks_[r], mesh))
+
+    links = _ThreadLinks(world)
+    with monkeypatch.context() as m:
+        m.setattr(dist, "all_gather", _AllGatherEmulation(world,
+                                                          links.local))
+        want = links.run(world, rank)  # _peer_links not patched: NCCL form
+    monkeypatch.setattr(distributed, "_peer_links", links)
+    monkeypatch.setattr(dist, "all_gather", None)  # not reached
+    distributed.COLLECTIVES["all_gather"] = 0
+    got = links.run(world, rank)
+    assert distributed.COLLECTIVES["all_gather"] == 2 * world
+    in_order = scalars[0]
+    for s in scalars[1:]:
+        in_order = in_order + s
+    for (total, parts), (want_total, want_parts) in zip(got, want):
+        assert total.dtype == dtype and total.shape == ()
+        assert torch.equal(total, want_total)
+        assert torch.equal(total, in_order)
+        for p, w, b in zip(parts, want_parts, blocks_):
+            assert torch.equal(p, w) and torch.equal(p, b)
+
+
+def _pieces(world, r, peer_rank, call, rows=3, cols=4):
+    """(src, dst) pieces rank r trades with peer_rank at `call`: values
+    naming the call, the sender and the receiver."""
+    def value(sender, receiver):
+        return (1000.0 * call + 10.0 * sender + receiver
+                + torch.arange(rows * cols, dtype=torch.float64)
+                .reshape(rows, cols) / 100.0)
+
+    src = value(r, peer_rank)
+    return [(src, torch.zeros_like(src))], value(peer_rank, r)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_held_back_rank_never_loses_a_message(monkeypatch, world):
+    """Rank 1 stops before each receive until its neighbours have run as
+    far ahead as they can: each then has sent at most the next message
+    (two slots suffice), and every message arrives whole."""
+    calls, held = 3, 1
+    log, lock = [], threading.Lock()
+    release = [threading.Event() for _ in range(calls)]
+    holding = [threading.Event() for _ in range(calls)]
+    send, receive = peer._send, peer._receive
+
+    def logged_send(links, p, pieces, e):
+        send(links, p, pieces, e)
+        with lock:
+            log.append(("send", links.rank, p, e))
+
+    def held_receive(links, p, pieces, e):
+        if links.rank == held:
+            holding[e].set()
+            assert release[e].wait(20)
+        receive(links, p, pieces, e)
+        with lock:
+            log.append(("receive", links.rank, p, e))
+
+    monkeypatch.setattr(peer, "_send", logged_send)
+    monkeypatch.setattr(peer, "_receive", held_receive)
+    links = peer.local_links(world, "cpu", CAPACITY)
+    neighbours = lambda r: [p for p in (r - 1, r + 1) if 0 <= p < world]
+
+    def rank(r):
+        out = []
+        for call in range(calls):
+            msgs, want = [], []
+            for p in neighbours(r):
+                pieces, expect = _pieces(world, r, p, call)
+                msgs.append((p, pieces))
+                want.append(expect)
+            peer.exchange(links[r], msgs)
+            out.append([(pieces[0][1], expect) for (_, pieces), expect
+                        in zip(msgs, want)])
+        return out
+
+    with concurrent.futures.ThreadPoolExecutor(world) as pool:
+        futures = [pool.submit(rank, r) for r in range(world)]
+        for call in range(calls):
+            assert holding[call].wait(20)
+            time.sleep(0.2)  # the others run as far as the protocol lets
+            with lock:
+                sent = [e for op, r, p, e in log
+                        if op == "send" and p == held]
+            assert max(sent) <= call + 1, (call, sent)
+            release[call].set()
+        results = [f.result() for f in futures]
+    for per_rank in results:
+        for per_call in per_rank:
+            for got, expect in per_call:
+                assert torch.equal(got, expect)
+    # no message e reached the held rank's slot before message e - 2 was
+    # read out of it
+    for i, (op, r, p, e) in enumerate(log):
+        if op == "send" and p == held and e >= 2:
+            assert ("receive", held, r, e - 2) in log[:i], (r, e)
+
+
+def test_epochs_continue_across_calls():
+    world = 4
+    links = peer.local_links(world, "cpu", CAPACITY)
+    x = [torch.full((2, 3), float(r)) for r in range(world)]
+
+    def batch(r, n):
+        for _ in range(n):
+            out = torch.empty(world, 2, 3)
+            peer.gather(links[r], x[r], out)
+            assert torch.equal(out, torch.stack(x))
+            pieces, _ = _pieces(world, r, r ^ 1, 0)
+            peer.exchange(links[r], [(r ^ 1, pieces)])
+
+    for done in (3, 8):
+        _threads(world, lambda r: batch(r, 3 if done == 3 else 5))
+        for r, lk in enumerate(links):
+            for p in range(world):
+                if p == r:
+                    continue
+                e = int(peer._u64(lk.local, peer.epoch_offset(world, p))[0])
+                # a gather a call with every rank, an exchange with r ^ 1
+                assert e == done * (2 if p == r ^ 1 else 1)
+                flags = [int(peer._u64(lk.local, peer.flag_offset(p, s))[0])
+                         for s in (0, 1)]
+                assert flags[peer.slot_of(e - 1)] == peer.flag_value(e - 1)
+                assert flags[peer.slot_of(e - 2)] == peer.flag_value(e - 2)
+
+
+def test_setup_inside_a_capture_raises(monkeypatch):
+    monkeypatch.setattr(graphs, "CAPTURE", StandIn())
+    mesh = Mesh(2, 0)
+
+    def connect_in_capture(x):
+        if graphs.CAPTURE.capturing(x.device):
+            distributed.connect(mesh, x.device, CAPACITY)
+        return x + 1.0
+
+    with pytest.raises(RuntimeError, match="inside a CUDA graph capture"):
+        graphs.Programs()("setup", connect_in_capture, (torch.ones(2),))
+
+    programs = graphs.Programs()
+    small = peer.local_links(2, "cpu", 256)[0]
+    programs.resources[("peer", mesh.key, "cpu")] = [small]
+
+    def grow_in_capture(x):
+        if graphs.CAPTURE.capturing(x.device):
+            with graphs.loop_body():
+                distributed._peer_links(mesh, x.device, 4096)
+        return x + 1.0
+
+    with pytest.raises(RuntimeError, match="inside a CUDA graph capture"):
+        programs("grow", grow_in_capture, (torch.ones(2),))
+
+
+def test_outside_a_compiled_body_the_group_carries_it():
+    """An eager call, and a compiled program's collectives outside its
+    loop bodies, take the process group's transport."""
+    mesh = Mesh(2, 0)
+    assert distributed._peer_links(mesh, "cpu", 8) is None
+    with graphs.loop_body():
+        assert distributed._peer_links(mesh, "cpu", 8) is None
+    graphs._COMPILING.append(graphs.Programs())
+    try:
+        assert distributed._peer_links(mesh, "cpu", 8) is None
+    finally:
+        graphs._COMPILING.pop()
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    links = peer.local_links(2, "cpu", 256)[0]
+    src = torch.zeros(4, 8)
+    with pytest.raises(ValueError, match="slots of"):
+        peer.exchange(links, [(1, [(torch.zeros(16, 16),
+                                    torch.zeros(16, 16))])])
+    with pytest.raises(ValueError, match="contiguous"):
+        peer.exchange(links, [(1, [(src, torch.zeros(8, 4).t())])])
+    with pytest.raises(ValueError, match="rows must be contiguous"):
+        peer.exchange(links, [(1, [(src.t(), torch.zeros(8, 4))])])
+    with pytest.raises(ValueError, match="cannot send"):
+        peer.exchange(links, [(0, [(src, torch.zeros(4, 8))])])
+    with pytest.raises(ValueError, match="4-byte words"):
+        peer.exchange(links, [(1, [(torch.zeros(2, 3, dtype=torch.int16),
+                                    torch.zeros(2, 3, dtype=torch.int16))])])
+    with pytest.raises(ValueError, match="gather of"):
+        peer.gather(links, torch.zeros(3), torch.zeros(3, 3))
+    with pytest.raises(ValueError, match="serves 2 to"):
+        peer.alloc(9, 256, torch.device("cpu"))
+
+
+def test_a_larger_message_grows_the_mailbox_in_the_warm_up(monkeypatch):
+    """Outside a capture, a message past the slots sets up larger links
+    (every rank meets it at the same call) and keeps the old ones, which
+    graphs captured earlier read."""
+    made = []
+
+    def connect(mesh, device, capacity):
+        made.append(capacity)
+        return peer.local_links(2, device, capacity)[mesh.rank]
+
+    monkeypatch.setattr(distributed, "connect", connect)
+    mesh, programs = Mesh(2, 0), graphs.Programs()
+    graphs._COMPILING.append(programs)
+    try:
+        with graphs.loop_body():
+            first = distributed._peer_links(mesh, "cpu", 64)
+            assert distributed._peer_links(mesh, "cpu", 64) is first
+            big = distributed.PEER_MIN_CAPACITY + 1
+            grown = distributed._peer_links(mesh, "cpu", big)
+    finally:
+        graphs._COMPILING.pop()
+    assert made == [distributed.PEER_MIN_CAPACITY,
+                    2 * distributed.PEER_MIN_CAPACITY]
+    assert grown.capacity >= big and grown is not first
+    assert programs.resources[distributed._peer_key(mesh, "cpu")] == [
+        first, grown]
