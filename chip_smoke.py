@@ -3321,16 +3321,27 @@ def _multi_scale_rank(big_n: int, big_cycles: int, huge_n: int,
         if not captured:
             return uT, ran
         program = model.programs.last
+        # the first call's uT waits on the host: two whole fields of
+        # n=32768 beside the graph's pool do not fit a card
+        first = (uT.cpu(), {k: v.cpu() for k, v in stats.items()})
+        uT = stats = None
         dist.barrier()
         t0 = time.perf_counter()
-        again = distributed_run(model)
+        uT, stats = distributed_run(model)
         torch.cuda.synchronize()
         ran.update(first_s=ran["wall"], wall=time.perf_counter() - t0,
-                   replay_equal=_all_ranks(_equal_out(again, (uT, stats))),
+                   replay_equal=_all_ranks(_equal_out(
+                       (uT.cpu(), {k: v.cpu() for k, v in stats.items()}),
+                       first)),
                    capture_s=None if program is None else program.seconds,
                    nodes=None if program is None else program.nodes,
                    reserved_mib=_all_ranks(
                        torch.cuda.memory_reserved() / 2**20))
+        _progress(f"[compiled-multi] (d) n={model.problem.n}, "
+                  f"{model.layout}: compiled {ran['compiled']}, the replay "
+                  f"equal to the first call {ran['replay_equal']}, a replay "
+                  f"{ran['wall']:.3f} s, reserved MiB "
+                  f"{[round(m) for m in ran['reserved_mib']]}")
         return uT, ran
 
     out = {}
@@ -4733,10 +4744,12 @@ def _peer_cases(n: int) -> tuple[list, list]:
     """The peer transport's calls on main's rows layout at n over
     PEER_WORLD ranks, SolverConfig(dtype=float64) (the adaptive main path
     of phase 20 (c), min_local DIST_MIN_LOCAL): exchanges (name, block
-    shape, dtype, blocks, k) of every partitioned level, the deep halo of
-    (u, rhs) and the one-row halo of one block; gathers (name, shape,
-    dtype): the norms (one float32, one float64 value) and the
-    agglomeration into the first replicated level."""
+    shape, dtype, blocks, k, axis) of every partitioned level, the deep
+    halo of (u, rhs) and the one-row halo of one block, then messages of
+    many chunks with a partial last one and the 2-D layout's column edges
+    (one value a row, at a pitch); gathers (name, shape, dtype): the
+    norms (one float32, one float64 value) and the agglomeration into the
+    first replicated level."""
     from hpcclassmultigridproject_tpu_torch import ProblemConfig, SolverConfig
     from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
     from hpcclassmultigridproject_tpu_torch.parallel import (
@@ -4759,8 +4772,14 @@ def _peer_cases(n: int) -> tuple[list, list]:
                             (rows, model.levels[lvl].padded[1]), f64))
             break
         exchanges += [(f"level {lvl} deep halo (u, rhs)", part.shape, f64, 2,
-                       part.halo),
-                      (f"level {lvl} one row (u)", part.shape, f64, 1, 1)]
+                       part.halo, 0),
+                      (f"level {lvl} one row (u)", part.shape, f64, 1, 1, 0)]
+    f32 = torch.float32
+    exchanges += [("5 chunks, the last partial", (40, 301), f64, 1, 8, 0),
+                  ("5 chunks of two f32 blocks", (40, 301), f32, 2, 8, 0),
+                  ("rows of 4-byte words", (40, 301), f32, 2, 3, 0),
+                  ("2-D column edge", (528, 576), f64, 1, 1, 1),
+                  ("2-D column edge", (528, 576), f32, 1, 1, 1)]
     return exchanges, gathers
 
 
@@ -4777,12 +4796,13 @@ def _peer_ranks(fn, world: int):
 def phase_peer(device) -> dict:
     """The peer transport's kernels on one card: PEER_WORLD ranks as as
     many streams of this process, each with a mailbox on the card reached
-    directly by the others (no IPC), at main's rows layout at n=MAIN_N
-    (`_peer_cases`).  Every exchange and gather is launched by the ranks'
-    streams at once (a rank's kernel waits for the other's message), its
-    halos and parts held to the blocks they come from, and to the plain
-    version (thread ranks, CPU mailboxes) to the bit; launches are
-    counted over that drive.  Then each kernel is timed a call (CUDA
+    directly by the others (no IPC), at main's rows layout at n=MAIN_N,
+    and messages of many chunks and column edges (`_peer_cases`).  Every
+    exchange and gather is launched by the ranks' streams at once (a
+    rank's kernel waits for the other's message), its halos and parts
+    held to the blocks they come from, and to the plain version (thread
+    ranks, CPU mailboxes) to the bit; launches are counted over that
+    drive.  Then each kernel is timed a call (CUDA
     events over PEER_REPS calls of every rank) at the main path's
     shapes: level 0's deep halo and one float64 value, with the plain
     version's host time.  Returns each kernel's row of the kernel line.
@@ -4795,14 +4815,15 @@ def phase_peer(device) -> dict:
     world = PEER_WORLD
     exchanges, gathers = _peer_cases(MAIN_N)
     capacity = max(
-        distributed._side_bytes([torch.empty(shape, dtype=dt)] * nb, k, 0)
-        for _, shape, dt, nb, k in exchanges)
+        distributed._side_bytes([torch.empty(shape, dtype=dt)] * nb, k,
+                                axis)
+        for _, shape, dt, nb, k, axis in exchanges)
     links = peer.local_links(world, device, capacity)
     plain = peer.local_links(world, "cpu", capacity)
     streams = [torch.cuda.Stream(device) for _ in range(world)]
     gen = torch.Generator().manual_seed(20)
-    sides = [[(0, r - 1 if r > 0 else None, r + 1 if r < world - 1
-               else None)] for r in range(world)]
+    sides = lambda r, axis: [(axis, r - 1 if r > 0 else None,
+                              r + 1 if r < world - 1 else None)]
 
     def on_streams(calls):
         """calls[r]() on rank r's stream, every rank's issued at once."""
@@ -4825,21 +4846,22 @@ def phase_peer(device) -> dict:
     def drive() -> None:
         """Every exchange and gather on the card and in the plain
         version, into `err` and `ran`."""
-        for name, shape, dt, nb, k in exchanges:
+        for name, shape, dt, nb, k, axis in exchanges:
             blocks = [[torch.randn(shape, generator=gen, dtype=dt)
                        for _ in range(nb)] for _ in range(world)]
             got = on_streams([
                 lambda r=r: distributed._peer_exchange(
                     links[r], [b.to(device) for b in blocks[r]], k,
-                    sides[r]).wait() for r in range(world)])
+                    sides(r, axis)).wait() for r in range(world)])
             want = _peer_ranks(lambda r: distributed._peer_exchange(
-                plain[r], blocks[r], k, sides[r]).wait(), world)
+                plain[r], blocks[r], k, sides(r, axis)).wait(), world)
+            edge = lambda b, first: distributed._edge(b, axis, first, k)
             for r in range(world):
                 for i, (top, bot) in enumerate(got[r]):
                     ptop, pbot = want[r][i]
-                    above = (blocks[r - 1][i][-k:] if r > 0
+                    above = (edge(blocks[r - 1][i], False) if r > 0
                              else torch.zeros_like(ptop))
-                    below = (blocks[r + 1][i][:k] if r < world - 1
+                    below = (edge(blocks[r + 1][i], True) if r < world - 1
                              else torch.zeros_like(pbot))
                     require(torch.equal(ptop, above)
                             and torch.equal(pbot, below),
@@ -4848,7 +4870,10 @@ def phase_peer(device) -> dict:
                         err["peer_exchange"],
                         float((top.cpu() - ptop).abs().max()),
                         float((bot.cpu() - pbot).abs().max()))
-            ran.append(f"{name} {tuple(shape)} x{nb}, k={k}")
+            chunks = peer.chunk_count(distributed._side_bytes(
+                blocks[0], k, axis), peer.chunk_bytes(links[0].capacity))
+            ran.append(f"{name} {tuple(shape)} {dt} x{nb}, k={k}, axis "
+                       f"{axis}: {chunks} chunks")
         for name, shape, dt in gathers:
             xs = [torch.randn(shape, generator=gen, dtype=dt)
                   for _ in range(world)]
@@ -4881,7 +4906,7 @@ def phase_peer(device) -> dict:
             f"peer: the kernels differ from their plain versions: {err}")
     require(all(launches.values()), f"peer: launches {launches}")
 
-    _, shape, dt, nb, k = exchanges[0]
+    _, shape, dt, nb, k, _ = exchanges[0]
     blocks = [[torch.randn(shape, generator=gen, dtype=dt).to(device)
                for _ in range(nb)] for _ in range(world)]
     pblocks = [[b.cpu() for b in bs] for bs in blocks]

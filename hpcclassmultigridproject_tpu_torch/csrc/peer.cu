@@ -8,24 +8,64 @@
 // NCCL call captured in a WHILE body did not finish on four H100s, so the
 // port stores into the neighbour's memory itself.
 //
-// mg_peer_exchange does what start_exchange and Exchange.wait do: for each
-// peer of the call, one block stores the peer's pieces (the first or last
-// k lines of each block, a column edge strided) into the peer's mailbox,
-// makes them visible (__threadfence_system), raises the flag with a release
-// store at system scope, then spins on its own flag for the peer's message
-// with acquire loads and copies the received lines out.  mg_peer_gather
-// does what all_gather_blocks does: one block a rank, storing this rank's
-// block into slot `rank` of that rank's mailbox and copying that rank's
-// block out of this one's (its own block copied locally).  The slots,
-// flags and epochs are peer.cuh's; a rank of no neighbour on a side gets
-// the zeros the wrapper allocated.
+// mg_peer_exchange does what start_exchange and Exchange.wait do.  Each
+// peer's message (the first or last k lines of each block, a column edge
+// strided) is cut into chunks (peer.cuh), and the launch has a block a
+// chunk of all its messages, at most one a multiprocessor; a block with
+// more than one chunk loops.  A block first sends each of its chunks:
+// stores the chunk's bytes into the peer's slot, makes them visible (a
+// barrier, then one __threadfence_system by thread 0, cumulative over the
+// block's stores) and raises that chunk's flag with a release store at
+// system scope.  Then, for each of its chunks, it waits with acquire
+// loads for the same chunk of the peer's message and copies it out.  So
+// the copy-out is spread over the blocks and starts chunk by chunk, not
+// behind one wait.  A block never waits before it has sent all it sends,
+// so no wait depends on a send behind another wait, whichever blocks of
+// the two ranks hold which chunks.
 //
-// Bound: the bytes a rank sends over NVLink, 450 GB/s a direction on the
-// H100 SXM: a deep halo of main's rows layout at n=1024 is tens of KB, a
-// norm 8 bytes, so each call is bound by the latency of a flag's round trip
-// and the launch, not by the link.  One block of 256 threads a peer, four
-// bytes a thread a step: enough for this slice (P8 in ROADMAP.md times it
-// against NCCL).
+// Accesses are 16 bytes a thread (uint4 stores to the peer, `__ldcg` uint4
+// loads from the mailbox) where a piece's addresses and rows allow it, else
+// 8 or 4 (peer.cuh::word_bytes); words are indexed from the piece's start,
+// a strided piece by row and word (a 32-bit divide only where a row holds
+// more than one word; a column edge of one value a row has none).
+//
+// Co-residency.  A block spins on a block of the peer, so every block of
+// both launches must be resident at once: the grid is at most one block a
+// multiprocessor (peer.cuh::exchange_grid), 256 threads with no shared
+// memory to speak of, so a card holds it beside another rank's launch (two
+// ranks on one card, chip_smoke.py's check) and beside any kernel of its
+// own stream's past, which has ended before it starts.
+//
+// The epoch.  Every block reads the pair's epoch (its chunks' slot and
+// flag value) when it starts, before it counts anything.  After its
+// copy-outs, a block adds the chunks it received from a peer to that
+// peer's count in this rank's header (atomicAdd, after a fence); the block
+// whose addition brings the count to the message's chunk count is the last
+// of that peer's, resets the count and advances the epoch (after a fence).
+// No race: every chunk of the message has been received and counted by
+// then, so every block that reads the epoch for that message has read it
+// (its read precedes its own count, and the fences order the read before
+// the last block's store); the new epoch and count are read by the next
+// launch only, which starts after this one ends.  mg_peer_gather keeps one
+// block a rank, which reads and advances its own pair's epoch itself.
+//
+// mg_peer_gather does what all_gather_blocks does: one block a rank,
+// storing this rank's block into slot `rank` of that rank's mailbox and
+// copying that rank's block out of this one's (its own block copied
+// locally), chunk by chunk with the same flags.  The slots, flags and
+// epochs are peer.cuh's; a rank of no neighbour on a side gets the zeros
+// the wrapper allocated.
+//
+// Bound: the bytes a rank sends to a neighbour over NVLink, 450 GB/s a
+// direction on the H100 SXM: main's level-0 deep halo at n=1024 by rows,
+// (u, rhs) of 8 rows of 1152 float64, is 147,456 B, 0.33 µs.  Above it
+// lies the protocol's latency: the launch, the fence of the remote stores,
+// one flag's trip over NVLink, the copy-out.  The gather of one 8-byte
+// value, which has no payload to speak of, takes 7.8-8.3 µs a call in a
+// graph on four H100 SXM (700 W): the floor an exchange of any size
+// approaches.  That deep halo takes 16.2-16.5 µs there (NCCL's captured
+// call 31-32 µs); one fence a thread in place of one a block cost ~2 µs
+// more on both.
 //
 // A spin has a budget of clock64 cycles.  Past it the block writes which
 // wait ran out into a host-mapped error record, then __trap()s: the hang
@@ -47,6 +87,7 @@ namespace {
 
 using mg::peer::ExchangeArgs;
 using mg::peer::GatherArgs;
+using mg::peer::PeerMsg;
 using mg::peer::Piece;
 
 constexpr int THREADS = 256;
@@ -68,18 +109,60 @@ __device__ __forceinline__ void store_release(uint64_t* p, uint64_t v) {
                : "memory");
 }
 
-// `rows` rows of `row_bytes` from src (pitch src_pitch) to dst, packed at
-// dst_pitch, four bytes a thread a step; loads bypass L1 (`cg`), since a
-// mailbox's slots are written by other cards
-__device__ void copy_rows(char* dst, uint64_t dst_pitch, const char* src,
-                          uint64_t src_pitch, uint64_t rows,
-                          uint64_t row_bytes) {
-  const uint64_t words = row_bytes / 4, total = rows * words;
-  for (uint64_t i = threadIdx.x; i < total; i += blockDim.x) {
-    const uint64_t r = i / words, w = i - r * words;
-    const uint32_t v = __ldcg(
-        reinterpret_cast<const uint32_t*>(src + r * src_pitch) + w);
-    reinterpret_cast<uint32_t*>(dst + r * dst_pitch)[w] = v;
+template <int W>
+struct Word;
+template <>
+struct Word<16> {
+  using T = uint4;
+};
+template <>
+struct Word<8> {
+  using T = uint2;
+};
+template <>
+struct Word<4> {
+  using T = unsigned int;
+};
+
+// Words [first, last) of W bytes of a piece: word i is read from src (flat
+// when wpr is 0, else row i / wpr at `pitch` bytes, its word i % wpr) and
+// stored at dst + i * W.  Loads bypass L1 (`cg`): a mailbox's slots are
+// written by other cards.
+template <int W>
+__device__ __forceinline__ void copy_words(char* dst, const char* src,
+                                           uint64_t pitch, uint32_t wpr,
+                                           uint64_t first, uint64_t last) {
+  using T = typename Word<W>::T;
+  for (uint64_t i = first + threadIdx.x; i < last; i += THREADS) {
+    const char* from = src + i * W;
+    if (wpr == 1) {
+      from = src + i * pitch;
+    } else if (wpr > 1) {
+      const uint32_t r = static_cast<uint32_t>(i) / wpr;
+      from = src + r * pitch + (static_cast<uint32_t>(i) - r * wpr) * W;
+    }
+    reinterpret_cast<T*>(dst)[i] = __ldcg(reinterpret_cast<const T*>(from));
+  }
+}
+
+// Bytes [lo, hi) of a piece of `rows` rows of `row_bytes` at a pitch of
+// `pitch` bytes from src, stored flat at dst + lo, in the widest words the
+// addresses, the rows and the pitch allow (lo and hi are multiples of 16 or
+// the piece's end, so of that width too).
+__device__ void copy_span(char* dst, const char* src, uint64_t rows,
+                          uint64_t row_bytes, uint64_t pitch, uint64_t lo,
+                          uint64_t hi) {
+  const bool flat = rows == 1 || pitch == row_bytes;
+  const uint64_t w = mg::peer::word_bytes(
+      reinterpret_cast<uint64_t>(dst) | reinterpret_cast<uint64_t>(src) |
+      (flat ? rows * row_bytes : row_bytes | pitch));
+  const uint32_t wpr = flat ? 0 : static_cast<uint32_t>(row_bytes / w);
+  if (w == 16) {
+    copy_words<16>(dst, src, pitch, wpr, lo / 16, hi / 16);
+  } else if (w == 8) {
+    copy_words<8>(dst, src, pitch, wpr, lo / 8, hi / 8);
+  } else {
+    copy_words<4>(dst, src, pitch, wpr, lo / 4, hi / 4);
   }
 }
 
@@ -88,7 +171,7 @@ __device__ void copy_rows(char* dst, uint64_t dst_pitch, const char* src,
 __device__ void wait_flag(const uint64_t* flag, uint64_t want,
                           uint64_t budget, volatile uint64_t* error,
                           uint64_t kind, uint64_t rank, uint64_t peer,
-                          uint64_t epoch) {
+                          uint64_t epoch, uint64_t chunk) {
   const long long start = clock64();
   while (load_acquire(flag) != want) {
     if (static_cast<uint64_t>(clock64() - start) > budget) {
@@ -96,6 +179,7 @@ __device__ void wait_flag(const uint64_t* flag, uint64_t want,
       error[2] = rank;
       error[3] = peer;
       error[4] = epoch;
+      error[5] = chunk;
       error[0] = 1;
       __threadfence_system();
       __trap();
@@ -103,82 +187,209 @@ __device__ void wait_flag(const uint64_t* flag, uint64_t want,
   }
 }
 
-// one message: send this rank's pieces to `remote`'s slot, flag it, wait
-// for the peer's message in `local` and copy its pieces out
-__device__ void trade(char* local, char* remote, int world, int rank,
-                      int peer, uint64_t capacity, const Piece* pieces,
-                      int npieces, uint64_t budget,
-                      volatile uint64_t* error, uint64_t kind) {
+// One side of a pair at epoch e: this rank's and the peer's mailboxes, the
+// slot, and the messages' pieces (the same shapes both ways).
+struct Pair {
+  char* local;
+  char* remote;
+  int world, rank, peer;
+  uint64_t capacity, e;
+  const Piece* pieces;
+  int npieces;
+};
+
+// Chunk c, bytes [c0, c1) of the message: the pieces' bytes stored into the
+// peer's slot, made visible, then the chunk's flag raised in the peer's
+// mailbox.
+__device__ void send_chunk(const Pair& p, uint64_t c, uint64_t c0,
+                           uint64_t c1) {
   using namespace mg::peer;
-  __shared__ uint64_t epoch_s;
-  uint64_t* epoch = reinterpret_cast<uint64_t*>(local +
-                                                epoch_offset(world, peer));
-  if (threadIdx.x == 0) epoch_s = *epoch;
-  __syncthreads();
-  const uint64_t e = epoch_s, slot = slot_of(e);
-  char* out = remote + slot_offset(world, rank, slot, capacity);
-  uint64_t off = 0;
-  for (int p = 0; p < npieces; ++p) {
-    const Piece& pc = pieces[p];
-    copy_rows(out + off, pc.row_bytes, reinterpret_cast<const char*>(pc.src),
-              pc.src_pitch, pc.rows, pc.row_bytes);
-    off = next_piece(off, pc.rows * pc.row_bytes);
+  const uint64_t slot = slot_of(p.e);
+  char* out = p.remote + slot_offset(p.world, p.rank, slot, p.capacity);
+  uint64_t off = 0, lo, hi;
+  for (int k = 0; k < p.npieces; ++k) {
+    const Piece& pc = p.pieces[k];
+    const uint64_t bytes = pc.rows * pc.row_bytes;
+    if (span(c0, c1, off, bytes, &lo, &hi)) {
+      copy_span(out + off, reinterpret_cast<const char*>(pc.src), pc.rows,
+                pc.row_bytes, pc.src_pitch, lo, hi);
+    }
+    off = next_piece(off, bytes);
   }
-  __threadfence_system();
+  // the block's stores precede thread 0's fence (the barrier), and the
+  // fence is cumulative: one system-scope fence a chunk, not one a thread
   __syncthreads();
   if (threadIdx.x == 0) {
-    char* flag_out = remote + flag_offset(rank, slot);
-    const char* flag_in = local + flag_offset(peer, slot);
-    store_release(reinterpret_cast<uint64_t*>(flag_out), flag_value(e));
-    wait_flag(reinterpret_cast<const uint64_t*>(flag_in), flag_value(e),
-              budget, error, kind, rank, peer, e);
+    __threadfence_system();
+    store_release(reinterpret_cast<uint64_t*>(
+                      p.remote + flag_offset(p.rank, slot, c)),
+                  flag_value(p.e));
+  }
+}
+
+// Chunk c of the peer's message: wait for its flag, then copy its bytes of
+// each piece out into the piece's dst.
+__device__ void receive_chunk(const Pair& p, uint64_t c, uint64_t c0,
+                              uint64_t c1, uint64_t budget,
+                              volatile uint64_t* error, uint64_t kind) {
+  using namespace mg::peer;
+  const uint64_t slot = slot_of(p.e);
+  if (threadIdx.x == 0) {
+    wait_flag(reinterpret_cast<const uint64_t*>(
+                  p.local + flag_offset(p.peer, slot, c)),
+              flag_value(p.e), budget, error, kind, p.rank, p.peer, p.e, c);
   }
   __syncthreads();
-  const char* in = local + slot_offset(world, peer, slot, capacity);
-  off = 0;
-  for (int p = 0; p < npieces; ++p) {
-    const Piece& pc = pieces[p];
-    copy_rows(reinterpret_cast<char*>(pc.dst), pc.row_bytes, in + off,
-              pc.row_bytes, pc.rows, pc.row_bytes);
-    off = next_piece(off, pc.rows * pc.row_bytes);
+  const char* in = p.local + slot_offset(p.world, p.peer, slot, p.capacity);
+  uint64_t off = 0, lo, hi;
+  for (int k = 0; k < p.npieces; ++k) {
+    const Piece& pc = p.pieces[k];
+    const uint64_t bytes = pc.rows * pc.row_bytes;
+    if (span(c0, c1, off, bytes, &lo, &hi)) {
+      copy_span(reinterpret_cast<char*>(pc.dst), in + off, 1, bytes, bytes,
+                lo, hi);
+    }
+    off = next_piece(off, bytes);
   }
-  if (threadIdx.x == 0) *epoch = e + 1;
+}
+
+__device__ __forceinline__ uint64_t lesser(uint64_t a, uint64_t b) {
+  return a < b ? a : b;
+}
+
+__device__ __forceinline__ uint64_t read_epoch(const char* local, int world,
+                                               int peer) {
+  return __ldcg(reinterpret_cast<const unsigned long long*>(
+      local + mg::peer::epoch_offset(world, peer)));
 }
 
 __global__ void __launch_bounds__(THREADS)
     exchange_kernel(const __grid_constant__ ExchangeArgs a) {
-  const auto& m = a.msgs[blockIdx.x];
-  trade(reinterpret_cast<char*>(a.local), reinterpret_cast<char*>(m.remote),
-        static_cast<int>(a.world), static_cast<int>(a.rank),
-        static_cast<int>(m.peer), a.capacity, m.pieces,
-        static_cast<int>(m.npieces), a.budget,
-        reinterpret_cast<volatile uint64_t*>(a.error), 0);
+  using namespace mg::peer;
+  __shared__ uint64_t epoch_s[MAX_PEERS];
+  char* local = reinterpret_cast<char*>(a.local);
+  const int world = static_cast<int>(a.world);
+  const int npeers = static_cast<int>(a.npeers);
+  const uint64_t chunk = chunk_bytes(a.capacity);
+  // message m's chunks are [first[m], first[m + 1]) of the launch's list
+  uint64_t first[MAX_PEERS + 1], bytes[MAX_PEERS];
+  first[0] = 0;
+  for (int m = 0; m < npeers; ++m) {
+    bytes[m] = message_bytes(a.msgs[m]);
+    first[m + 1] = first[m] + chunk_count(bytes[m], chunk);
+  }
+  if (threadIdx.x < npeers) {
+    epoch_s[threadIdx.x] =
+        read_epoch(local, world, static_cast<int>(a.msgs[threadIdx.x].peer));
+  }
+  __syncthreads();
+  auto pair = [&](int m) {
+    const PeerMsg& msg = a.msgs[m];
+    return Pair{local, reinterpret_cast<char*>(msg.remote), world,
+                static_cast<int>(a.rank), static_cast<int>(msg.peer),
+                a.capacity, epoch_s[m], msg.pieces,
+                static_cast<int>(msg.npieces)};
+  };
+  const uint64_t total = first[npeers];
+  for (uint64_t j = blockIdx.x; j < total; j += gridDim.x) {
+    int m = 0;
+    while (j >= first[m + 1]) ++m;
+    const uint64_t c = j - first[m], c0 = c * chunk;
+    send_chunk(pair(m), c, c0, lesser(c0 + chunk, bytes[m]));
+  }
+  uint64_t done[MAX_PEERS] = {};
+  for (uint64_t j = blockIdx.x; j < total; j += gridDim.x) {
+    int m = 0;
+    while (j >= first[m + 1]) ++m;
+    const uint64_t c = j - first[m], c0 = c * chunk;
+    receive_chunk(pair(m), c, c0, lesser(c0 + chunk, bytes[m]), a.budget,
+                  reinterpret_cast<volatile uint64_t*>(a.error), 0);
+    ++done[m];
+  }
+  if (threadIdx.x != 0) return;
+  for (int m = 0; m < npeers; ++m) {
+    if (done[m] == 0) continue;
+    const int peer = static_cast<int>(a.msgs[m].peer);
+    auto* count = reinterpret_cast<unsigned long long*>(
+        local + count_offset(world, peer));
+    __threadfence();
+    const unsigned long long n = done[m];
+    if (atomicAdd(count, n) + n == first[m + 1] - first[m]) {
+      __threadfence();
+      *count = 0;
+      *reinterpret_cast<uint64_t*>(local + epoch_offset(world, peer)) =
+          epoch_s[m] + 1;
+    }
+  }
 }
 
 __global__ void __launch_bounds__(THREADS)
     gather_kernel(const __grid_constant__ GatherArgs a) {
+  using namespace mg::peer;
+  __shared__ uint64_t epoch_s;
   const int r = blockIdx.x, rank = static_cast<int>(a.rank);
+  const int world = static_cast<int>(a.world);
   char* dst = reinterpret_cast<char*>(a.dst) + r * a.bytes;
   const char* src = reinterpret_cast<const char*>(a.src);
   if (r == rank) {  // this rank's own block
-    copy_rows(dst, a.bytes, src, a.bytes, 1, a.bytes);
+    copy_span(dst, src, 1, a.bytes, a.bytes, 0, a.bytes);
     return;
   }
+  char* local = reinterpret_cast<char*>(a.local);
+  if (threadIdx.x == 0) epoch_s = read_epoch(local, world, r);
+  __syncthreads();
   const Piece piece = {a.src, reinterpret_cast<uint64_t>(dst), 1, a.bytes,
                        a.bytes};
-  trade(reinterpret_cast<char*>(a.local), reinterpret_cast<char*>(a.remote[r]),
-        static_cast<int>(a.world), rank, r, a.capacity, &piece, 1, a.budget,
-        reinterpret_cast<volatile uint64_t*>(a.error), 1);
+  const Pair p{local, reinterpret_cast<char*>(a.remote[r]), world, rank, r,
+               a.capacity, epoch_s, &piece, 1};
+  const uint64_t chunk = chunk_bytes(a.capacity);
+  const uint64_t total = next_piece(0, a.bytes);
+  const uint64_t n = chunk_count(total, chunk);
+  for (uint64_t c = 0; c < n; ++c) {
+    send_chunk(p, c, c * chunk, lesser((c + 1) * chunk, total));
+  }
+  for (uint64_t c = 0; c < n; ++c) {
+    receive_chunk(p, c, c * chunk, lesser((c + 1) * chunk, total), a.budget,
+                  reinterpret_cast<volatile uint64_t*>(a.error), 1);
+  }
+  if (threadIdx.x == 0) {
+    *reinterpret_cast<uint64_t*>(local + epoch_offset(world, r)) =
+        epoch_s + 1;
+  }
+}
+
+// this card's multiprocessors, read once a card
+cudaError_t multiprocessors(int* sms) {
+  static int known[64] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 64 && known[device] > 0) {
+    *sms = known[device];
+    return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess && device < 64) known[device] = *sms;
+  return err;
 }
 
 }  // namespace
 
 extern "C" int mg_peer_exchange(const void* args, void* stream) {
+  using namespace mg::peer;
   ExchangeArgs a;
   std::memcpy(&a, args, sizeof(a));
   if (a.npeers == 0) return 0;
-  exchange_kernel<<<static_cast<unsigned>(a.npeers), THREADS, 0,
-                    static_cast<cudaStream_t>(stream)>>>(a);
+  const uint64_t chunk = chunk_bytes(a.capacity);
+  uint64_t chunks = 0;
+  for (uint64_t m = 0; m < a.npeers; ++m) {
+    chunks += chunk_count(message_bytes(a.msgs[m]), chunk);
+  }
+  int sms = 0;
+  const cudaError_t err = multiprocessors(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  exchange_kernel<<<static_cast<unsigned>(exchange_grid(chunks, sms)),
+                    THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -190,9 +401,6 @@ extern "C" int mg_peer_gather(const void* args, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// A zeroed mailbox for `world` ranks of `capacity` bytes a slot, and a
-// host-mapped error record (its host and device addresses); the cycles a
-// second of this card's SM clock at its maximum go to `cycles_per_s`.
 extern "C" int mg_peer_alloc(int world, unsigned long long capacity,
                              void** mailbox, void** error_host,
                              void** error_device, double* cycles_per_s) {

@@ -1,35 +1,55 @@
 // The mailbox of the peer transport (csrc/peer.cu): where a rank's card
 // keeps the messages the other ranks store into it over NVLink, and the
-// arithmetic of slots, flags, epochs and message pieces.  The functions are
-// __host__ __device__, so that the kernels, their host entry points and a
-// host build of this header (tests/test_torch_peer.py) share one formula,
-// and the plain version in ops/cuda/peer.py repeats it name by name.
+// arithmetic of slots, chunks, flags, epochs and message pieces.  The
+// functions are __host__ __device__, so that the kernels, their host entry
+// points and a host build of this header (tests/test_torch_peer.py) share
+// one formula, and the plain version in ops/cuda/peer.py repeats it name by
+// name.
 //
 // A mailbox, one cudaMalloc a rank, bytes from its start:
 //
-//   flag(sender, slot)   8 bytes each, world x 2: the last message of
-//                        `sender` in `slot`, as e + 1 (0: none yet); the
+//   flag(sender, slot, chunk)  8 bytes each, world x 2 x MAX_CHUNKS: the
+//                        last message of `sender` in `slot` whose chunk
+//                        `chunk` has arrived, as e + 1 (0: none yet); the
 //                        sender stores it, with st.release.sys, into the
 //                        receiver's mailbox
 //   epoch(peer)          8 bytes each, world: the messages this rank has
 //                        exchanged with `peer` so far; only this rank's
 //                        kernels read and advance it
+//   count(peer)          8 bytes each, world: the chunks of the current
+//                        message from `peer` this rank's blocks have copied
+//                        out (0 between calls); the block that brings it to
+//                        the message's chunk count resets it and advances
+//                        epoch(peer)
 //   slot(sender, slot)   `capacity` bytes each, world x 2, from
 //                        header_bytes(world) on: message e of `sender`
 //                        lies in slot e & 1
+//
+// A message (the pieces of one peer, laid out by next_piece) is cut into
+// chunks of chunk_bytes(capacity) bytes, the last one partial: a multiple
+// of 16 bytes, at least CHUNK_BYTES, and large enough that a message the
+// slot holds has at most MAX_CHUNKS of them.  Each chunk has its own flag,
+// so a receiving block waits for its chunk only.
 //
 // Each ordered pair of ranks meets once a call in each direction (a halo
 // exchange with a neighbour is symmetric, a gather reaches every rank), so
 // the two ranks of a pair advance their epochs of each other in the same
 // post order: the same contract as NCCL's pairing in start_exchange.
 //
-// Why two slots suffice.  A kernel stores its outgoing message, then waits
-// for the incoming one, then copies it out; a rank's kernels run in order.
-// When rank A stores message e into B's slot e & 1, A has received B's
-// message e - 1.  B stored that message in its call e - 1, which began
-// after its call e - 2 had copied out A's message e - 2: the last message
-// that slot held.  So no slot is overwritten before it is read, and
-// nothing is reset between calls, WHILE trips or replays.
+// Why two slots suffice.  A launch's blocks first store all their chunks
+// of the outgoing messages, then wait for the same chunks of the incoming
+// ones and copy them out, so the launch ends only once every chunk of
+// every incoming message has been received and copied out; a rank's
+// launches run in order, one after another.  So the argument holds at the
+// granularity of a launch, whatever the number of its blocks.  When rank A
+// stores any chunk of message e into B's slot e & 1, A's previous launch
+// has ended, so A has received all of B's message e - 1.  B stored that in
+// its launch e - 1, which began after its launch e - 2 had ended, and so
+// after it had copied out every chunk of A's message e - 2: the last
+// message that slot held.  So no slot is overwritten before it is read; a
+// flag of slot e & 1 goes from e - 1 to e + 1, so a wait for e + 1 cannot
+// be met by an older message; and nothing is reset between calls, WHILE
+// trips or replays.
 
 #pragma once
 
@@ -52,12 +72,20 @@ namespace peer {
 constexpr int MAX_WORLD = 8;
 constexpr int MAX_PEERS = 4;
 constexpr int MAX_PIECES = 4;
+// chunks of one message at most, and a chunk's least bytes (a block of
+// 256 threads stores it in one 16-byte store a thread)
+constexpr uint64_t MAX_CHUNKS = 512;
+constexpr uint64_t CHUNK_BYTES = 4096;
 // bytes the header and every slot are rounded to, and a piece's alignment
 constexpr uint64_t ALIGN = 256;
 constexpr uint64_t PIECE_ALIGN = 16;
 
+__host__ __device__ inline uint64_t div_up(uint64_t x, uint64_t to) {
+  return (x + to - 1) / to;
+}
+
 __host__ __device__ inline uint64_t round_up(uint64_t x, uint64_t to) {
-  return (x + to - 1) / to * to;
+  return div_up(x, to) * to;
 }
 
 __host__ __device__ inline uint64_t slot_of(uint64_t epoch) {
@@ -68,16 +96,22 @@ __host__ __device__ inline uint64_t flag_value(uint64_t epoch) {
   return epoch + 1;
 }
 
-__host__ __device__ inline uint64_t flag_offset(int sender, uint64_t slot) {
-  return (2 * static_cast<uint64_t>(sender) + slot) * 8;
+__host__ __device__ inline uint64_t flag_offset(int sender, uint64_t slot,
+                                                uint64_t chunk) {
+  return ((2 * static_cast<uint64_t>(sender) + slot) * MAX_CHUNKS + chunk) *
+         8;
 }
 
 __host__ __device__ inline uint64_t epoch_offset(int world, int peer) {
-  return (2 * static_cast<uint64_t>(world) + peer) * 8;
+  return (2 * static_cast<uint64_t>(world) * MAX_CHUNKS + peer) * 8;
+}
+
+__host__ __device__ inline uint64_t count_offset(int world, int peer) {
+  return epoch_offset(world, world + peer);
 }
 
 __host__ __device__ inline uint64_t header_bytes(int world) {
-  return round_up(3 * static_cast<uint64_t>(world) * 8, ALIGN);
+  return round_up(count_offset(world, world), ALIGN);
 }
 
 __host__ __device__ inline uint64_t slot_offset(int world, int sender,
@@ -98,6 +132,48 @@ __host__ __device__ inline uint64_t next_piece(uint64_t offset,
   return round_up(offset + bytes, PIECE_ALIGN);
 }
 
+// the bytes of a chunk in a mailbox of slots of `capacity` bytes
+__host__ __device__ inline uint64_t chunk_bytes(uint64_t capacity) {
+  const uint64_t least = round_up(div_up(capacity, MAX_CHUNKS), PIECE_ALIGN);
+  return least > CHUNK_BYTES ? least : CHUNK_BYTES;
+}
+
+// the chunks of a message of `bytes` (one at least: an empty message still
+// raises its flag)
+__host__ __device__ inline uint64_t chunk_count(uint64_t bytes,
+                                                uint64_t chunk) {
+  return bytes == 0 ? 1 : div_up(bytes, chunk);
+}
+
+// The part of the piece at [off, off + bytes) of a message that falls in
+// its bytes [c0, c1): true and [*lo, *hi) counted from the piece's start,
+// or false for none.
+__host__ __device__ inline bool span(uint64_t c0, uint64_t c1, uint64_t off,
+                                     uint64_t bytes, uint64_t* lo,
+                                     uint64_t* hi) {
+  const uint64_t a = c0 > off ? c0 : off;
+  const uint64_t b = c1 < off + bytes ? c1 : off + bytes;
+  if (a >= b) return false;
+  *lo = a - off;
+  *hi = b - off;
+  return true;
+}
+
+// the widest access, 16, 8 or 4 bytes, that divides every bit of `mask`
+// (addresses, row lengths and pitches or'ed together)
+__host__ __device__ inline uint64_t word_bytes(uint64_t mask) {
+  return (mask & 15) == 0 ? 16 : (mask & 7) == 0 ? 8 : 4;
+}
+
+// the blocks of an exchange launch of `chunks` chunks on a card of `sms`
+// multiprocessors: a block a chunk, at most one a multiprocessor, so that
+// every block of the launch is resident at once (a block spins on the
+// peer's blocks)
+__host__ __device__ inline uint64_t exchange_grid(uint64_t chunks,
+                                                  uint64_t sms) {
+  return chunks < sms ? chunks : sms;
+}
+
 // One piece of a message: `rows` rows of `row_bytes` (a multiple of 4),
 // read from `src` at a pitch of `src_pitch` bytes (a column edge is
 // strided) and received into `dst`, contiguous.
@@ -111,6 +187,14 @@ struct PeerMsg {
   uint64_t peer, remote, npieces;
   Piece pieces[MAX_PIECES];
 };
+
+// the bytes a message takes in a slot
+__host__ __device__ inline uint64_t message_bytes(const PeerMsg& m) {
+  uint64_t off = 0;
+  for (uint64_t p = 0; p < m.npieces; ++p)
+    off = next_piece(off, m.pieces[p].rows * m.pieces[p].row_bytes);
+  return off;
+}
 
 // One exchange: this rank's mailbox and error record (host-mapped), the
 // spin's budget in clock64 cycles, and the messages of its peers.  All
@@ -134,8 +218,8 @@ __host__ __device__ inline int exchange_word(int msg, int piece, int field) {
 }
 
 // what the error record holds after a spin ran past its budget
-constexpr int ERROR_WORDS = 5;  // timed out, kind (0 exchange, 1 gather),
-                                // rank, peer, epoch
+constexpr int ERROR_WORDS = 6;  // timed out, kind (0 exchange, 1 gather),
+                                // rank, peer, epoch, chunk
 
 }  // namespace peer
 }  // namespace mg

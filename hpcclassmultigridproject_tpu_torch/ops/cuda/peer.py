@@ -6,8 +6,9 @@ them).  They replace no pl.pallas_call: they are the counterpart of the
 
 Each rank has a mailbox on its card (`Links.local`) and maps every peer's
 (`Links.remote`): a message is stored straight into the receiver's
-mailbox, in the slot, under the flag and at the epoch that
-`csrc/peer.cuh` lays out and this module repeats function by function.
+mailbox, in the slot, chunk by chunk under each chunk's flag and at the
+epoch that `csrc/peer.cuh` lays out and this module repeats function by
+function.
 
   * `exchange(links, msgs)`: for each (peer, pieces) of `msgs`, send every
     piece's `src` to the peer and receive the peer's pieces into each
@@ -17,13 +18,15 @@ mailbox, in the slot, under the flag and at the epoch that
     order: `mg_peer_gather` (`LAUNCHES["peer_gather"]`), or
     `gather_plain`.
 
-The plain versions run the same slots, epochs and flags on CPU mailboxes
-(numpy arrays) for ranks that are threads of one process, or processes
-mapping one another's mailbox files: each sends, then waits on its flag
-(a TimeoutError past `SPIN_SECONDS`, where the kernel traps), then copies
-out.  `plain_route()` does not reach the kernels: like `loop.while_set`
-they stand for XLA's own collectives, which the JAX package's "jnp"
-backend keeps.  No path on the card calls a plain version.
+The plain versions run the same slots, chunks, flags, counts and epochs
+on CPU mailboxes (numpy arrays) for ranks that are threads of one
+process, or processes mapping one another's mailbox files: each sends
+every chunk, then waits on each chunk's flag (a TimeoutError past
+`SPIN_SECONDS`, where the kernel traps) and copies it out; the last
+chunk counted advances the epoch.  `plain_route()` does not reach the
+kernels: like `loop.while_set` they stand for XLA's own collectives,
+which the JAX package's "jnp" backend keeps.  No path on the card calls
+a plain version.
 """
 
 from __future__ import annotations
@@ -38,10 +41,11 @@ import torch
 from hpcclassmultigridproject_tpu_torch.ops import cuda
 from hpcclassmultigridproject_tpu_torch.ops.cuda import _build
 
-# csrc/peer.cuh's limits and alignments
+# csrc/peer.cuh's limits, chunks and alignments
 MAX_WORLD, MAX_PEERS, MAX_PIECES = 8, 4, 4
+MAX_CHUNKS, CHUNK_BYTES = 512, 4096
 ALIGN, PIECE_ALIGN = 256, 16
-ERROR_WORDS = 5
+ERROR_WORDS = 6
 # a spin's budget, in seconds of the card's maximum SM clock (a slower
 # clock waits longer), and the plain version's timeout
 SPIN_SECONDS = 10.0
@@ -49,8 +53,12 @@ SPIN_SECONDS = 10.0
 NO_PEER_ACCESS = 217
 
 
+def div_up(x: int, to: int) -> int:
+    return -(-x // to)
+
+
 def round_up(x: int, to: int) -> int:
-    return -(-x // to) * to
+    return div_up(x, to) * to
 
 
 def slot_of(epoch: int) -> int:
@@ -61,16 +69,20 @@ def flag_value(epoch: int) -> int:
     return epoch + 1
 
 
-def flag_offset(sender: int, slot: int) -> int:
-    return (2 * sender + slot) * 8
+def flag_offset(sender: int, slot: int, chunk: int) -> int:
+    return ((2 * sender + slot) * MAX_CHUNKS + chunk) * 8
 
 
 def epoch_offset(world: int, peer: int) -> int:
-    return (2 * world + peer) * 8
+    return (2 * world * MAX_CHUNKS + peer) * 8
+
+
+def count_offset(world: int, peer: int) -> int:
+    return epoch_offset(world, world + peer)
 
 
 def header_bytes(world: int) -> int:
-    return round_up(3 * world * 8, ALIGN)
+    return round_up(count_offset(world, world), ALIGN)
 
 
 def slot_offset(world: int, sender: int, slot: int, capacity: int) -> int:
@@ -83,6 +95,23 @@ def mailbox_bytes(world: int, capacity: int) -> int:
 
 def next_piece(offset: int, nbytes: int) -> int:
     return round_up(offset + nbytes, PIECE_ALIGN)
+
+
+def chunk_bytes(capacity: int) -> int:
+    return max(CHUNK_BYTES, round_up(div_up(capacity, MAX_CHUNKS),
+                                     PIECE_ALIGN))
+
+
+def chunk_count(nbytes: int, chunk: int) -> int:
+    return 1 if nbytes == 0 else div_up(nbytes, chunk)
+
+
+def span(c0: int, c1: int, off: int, nbytes: int) -> tuple[int, int] | None:
+    """The part (lo, hi) of the piece at [off, off + nbytes) of a message
+    that falls in its bytes [c0, c1), counted from the piece's start, or
+    None."""
+    a, b = max(c0, off), min(c1, off + nbytes)
+    return (a - off, b - off) if a < b else None
 
 
 def exchange_word(msg: int, piece: int, field: int) -> int:
@@ -134,7 +163,8 @@ class Links:
 
     def fault(self) -> list | None:
         """The error record after a spin ran past its budget on the card:
-        [kind (0 exchange, 1 gather), rank, peer, epoch], else None."""
+        [kind (0 exchange, 1 gather), rank, peer, epoch, chunk], else
+        None."""
         if not self.error:
             return None
         words = (ctypes.c_uint64 * ERROR_WORDS).from_address(self.error)
@@ -234,12 +264,6 @@ def _u64(box: np.ndarray, off: int) -> np.ndarray:
     return box[off:off + 8].view(np.uint64)
 
 
-def _slot(box: np.ndarray, off: int, t: torch.Tensor) -> torch.Tensor:
-    """The bytes of box at off as a tensor shaped like t (shares memory)."""
-    n = t.numel() * t.element_size()
-    return torch.from_numpy(box[off:off + n]).view(t.dtype).view(t.shape)
-
-
 def _wait(box: np.ndarray, off: int, want: int, what: str) -> None:
     end = time.monotonic() + SPIN_SECONDS
     spins = 0
@@ -251,35 +275,71 @@ def _wait(box: np.ndarray, off: int, want: int, what: str) -> None:
         time.sleep(0 if spins < 1000 else 1e-4)
 
 
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """t's bytes in row-major order, flat (a view where t is contiguous:
+    a destination is)."""
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+def _chunks(links: Links, pieces):
+    """Each chunk of a message of these (src, dst) pieces in a slot of
+    `links`: (chunk, [(piece, lo, hi, offset in the slot), ...]), the
+    bytes [lo, hi) of each piece it holds (csrc/peer.cu's split)."""
+    chunk = chunk_bytes(links.capacity)
+    sizes = [src.numel() * src.element_size() for src, _ in pieces]
+    total = message_bytes(pieces)
+    for c in range(chunk_count(total, chunk)):
+        c0, c1 = c * chunk, min((c + 1) * chunk, total)
+        spans, off = [], 0
+        for k, nbytes in enumerate(sizes):
+            got = span(c0, c1, off, nbytes)
+            if got is not None:
+                spans.append((k, *got, off))
+            off = next_piece(off, nbytes)
+        yield c, spans
+
+
 def _send(links: Links, peer: int, pieces, e: int) -> None:
-    """Message e to `peer`: each piece's src into the peer's slot e & 1
-    for this rank, then the flag."""
+    """Message e to `peer`, chunk by chunk: the chunk's bytes of each
+    piece's src into the peer's slot e & 1 for this rank, then the
+    chunk's flag."""
     world, rank = links.world, links.rank
     box = links.remote[peer]
-    off = slot_offset(world, rank, slot_of(e), links.capacity)
-    for src, _ in pieces:
-        _slot(box, off, src).copy_(src)
-        off = next_piece(off, src.numel() * src.element_size())
-    _u64(box, flag_offset(rank, slot_of(e)))[0] = flag_value(e)
+    base = slot_offset(world, rank, slot_of(e), links.capacity)
+    srcs = [_bytes(src) for src, _ in pieces]
+    for c, spans in _chunks(links, pieces):
+        for k, lo, hi, off in spans:
+            torch.from_numpy(box[base + off + lo:base + off + hi]).copy_(
+                srcs[k][lo:hi])
+        _u64(box, flag_offset(rank, slot_of(e), c))[0] = flag_value(e)
 
 
 def _receive(links: Links, peer: int, pieces, e: int) -> None:
-    """Message e of `peer`: wait on its flag, copy each piece out into
-    its dst, and advance the pair's epoch."""
+    """Message e of `peer`, chunk by chunk: wait on the chunk's flag,
+    copy its bytes of each piece out into the piece's dst and count it;
+    the count reaching the message's chunks is reset and advances the
+    pair's epoch (the kernel's last block)."""
     world, local = links.world, links.local
-    _wait(local, flag_offset(peer, slot_of(e)), flag_value(e),
-          f"rank {links.rank}: message {e} of rank {peer}")
-    off = slot_offset(world, peer, slot_of(e), links.capacity)
-    for _, dst in pieces:
-        dst.copy_(_slot(local, off, dst))
-        off = next_piece(off, dst.numel() * dst.element_size())
-    _u64(local, epoch_offset(world, peer))[0] = e + 1
+    base = slot_offset(world, peer, slot_of(e), links.capacity)
+    dsts = [_bytes(dst) for _, dst in pieces]
+    count = _u64(local, count_offset(world, peer))
+    chunks = list(_chunks(links, pieces))
+    for c, spans in chunks:
+        _wait(local, flag_offset(peer, slot_of(e), c), flag_value(e),
+              f"rank {links.rank}: chunk {c} of message {e} of rank {peer}")
+        for k, lo, hi, off in spans:
+            dsts[k][lo:hi].copy_(torch.from_numpy(
+                local[base + off + lo:base + off + hi]))
+        count[0] += 1
+        if count[0] == len(chunks):
+            count[0] = 0
+            _u64(local, epoch_offset(world, peer))[0] = e + 1
 
 
 def exchange_plain(links: Links, msgs) -> None:
     """`exchange` on CPU mailboxes and tensors: every message sent, then
-    each received, at the pair's epoch (all sent first: the kernel runs
-    a block a peer at once)."""
+    each received, at the pair's epoch (all sent first, as every block of
+    the kernel sends all its chunks before it waits)."""
     epochs = [int(_u64(links.local, epoch_offset(links.world, peer))[0])
               for peer, _ in msgs]
     for (peer, pieces), e in zip(msgs, epochs):

@@ -156,8 +156,8 @@ def distributed_run(model, mesh: Mesh | None = None, min_local: int = _UNSET,
     The run can be one compiled program, as the JAX package's is one
     jitted program: on one rank, and under NCCL with
     `distributed.CAPTURE_NCCL` on, each rank captures the call (the
-    steps, their halo exchanges and norms, and the gather of uT) once per
-    key as a CUDA graph in `model.programs`, and replays it
+    steps, their halo exchanges and norms) once per key as a CUDA graph
+    in `model.programs`, and replays it
     (utils/graphs.py), keyed by the step count, the SolverConfig, the
     mesh, layout and `min_local`: every configuration, the adaptive ones
     with the collectives of their WHILE bodies on the peer transport
@@ -167,8 +167,12 @@ def distributed_run(model, mesh: Mesh | None = None, min_local: int = _UNSET,
     `model.last_run_compiled` and `last_run_reason` say which.
 
     Returns (uT cropped to the logical grid, stats) on every rank: the
-    blocks are gathered (`fetch`), and the stats, computed from norms
-    added over the ranks, are the same on every rank."""
+    blocks are gathered (`fetch`) after the program, as the model's own
+    `run` gathers them (the JAX program returns uT sharded): a gather
+    inside the graph keeps a whole field in its pool beside the clone a
+    replay returns, and at n=32768 on four cards the capture ran out of
+    memory there.  The stats, computed from norms added over the ranks,
+    are the same on every rank."""
     from hpcclassmultigridproject_tpu_torch.core.layout import crop_field
     from hpcclassmultigridproject_tpu_torch.mg.timestepper import timestepper
 
@@ -177,14 +181,14 @@ def distributed_run(model, mesh: Mesh | None = None, min_local: int = _UNSET,
     levels, shardings, fine_hi = part.levels, part.shardings, part.fine_hi
 
     def run(u, nsteps=steps):
-        uT, stats = timestepper(levels, u, nsteps, cfg, fine_hi,
-                                shardings=shardings)
-        return crop_field(fetch(uT, shardings[0]), n), stats
+        return timestepper(levels, u, nsteps, cfg, fine_hi,
+                           shardings=shardings)
 
     key = ("distributed", steps, cfg, part.mesh.key, part.layout,
            part.min_local)
-    return model.compiled(key, run, part.u0, lambda u: run(u, 1),
-                          keep=(levels, fine_hi), mesh=part.mesh)
+    uT, stats = model.compiled(key, run, part.u0, lambda u: run(u, 1),
+                               keep=(levels, fine_hi), mesh=part.mesh)
+    return crop_field(fetch(uT, shardings[0]), n), stats
 
 
 __all__ = [

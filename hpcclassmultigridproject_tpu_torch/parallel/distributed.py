@@ -161,10 +161,10 @@ def host_staged(mesh: Mesh, t: torch.Tensor) -> bool:
 # Off: such a call runs eagerly, with the reason `capture_reason` gives.
 # The captured form has not yet run to its end on four cards: on four
 # H100s every configuration replayed equal to its eager run, the adaptive
-# ones too, but n=16384's capture in the 2-D layout did not finish (its
-# sends pinned whole blocks, which `_lines` now copies), so phase 19 (d)
-# and (e)'s weak sweeps of chip_smoke.py, which set it in their ranks,
-# have not passed.
+# ones too, and n=16384's captures in both layouts ran to their ends and
+# replayed equal to their first calls, but n=32768's captured run (phase
+# 19 (d) of chip_smoke.py) and (e)'s weak sweeps, which set it in their
+# ranks, have not yet passed there.
 CAPTURE_NCCL = False
 
 
@@ -337,6 +337,25 @@ def all_gather_blocks(x: torch.Tensor, mesh: Mesh) -> list[torch.Tensor]:
     return [p.to(x.device) for p in parts]
 
 
+def _gathered(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Every rank's block (all of one shape) stacked in rank order into
+    one tensor of shape (world, *x.shape), on every rank.  Under NCCL,
+    where no peer transport takes it, one `all_gather_into_tensor`
+    straight into that tensor: a list's all_gather stages through a
+    buffer of the same size and copies out of it, twice the memory (8 GiB
+    a copy of uT at n=32768).  Otherwise `all_gather_blocks`, stacked
+    (a copy, on one rank too)."""
+    if mesh.world > 1 and mesh.backend == "nccl" and not host_staged(
+            mesh, x) and _peer_links(mesh, x.device,
+                                     x.numel() * x.element_size()) is None:
+        out = torch.empty((mesh.world, *x.shape), dtype=x.dtype,
+                          device=x.device)
+        dist.all_gather_into_tensor(out, x.contiguous())
+        COLLECTIVES["all_gather"] += 1
+        return out
+    return torch.stack(all_gather_blocks(x, mesh))
+
+
 def all_gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Every rank's block (all of one shape) stacked by rank along the
     rows, on every rank.  On one rank it is x."""
@@ -353,11 +372,21 @@ def fit(x: torch.Tensor, rows: int, cols: int | None = None) -> torch.Tensor:
 def assemble(blocks, grid: tuple[int, int], shape) -> torch.Tensor:
     """The array of `shape` whose blocks, in rank order, tile a grid of
     `grid` = (block rows, block columns) row by row (rank k at
-    (k // grid[1], k % grid[1])); cut or zero-padded to `shape`."""
+    (k // grid[1], k % grid[1])); cut or zero-padded to `shape`.  Row
+    blocks stacked in one tensor (`_gathered`) are tiled by a view, and an
+    array with `shape`'s columns and at least its rows is cut by a view of
+    its first rows (contiguous still): no copy of the whole where none is
+    needed."""
     cols = grid[1]
-    rows = [torch.cat(blocks[i:i + cols], dim=1)
-            for i in range(0, len(blocks), cols)]
-    return fit(torch.cat(rows), *shape)
+    if cols == 1 and torch.is_tensor(blocks):
+        whole = blocks.reshape(-1, *blocks.shape[2:])
+    else:
+        rows = [torch.cat(list(blocks[i:i + cols]), dim=1)
+                for i in range(0, len(blocks), cols)]
+        whole = torch.cat(rows)
+    if whole.shape[1] == shape[1] and whole.shape[0] >= shape[0]:
+        return whole[:shape[0]]
+    return fit(whole, *shape)
 
 
 def make_global(x: torch.Tensor, part) -> torch.Tensor:
@@ -376,7 +405,7 @@ def fetch(x: torch.Tensor, part) -> torch.Tensor:
     block, gathered in rank order, on every rank.  `part` None keeps x."""
     if part is None:
         return x
-    return assemble(all_gather_blocks(x, part.mesh), part.grid,
+    return assemble(_gathered(x, part.mesh), part.grid,
                     (part.rows, part.cols))
 
 

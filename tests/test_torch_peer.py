@@ -7,9 +7,15 @@ plain versions run the same protocol on CPU mailboxes.  Here:
 
   * the arithmetic of peer.cuh, built by g++ against the stand-in CUDA
     runtime of tests/test_torch_probe_maps.py, equals the plain
-    version's on every index (slots, flags, epochs, pieces, the packed
-    argument words), so the kernel and its twin cannot disagree unseen;
-    and the C entry points' arities equal the ctypes table's;
+    version's on every index (slots, chunk flags, epochs, counts, pieces,
+    the chunks of a message and the part of each piece a chunk holds,
+    access widths, the grid, the packed argument words), so the kernel
+    and its twin cannot disagree unseen; and the C entry points' arities
+    equal the ctypes table's;
+  * messages of one chunk, of many, with a partial last chunk, and
+    strided column edges of 8- and 12-byte rows, in f32 and f64, arrive
+    bit for bit as the NCCL pairing delivers them, with every chunk
+    count back at 0;
   * `start_exchange` over the peer transport gives every halo of
     tests/test_torch_multigpu.py's cases (the rows deep halo of two
     blocks in f32 and f64, one row, the 2-D four edges, both extensions)
@@ -20,7 +26,8 @@ plain versions run the same protocol on CPU mailboxes.  Here:
     float32 and float64;
   * a rank held back before each of three consecutive receives never
     has a slot overwritten before it reads it: its peer runs ahead by one
-    message at most, and every message arrives whole;
+    message at most, and every message arrives whole, of one chunk or of
+    24;
   * the epochs and flags continue across calls, with no reset;
   * set-up (a mailbox made or mapped) inside a capture raises, and so
     does a message past the slots there; outside one such a message sets
@@ -73,8 +80,32 @@ typedef unsigned long long u64;
 extern "C" {
 u64 h_slot_of(u64 e) { return slot_of(e); }
 u64 h_flag_value(u64 e) { return flag_value(e); }
-u64 h_flag_offset(int sender, u64 slot) { return flag_offset(sender, slot); }
+u64 h_flag_offset(int sender, u64 slot, u64 chunk) {
+  return flag_offset(sender, slot, chunk);
+}
 u64 h_epoch_offset(int world, int p) { return epoch_offset(world, p); }
+u64 h_count_offset(int world, int p) { return count_offset(world, p); }
+u64 h_chunk_bytes(u64 cap) { return chunk_bytes(cap); }
+u64 h_chunk_count(u64 bytes, u64 chunk) { return chunk_count(bytes, chunk); }
+u64 h_span(u64 c0, u64 c1, u64 off, u64 bytes, u64* out) {
+  uint64_t lo = 0, hi = 0;
+  const bool some = span(c0, c1, off, bytes, &lo, &hi);
+  out[0] = lo;
+  out[1] = hi;
+  return some;
+}
+u64 h_word_bytes(u64 mask) { return word_bytes(mask); }
+u64 h_exchange_grid(u64 chunks, u64 sms) { return exchange_grid(chunks, sms); }
+// message_bytes of a message of n pieces of (rows, row_bytes)
+u64 h_message_bytes(const u64* shapes, int n) {
+  PeerMsg m{};
+  m.npieces = n;
+  for (int p = 0; p < n; ++p) {
+    m.pieces[p].rows = shapes[2 * p];
+    m.pieces[p].row_bytes = shapes[2 * p + 1];
+  }
+  return message_bytes(m);
+}
 u64 h_header_bytes(int world) { return header_bytes(world); }
 u64 h_slot_offset(int world, int sender, u64 slot, u64 cap) {
   return slot_offset(world, sender, slot, cap);
@@ -99,7 +130,7 @@ u64 h_sizes(int which) {
 }
 u64 h_limits(int which) {
   const u64 v[] = {MAX_WORLD, MAX_PEERS, MAX_PIECES, ALIGN, PIECE_ALIGN,
-                   ERROR_WORDS};
+                   ERROR_WORDS, MAX_CHUNKS, CHUNK_BYTES};
   return v[which];
 }
 }
@@ -121,8 +152,14 @@ def cuh(tmp_path_factory):
                    text=True)
     cdll = ctypes.CDLL(str(lib))
     u64, i = ctypes.c_ulonglong, ctypes.c_int
+    p64 = ctypes.POINTER(u64)
     for name, args in {"h_slot_of": [u64], "h_flag_value": [u64],
-                       "h_flag_offset": [i, u64], "h_epoch_offset": [i, i],
+                       "h_flag_offset": [i, u64, u64],
+                       "h_epoch_offset": [i, i], "h_count_offset": [i, i],
+                       "h_chunk_bytes": [u64], "h_chunk_count": [u64, u64],
+                       "h_span": [u64, u64, u64, u64, p64],
+                       "h_word_bytes": [u64], "h_exchange_grid": [u64, u64],
+                       "h_message_bytes": [p64, i],
                        "h_header_bytes": [i],
                        "h_slot_offset": [i, i, u64, u64],
                        "h_mailbox_bytes": [i, u64],
@@ -136,9 +173,10 @@ def cuh(tmp_path_factory):
 
 
 def test_header_arithmetic_equals_the_plain_versions(cuh):
-    assert [cuh.h_limits(k) for k in range(6)] == [
+    assert [cuh.h_limits(k) for k in range(8)] == [
         peer.MAX_WORLD, peer.MAX_PEERS, peer.MAX_PIECES, peer.ALIGN,
-        peer.PIECE_ALIGN, peer.ERROR_WORDS]
+        peer.PIECE_ALIGN, peer.ERROR_WORDS, peer.MAX_CHUNKS,
+        peer.CHUNK_BYTES]
     for e in (0, 1, 2, 3, 37, 2**31 + 5, 2**40 + 2):
         assert cuh.h_slot_of(e) == peer.slot_of(e)
         assert cuh.h_flag_value(e) == peer.flag_value(e)
@@ -150,20 +188,79 @@ def test_header_arithmetic_equals_the_plain_versions(cuh):
         for r in range(world):
             assert cuh.h_epoch_offset(world, r) == peer.epoch_offset(world,
                                                                      r)
+            assert cuh.h_count_offset(world, r) == peer.count_offset(world,
+                                                                     r)
             for slot in (0, 1):
-                assert cuh.h_flag_offset(r, slot) == peer.flag_offset(r,
-                                                                      slot)
+                for c in (0, 1, 37, peer.MAX_CHUNKS - 1):
+                    assert cuh.h_flag_offset(r, slot, c) == (
+                        peer.flag_offset(r, slot, c))
                 assert cuh.h_slot_offset(world, r, slot, CAPACITY) == (
                     peer.slot_offset(world, r, slot, CAPACITY))
-        # flags and epochs fit the header, slots do not overlap it
-        last_epoch = peer.epoch_offset(world, world - 1) + 8
-        assert last_epoch <= peer.header_bytes(world)
-        assert peer.flag_offset(world - 1, 1) + 8 <= peer.epoch_offset(
+        # flags, epochs and counts fit the header in this order, each word
+        # its own, and slots do not overlap it
+        flags = {peer.flag_offset(r, s, c) for r in range(world)
+                 for s in (0, 1) for c in range(peer.MAX_CHUNKS)}
+        assert len(flags) == 2 * world * peer.MAX_CHUNKS
+        assert max(flags) + 8 <= peer.epoch_offset(world, 0)
+        assert peer.epoch_offset(world, world - 1) + 8 <= peer.count_offset(
             world, 0)
+        assert peer.count_offset(world, world - 1) + 8 <= peer.header_bytes(
+            world)
     for off in (0, 4, 16, 100):
         for nbytes in (0, 4, 8, 12, 44, 4096):
             assert cuh.h_next_piece(off, nbytes) == peer.next_piece(off,
                                                                     nbytes)
+
+
+def test_chunk_arithmetic_equals_the_plain_versions(cuh):
+    """The chunks of a message and the part of each piece a chunk holds:
+    the kernel's formulas equal the plain version's, and the chunks cover
+    every byte of every piece once; the kernel's access width and grid
+    are the ones its design states."""
+    out = (ctypes.c_ulonglong * 2)()
+    for cap in (256, 4096, CAPACITY, 1 << 20, (1 << 21) + 256, 3 << 22):
+        chunk = peer.chunk_bytes(cap)
+        assert cuh.h_chunk_bytes(cap) == chunk
+        assert chunk % peer.PIECE_ALIGN == 0 and chunk >= peer.CHUNK_BYTES
+        # a message the slot holds has at most MAX_CHUNKS chunks
+        assert peer.chunk_count(cap, chunk) <= peer.MAX_CHUNKS
+        for nbytes in (0, 4, 16, chunk - 16, chunk, chunk + 16, 5 * chunk
+                       + 1616, cap):
+            assert cuh.h_chunk_count(nbytes, chunk) == peer.chunk_count(
+                nbytes, chunk)
+    shapes = [(1, 8), (700, 12), (8, 2400), (1000, 8)]  # (rows, row bytes)
+    packed = (ctypes.c_ulonglong * 8)(*[v for sh in shapes for v in sh])
+    for n in range(1, len(shapes) + 1):
+        offs, off = [], 0
+        for rows, row in shapes[:n]:
+            offs.append(off)
+            off = peer.next_piece(off, rows * row)
+        assert cuh.h_message_bytes(packed, n) == off
+        for chunk in (peer.CHUNK_BYTES, 16 * 7):
+            covered = [[0] * (rows * row) for rows, row in shapes[:n]]
+            for c in range(peer.chunk_count(off, chunk)):
+                c0, c1 = c * chunk, min((c + 1) * chunk, off)
+                for k, (rows, row) in enumerate(shapes[:n]):
+                    got = peer.span(c0, c1, offs[k], rows * row)
+                    assert cuh.h_span(c0, c1, offs[k], rows * row, out) == (
+                        got is not None)
+                    if got is None:
+                        continue
+                    assert tuple(out) == got
+                    lo, hi = got
+                    # a split at 16 bytes or at the piece's end
+                    assert lo % 16 == 0 and (hi % 16 == 0 or hi == rows * row)
+                    for b in range(lo, hi):
+                        covered[k][b] += 1
+            assert all(v == 1 for piece in covered for v in piece)
+    # the kernel's access width (the widest dividing every address, row
+    # and pitch) and grid (a block a chunk, one a multiprocessor at most)
+    for mask, width in ((0, 16), (4, 4), (8, 8), (12, 4), (16, 16),
+                        (24, 8), (32, 16), (0x7f0c, 4), (0x1008, 8),
+                        (0x1010, 16)):
+        assert cuh.h_word_bytes(mask) == width
+    for chunks in (1, 2, 36, 72, 132, 133, 1000):
+        assert cuh.h_exchange_grid(chunks, 132) == min(chunks, 132)
 
 
 def test_packed_arguments_match_the_structs(cuh):
@@ -202,12 +299,12 @@ def _threads(world: int, fn):
 class _ThreadLinks:
     """`distributed._peer_links` for thread ranks: rank r's links."""
 
-    def __init__(self, world: int):
-        self.links = peer.local_links(world, "cpu", CAPACITY)
+    def __init__(self, world: int, capacity: int = CAPACITY):
+        self.links = peer.local_links(world, "cpu", capacity)
         self.local = threading.local()
 
     def __call__(self, mesh, device, need):
-        assert need <= CAPACITY
+        assert need <= self.links[0].capacity
         return self.links[self.local.rank]
 
     def run(self, world: int, fn):
@@ -251,6 +348,71 @@ def test_exchange_equals_the_nccl_pairing(monkeypatch, world, case):
         for a, b, c in zip(g, w, expect):
             assert a.dtype == b.dtype == c.dtype
             assert torch.equal(a, b) and torch.equal(a, c)
+
+
+# (blocks' (rows, cols, dtype), k, axis, the message's chunks) of an
+# exchange with one neighbour on each side of a line of ranks
+CHUNKED = {
+    "one chunk, f64 rows": ([(16, 12, torch.float64)], 8, 0, 1),
+    "many chunks, f64 rows": ([(16, 512, torch.float64)] * 2, 8, 0, 16),
+    "partial last chunk, f32 and f64 rows": (
+        [(8, 300, torch.float32), (8, 300, torch.float64)], 5, 0, 5),
+    "8-byte column edges, f64": ([(1000, 6, torch.float64)], 1, 1, 2),
+    "12-byte column edges, f32": ([(700, 9, torch.float32)], 3, 1, 3),
+}
+CHUNKED_CAPACITY = 1 << 17
+
+
+def _numbered(r: int, shapes):
+    """Rank r's blocks: every value distinct across ranks and blocks."""
+    return [torch.arange(rows * cols, dtype=dt).reshape(rows, cols)
+            + 1.0 + 1e5 * r + 2e4 * i
+            for i, (rows, cols, dt) in enumerate(shapes)]
+
+
+@pytest.mark.parametrize("case", list(CHUNKED))
+@pytest.mark.parametrize("world", WORLDS)
+def test_chunked_exchange_equals_the_nccl_pairing(monkeypatch, world, case):
+    """Messages of one chunk, of many, with a partial last chunk, and
+    strided column edges of 8- and 12-byte rows, in f32 and f64: the
+    plain chunked protocol gives every halo bit for bit as the NCCL
+    pairing does, and as the neighbours' blocks hold it."""
+    shapes, k, axis, nchunks = CHUNKED[case]
+    nbytes = distributed._side_bytes(_numbered(0, shapes), k, axis)
+    assert peer.chunk_count(nbytes, peer.chunk_bytes(
+        CHUNKED_CAPACITY)) == nchunks
+
+    def one(r):
+        sides = [(axis, r - 1 if r > 0 else None,
+                  r + 1 if r < world - 1 else None)]
+        return distributed.start_exchange(_numbered(r, shapes), k,
+                                          Mesh(world, r), sides).wait()
+
+    nccl = _NcclEmulation(world)
+    with monkeypatch.context() as m:
+        m.setattr(dist, "batch_isend_irecv", nccl.batch)
+        m.setattr(dist, "P2POp", _p2p_op)
+        want = nccl.run(world, one)
+    links = _ThreadLinks(world, CHUNKED_CAPACITY)
+    monkeypatch.setattr(distributed, "_peer_links", links)
+    monkeypatch.setattr(dist, "batch_isend_irecv", None)  # not reached
+    got = links.run(world, one)
+    for r in range(world):
+        assert len(got[r]) == len(want[r]) == len(shapes)
+        for i, ((top, bot), (wtop, wbot)) in enumerate(zip(got[r],
+                                                           want[r])):
+            edge = lambda x, first: distributed._edge(x, axis, first, k)
+            above = (edge(_numbered(r - 1, shapes)[i], False) if r > 0
+                     else torch.zeros_like(top))
+            below = (edge(_numbered(r + 1, shapes)[i], True)
+                     if r < world - 1 else torch.zeros_like(bot))
+            for a, b, c in ((top, wtop, above), (bot, wbot, below)):
+                assert a.dtype == b.dtype == c.dtype == shapes[i][2]
+                assert torch.equal(a, b) and torch.equal(a, c)
+    for lk in links.links:
+        for p in range(world):
+            assert int(peer._u64(lk.local, peer.count_offset(world, p))[0]
+                       ) == 0
 
 
 class _AllGatherEmulation:
@@ -320,8 +482,8 @@ def _pieces(world, r, peer_rank, call, rows=3, cols=4):
     return [(src, torch.zeros_like(src))], value(peer_rank, r)
 
 
-@pytest.mark.parametrize("world", [2, 4])
-def test_held_back_rank_never_loses_a_message(monkeypatch, world):
+def _held_back(monkeypatch, world: int, rows: int, cols: int,
+               capacity: int) -> None:
     """Rank 1 stops before each receive until its neighbours have run as
     far ahead as they can: each then has sent at most the next message
     (two slots suffice), and every message arrives whole."""
@@ -346,7 +508,7 @@ def test_held_back_rank_never_loses_a_message(monkeypatch, world):
 
     monkeypatch.setattr(peer, "_send", logged_send)
     monkeypatch.setattr(peer, "_receive", held_receive)
-    links = peer.local_links(world, "cpu", CAPACITY)
+    links = peer.local_links(world, "cpu", capacity)
     neighbours = lambda r: [p for p in (r - 1, r + 1) if 0 <= p < world]
 
     def rank(r):
@@ -354,7 +516,7 @@ def test_held_back_rank_never_loses_a_message(monkeypatch, world):
         for call in range(calls):
             msgs, want = [], []
             for p in neighbours(r):
-                pieces, expect = _pieces(world, r, p, call)
+                pieces, expect = _pieces(world, r, p, call, rows, cols)
                 msgs.append((p, pieces))
                 want.append(expect)
             peer.exchange(links[r], msgs)
@@ -384,6 +546,22 @@ def test_held_back_rank_never_loses_a_message(monkeypatch, world):
             assert ("receive", held, r, e - 2) in log[:i], (r, e)
 
 
+@pytest.mark.parametrize("world", [2, 4])
+def test_held_back_rank_never_loses_a_message(monkeypatch, world):
+    """`_held_back` with messages of one chunk."""
+    _held_back(monkeypatch, world, 3, 4, CAPACITY)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_held_back_rank_never_loses_a_chunked_message(monkeypatch, world):
+    """`_held_back` with messages of 24 chunks, the last partial: no
+    chunk of a message is overwritten before it is read."""
+    rows, cols = 40, 301
+    assert peer.chunk_count(peer.next_piece(0, rows * cols * 8),
+                            peer.CHUNK_BYTES) == 24
+    _held_back(monkeypatch, world, rows, cols, CHUNKED_CAPACITY)
+
+
 def test_epochs_continue_across_calls():
     world = 4
     links = peer.local_links(world, "cpu", CAPACITY)
@@ -406,8 +584,12 @@ def test_epochs_continue_across_calls():
                 e = int(peer._u64(lk.local, peer.epoch_offset(world, p))[0])
                 # a gather a call with every rank, an exchange with r ^ 1
                 assert e == done * (2 if p == r ^ 1 else 1)
-                flags = [int(peer._u64(lk.local, peer.flag_offset(p, s))[0])
+                flags = [int(peer._u64(lk.local,
+                                       peer.flag_offset(p, s, 0))[0])
                          for s in (0, 1)]
+                # every message's chunks counted out, the count reset
+                assert int(peer._u64(lk.local,
+                                     peer.count_offset(world, p))[0]) == 0
                 assert flags[peer.slot_of(e - 1)] == peer.flag_value(e - 1)
                 assert flags[peer.slot_of(e - 2)] == peer.flag_value(e - 2)
 
