@@ -60,7 +60,8 @@ raising on failure:
    reason each run is eager (gloo stages its collectives through the
    host, which no graph can hold); then one NCCL rank, whose 10-step
    distributed_run (a replay: one rank) must equal a 10-step
-   single-device run;
+   single-device run; and `capture_reason` for four NCCL ranks on
+   "cuda" must be None (captured by default);
 10. open-smooth: the main path with mg.delta._FUSE_OPEN_SMOOTH on (K8,
     K2 post-smooth, K3, K4; no K1): launch counts, certificates, the
     center, uT equal to phase 4's to the bit, and both paths' walls in
@@ -116,10 +117,11 @@ raising on failure:
     `smooth_distributed` on the n=1024 level 0, plain and overlapped,
     equal to K2 on the whole level to the bit, with its wall and the ms
     of one exchange; (d) `cli scaling` in subprocesses: strong over 1, 2,
-    4 ranks at n=1024 in the rows and the 2-D layout, weak at n=512 and
-    1024, each line's keys, devices, n and mesh, and center_uT within
-    1e-9 of a single-device run, the one-rank points replays of their
-    captured programs and the gloo points eager.
+    4 ranks at n=1024 in the rows layout (the 2-D strong sweep runs on
+    four cards, phase 16 (d); (a)–(c) run the 2-D layout here), weak at
+    n=512 and 1024, each line's keys, devices, n and mesh, and center_uT
+    within 1e-9 of a single-device run, the one-rank points replays of
+    their captured programs and the gloo points eager.
 15. routes and oracle: (a) the main path of phase 4 once with each of
     the JAX package's switches off (mg.cycle._FUSE_CORR, _USE_TOWER,
     _RESTRICT_DEC, mg.delta._FUSE_OPEN: the unfused forms) and once with
@@ -142,7 +144,7 @@ raising on failure:
 16. multi-gpu: the partitioned run over four cards, one NCCL rank a card
     (`launch_local(..., backend="nccl", device="cuda")`, with a
     deadline: rank r on cuda:r, halos and norms on the device), eager
-    (each rank switches the captured form off,
+    in (a)–(c) (each rank switches the captured form off,
     `parallel.distributed.CAPTURE_NCCL`, and each run says so).  On
     fewer than four cards one line says it was not run, with the device
     count, and nothing else runs (nor phase 19).  On four it prints
@@ -162,11 +164,13 @@ raising on failure:
     (SHA-256), and n=32768 born row-partitioned, 10 steps at the auto
     cycle count (if it does not certify, at each larger count until one
     does), every certificate <= 1e-6, build seconds and peak MiB per
-    rank; (d) `cli scaling` over NCCL, strong at n=8192 over 1, 2, 4
-    ranks and weak at n=4096 and 8192 over 1 and 4, in both layouts, at
-    the auto cycle count, each center within 1e-9 of a single-device
-    run; each CLI call killed with the ranks it spawned if it outlives
-    its deadline.
+    rank; (d) `cli scaling` over NCCL in a subprocess, as users run it,
+    strong at n=8192 over 1, 2, 4 ranks and weak at n=4096 and 8192 over
+    1 and 4, in both layouts, at the auto cycle count, each center
+    within 1e-9 of a single-device run and every point a replay of its
+    captured program (`compiled` true and a `capture_seconds`: the
+    CLI's ranks take the default, captured under NCCL); each CLI call
+    killed with the ranks it spawned if it outlives its deadline.
 17. compiled (run before phase 16, whose rank 0 takes cuda:0): the
     models' entry points as compiled programs, each captured once as a
     CUDA graph and replayed (utils/graphs.py), against their eager runs
@@ -222,8 +226,8 @@ raising on failure:
     line says it was not run, as for phase 20's four-card part): the
     partitioned run captured under NCCL,
     each rank replaying its own CUDA graph whose NCCL kernels meet across
-    the cards, with `parallel.distributed.CAPTURE_NCCL` set in its ranks
-    (it is off by default: this phase is what it waits on).  Rank 0
+    the cards, at the default of `parallel.distributed.CAPTURE_NCCL`
+    (on), held to phase 16's eager runs.  Rank 0
     prints a progress line as its ranks start on each case; a spawn that
     outlives its deadline (`DEADLINE_S`: NCCL's watchdog does not see a
     hung replay) has its ranks killed and raises, naming that case
@@ -249,11 +253,7 @@ raising on failure:
     13's one-card uT to the bit, and n=32768 at the cycle count that
     certified in 16 (c), every certificate <= 1e-6; first call, capture
     and replay seconds, reserved MiB per rank with the graph's pool
-    held.  (e) `cli scaling`'s sweeps of phase 16 (d) captured: the
-    CLI's own sweep (`cli.scaling_records`), each multi-rank point's
-    ranks spawned here with the switch on (`cli.scaling_point`), every
-    point a replay (`compiled` true, a `capture_seconds`), each center
-    within 1e-9 of a single-device run.
+    held.  (`cli scaling`'s captured sweeps are phase 16 (d).)
 20. peer transport (the one-card part after 18; the rest on four cards,
     after 19): the collectives of a partitioned run's WHILE bodies on
     hand-written kernels (csrc/peer.cu: `mg_peer_exchange`,
@@ -266,8 +266,8 @@ raising on failure:
     drive; then each kernel's ms a call at level 0's deep halo and one
     float64 value, beside the plain version's and the bytes over
     NVLink's 450 GB/s (no library time on one card: NCCL takes one card
-    a rank).  On four cards (`phase_peer_multi`, with
-    `parallel.distributed.CAPTURE_NCCL` set in its ranks): (a) the
+    a rank).  On four cards (`phase_peer_multi`, captured at the
+    default of `parallel.distributed.CAPTURE_NCCL`): (a) the
     cards' cudaDeviceCanAccessPeer matrix, then probes, each a
     `while_loop` captured once (the peer transport set up first,
     `distributed.prepare_peer`) and replayed from two inputs at the
@@ -333,6 +333,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -1444,7 +1445,10 @@ def _nccl_rank(n: int, steps: int) -> dict:
 def phase_distributed(n: int, steps: int, uT_single) -> int:
     """distributed_run of the main path over DIST_WORLD ranks on the one
     card; returns rank 0's K7 launch count of the plain schedule's run."""
-    from hpcclassmultigridproject_tpu_torch.parallel import launch_local
+    from hpcclassmultigridproject_tpu_torch.parallel import (
+        capture_reason,
+        launch_local,
+    )
 
     print(f"[distributed] {DIST_WORLD} ranks on cuda:0 over gloo, halos and "
           "collectives staged through host memory: the machine has one "
@@ -1502,6 +1506,11 @@ def phase_distributed(n: int, steps: int, uT_single) -> int:
     require(nccl["backend"] == "nccl" and nccl["max_diff"] == 0.0
             and nccl["compiled"] and nccl["collectives_ok"],
             "the one-rank NCCL run")
+    four = capture_reason(types.SimpleNamespace(world=4, backend="nccl"),
+                          "cuda")
+    print(f"[distributed] four NCCL ranks on cuda, by default: eager "
+          f"reason {four!r} (None: one captured program a rank)")
+    require(four is None, f"four NCCL ranks by default: {four!r}")
     return res["plain"]["counts"]["smooth_rows"]
 
 
@@ -2364,11 +2373,11 @@ def _configs_rank(n: int, steps: int, min_local: int,
     distributed_run in both layouts (eager: gloo, or NCCL with the
     captured form switched off in this rank), and the main one born
     2-D-partitioned against the same run of the whole device-built model.
-    With `captured` (phase 19 (c), NCCL ranks, one card each) each eager
-    run is followed by the same call with `parallel.distributed.
-    CAPTURE_NCCL` on, captured and replayed (`_replayed`), the adaptive
-    SolverConfig(dtype=float64) beside the rest, and the born model is
-    left out.  `names` (default all) picks the configurations."""
+    With `captured` (phase 19 (c) and 20 (b), NCCL ranks, one card each)
+    each eager run (the switch off for it alone) is followed by the same
+    call at the default, captured and replayed (`_replayed`), the
+    adaptive SolverConfig(dtype=float64) beside the rest, and the born
+    model is left out.  `names` (default all) picks the configurations."""
     import dataclasses
 
     from hpcclassmultigridproject_tpu_torch import ProblemConfig, SolverConfig
@@ -2381,7 +2390,8 @@ def _configs_rank(n: int, steps: int, min_local: int,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    distributed.CAPTURE_NCCL = False
+    if not captured:
+        distributed.CAPTURE_NCCL = False
     problem = ProblemConfig(n=n, num_steps=steps)
     as_np = lambda uT, stats: (uT.cpu().numpy(), {
         k: v.cpu().numpy() for k, v in stats.items()})
@@ -2399,20 +2409,16 @@ def _configs_rank(n: int, steps: int, min_local: int,
             kw = dict(min_local=min_local, layout=layout)
             cuda.reset_launches()
             t0 = time.perf_counter()
-            uT, stats = distributed_run(model, **kw)
+            with _switched_off(distributed, "CAPTURE_NCCL"):
+                uT, stats = distributed_run(model, **kw)
             torch.cuda.synchronize()
             out[name, layout] = (*as_np(uT, stats),
                                  time.perf_counter() - t0)
             out["reason", name, layout] = model.last_run_reason
             if captured:
-                want_counts = _eager_counts()
-                distributed.CAPTURE_NCCL = True
-                try:
-                    out["captured", name, layout] = _replayed(
-                        model, lambda: distributed_run(model, **kw),
-                        (uT, stats), want_counts)
-                finally:
-                    distributed.CAPTURE_NCCL = False
+                out["captured", name, layout] = _replayed(
+                    model, lambda: distributed_run(model, **kw),
+                    (uT, stats), _eager_counts())
     if captured:
         return out
     main = _grid_configs()["main"]
@@ -2657,65 +2663,18 @@ def _phase_grid_halo(n: int, smi: str) -> None:
           f"{EXCHANGE_REPS}, gloo staged through the host; {smi})")
 
 
-def _captured_scaling_point(args) -> dict:
-    """Phase 19 (e), one NCCL rank on its own card: `cli.scaling_point`
-    with the captured form switched on in this rank
-    (`parallel.distributed.CAPTURE_NCCL`), so that the point replays."""
-    import torch.distributed as dist
-
-    from hpcclassmultigridproject_tpu_torch import cli
-    from hpcclassmultigridproject_tpu_torch.parallel import distributed
-
-    distributed.CAPTURE_NCCL = True
-    _progress(f"[compiled-multi] (e) scaling --mode {args.mode} --layout "
-              f"{args.layout}: n={args.n} over {dist.get_world_size()} "
-              "ranks, captured")
-    return cli.scaling_point(args)
-
-
-def _captured_scaling(argv: list, counts: list) -> list[dict]:
-    """Phase 19 (e): `cli scaling`'s records of `argv` at the rank counts
-    `counts` (`cli.scaling_records`, the CLI's own sweep), the one-rank
-    point in this process as the CLI runs it, each multi-rank point in
-    NCCL ranks spawned here with a deadline, running
-    `_captured_scaling_point`.  Spawned ranks read the module's default
-    (off), so the switch is set in them, not here."""
-    import gc
-
-    from hpcclassmultigridproject_tpu_torch import cli
-    from hpcclassmultigridproject_tpu_torch.parallel import launch_local
-
-    def point(args, c):
-        if c == 1:
-            got = cli.scaling_point(args)
-        else:
-            got = launch_local(_captured_scaling_point, c, (args,),
-                               backend="nccl", device="cuda",
-                               deadline=DEADLINE_S["point"])
-        gc.collect()
-        torch.cuda.empty_cache()  # this process's cache on cuda:0
-        return got
-
-    args = cli.parser().parse_args(["scaling", *argv])
-    return list(cli.scaling_records(args, counts, point))
-
-
 def _phase_grid_scaling(smi: str, strong_n: int = MAIN_N,
                         weak_n: int = MAIN_N // 2,
                         weak_layouts=("auto",), cycles: int | None = 1,
                         reps: int = 1, label: str = "[grid] (d)",
-                        captured: bool = False,
                         strong_layouts=("rows", "2d")) -> None:
-    """`cli scaling` on the card, strong in both layouts and weak, each
-    line against a single-device run of its n at `cycles` V-cycles a step
-    (None: the auto count); `strong_layouts` and `weak_layouts` pick the
-    sweeps.  A point of one rank is a replay of its
-    captured program.  Phase 14 (d): the CLI in a subprocess, gloo ranks
-    sharing the one card, eager (gloo stages through the host); phase 16
-    (d) the same over NCCL, one card a rank, eager (the NCCL captured form
-    is off, `parallel.distributed.CAPTURE_NCCL`); with `captured`, phase
-    19 (e): the CLI's sweep with every point a replay
-    (`_captured_scaling`)."""
+    """`cli scaling` on the card in a subprocess, as users run it, strong
+    in both layouts and weak, each line against a single-device run of
+    its n at `cycles` V-cycles a step (None: the auto count);
+    `strong_layouts` and `weak_layouts` pick the sweeps.  A point of one
+    rank, or of NCCL ranks (a card each: phase 16 (d)), is a replay of
+    its captured program; gloo ranks (phase 14 (d): ranks sharing the one
+    card) run eagerly, their collectives staged through the host."""
     import dataclasses
 
     from hpcclassmultigridproject_tpu_torch import ProblemConfig
@@ -2744,8 +2703,7 @@ def _phase_grid_scaling(smi: str, strong_n: int = MAIN_N,
                for layout in weak_layouts]
     for mode, layout, n, want in sweeps:
         argv = ["--mode", mode, "--layout", layout, "--n", str(n), *flags]
-        lines = (_captured_scaling(argv, [c for c, _ in want]) if captured
-                 else _cli("scaling", *argv, timeout=DEADLINE_S["cli"]))
+        lines = _cli("scaling", *argv, timeout=DEADLINE_S["cli"])
         require([(r["devices"], r["n"]) for r in lines] == want,
                 f"cli scaling {mode} {layout}: points {lines}")
         for rec in lines:
@@ -2761,9 +2719,9 @@ def _phase_grid_scaling(smi: str, strong_n: int = MAIN_N,
                   f"{rec.get('speedup')}; compiled {rec['compiled']}"
                   f"{capture}; |center_uT - single| {dc:.3g}")
             require(list(rec) == keys, f"cli scaling keys {list(rec)}")
-            # one rank: one captured program; several ranks: eager, but
-            # replays with the NCCL captured form on (phase 19 (e))
-            compiled = rec["devices"] == 1 or captured
+            # one rank, or NCCL ranks (a card each, `cli._point_backend`):
+            # a replay; gloo ranks sharing a card: eager
+            compiled = rec["devices"] <= torch.cuda.device_count()
             require(rec["compiled"] == compiled
                     and (rec["capture_seconds"] is not None) == compiled,
                     f"cli scaling: {rec['devices']} ranks compiled "
@@ -2783,7 +2741,9 @@ def phase_grid(n: int, steps: int, uT_single) -> None:
     _phase_grid_main(n, steps, uT_single, smi)
     _phase_grid_configs(smi)
     _phase_grid_halo(n, smi)
-    _phase_grid_scaling(smi)
+    # one strong layout on the one card keeps the script well inside its
+    # 1200 s limit (1107 s on one H100 with both); 16 (d) runs both
+    _phase_grid_scaling(smi, strong_layouts=("rows",))
 
 
 def _route_counts(steps: int, switch: str | None) -> dict:
@@ -3063,8 +3023,8 @@ def phase_routes_oracle(device, n: int, steps: int, uT_main) -> None:
 
 # phase 16: the partitioned run over four cards, one NCCL rank a card
 MULTI_WORLD, MULTI_REPS = 4, 3  # (a): timed runs a case, after a warm-up
-# --multi-gpu: timed runs of a case in 16 (a) and of a point in 16 (d) and
-# 19 (e), so that the four-card mode fits one call
+# --multi-gpu: timed runs of a case in 16 (a) and of a point in 16 (d),
+# so that the four-card mode fits one call
 MULTI_GPU_REPS = 1
 # seconds a spawn of phases 16 and 19 may run before its ranks are killed
 # (`launch_local`'s deadline); a hung replay is not seen by NCCL's watchdog
@@ -3259,8 +3219,8 @@ def _multi_scale_rank(big_n: int, big_cycles: int, huge_n: int,
     to HUGE_MAX_CYCLES until one does.  Build seconds, walls, stats and
     every rank's peak device memory, reset before each build.
 
-    With `huge_cycles` (phase 19 (d)) the captured form is on
-    (`parallel.distributed.CAPTURE_NCCL`), n=huge_n runs at that count
+    With `huge_cycles` (phase 19 (d)) the runs are captured (the default
+    of `parallel.distributed.CAPTURE_NCCL`), n=huge_n runs at that count
     only (phase 16 (c)'s certified one), and each run is captured at its
     first call and replayed once more (equal to the first to the bit),
     with capture seconds and reserved memory with the graph's pool
@@ -3281,7 +3241,8 @@ def _multi_scale_rank(big_n: int, big_cycles: int, huge_n: int,
     from hpcclassmultigridproject_tpu_torch.utils import graphs
 
     captured = huge_cycles is not None
-    distributed.CAPTURE_NCCL = captured
+    if not captured:
+        distributed.CAPTURE_NCCL = False
     mesh = make_mesh()
 
     def build(n, cycles, layout):
@@ -3469,7 +3430,7 @@ def phase_multi_gpu(n: int, steps: int, uT_single, big,
     `big` is phase 13's (cycle count, uT fingerprint) at n=16384,
     `single_wall` phase 17 (a)'s replay wall.  `reps` (default
     MULTI_REPS and MULTI_SCALING_REPS) is the timed runs of a case in 16
-    (a) and of a point in 16 (d) and 19 (e); the checks do not depend on
+    (a) and of a point in 16 (d); the checks do not depend on
     it.  Each spawn has a deadline (`DEADLINE_S`)."""
     import gc
 
@@ -3500,10 +3461,10 @@ def phase_multi_gpu(n: int, steps: int, uT_single, big,
     gc.collect()
     torch.cuda.empty_cache()
     huge_cycles = _phase_multi_scale(big, smi)
-    scaling = dict(strong_n=STRONG_N, weak_n=WEAK_N,
-                   weak_layouts=("rows", "2d"), cycles=None,
-                   reps=reps or MULTI_SCALING_REPS)
-    _phase_grid_scaling(smi, label="[multi-gpu] (d)", **scaling)
+    _phase_grid_scaling(smi, strong_n=STRONG_N, weak_n=WEAK_N,
+                        weak_layouts=("rows", "2d"), cycles=None,
+                        reps=reps or MULTI_SCALING_REPS,
+                        label="[multi-gpu] (d)")
     _phase_capture_probes(smi)
     _phase_compiled_main(n, steps, eager, smi, single_wall)
     _phase_grid_configs(smi, backend="nccl", device="cuda",
@@ -3512,10 +3473,6 @@ def phase_multi_gpu(n: int, steps: int, uT_single, big,
     gc.collect()
     torch.cuda.empty_cache()
     _phase_multi_scale(big, smi, huge_cycles)
-    gc.collect()
-    torch.cuda.empty_cache()
-    _phase_grid_scaling(smi, label="[compiled-multi] (e)", captured=True,
-                        **scaling)
     gc.collect()
     torch.cuda.empty_cache()
     phase_peer_multi(n, steps, smi, PEER_MAIN_REPLAYS)
@@ -3533,8 +3490,8 @@ def _same(got, want) -> bool:
 
 
 def _compiled_main_rank(n: int, steps: int, eager: dict) -> dict:
-    """Phase 19 (b), one NCCL rank on its own card, with the captured form
-    on (`parallel.distributed.CAPTURE_NCCL`): phase 16 (a)'s eight cases
+    """Phase 19 (b), one NCCL rank on its own card, captured (the default
+    of `parallel.distributed.CAPTURE_NCCL`): phase 16 (a)'s eight cases
     through distributed_run, each captured at its first call and held
     against phase 16 (a)'s eager run of the case (`eager`: rank 0's uT
     and stats, the same on every rank, and every rank's launch counts
@@ -3553,7 +3510,6 @@ def _compiled_main_rank(n: int, steps: int, eager: dict) -> dict:
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    distributed.CAPTURE_NCCL = True
     mesh = make_mesh()
     problem = ProblemConfig(n=n, num_steps=steps)
     cfg = delta_config(certify_every=10)
@@ -4268,7 +4224,7 @@ WHILE_SET_REPS = 1000  # launches of mg_while_set in the graph that times it
 # (b): an advection configuration runs fewer than MAIN_STEPS steps where
 # its eager run would take longer than this (an f32 step can take 50
 # cycles), and an eager run is profiled only below PROFILE_EAGER_S
-LOOP_EAGER_S, LOOP_MIN_STEPS, PROFILE_EAGER_S = 3.0, 10, 1.0
+LOOP_EAGER_S, LOOP_MIN_STEPS, PROFILE_EAGER_S = 2.0, 10, 1.0
 GSBENCH_LOOP_NS, GSBENCH_LOOP_SWEEPS = (2048, 4096, 8192), 100  # (c)
 POISSON_GS_N, POISSON_GS_ITERS, POISSON_GS_CHECK = 256, 100_000, 100  # (b)
 
@@ -5255,7 +5211,6 @@ def _peer_main_rank(n: int, steps: int, reps: int) -> dict:
     cfg = SolverConfig(dtype=torch.float64)
     out = {}
     for layout in ("rows", "2d"):
-        distributed.CAPTURE_NCCL = False
         model = AdvectionDiffusion(ProblemConfig(n=n, num_steps=steps), cfg,
                                    device="cuda")
         kw = dict(min_local=DIST_MIN_LOCAL, layout=layout)
@@ -5263,11 +5218,11 @@ def _peer_main_rank(n: int, steps: int, reps: int) -> dict:
         cuda.reset_launches()
         dist.barrier()
         t0 = time.perf_counter()
-        uT, stats = distributed_run(model, **kw)
+        with _switched_off(distributed, "CAPTURE_NCCL"):
+            uT, stats = distributed_run(model, **kw)
         torch.cuda.synchronize()
         eager_wall = time.perf_counter() - t0
         want = _eager_counts()
-        distributed.CAPTURE_NCCL = True
         _progress(f"[peer-multi] (c) {layout}: captured")
         held = _fresh_peaks()
         rec = _replayed(model, lambda: distributed_run(model, **kw),
@@ -5296,7 +5251,6 @@ def _peer_main_rank(n: int, steps: int, reps: int) -> dict:
         model = uT = stats = None
         gc.collect()
         torch.cuda.empty_cache()
-    distributed.CAPTURE_NCCL = False
     return out
 
 
@@ -5394,7 +5348,7 @@ def main_multi_gpu(device, name: str) -> None:
     one-card references they are held to: phase 4's n=1024 uT and launch
     counts, phase 13 (b)'s n=16384 cycle count and uT fingerprint, and
     phase 17 (a)'s replay wall.  Each case of 16 (a) and each point of 16
-    (d) and 19 (e) is timed once (MULTI_GPU_REPS); every check is made as
+    (d) is timed once (MULTI_GPU_REPS); every check is made as
     with no argument."""
     import gc
 

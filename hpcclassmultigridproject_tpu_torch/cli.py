@@ -259,10 +259,11 @@ def scaling_point(args) -> dict:
     on one rank): the model built over every rank, and its
     `distributed_run` timed by `time_run` (best of `--reps`, synchronized,
     after a warm-up).  Where the run is one compiled program (on the card
-    on one rank; under NCCL only with `parallel.distributed.CAPTURE_NCCL`
-    on) the warm-up captures it, and the seconds are a replay's.  Returns the point's seconds, center value, mesh shape,
-    whether it ran compiled and the capture's seconds (None where eager),
-    as plain Python values."""
+    on one rank, and under NCCL unless `parallel.distributed.CAPTURE_NCCL`
+    is set off in the ranks) the warm-up captures it, and the seconds are
+    a replay's; under gloo the ranks run eagerly.  Returns the point's
+    seconds, center value, mesh shape, whether it ran compiled and the
+    capture's seconds (None where eager), as plain Python values."""
     from hpcclassmultigridproject_tpu_torch.parallel import (
         distributed_run,
         make_mesh,

@@ -74,11 +74,18 @@ def difference_form_constants(level) -> tuple[float, float]:
 
 
 def _dform(x):
-    """Σ(x_nb − x) and the two centred differences Δ_i x, Δ_j x."""
+    """Σ(x_nb − x) and the two centred differences Δ_i x, Δ_j x: the sum
+    ((up − x) + (dn − x)) + (lf − x) + (rt − x) added in place, each pair
+    of shifts dropped once used, so that fewer whole fields are held."""
     up, dn = shift(x, -1, 0), shift(x, 1, 0)
+    lap = up - x
+    lap += dn - x
+    di = dn - up
+    up = dn = None
     lf, rt = shift(x, 0, -1), shift(x, 0, 1)
-    lap = (up - x) + (dn - x) + (lf - x) + (rt - x)
-    return lap, dn - up, rt - lf
+    lap += lf - x
+    lap += rt - x
+    return lap, di, rt - lf
 
 
 def delta_rhs(level, u_hi, u_lo=None):
@@ -90,7 +97,16 @@ def delta_rhs(level, u_hi, u_lo=None):
     if u_lo is not None:
         lap_l, di_l, dj_l = _dform(u_lo)
         lap, di, dj = lap + lap_l, di + di_l, dj + dj_l
-    out = -(two_rnu * lap) - r_h * (level.v1 * di + level.v2 * dj)
+        lap_l = di_l = dj_l = None
+    # −(2rν·lap) − r·h·(v1·Δ_i + v2·Δ_j), each field dropped once used
+    out = -(two_rnu * lap)
+    lap = None
+    adv = level.v1 * di
+    di = None
+    adv += level.v2 * dj
+    dj = None
+    out = out - r_h * adv
+    adv = None
     return out * interior_mask(level.n, u_hi.shape, dtype=dtype,
                                device=u_hi.device, row_off=level.row_off,
                                col_off=level.col_off)
@@ -125,12 +141,18 @@ def _accumulate(hi, lo, d):
 
 def _certify_hi(fine_hi, hi2, lo2, d, acc_dtype, part=None):
     """The step's true relative residual in the high dtype, by the delta
-    identity rhs − A·u^{n+1} = (B−A)·u^n − A·δ: two high-dtype stencils."""
+    identity rhs − A·u^{n+1} = (B−A)·u^n − A·δ: two high-dtype stencils,
+    each field dropped once used and A's bands made one at a time
+    (`blocks.level_neighbor_sums`), so that the high-dtype fields held at
+    once are few: the certificates and the epilogue hold a run's peak of
+    device memory."""
     u_prev = hi2.to(acc_dtype) + lo2.to(acc_dtype)
     rhs_d_hi = _delta_rhs(fine_hi, part, u_prev)
+    u_prev = None
     d_hi = d.to(acc_dtype)
-    res_hi = rhs_d_hi - (fine_hi.diag_a * d_hi + blocks.neighbor_sum(
-        blocks.coefs(fine_hi, part), d_hi, part))
+    (ns,) = blocks.level_neighbor_sums(fine_hi, [d_hi], part)
+    res_hi = rhs_d_hi - (fine_hi.diag_a * d_hi + ns)
+    d_hi = ns = None
     rel = blocks.interior_norm(res_hi, part) / torch.clamp_min(
         blocks.interior_norm(rhs_d_hi, part), torch.finfo(rhs_d_hi.dtype).tiny)
     return rel.to(torch.float32)
@@ -207,6 +229,7 @@ def timestepper_delta(levels, fine_hi, u0: torch.Tensor, num_steps: int,
                                  shardings=shardings)
         res0 = torch.clamp_min(blocks.interior_norm(rhs_d, part), tiny)
         rel = blocks.interior_norm(r, part) / res0
+        rhs_d = r = None  # not held through the certificate
         rels.append(rel.to(torch.float32))
         conv.append(rel <= cfg.tol)
         d_pend = d
@@ -215,14 +238,20 @@ def timestepper_delta(levels, fine_hi, u0: torch.Tensor, num_steps: int,
                                      part))
 
     # epilogue: fold the last correction in the high dtype and certify the
-    # last step there, by three independent stencils
+    # last step there: rhs = B·u_prev, and the residuals rhs − A·u of
+    # u_prev and uT, from the neighbour sums of u_prev and uT.  It holds a
+    # run's peak of device memory: the steps' fields are dropped first,
+    # each field once used, and A's bands are made one at a time
     u_prev = hi.to(acc_dtype) + lo.to(acc_dtype)
     uT = u_prev + d_pend.to(acc_dtype)
-    c_hi = blocks.coefs(fine_hi, part)
-    rhs_hi = fine_hi.diag_b * u_prev - blocks.neighbor_sum(c_hi, u_prev, part)
-    r_hi = blocks.residual(fine_hi, uT, rhs_hi, part, c_hi)
-    res0_hi = blocks.interior_norm(
-        blocks.residual(fine_hi, u_prev, rhs_hi, part, c_hi), part)
+    hi = lo = d_pend = d = None
+    diag_a = as_dtype(fine_hi.diag_a, acc_dtype)
+    ns_prev, ns_T = blocks.level_neighbor_sums(fine_hi, [u_prev, uT], part)
+    rhs_hi = fine_hi.diag_b * u_prev - ns_prev
+    res0_hi = blocks.interior_norm(rhs_hi - diag_a * u_prev - ns_prev, part)
+    u_prev = ns_prev = None
+    r_hi = rhs_hi - diag_a * uT - ns_T
+    rhs_hi = ns_T = None
     rel_hi = blocks.interior_norm(r_hi, part) / torch.clamp_min(
         res0_hi, torch.finfo(res0_hi.dtype).tiny)
 

@@ -29,7 +29,7 @@ from hpcclassmultigridproject_tpu_torch.mg.timestepper import timestep, timestep
 from hpcclassmultigridproject_tpu_torch.parallel import (
     Mesh,
     capture_reason,
-    fetch,
+    fetch_outputs,
     level_shardings_for_ns,
     resolve_layout,
     shard_windows,
@@ -111,15 +111,15 @@ class AdvectionDiffusion:
     is captured once as a CUDA graph and replayed (utils/graphs.py), in
     every configuration: the adaptive solvers and the GS coarse solve are
     conditional WHILE nodes in it (`utils.graphs.while_loop`), as they are
-    `lax.while_loop`s in the JAX programs.  Born partitioned under NCCL,
-    with `parallel.distributed.CAPTURE_NCCL` on, every rank captures and
-    replays its own graph, with the step's halo exchanges and norms in
-    it, as the JAX model's sharded programs hold theirs, in every
+    `lax.while_loop`s in the JAX programs.  Born partitioned under NCCL
+    (unless `parallel.distributed.CAPTURE_NCCL` is set off), every rank
+    captures and replays its own graph, with the step's halo exchanges and
+    norms in it, as the JAX model's sharded programs hold theirs, in every
     configuration: those inside a WHILE body take the peer transport
     (parallel/distributed.py); the program's key adds the mesh, layout
     and min_local.  A run on the CPU, or partitioned otherwise (gloo with
-    CUDA tensors, NCCL with the switch off), is eager (`eager_reason`).
-    After each call,
+    CUDA tensors, NCCL with the switch set off), is eager
+    (`eager_reason`).  After each call,
     `last_run_compiled` says which way it ran and `last_run_reason` why
     it was eager (None when it was compiled).  Eager on the card means
     calling `mg.timestepper.timestepper` or `timestep` directly.
@@ -201,10 +201,11 @@ class AdvectionDiffusion:
         that missed tol, a certificate without margin, or a failed
         high-dtype certificate.  Born partitioned, `u0` is this rank's
         block and uT is gathered whole on every rank."""
-        uT, stats = self.run_chunk(self.u0 if u0 is None else u0,
-                                   self.problem.num_steps)
-        if self.shardings is not None:
-            uT = fetch(uT, self.shardings[0])
+        part = None if self.shardings is None else self.shardings[0]
+        uT, stats = self._run_chunk(self.u0 if u0 is None else u0,
+                                    self.problem.num_steps, part is None)
+        if part is not None:
+            uT, stats = fetch_outputs(uT, stats, part)
         if warn:
             self._warn(stats)
         return crop_field(uT, self.problem.n), stats
@@ -243,9 +244,9 @@ class AdvectionDiffusion:
         a captured program: the CPU, or a run partitioned over `mesh`
         (default: the mesh the model was born on) under gloo with CUDA
         tensors, whose collectives stage through the host, or under NCCL
-        while `parallel.distributed.CAPTURE_NCCL` is off
-        (`parallel.capture_reason`).  With the switch on, every run
-        partitioned under NCCL is captured, as on one device, the
+        while `parallel.distributed.CAPTURE_NCCL` is set off
+        (`parallel.capture_reason`).  At the switch's default (on), every
+        run partitioned under NCCL is captured, as on one device, the
         adaptive solves too."""
         mesh = self.mesh if mesh is None else mesh
         return capture_reason(Mesh(1) if mesh is None else mesh, self.device)
@@ -258,12 +259,15 @@ class AdvectionDiffusion:
             return ()
         return self.mesh.key, self.layout, self.min_local
 
-    def compiled(self, key, fn, u, warm=None, keep=None, mesh=None):
+    def compiled(self, key, fn, u, warm=None, keep=None, mesh=None,
+                 fresh=True):
         """`fn(u)` as the compiled program of `key` in `self.programs`
         (the counterpart of the JAX model's `_jit_*` programs), or called
         directly where `eager_reason(mesh)` gives a reason; records which
         way it ran.  `keep` (default the model's levels and fine_hi) are
-        the tensors the program reads besides u."""
+        the tensors the program reads besides u; `fresh` False returns a
+        replay's static outputs, for a caller that copies them at once
+        (`utils.graphs.Programs`)."""
         reason = self.eager_reason(mesh)
         mesh = self.mesh if mesh is None else mesh
         if (reason is None and mesh is not None
@@ -272,7 +276,7 @@ class AdvectionDiffusion:
             prepare_peer(self.programs, mesh, self.device)
         keep = (self.levels, self.fine_hi) if keep is None else keep
         out = fn(u) if reason is not None else self.programs(
-            key, fn, (u,), warm, keep=keep)
+            key, fn, (u,), warm, keep=keep, fresh=fresh)
         self.last_run_compiled, self.last_run_reason = reason is None, reason
         return out
 
@@ -292,6 +296,12 @@ class AdvectionDiffusion:
         partitioned, u is this rank's block in and out.  One compiled
         program per step count, shared with `run` (the JAX model's
         `_jit_run` and `_chunk_cache`), warmed up by one step."""
+        return self._run_chunk(u_padded, nsteps)
+
+    def _run_chunk(self, u_padded: torch.Tensor, nsteps: int,
+                   fresh: bool = True):
+        """`run_chunk`; `fresh` False returns a replay's static outputs
+        (`compiled`)."""
         levels, cfg = self.levels, self.solver
         fine_hi, shardings = self.fine_hi, self.shardings
         return self.compiled(
@@ -299,7 +309,8 @@ class AdvectionDiffusion:
             lambda u: timestepper(levels, u, nsteps, cfg, fine_hi,
                                   shardings),
             u_padded,
-            lambda u: timestepper(levels, u, 1, cfg, fine_hi, shardings))
+            lambda u: timestepper(levels, u, 1, cfg, fine_hi, shardings),
+            fresh=fresh)
 
     def pad(self, u_logical: torch.Tensor) -> torch.Tensor:
         """Embed a logical (n+1)^2 field into the padded layout."""

@@ -62,9 +62,10 @@ class Coefs:
         return as_dtype(self.diag_a, dtype) if self.diag is None else self.diag
 
 
-def coefs_from_v(level):
-    """(aa, bb, cc, dd) recomputed from the level's velocities, zero
-    outside the open interior."""
+def _from_v_bands(level):
+    """A maker of each band (aa, bb, cc, dd) of a from_v level, from its
+    velocities, zero outside the open interior: a band is a whole field,
+    made when its maker is called."""
     v1, v2 = level.v1, level.v2
     dt = v1.dtype
     rr = as_dtype(level.rr, dt)
@@ -72,11 +73,16 @@ def coefs_from_v(level):
     nu = as_dtype(level.nu, dt)
     mask = interior_mask(level.n, level.padded, dtype=dt, device=v1.device,
                          row_off=level.row_off, col_off=level.col_off)
-    aa = rr * (-v2 * hh + nu) * mask
-    bb = rr * (v2 * hh + nu) * mask
-    cc = rr * (-v1 * hh + nu) * mask
-    dd = rr * (v1 * hh + nu) * mask
-    return aa, bb, cc, dd
+    return (lambda: rr * (-v2 * hh + nu) * mask,
+            lambda: rr * (v2 * hh + nu) * mask,
+            lambda: rr * (-v1 * hh + nu) * mask,
+            lambda: rr * (v1 * hh + nu) * mask)
+
+
+def coefs_from_v(level):
+    """(aa, bb, cc, dd) recomputed from the level's velocities, zero
+    outside the open interior."""
+    return tuple(make() for make in _from_v_bands(level))
 
 
 def coefs(level) -> Coefs:
@@ -101,6 +107,33 @@ def neighbor_sum(c: Coefs, u: torch.Tensor) -> torch.Tensor:
         s = (s + ne * shift(u, -1, 1) + nw * shift(u, -1, -1)
              + se * shift(u, 1, 1) + sw * shift(u, 1, -1))
     return s
+
+
+def level_neighbor_sums(level, us) -> list:
+    """`[neighbor_sum(coefs(level), u) for u in us]` to the bit, holding
+    fewer whole fields at once: a from_v level's bands are made one at a
+    time, each applied to every u and dropped after its products, and
+    each sum's terms are added in place in the same order (the float64
+    certificates and the epilogue of the delta form take this form: they
+    hold a run's peak of device memory).  Each band is made once, however
+    many the us."""
+    if level.form != "from_v":
+        c = coefs(level)
+        return [neighbor_sum(c, u) for u in us]
+    aa, bb, cc, dd = _from_v_bands(level)
+    sums = [None] * len(us)
+    # neighbor_sum's order: cc·u_N + dd·u_S + aa·u_W + bb·u_E
+    for band, di, dj in ((cc, -1, 0), (dd, 1, 0), (aa, 0, -1), (bb, 0, 1)):
+        b = band()
+        for k, u in enumerate(us):
+            term = b * shift(u, di, dj)
+            if sums[k] is None:
+                sums[k] = term
+            else:
+                sums[k] += term
+            term = None
+        b = None
+    return sums
 
 
 def apply_A(level, u: torch.Tensor, c: Coefs | None = None) -> torch.Tensor:

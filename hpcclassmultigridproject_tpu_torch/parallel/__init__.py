@@ -21,6 +21,7 @@ from typing import NamedTuple
 from hpcclassmultigridproject_tpu_torch.parallel.distributed import (
     capture_reason,
     fetch,
+    fetch_outputs,
     initialize,
     is_multiprocess,
     launch_local,
@@ -153,26 +154,27 @@ def distributed_run(model, mesh: Mesh | None = None, min_local: int = _UNSET,
     one-line exchanges with corners (parallel/blocks.py).  The replicated
     levels run as on one device, the coarse tower included.
 
-    The run can be one compiled program, as the JAX package's is one
-    jitted program: on one rank, and under NCCL with
-    `distributed.CAPTURE_NCCL` on, each rank captures the call (the
-    steps, their halo exchanges and norms) once per key as a CUDA graph
-    in `model.programs`, and replays it
+    The run is one compiled program on the card, as the JAX package's is
+    one jitted program: on one rank, and under NCCL (unless
+    `distributed.CAPTURE_NCCL` is set off), each rank captures the call
+    (the steps, their halo exchanges and norms) once per key as a CUDA
+    graph in `model.programs`, and replays it
     (utils/graphs.py), keyed by the step count, the SolverConfig, the
     mesh, layout and `min_local`: every configuration, the adaptive ones
     with the collectives of their WHILE bodies on the peer transport
     (parallel/distributed.py).  Otherwise it runs eagerly
     (`distributed.capture_reason`: the CPU; gloo with CUDA tensors, whose
-    collectives stage through the host; NCCL with the switch off).
+    collectives stage through the host; NCCL with the switch set off).
     `model.last_run_compiled` and `last_run_reason` say which.
 
     Returns (uT cropped to the logical grid, stats) on every rank: the
-    blocks are gathered (`fetch`) after the program, as the model's own
-    `run` gathers them (the JAX program returns uT sharded): a gather
-    inside the graph keeps a whole field in its pool beside the clone a
-    replay returns, and at n=32768 on four cards the capture ran out of
-    memory there.  The stats, computed from norms added over the ranks,
-    are the same on every rank."""
+    blocks are gathered after the program (`distributed.fetch_outputs`,
+    straight from the program's static output, no clone of it beside the
+    whole field), as the model's own `run` gathers them (the JAX program
+    returns uT sharded): a gather inside the graph keeps a whole field in
+    its pool, and at n=32768 on four cards the capture ran out of memory
+    there.  The stats, computed from norms added over the ranks, are the
+    same on every rank."""
     from hpcclassmultigridproject_tpu_torch.core.layout import crop_field
     from hpcclassmultigridproject_tpu_torch.mg.timestepper import timestepper
 
@@ -186,9 +188,13 @@ def distributed_run(model, mesh: Mesh | None = None, min_local: int = _UNSET,
 
     key = ("distributed", steps, cfg, part.mesh.key, part.layout,
            part.min_local)
+    whole = shardings[0] is None
     uT, stats = model.compiled(key, run, part.u0, lambda u: run(u, 1),
-                               keep=(levels, fine_hi), mesh=part.mesh)
-    return crop_field(fetch(uT, shardings[0]), n), stats
+                               keep=(levels, fine_hi), mesh=part.mesh,
+                               fresh=whole)
+    if not whole:
+        uT, stats = fetch_outputs(uT, stats, shardings[0])
+    return crop_field(uT, n), stats
 
 
 __all__ = [
@@ -213,4 +219,5 @@ __all__ = [
     "launch_local",
     "make_global",
     "fetch",
+    "fetch_outputs",
 ]

@@ -108,6 +108,18 @@ def neighbor_sum(c: P.Coefs, u, part):
     return inner(P.neighbor_sum(c, u_ext), part)
 
 
+def level_neighbor_sums(level, us, part) -> list:
+    """`[neighbor_sum(coefs(level, part), u, part) for u in us]` to the
+    bit, holding fewer whole fields at once and making each band once
+    (`ops.padded.level_neighbor_sums`); the blocks' halos come in one
+    exchange."""
+    if part is None:
+        return P.level_neighbor_sums(level, us)
+    exts = extend(list(us), part)
+    return [inner(s, part)
+            for s in P.level_neighbor_sums(halo_level(level, part), exts)]
+
+
 def _diagonal(c: P.Coefs, dtype, part):
     """A's diagonal on the block: diag_a, or the stored array's centre."""
     d = c.diagonal(dtype)

@@ -8,7 +8,8 @@ package's `parallel/distributed.py`.
   * `make_global(x, part)`: a host-built padded array to this rank's block
     (a row block or a 2-D block, parallel/sharding.py);
   * `fetch(x, part)`: the blocks of every rank gathered in rank order to
-    the whole padded array, on every rank;
+    the whole padded array, on every rank (`fetch_outputs`: a
+    partitioned call's uT and stats, copied out of a program's outputs);
   * `all_sum`, `all_max`, `all_gather_rows`, `all_gather_blocks`: the
     collectives the SPMD program needs beyond the halo exchange;
   * `start_exchange(blocks, k, mesh, sides)`: the point-to-point exchange
@@ -17,8 +18,8 @@ package's `parallel/distributed.py`.
   * `rank_device(device, rank, world, backend)`: the card a rank runs
     on (one card a rank under NCCL);
   * `capture_reason(mesh, device)`: why a partitioned call on `device`
-    runs eagerly, or None where it can be one captured program (under
-    NCCL only with `CAPTURE_NCCL` on);
+    runs eagerly, or None where it is one captured program (under NCCL
+    unless `CAPTURE_NCCL` is set off);
   * `connect(mesh, device, capacity)`: this rank's peer transport (below);
   * `launch_local(fn, world, ...)`: `world` spawned processes on this
     host, each in the process group on its own card, returning rank 0's
@@ -35,8 +36,8 @@ speed.  The group's backend picks the branch.
 Every call that posts a collective counts it in `COLLECTIVES`
 (`ops.cuda.COLLECTIVES`: `batch_isend_irecv` batches, `all_gather`
 calls), which a captured program's replay adds as it adds the kernels'
-launches (utils/graphs.py).  Under NCCL, with `CAPTURE_NCCL` on, the
-collectives of a step are captured into a CUDA graph with its kernels;
+launches (utils/graphs.py).  Under NCCL (`CAPTURE_NCCL`, on by default)
+the collectives of a step are captured into a CUDA graph with its kernels;
 an `Exchange` posted inside a capture must be waited on inside it, and a
 collective that would stage through the host raises there.
 
@@ -71,6 +72,8 @@ import datetime
 import os
 import pathlib
 import pickle
+import signal
+import sys
 import tempfile
 
 import numpy as np
@@ -87,6 +90,8 @@ from hpcclassmultigridproject_tpu_torch.utils import graphs
 LOCAL_TIMEOUT = datetime.timedelta(seconds=300)
 # in a rank `launch_local` spawned: the file `note` writes
 _NOTE_FILE: pathlib.Path | None = None
+# seconds a rank that raised has to exit before SIGALRM ends it
+EXIT_GRACE_S = 10
 
 
 def initialize(backend: str, coordinator: str | None = None,
@@ -157,15 +162,15 @@ def host_staged(mesh: Mesh, t: torch.Tensor) -> bool:
     return staged
 
 
-# Whether a call partitioned over NCCL ranks may be one captured program.
-# Off: such a call runs eagerly, with the reason `capture_reason` gives.
-# The captured form has not yet run to its end on four cards: on four
-# H100s every configuration replayed equal to its eager run, the adaptive
-# ones too, and n=16384's captures in both layouts ran to their ends and
-# replayed equal to their first calls, but n=32768's captured run (phase
-# 19 (d) of chip_smoke.py) and (e)'s weak sweeps, which set it in their
-# ranks, have not yet passed there.
-CAPTURE_NCCL = False
+# Whether a call partitioned over NCCL ranks is one captured program, as
+# the JAX package's partitioned run is one jitted program: on by default,
+# so that `distributed_run`, a born-partitioned model's `run`, `step` and
+# `run_chunk`, and `cli scaling`'s NCCL points each replay a graph a rank.
+# Off (set in every rank, before any partitioned call), such a call runs
+# eagerly with the reason `capture_reason` gives: the eager form that
+# chip_smoke.py's phase 16 keeps as the reference its captured phases are
+# held to.
+CAPTURE_NCCL = True
 
 
 def capture_reason(mesh: Mesh, device) -> str | None:
@@ -173,11 +178,12 @@ def capture_reason(mesh: Mesh, device) -> str | None:
     eagerly, or None where it can be one captured program: the CPU (called
     directly); CUDA tensors under gloo, whose collectives stage through
     the host; under NCCL, every partitioned call while `CAPTURE_NCCL` is
-    off.  Under NCCL with it on every solver is captured, the adaptive
-    ones too: the collectives inside their WHILE bodies take the peer
-    transport (module docstring).  On one rank (no collective), None.  It
-    reads only what every rank shares (the device, the world, the backend
-    and `CAPTURE_NCCL`), so the ranks decide alike."""
+    set off.  Under NCCL at its default (on) every solver is captured,
+    the adaptive ones too: the collectives inside their WHILE bodies take
+    the peer transport (module docstring).  On one rank (no collective),
+    None.  It reads only what every rank shares (the device, the world,
+    the backend and `CAPTURE_NCCL`), so the ranks decide alike: no size,
+    no solver and no failed capture sends a call to the eager form."""
     if not graphs.on_card(torch.device(device)):
         return "the CPU was asked for: the function is called directly"
     if mesh.world == 1:
@@ -389,6 +395,18 @@ def assemble(blocks, grid: tuple[int, int], shape) -> torch.Tensor:
     return fit(whole, *shape)
 
 
+def fetch_outputs(uT: torch.Tensor, stats: dict, part):
+    """A partitioned call's (uT block, stats) as tensors of their own: uT
+    whole (`fetch`, always a new tensor for a partitioned level) and the
+    stats cloned.  The models call their program with `fresh=False`
+    (utils/graphs.py), whose outputs its next replay overwrites, so that
+    the gather copies the block straight out of the graph's static output
+    and no clone of the block waits beside the whole field: at n=32768 on
+    four H100s (rows) a rank lacked up to 1.5 GiB of the gather's 8.28,
+    and that clone held 2.07."""
+    return fetch(uT, part), {k: v.clone() for k, v in stats.items()}
+
+
 def make_global(x: torch.Tensor, part) -> torch.Tensor:
     """This rank's block of the padded array x (the same on every rank):
     its rows [part.start, part.stop) and columns [part.col_start,
@@ -595,10 +613,18 @@ def note(line: str) -> None:
         _NOTE_FILE.write_text(line)
 
 
+def _notes(tmp) -> str:
+    """The line each rank last gave `note`, rank by rank."""
+    found = sorted(pathlib.Path(tmp).glob("note*"),
+                   key=lambda f: int(f.name[4:]))
+    return "; ".join(f"{f.read_text()} (rank {f.name[4:]})"
+                     for f in found) or "nothing"
+
+
 def _rank_main(rank: int, fn, world: int, args: tuple, backend: str,
                tmp: str, device) -> None:
     global _NOTE_FILE
-    _NOTE_FILE = pathlib.Path(tmp) / "note"
+    _NOTE_FILE = pathlib.Path(tmp) / f"note{rank}"
     device = rank_device(device, rank, world, backend)
     if device is not None and device.type == "cuda":
         torch.cuda.set_device(device)
@@ -607,11 +633,26 @@ def _rank_main(rank: int, fn, world: int, args: tuple, backend: str,
                             timeout=LOCAL_TIMEOUT)
     try:
         out = fn(*args)
-        if rank == 0:
-            with open(pathlib.Path(tmp) / "result.pkl", "wb") as f:
-                pickle.dump(out, f)
-    finally:
-        dist.destroy_process_group()
+    except BaseException as err:
+        # said at once, with the rank: the others may be waiting on this
+        # one in a collective (a replay's is never timed out), and leaving
+        # the group could wait on them, so it is not left.  The exit may
+        # still wait in NCCL's teardown (four NCCL ranks that ran out of
+        # memory on four H100s sat there until their deadline), so SIGALRM
+        # ends the process EXIT_GRACE_S after the raise: the spawn has the
+        # error by then and kills the other ranks
+        import traceback
+
+        note(f"raised {type(err).__name__}: {err}")
+        print(f"rank {rank} of {world} raised:\n{traceback.format_exc()}",
+              file=sys.stderr, flush=True)
+        signal.alarm(EXIT_GRACE_S)
+        raise
+    if rank == 0:
+        with open(pathlib.Path(tmp) / "result.pkl", "wb") as f:
+            pickle.dump(out, f)
+    note("returned; leaving the process group")
+    dist.destroy_process_group()
 
 
 def launch_local(fn, world: int, args: tuple = (), *, backend: str = "gloo",
@@ -626,10 +667,14 @@ def launch_local(fn, world: int, args: tuple = (), *, backend: str = "gloo",
     it.  A failed rank raises here, the others killed.
 
     With `deadline` (seconds), ranks still running that long after the
-    spawn are killed and TimeoutError names the line a rank last gave
+    spawn are killed and TimeoutError names the line each rank last gave
     `note`.  The process group's timeout does not reach a hung replay of
     a captured graph (its collectives were never enqueued), so a caller
-    replaying one under NCCL sets a deadline."""
+    replaying one under NCCL sets a deadline.  A rank that raises prints
+    its exception with its rank at once, and is ended EXIT_GRACE_S later
+    if its exit waits.  `fn` lets go of its models before it returns: on
+    four H100s, NCCL ranks whose captured graphs a global object kept
+    alive did not leave the process group until the deadline."""
     import time
 
     import torch.multiprocessing as mp
@@ -650,13 +695,10 @@ def launch_local(fn, world: int, args: tuple = (), *, backend: str = "gloo",
             try:
                 while not ctx.join(timeout=max(0.0, end - time.monotonic())):
                     if time.monotonic() >= end:
-                        noted = pathlib.Path(tmp) / "note"
                         raise TimeoutError(
                             f"{getattr(fn, '__name__', fn)}: {world} ranks "
                             f"still running {deadline} s after the spawn, "
-                            "killed; last noted: " + (
-                                noted.read_text() if noted.exists()
-                                else "nothing"))
+                            f"killed; last noted: {_notes(tmp)}")
             finally:
                 for proc in ctx.processes:
                     if proc.is_alive():

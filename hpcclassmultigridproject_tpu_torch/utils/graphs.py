@@ -17,7 +17,11 @@ captured once into a `torch.cuda.CUDAGraph` and replayed:
 - Every call copies its inputs into the buffers, replays the graph and
   returns clones of the graph's static outputs: fresh tensors, so a later
   call never overwrites what an earlier one returned, as a JAX array is
-  never overwritten.
+  never overwritten.  A caller that copies the outputs at once asks for
+  the static outputs themselves (`fresh=False`): a partitioned run's
+  gather of uT copies the block straight out of them, so no clone of the
+  block waits beside the whole field (at n=32768 on four cards the
+  gather lacked less memory than that clone held).
 - The key holds what a JAX trace fixes: the caller's static part (the
   entry, the step count, the SolverConfig), the inputs' shapes, dtypes and
   devices, and the route and switches read at call time (`route_key`).
@@ -35,8 +39,9 @@ captured once into a `torch.cuda.CUDAGraph` and replayed:
 A program may hold a partitioned run's collectives (parallel/
 distributed.py), the counterpart of the JAX package's jitted
 `distributed_run` and sharded `_jit_*` programs, whose halo exchanges and
-norms are in the one XLA program.  The models capture such a run only
-under NCCL with `parallel.distributed.CAPTURE_NCCL` on (off by default):
+norms are in the one XLA program.  The models capture such a run under
+NCCL (unless `parallel.distributed.CAPTURE_NCCL` is set off; gloo stages
+CUDA tensors through the host, so it runs eagerly):
 
 - Each rank captures and replays its own graph; NCCL's kernels in the
   graphs of the ranks meet across the cards.  So every rank captures the
@@ -513,27 +518,32 @@ class Program:
     def body_nodes(self) -> int:
         return self.loops.body_nodes
 
-    def __call__(self, args):
+    def __call__(self, args, fresh: bool = True):
+        """Replay on `args`: clones of the static outputs, or with `fresh`
+        False the static outputs themselves, which the next replay
+        overwrites."""
         for buf, x in zip(self.inputs, args, strict=True):
             buf.copy_(x)
         self.graph.replay()
         add_counts(self.launches)
         self.loops.fold()
         return tree_unflatten(
-            [t.clone() if isinstance(t, torch.Tensor) else t
+            [t.clone() if fresh and isinstance(t, torch.Tensor) else t
              for t in self.outputs], self.spec)
 
 
 class Programs:
     """A model's compiled programs, one per key, in one memory pool.
 
-    `programs(key, fn, args, warm, keep)` returns `fn(*args)`: on the
-    card by replaying the graph captured for (key, `route_key()`, the
+    `programs(key, fn, args, warm, keep, fresh)` returns `fn(*args)`: on
+    the card by replaying the graph captured for (key, `route_key()`, the
     args' shapes, dtypes and devices), captured at the first such call;
     on the CPU by calling `fn`.  `args` are tensors; `warm`, called like
     `fn`, warms up before the capture (default `fn`); `keep` are the
-    objects the graph reads besides `args`.  `last` is the Program the
-    last call replayed, None where it called `fn` directly."""
+    objects the graph reads besides `args`; `fresh` False returns a
+    replay's static outputs, not clones (`Program.__call__`).  `last` is
+    the Program the last call replayed, None where it called `fn`
+    directly."""
 
     def __init__(self):
         self._programs: dict = {}
@@ -547,7 +557,7 @@ class Programs:
     def __len__(self) -> int:
         return len(self._programs)
 
-    def __call__(self, key, fn, args, warm=None, keep=()):
+    def __call__(self, key, fn, args, warm=None, keep=(), fresh=True):
         device = args[0].device
         if not CAPTURE.on_card(device):
             self.last = None
@@ -560,7 +570,7 @@ class Programs:
             program = self._capture(fn, args, warm or fn, keep, device)
             self._programs[full] = program
         self.last = program
-        return program(args)
+        return program(args, fresh)
 
     def _capture(self, fn, args, warm, keep, device) -> Program:
         if self._pool is None:

@@ -1,8 +1,8 @@
 """chip_smoke.py on the CPU, where no phase can run: which phases each
 mode selects (`main`, with every phase replaced by a recorder), the
-process tree `_cli` kills at its deadline, and phase 19 (e)'s captured
-scaling sweep (`_captured_scaling`) against `cli scaling`'s own records,
-its spawned ranks gloo ranks on the CPU."""
+process tree `_cli` kills at its deadline, and what `cli scaling`'s
+sweeps must say of each point (phases 14 (d) and 16 (d)): a replay over
+NCCL, eager over gloo."""
 
 import json
 import os
@@ -19,7 +19,6 @@ if str(ROOT) not in sys.path:
 
 import chip_smoke  # noqa: E402
 
-from hpcclassmultigridproject_tpu_torch.cli import main as t_main  # noqa: E402
 
 ONE_CARD = ["phase_device", "phase_build", "phase_kernels", "phase_main_path",
             "phase_golden", "phase_galerkin", "phase_poisson",
@@ -143,43 +142,69 @@ def test_descendants_are_the_process_tree():
     assert chip_smoke._descendants(proc.pid) == []
 
 
-@pytest.mark.parametrize("mode,cards", [("strong", 2), ("weak", 4)])
-def test_captured_scaling_matches_the_cli(monkeypatch, capsys, mode, cards):
-    """Phase 19 (e)'s sweep (`_captured_scaling`: the CLI's own
-    `scaling_records`, each multi-rank point's ranks spawned with the
-    switch on, here over gloo on the CPU, where the points stay eager)
-    against `cli scaling` on the same arguments: the same records, key
-    for key, but the seconds and the ratios made of them."""
-    from hpcclassmultigridproject_tpu_torch import parallel
+class _Model:
+    """A stand-in for the single-device runs `_phase_grid_scaling` holds
+    each point's center to."""
 
-    real = parallel.launch_local
-    spawns = []
+    def __init__(self, *args, **kwargs):
+        pass
 
-    def gloo(fn, world, args, backend, device, deadline):
-        spawns.append((fn.__name__, world, backend, device, deadline))
-        return real(fn, world, args, backend="gloo", device=None,
-                    deadline=deadline)
+    def run(self, warn=True):
+        return None, None
 
-    monkeypatch.setattr(parallel, "launch_local", gloo)
-    argv = ["--mode", mode, "--n", "32", "--steps", "2", "--dtype", "f64",
-            "--reps", "1", "--max-devices", str(cards), "--layout", "rows",
-            "--device", "cpu"]
-    counts = [1, 2] if mode == "strong" else [1, 4]
-    got = chip_smoke._captured_scaling(argv, counts)
-    monkeypatch.undo()  # the CLI spawns through the real launch_local
-    capsys.readouterr()
-    assert spawns == [("_captured_scaling_point", cards, "nccl", "cuda",
-                       chip_smoke.DEADLINE_S["point"])]
-    assert t_main(["scaling", *argv]) == 0
-    want = [json.loads(line) for line in capsys.readouterr().out.splitlines()
-            if line.startswith("{")]
-    assert [r["devices"] for r in got] == [r["devices"] for r in want]
-    for g, w in zip(got, want):
-        assert list(g) == list(w)
-        for key in ("devices", "n", "mesh", "layout", "compiled",
-                    "capture_seconds"):
-            assert g[key] == w[key], key
-        assert g["center_uT"] == pytest.approx(w["center_uT"], rel=0,
-                                               abs=1e-12)
-        ratio = "speedup" if mode == "strong" else "efficiency"
-        assert (g[ratio] is None) == (w[ratio] is None)
+    def center_value(self, uT):
+        return 0.5
+
+
+def _scaling_lines(argv, multi_compiled: bool) -> list:
+    """The records `cli scaling` prints for `argv` (a point of one rank
+    a replay, a multi-rank point one iff `multi_compiled`)."""
+    flags = dict(zip(argv[::2], argv[1::2]))
+    mode, layout, n = flags["--mode"], flags["--layout"], int(flags["--n"])
+    points = ([(1, n), (2, n), (4, n)] if mode == "strong"
+              else [(1, n), (4, 2 * n)])
+    meshes = {1: {"x": 1, "y": 1}, 2: {"x": 1, "y": 2}, 4: {"x": 2, "y": 2}}
+    lines = []
+    for c, size in points:
+        compiled = c == 1 or multi_compiled
+        rec = {"devices": c, "n": size, "mesh": meshes[c], "layout": layout,
+               "seconds": 1.0 / c, "center_uT": 0.5, "efficiency": 1.0}
+        if mode == "strong":
+            rec["speedup"] = float(c)
+        rec.update(compiled=compiled,
+                   capture_seconds=0.25 if compiled else None)
+        lines.append(rec)
+    return lines
+
+
+@pytest.mark.parametrize("cards,multi_compiled,ok", [
+    (4, True, True), (1, False, True), (4, False, False)],
+    ids=["nccl-replays", "gloo-eager", "nccl-eager-fails"])
+def test_scaling_check_expects_replays_over_nccl(monkeypatch, capsys, cards,
+                                                  multi_compiled, ok):
+    """Phase 16 (d) and 14 (d) run `cli scaling` in a subprocess, as users
+    run it: a point of NCCL ranks (a card each, four cards) must be a
+    replay of its captured program, since the CLI's ranks take the
+    default; a point of gloo ranks sharing one card must be eager, and a
+    point of one rank a replay.  An eager NCCL point fails the phase."""
+    from hpcclassmultigridproject_tpu_torch import models
+
+    calls = []
+
+    def cli(*argv, timeout):
+        calls.append(argv)
+        return _scaling_lines(list(argv[1:]), multi_compiled)
+
+    monkeypatch.setattr(chip_smoke, "_cli", cli)
+    monkeypatch.setattr(models, "AdvectionDiffusion", _Model)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    run = lambda: chip_smoke._phase_grid_scaling(
+        "H100, 700.00 W", strong_n=64, weak_n=32, weak_layouts=("rows", "2d"),
+        cycles=None, label="[multi-gpu] (d)")
+    if ok:
+        run()
+        assert len(calls) == 4 and all(c[0] == "scaling" for c in calls)
+        assert "compiled True" in capsys.readouterr().out
+    else:
+        with pytest.raises(RuntimeError, match="2 ranks compiled False"):
+            run()

@@ -379,12 +379,41 @@ def test_backend_between_calls_is_its_own_program(stand_in):
     assert stand_in.captures == 2
 
 
+def test_static_outputs_only_when_asked(stand_in):
+    """A replay returns clones of the graph's static outputs, which a
+    later replay leaves alone; with `fresh=False` the static outputs
+    themselves, which the next replay overwrites (a partitioned run's
+    gather copies uT straight out of them)."""
+    programs = graphs.Programs()
+
+    def fn(x):
+        return 2.0 * x, {"sum": x.sum()}
+
+    def call(value, **kw):
+        return programs("static", fn, (torch.full((3,), value),), **kw)
+
+    first = call(1.0)
+    static = call(2.0, fresh=False)
+    assert stand_in.captures == 1
+    assert static[0] is programs.last.outputs[0]
+    assert static[1]["sum"] is programs.last.outputs[1]
+    assert torch.equal(static[0], torch.full((3,), 4.0))
+    again = call(3.0, fresh=False)
+    assert again[0] is static[0]
+    assert torch.equal(static[0], torch.full((3,), 6.0))
+    assert float(static[1]["sum"]) == 9.0
+    assert torch.equal(first[0], torch.full((3,), 2.0))
+    assert float(first[1]["sum"]) == 3.0
+    fresh = call(4.0)
+    assert fresh[0] is not programs.last.outputs[0]
+
+
 def test_eager_reasons_on_the_card(stand_in):
     """On the card only a partitioned model runs eagerly: under gloo its
-    collectives stage through the host, and under NCCL the captured form
-    is off until `CAPTURE_NCCL` is set; the adaptive solves, the GS
-    coarse solve, Poisson's "gs", and a model partitioned under NCCL with
-    the switch on are compiled."""
+    collectives stage through the host, and under NCCL only with
+    `CAPTURE_NCCL` set off; the adaptive solves, the GS coarse solve,
+    Poisson's "gs", and a model partitioned under NCCL at the switch's
+    default (on) are compiled."""
     from hpcclassmultigridproject_tpu_torch.parallel import Mesh, distributed
 
     assert _model(_DELTA).eager_reason() is None
@@ -408,9 +437,10 @@ def test_eager_reasons_on_the_card(stand_in):
         mp.setattr(Mesh, "backend", property(lambda self: "gloo"))
         assert "partitioned over 2 ranks under gloo" in parted.eager_reason()
         mp.setattr(Mesh, "backend", property(lambda self: "nccl"))
-        assert "partitioned over 2 ranks" in parted.eager_reason()
-        mp.setattr(distributed, "CAPTURE_NCCL", True)
+        assert distributed.CAPTURE_NCCL
         assert parted.eager_reason() is None
+        mp.setattr(distributed, "CAPTURE_NCCL", False)
+        assert "partitioned over 2 ranks" in parted.eager_reason()
 
 
 def test_checkpointed_run_replays_the_chunk_program(stand_in, tmp_path):

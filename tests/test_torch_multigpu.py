@@ -31,6 +31,7 @@ group and no card.
     is staged through host memory.
 """
 
+import atexit
 import concurrent.futures
 import multiprocessing
 import pathlib
@@ -157,6 +158,30 @@ def _fail_on_rank_one():
     time.sleep(600)
 
 
+def _fail_and_wait_at_exit():
+    """Rank 1 raises, and its exit then waits (as NCCL's teardown did for
+    ranks that ran out of memory on four cards); rank 0 waits on it."""
+    if dist.get_rank() == 1:
+        atexit.register(time.sleep, 600)
+        raise ValueError("rank 1 fails")
+    time.sleep(600)
+
+
+def test_launch_local_ends_a_failed_rank_whose_exit_waits(capfd):
+    """The failed rank prints its exception with its rank at once, and is
+    ended EXIT_GRACE_S after it raised: the spawn raises its error long
+    before the deadline, the other rank killed."""
+    import torch.multiprocessing as mp
+
+    t0 = time.monotonic()
+    with pytest.raises(mp.ProcessRaisedException, match="rank 1 fails"):
+        distributed.launch_local(_fail_and_wait_at_exit, 2, (), deadline=300)
+    assert time.monotonic() - t0 < 120
+    assert not multiprocessing.active_children()
+    err = capfd.readouterr().err
+    assert "rank 1 of 2 raised" in err and "rank 1 fails" in err
+
+
 def test_launch_local_deadline_returns_rank_zeros_result():
     assert distributed.launch_local(_world_sum, 2, (3,), deadline=120) == 7
     assert not multiprocessing.active_children()
@@ -165,7 +190,8 @@ def test_launch_local_deadline_returns_rank_zeros_result():
 def test_launch_local_deadline_kills_the_ranks_and_names_the_case():
     t0 = time.monotonic()
     with pytest.raises(TimeoutError, match="_hang: 2 ranks still running "
-                       "20 s after the spawn, killed; last noted: case hung"):
+                       "20 s after the spawn, killed; last noted: case hung "
+                       r"\(rank 0\); case hung \(rank 1\)"):
         distributed.launch_local(_hang, 2, ("hung",), deadline=20)
     assert time.monotonic() - t0 < 90
     assert not multiprocessing.active_children()

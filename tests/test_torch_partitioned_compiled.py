@@ -2,9 +2,9 @@
 (`parallel.distributed_run` and the born-partitioned model's `run`,
 `step` and `run_chunk` through utils/graphs.py), on the CPU.
 
-On the card under NCCL, with `parallel.distributed.CAPTURE_NCCL` on (it
-is off by default), every rank captures its partitioned call once as a
-CUDA graph, halo exchanges and norms included, and replays it.  Here the
+On the card under NCCL, with `parallel.distributed.CAPTURE_NCCL` on (the
+default), every rank captures its partitioned call once as a CUDA graph,
+halo exchanges and norms included, and replays it.  Here the
 ranks are spawned processes over gloo on CPU tensors (not staged through
 the host, so capturable), each with one torch thread; in every rank the
 stand-in of tests/capture_stand_in.py takes the place of torch's CUDA
@@ -33,10 +33,10 @@ at that file's bars: 1e-12 in float64, 1e-8 for the delta path
 (9.313e-9 measured there), with equal cycle counts.
 
 Each entry point (a whole model's `distributed_run`, a born model's
-`run`, `step` and `run_chunk`) is captured once with the switch on, and
-its replay equals its eager run to the bit with equal LAUNCHES and
-COLLECTIVES on every rank, an adaptive solve's too; at the module's
-default (off, as every spawned rank finds it) each of them is eager
+`run`, `step` and `run_chunk`) is captured once at the module's default
+(on, as every spawned rank finds it), and its replay equals its eager
+run to the bit with equal LAUNCHES and COLLECTIVES on every rank, an
+adaptive solve's too; with the switch set off each of them is eager
 with the switch's reason.
 
 The unit tests: a program's key differs by mesh, layout and min_local;
@@ -263,7 +263,51 @@ def _unwaited(mesh) -> str:
     return "no error"
 
 
-# the entry points run with the switch on and at its default
+def _gathers_from_static(mesh) -> dict:
+    """As a rank on its card under NCCL runs them (`_as_on_card`): a born
+    model's `run` from its u0 and then from 2·u0, and a whole model's
+    `distributed_run`.  Whether each gather received the program's own
+    static output (no clone of the block, `fresh=False`); whether the
+    first run's results outlived the second replay (the gather and the
+    stats' clones are tensors of their own); the second run against the
+    same call made eagerly, to the bit; rank 0's distributed_run uT for
+    the JAX package's."""
+    from hpcclassmultigridproject_tpu_torch import parallel
+
+    received = []
+
+    def spy(real):
+        def call(uT, stats, part):
+            received.append(uT)
+            return real(uT, stats, part)
+        return call
+
+    born = _model("delta_32", mesh, "rows", 8)
+    whole = _model("delta_32")
+    u_b = 2.0 * born.u0
+    eager_b = born.run(u_b, warn=False)
+    with pytest.MonkeyPatch.context() as mp, _as_on_card(StandIn()):
+        mp.setattr(parallel, "fetch_outputs", spy(parallel.fetch_outputs))
+        mp.setattr(advection_diffusion, "fetch_outputs",
+                   spy(advection_diffusion.fetch_outputs))
+        first = born.run(warn=False)
+        kept = (first[0].clone(), {k: v.clone() for k, v in
+                                   first[1].items()})
+        static = born.programs.last.outputs
+        second = born.run(u_b, warn=False)
+        dist_out = distributed_run(whole, min_local=8, layout="rows")
+        whole_static = whole.programs.last.outputs
+    return {"received_static": [received[0] is static[0],
+                                received[1] is static[0],
+                                received[2] is whole_static[0]],
+            "compiled": born.last_run_compiled and whole.last_run_compiled,
+            "first_kept": _equal(first, kept),
+            "second_differs": not torch.equal(first[0], second[0]),
+            "second_is_eager": _equal(second, eager_b),
+            "uT": dist_out[0].numpy()}
+
+
+# the entry points run at the switch's default and with it off
 ENTRY_POINTS = ("distributed_run", "run", "step", "run_chunk", "adaptive")
 
 
@@ -285,11 +329,12 @@ def _entry_points(mesh) -> dict:
     }
 
 
-def _on_and_default(mesh) -> dict:
+def _default_and_off(mesh) -> dict:
     """Each entry point eagerly, then as a rank on its card under NCCL
-    runs it (`_as_on_card`), first with `CAPTURE_NCCL` on, then at the
-    module's default: {"default": the switch as this rank found it, name:
-    every rank's {"on": checks, "default": checks}}."""
+    runs it (`_as_on_card`), first at the module's default of
+    `CAPTURE_NCCL` (on), then with it off: {"default": the switch as
+    this rank found it, name: every rank's {"on": checks, "off":
+    checks}}."""
     out = {"default": distributed.CAPTURE_NCCL}
 
     def checks(model, call, switch):
@@ -300,8 +345,8 @@ def _on_and_default(mesh) -> dict:
                 "reason": model.last_run_reason, "captures": fake.captures}
 
     for name, (model, call) in _entry_points(mesh).items():
-        out[name] = _all_ranks({"on": checks(model, call, True),
-                                "default": checks(model, call, None)})
+        out[name] = _all_ranks({"on": checks(model, call, None),
+                                "off": checks(model, call, False)})
     return out
 
 
@@ -315,7 +360,8 @@ def rank_cases(cases, units: bool) -> dict:
     if units:
         out["keys"] = _keys(mesh)
         out["unwaited"] = _unwaited(mesh)
-        out["switch"] = _on_and_default(mesh)
+        out["switch"] = _default_and_off(mesh)
+        out["gathers"] = _all_ranks(_gathers_from_static(mesh))
     assert not graphs.POSTED
     return out
 
@@ -379,10 +425,10 @@ def test_unwaited_exchange_in_a_capture_raises(spawned):
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
 def test_switch_on_captures_under_nccl(spawned, entry):
-    """With `CAPTURE_NCCL` on, a rank on its card under NCCL captures the
-    call once and its replay equals the eager run to the bit with equal
-    LAUNCHES and COLLECTIVES, an adaptive solve too (its WHILE bodies'
-    collectives on the peer transport)."""
+    """With `CAPTURE_NCCL` on (the default), a rank on its card under
+    NCCL captures the call once and its replay equals the eager run to
+    the bit with equal LAUNCHES and COLLECTIVES, an adaptive solve too
+    (its WHILE bodies' collectives on the peer transport)."""
     assert len(spawned[2]["switch"][entry]) == 2
     for rank, c in enumerate(spawned[2]["switch"][entry]):
         on = c["on"]
@@ -393,16 +439,45 @@ def test_switch_on_captures_under_nccl(spawned, entry):
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
-def test_default_runs_eagerly(spawned, entry):
-    """At the module's default (off, as every spawned rank finds it) the
-    same calls are eager on every rank with the switch's reason, and
-    equal to their eager runs."""
-    assert spawned[2]["switch"]["default"] is False
+def test_default_is_captured(spawned, entry):
+    """The module's default, as every spawned rank finds it, is on: the
+    calls above ran at it, each captured once on every rank."""
+    assert spawned[2]["switch"]["default"] is True
     for rank, c in enumerate(spawned[2]["switch"][entry]):
-        got = c["default"]
+        got = c["on"]
+        assert got["compiled"] and got["reason"] is None, f"rank {rank}"
+        assert got["captures"] == 1, f"rank {rank}"
+
+
+@pytest.mark.parametrize("entry", ENTRY_POINTS)
+def test_switch_off_runs_eagerly(spawned, entry):
+    """With `CAPTURE_NCCL` set off the same calls are eager on every rank
+    with the switch's reason, and equal to their eager runs."""
+    for rank, c in enumerate(spawned[2]["switch"][entry]):
+        got = c["off"]
         assert not got["compiled"] and got["captures"] == 0
         assert "CAPTURE_NCCL" in got["reason"], got["reason"]
         assert got["bits"] and got["counts"], f"rank {rank}"
+
+
+def test_gather_copies_the_programs_static_output(spawned):
+    """A partitioned program's uT is gathered straight out of its static
+    output, with no clone of the block beside the whole field (what
+    n=32768 on four cards lacked), and what the call returns is its own:
+    the first run's uT and stats outlive the next replay, the second run
+    from another input equals its eager run to the bit on every rank,
+    and distributed_run meets the JAX package's."""
+    ranks = spawned[2]["gathers"]
+    assert len(ranks) == 2
+    for rank, got in enumerate(ranks):
+        assert got["compiled"], f"rank {rank}"
+        assert all(got["received_static"]), (rank, got["received_static"])
+        assert got["first_kept"] and got["second_differs"], f"rank {rank}"
+        assert got["second_is_eager"], f"rank {rank}"
+    assert np.array_equal(ranks[0]["uT"], ranks[1]["uT"])
+    juT, _ = _jax_dist("delta_32", 2, 8)
+    np.testing.assert_allclose(ranks[0]["uT"], juT, rtol=0,
+                               atol=BOUNDS["delta_32"])
 
 
 def test_host_staged_collective_in_a_capture_raises():
@@ -426,14 +501,14 @@ def test_host_staged_collective_in_a_capture_raises():
 
 def test_capture_and_eager_reasons():
     """The CPU: the CPU's reason.  On the card: one rank, None; gloo with
-    CUDA tensors, the staging reason; NCCL with CAPTURE_NCCL off (the
-    default), the switch's reason for every model; with it on, None for
-    every model, fixed-cycle, FMG and adaptive alike (the rule reads no
-    solver)."""
+    CUDA tensors, the staging reason; NCCL with CAPTURE_NCCL on (the
+    default), None for every model, fixed-cycle, FMG and adaptive alike
+    (the rule reads no solver); with it off, the switch's reason for
+    every model."""
     parted = _model("delta_32", Mesh(2, 0), "rows", 8)
     models = [parted, _model("adaptive_f64_32", Mesh(2, 0), "rows", 8),
               _model("fmg_32", Mesh(2, 0), "rows", 8)]
-    assert not distributed.CAPTURE_NCCL
+    assert distributed.CAPTURE_NCCL
     assert parted.eager_reason() == CPU_REASON
     assert capture_reason(Mesh(2, 0), "cpu") == CPU_REASON
     with pytest.MonkeyPatch.context() as mp:
@@ -446,13 +521,14 @@ def test_capture_and_eager_reasons():
             assert ("stage CUDA tensors through the host"
                     in model.eager_reason())
         mp.setattr(Mesh, "backend", property(lambda self: "nccl"))
+        for world in (2, 4):
+            assert capture_reason(Mesh(world, 0), "cuda") is None
+        for model in models:
+            assert model.eager_reason() is None
+        mp.setattr(distributed, "CAPTURE_NCCL", False)
         assert "CAPTURE_NCCL" in capture_reason(Mesh(2, 0), "cuda")
         for model in models:
             assert "CAPTURE_NCCL" in model.eager_reason()
-        mp.setattr(distributed, "CAPTURE_NCCL", True)
-        assert capture_reason(Mesh(2, 0), "cuda") is None
-        for model in models:
-            assert model.eager_reason() is None
         assert capture_reason(Mesh(1), "cuda") is None
 
 
