@@ -198,14 +198,19 @@ raising on failure:
     MiB.  It frees its models and graphs and empties the cache at the end.
 18. compiled loops (after 17, before 16): `utils.graphs.while_loop`, the
     counterpart of `lax.while_loop`, captured as CUDA conditional WHILE
-    nodes whose predicate mg_while_set (csrc/loop.cu) sets on the card.
+    nodes whose test, the cond's `LoopTest`, mg_while_set (csrc/loop.cu)
+    evaluates and sets on the card in one launch.
     (a) probes, each captured and replayed twice against its host form
     (outputs to the bit, launch counts equal, while_set equal to the host
     form's tests): a counter body with a device-set trip count of 0, 1
     and 37, a nested while, a cuBLAS 961x961 matvec in a body, the K3/K4
     pair (two cooperative launches) in a body, and a body's temporaries in
-    the programs' pool; mg_while_set's time a launch in a graph against
-    its plain version (the host's read); (b) at n=1024 from two inputs
+    the programs' pool; mg_while_set's time a test, a launch in a graph,
+    beside the parent design's test timed the same way (the torch
+    predicate's four launches and a kernel that read its bool), an empty
+    kernel's node (the latency floor; both yardsticks built from
+    YARDSTICK_SOURCE) and its plain version (the host's read); (b) at
+    n=1024 from two inputs
     each, replays against their host loops (`timestepper`, `mg_solve`,
     Poisson's `_gs` called directly), uT and every stats tensor to the
     bit, launch counts equal: SolverConfig(tol=1e-5) (adaptive, the GS
@@ -257,16 +262,18 @@ raising on failure:
 20. peer transport (the one-card part after 18; the rest on four cards,
     after 19): the collectives of a partitioned run's WHILE bodies on
     hand-written kernels (csrc/peer.cu: `mg_peer_exchange`,
-    `mg_peer_gather`) that store into the other ranks' mailboxes.  On one
-    card (`phase_peer`): two ranks as two streams of this process, with
-    local mailboxes, make every exchange and gather of main's rows
-    layout at n=1024 over two ranks (SolverConfig(dtype=float64)), each
-    against the blocks it comes from and bit for bit against the plain
-    versions (thread ranks, CPU mailboxes), launches counted over that
-    drive; then each kernel's ms a call at level 0's deep halo and one
-    float64 value, beside the plain version's and the bytes over
-    NVLink's 450 GB/s (no library time on one card: NCCL takes one card
-    a rank).  On four cards (`phase_peer_multi`, captured at the
+    `mg_peer_gather`, `mg_peer_reduce`) that store into the other ranks'
+    mailboxes.  On one card (`phase_peer`): two ranks as two streams of
+    this process, with local mailboxes, make every exchange and gather of
+    main's rows layout at n=1024 over two ranks (SolverConfig(dtype=
+    float64)), and the reduce (sum, max, and a max with a NaN) of one
+    float32 and one float64 value, each against the blocks or values it
+    comes from and bit for bit against the plain versions (thread ranks,
+    CPU mailboxes), launches counted over that drive; then each kernel's
+    ms a call at level 0's deep halo, one float64 value's gather and
+    sum, beside the plain version's, the bytes over NVLink's 450 GB/s,
+    and the parent's psum (the gather, then the adds) (no library time on
+    one card: NCCL takes one card a rank).  On four cards (`phase_peer_multi`, captured at the
     default of `parallel.distributed.CAPTURE_NCCL`): (a) the
     cards' cudaDeviceCanAccessPeer matrix, then probes, each a
     `while_loop` captured once (the peer transport set up first,
@@ -286,7 +293,9 @@ raising on failure:
     eager one and one card's, capture seconds, top and body nodes, peak
     MiB a rank with the pool held, and the µs a call of the peer kernels
     and of NCCL's at the path's shapes, each in a graph of PEER_CALLS
-    calls.
+    calls: the halo; the psum of one float64 by the reduce against NCCL's
+    all_gather and adds, NCCL's all_reduce and the parent's peer gather
+    and adds; the gather; an empty kernel's node.
 
 Phase 9 also builds the main path's model born row-partitioned over its
 W=4 ranks (AdvectionDiffusion(mesh=...), min_local=64; phase 13's (c)):
@@ -367,11 +376,15 @@ KERNELS = [  # (counter, name, source, the TPU kernel's pallas_call)
     # mg/cycle.py:317, mg/refine.py:117, models/poisson.py:148)
     ("while_set", "L while node test", f"{PKG}/csrc/loop.cu",
      "hpcclassmultigridproject_tpu/mg/cycle.py:457"),
-    # no pallas_call: the ppermute and psum XLA places inside the jitted
-    # loop of the adaptive distributed run
+    # no pallas_call: the ppermute, the all-gather of a replicated level
+    # and the psum XLA places inside the jitted loop of the adaptive
+    # distributed run
     ("peer_exchange", "X peer halo exchange", f"{PKG}/csrc/peer.cu",
      "hpcclassmultigridproject_tpu/parallel/halo.py:31"),
     ("peer_gather", "G peer gather", f"{PKG}/csrc/peer.cu",
+     "hpcclassmultigridproject_tpu/mg/cycle.py:334"),
+    # the psum of a body, each rank's value a flagged 16-byte line
+    ("peer_reduce", "G' peer reduce (flagged lines)", f"{PKG}/csrc/peer.cu",
      "hpcclassmultigridproject_tpu/parallel/halo.py:210")]
 MAIN_N, MAIN_STEPS = 1024, 100
 CENTER_1024 = 4.60419316843316e-5  # delta form at n=1024 (BENCH_r05.json)
@@ -2239,7 +2252,7 @@ def _replayed(model, call, want, want_counts) -> dict:
         body_nodes=None if program is None else program.body_nodes))
 
 
-PEER_KEYS = ("peer_exchange", "peer_gather")
+PEER_KEYS = ("peer_exchange", "peer_gather", "peer_reduce")
 
 
 def _no_peer(counts: dict) -> dict:
@@ -2258,7 +2271,8 @@ def _peer_routed(program) -> bool:
     top = not any(program.launches.get(k, 0) for k in PEER_KEYS)
     return top and all(
         made.get("peer_exchange", 0) == made.get("batch_isend_irecv", 0)
-        and made.get("peer_gather", 0) == made.get("all_gather", 0)
+        and made.get("peer_gather", 0) + made.get("peer_reduce", 0)
+        == made.get("all_gather", 0)
         for made in program.loops.counts)
 
 
@@ -4285,20 +4299,22 @@ def _loop_probes(device, smi) -> float:
 
     def counter(x, trips):
         return graphs.while_loop(
-            lambda c: c[1] < trips, lambda c: (c[0] * 1.5 + 1.0, c[1] + 1),
+            lambda c: graphs.LoopTest(c[1], trips),
+            lambda c: (c[0] * 1.5 + 1.0, c[1] + 1),
             (x, _zero_count(x.device)))
 
     def nested(x, table):
         def outer(c):
             x, it = c
             bound = torch.index_select(table, 0, it.view(1))[0]
-            x, _ = graphs.while_loop(lambda d: d[1] < bound,
+            x, _ = graphs.while_loop(lambda d: graphs.LoopTest(d[1], bound),
                                      lambda d: (d[0] + 1.0, d[1] + 1),
                                      (x, torch.zeros_like(it)))
             return x * 2.0, it + 1
 
-        return graphs.while_loop(lambda c: c[1] < table.numel() - 1, outer,
-                                 (x, _zero_count(x.device)))
+        return graphs.while_loop(
+            lambda c: graphs.LoopTest(c[1], table.numel() - 1), outer,
+            (x, _zero_count(x.device)))
 
     gen = torch.Generator(device=device).manual_seed(18)
     x = torch.rand(4096, device=device, generator=gen)
@@ -4317,7 +4333,7 @@ def _loop_probes(device, smi) -> float:
             w = a @ c[0]
             return w / w.norm(), c[1] + 1
 
-        return graphs.while_loop(lambda c: c[1] < 25, body,
+        return graphs.while_loop(lambda c: graphs.LoopTest(c[1], 25), body,
                                  (v, _zero_count(v.device)))
 
     err = max(err, _loop_against_host("cuBLAS 961x961 matvec, 25 trips",
@@ -4332,7 +4348,7 @@ def _loop_probes(device, smi) -> float:
 
     def tower(r):
         return graphs.while_loop(
-            lambda c: c[1] < 2,
+            lambda c: graphs.LoopTest(c[1], 2),
             lambda c: (tower_vcycle(model.levels, 1, c[0], model.solver),
                        c[1] + 1), (r, _zero_count(r.device)))
 
@@ -4346,7 +4362,7 @@ def _loop_probes(device, smi) -> float:
             ptrs.append(t.data_ptr())
             return t - 1.0, c[1] + 1
 
-        return graphs.while_loop(lambda c: c[1] < 3, body,
+        return graphs.while_loop(lambda c: graphs.LoopTest(c[1], 3), body,
                                  (x, _zero_count(x.device)))
 
     programs = graphs.Programs()
@@ -4363,28 +4379,86 @@ def _loop_probes(device, smi) -> float:
     return err
 
 
-def _while_set_times(device) -> tuple[float, float]:
-    """mg_while_set's time on the card, ms a launch: WHILE_SET_REPS
-    launches and a node of zero trips in one graph, by CUDA events around
-    its replay, over the launches; and its plain version's, the host
-    form's read of the predicate (`bool`), by the host clock."""
+# Phase 18's yardsticks, built with the port's flags beside its library (no
+# path of the port launches them): the parent design's test kernel, which
+# read the bool a loop's torch predicate had made, and an empty kernel (a
+# graph node's latency floor).
+YARDSTICK_SOURCE = r"""
+#include <cuda_runtime.h>
+__global__ void flag_set_kernel(cudaGraphConditionalHandle handle,
+                                const bool* pred, int* trips) {
+  const bool go = *pred;
+  cudaGraphSetConditional(handle, go ? 1u : 0u);
+  if (go) *trips += 1;
+}
+__global__ void empty_kernel() {}
+extern "C" int mg_flag_set(unsigned long long handle, const void* pred,
+                           void* trips, void* stream) {
+  flag_set_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      handle, static_cast<const bool*>(pred), static_cast<int*>(trips));
+  return static_cast<int>(cudaGetLastError());
+}
+extern "C" int mg_empty(void* stream) {
+  empty_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+_YARDSTICKS: list = []
+
+
+def _yardsticks():
+    """The yardstick library (YARDSTICK_SOURCE), built by nvcc with the
+    port's flags into the package's build directory at the first call."""
+    import ctypes
+
+    from hpcclassmultigridproject_tpu_torch.ops.cuda import _build
+
+    if not _YARDSTICKS:
+        flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+        digest = hashlib.sha256(" ".join(flags).encode()
+                                + YARDSTICK_SOURCE.encode()).hexdigest()
+        out = _build.BUILD_DIR / "yardstick"
+        out.mkdir(parents=True, exist_ok=True)
+        lib = out / f"libyardstick-{digest[:16]}.so"
+        if not lib.is_file():  # ranks may build at once: each its own
+            src = out / f"yardstick-{os.getpid()}.cu"
+            tmp = out / f"{lib.name}.{os.getpid()}.tmp"
+            src.write_text(YARDSTICK_SOURCE)
+            subprocess.run([_build._nvcc(), *flags, "-o", str(tmp),
+                            str(src)], check=True, capture_output=True,
+                           text=True)
+            os.replace(tmp, lib)
+            src.unlink()
+        cdll = ctypes.CDLL(str(lib))
+        cdll.mg_flag_set.argtypes = [ctypes.c_ulonglong] + [
+            ctypes.c_void_p] * 3
+        cdll.mg_empty.argtypes = [ctypes.c_void_p]
+        _YARDSTICKS.append(cdll)
+    return _YARDSTICKS[0]
+
+
+def _graph_node_ms(device, launch, tail=None, reps=WHILE_SET_REPS) -> float:
+    """ms a call of `launch(handle, stream)` in a CUDA graph of `reps`
+    calls, by CUDA events around its replay (median of 3).  With `tail`
+    the graph holds a conditional handle and, after the calls, a WHILE
+    node of that handle whose body is `tail(handle, stream)` (a test that
+    is false: zero trips), and the time is over reps + 1 calls."""
     from hpcclassmultigridproject_tpu_torch.ops import cuda
     from hpcclassmultigridproject_tpu_torch.ops.cuda import loop
 
-    pred = torch.zeros((), dtype=torch.bool, device=device)
-    trips = torch.zeros((), dtype=torch.int32, device=device)
     body = torch.cuda.Stream(device)
     graph = torch.cuda.CUDAGraph()
     saved = dict(cuda.LAUNCHES)
     with torch.cuda.graph(graph):
         stream = torch.cuda.current_stream(device)
-        handle = loop.while_handle(stream)
-        for _ in range(WHILE_SET_REPS):
-            loop.while_set(handle, pred, trips)
-        loop.while_begin(stream, handle, body)
-        with torch.cuda.stream(body):
-            loop.while_set(handle, pred, trips)
-        loop.while_end(body)
+        handle = None if tail is None else loop.while_handle(stream)
+        for _ in range(reps):
+            launch(handle, stream)
+        if tail is not None:
+            loop.while_begin(stream, handle, body)
+            with torch.cuda.stream(body):
+                tail(handle, body)
+            loop.while_end(body)
     cuda.LAUNCHES.update(saved)
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
@@ -4396,13 +4470,51 @@ def _while_set_times(device) -> tuple[float, float]:
         graph.replay()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / (WHILE_SET_REPS + 1))
-    require(int(trips) == 0, "loops: mg_while_set counted a trip for false")
+        times.append(start.elapsed_time(end) / (reps + (tail is not None)))
+    return statistics.median(times)
+
+
+def _while_set_times(device) -> dict:
+    """The loop test's times on the card, ms a test: the fused test
+    (mg_while_set on SolverConfig(tol=1e-5)'s operands: an int32 counter,
+    float32 res and res0, tol 1e-5) a launch in a graph of WHILE_SET_REPS
+    launches; the parent design's test timed the same way, the loop's
+    torch predicate `(it < max) & (res / res0 > tol)` (four launches) and
+    the kernel that read its bool; an empty kernel a node in such a graph
+    (the latency floor of any test); and the plain version's, the host
+    form's read of the predicate (`bool`), by the host clock."""
+    from hpcclassmultigridproject_tpu_torch.ops.cuda import _build, loop
+    from hpcclassmultigridproject_tpu_torch.utils import graphs
+
+    lib = _yardsticks()
+    it = torch.zeros((), dtype=torch.int32, device=device)
+    trips = torch.zeros((), dtype=torch.int32, device=device)
+    res = torch.zeros((), dtype=torch.float32, device=device)
+    res0 = torch.ones((), dtype=torch.float32, device=device)
+    test = graphs.LoopTest(it, 50, res, res0, 1e-5)  # false: res is 0
+    fused = lambda h, st: loop.while_set(h, test, trips)
+    pred = loop.predicate(test)
+
+    def parent(h, st):
+        made = (it < 50) & (res / res0 > 1e-5)
+        _build.check(lib.mg_flag_set(h, made.data_ptr(), trips.data_ptr(),
+                                     st.cuda_stream), "mg_flag_set")
+
+    def parent_tail(h, st):
+        _build.check(lib.mg_flag_set(h, pred.data_ptr(), trips.data_ptr(),
+                                     st.cuda_stream), "mg_flag_set")
+
+    empty = lambda h, st: _build.check(lib.mg_empty(st.cuda_stream),
+                                       "mg_empty")
+    out = {"fused": _graph_node_ms(device, fused, fused),
+           "parent": _graph_node_ms(device, parent, parent_tail),
+           "empty": _graph_node_ms(device, empty)}
+    require(int(trips) == 0, "loops: a false test counted a trip")
     t0 = time.perf_counter()
     for _ in range(WHILE_SET_REPS):
-        bool(pred)
-    plain = (time.perf_counter() - t0) / WHILE_SET_REPS * 1e3
-    return statistics.median(times), plain
+        bool(loop.predicate(test))
+    out["plain"] = (time.perf_counter() - t0) / WHILE_SET_REPS * 1e3
+    return out
 
 
 def _compare_loop(tag, owner, compiled, eager, inputs, smi) -> dict:
@@ -4675,13 +4787,21 @@ def phase_loops(device, n, steps) -> tuple:
     t0 = time.perf_counter()
     smi = _smi()
     err = _loop_probes(device, smi)
-    ms, plain_ms = _while_set_times(device)
-    # one bool read, one int32 read and written
-    bound, bound_by = profiling.bound_ms(1.0 + 4.0 + 4.0, 1.0, 4)
-    print(f"[loops] mg_while_set ({smi}): {ms:.5f} ms a launch in a graph "
-          f"({WHILE_SET_REPS} launches), plain (the host form's read) "
-          f"{plain_ms:.5f} ms, bound {bound:.3g} ms ({bound_by}); largest "
-          f"|replay - host form| in (a) {err!r}")
+    times = _while_set_times(device)
+    ms, plain_ms = times["fused"], times["plain"]
+    # it, res and res0 read (float32), the trip count read and written;
+    # a division and two compares
+    bound, bound_by = profiling.bound_ms(4.0 + 4.0 + 4.0 + 4.0 + 4.0, 3.0,
+                                         4)
+    print(f"[loops] mg_while_set, the fused test ({smi}): {ms:.5f} ms a "
+          f"test, one launch in a graph of {WHILE_SET_REPS}; the parent's "
+          f"test (the torch predicate's four launches and the kernel that "
+          f"read its bool) {times['parent']:.5f} ms a test the same way; "
+          f"an empty kernel {times['empty']:.5f} ms a node (the latency "
+          f"floor); plain (the host form's read) {plain_ms:.5f} ms; bound "
+          f"{bound:.3g} ms ({bound_by}), so the latency floor "
+          f"{times['empty']:.5f} ms bounds it; largest |replay - host "
+          f"form| in (a) {err!r}")
     counts = _advection_loops(device, n, steps, smi)
     _poisson_loops(device, n, smi)
     _gsbench_captured(device, smi)
@@ -4796,7 +4916,7 @@ def phase_peer(device) -> dict:
         return outs
 
     cuda.reset_launches()
-    err = {"peer_exchange": 0.0, "peer_gather": 0.0}
+    err = {"peer_exchange": 0.0, "peer_gather": 0.0, "peer_reduce": 0.0}
     ran = []
 
     def drive() -> None:
@@ -4847,6 +4967,36 @@ def phase_peer(device) -> dict:
                 err["peer_gather"] = max(err["peer_gather"], float(
                     (outs[r].cpu() - pouts[r]).abs().max()))
             ran.append(f"gather {name} {tuple(shape)} {dt}")
+        for dt in (torch.float32, torch.float64):
+            for op in ("sum", "max"):
+                for nan in ((False, True) if op == "max" else (False,)):
+                    xs = [torch.randn((), generator=gen, dtype=dt) * 10.0 ** r
+                          for r in range(world)]
+                    if nan:
+                        xs[world - 1] = torch.tensor(float("nan"), dtype=dt)
+                    outs = [torch.empty((), dtype=dt, device=device)
+                            for _ in range(world)]
+                    on_streams([lambda r=r: peer.reduce(
+                        links[r], xs[r].to(device), outs[r], op)
+                        for r in range(world)])
+                    pouts = [torch.empty((), dtype=dt) for _ in range(world)]
+                    _peer_ranks(lambda r: peer.reduce(plain[r], xs[r],
+                                                      pouts[r], op), world)
+                    want = xs[0]
+                    for x in xs[1:]:
+                        want = want + x
+                    if op == "max":
+                        want = torch.stack(xs).max()
+                    for r in range(world):
+                        got = outs[r].cpu()
+                        same = lambda a, b: torch.equal(a, b) or bool(
+                            a.isnan() and b.isnan())
+                        require(same(pouts[r], want), f"peer: the plain "
+                                f"reduce {op} {dt} of rank {r}")
+                        err["peer_reduce"] = max(err["peer_reduce"], (
+                            0.0 if same(got, pouts[r]) else float("inf")))
+                    ran.append(f"reduce {op} of one {dt}"
+                               + (", a NaN" if nan else ""))
     try:
         drive()
     except RuntimeError as fault:
@@ -4881,8 +5031,11 @@ def phase_peer(device) -> dict:
          for _ in range(world)]
     parts = [torch.empty(world, dtype=torch.float64, device=device)
              for _ in range(world)]
+    sums = [torch.empty((), dtype=torch.float64, device=device)
+            for _ in range(world)]
     px = [t.cpu() for t in x]
     pparts = [p.cpu() for p in parts]
+    psums = [t.cpu() for t in sums]
     timed = {"peer_exchange": (
         [lambda r=r: peer.exchange(links[r], msgs[r]) for r in range(world)],
         lambda r: peer.exchange(plain[r], pmsgs[r]),
@@ -4892,10 +5045,20 @@ def phase_peer(device) -> dict:
         [lambda r=r: peer.gather(links[r], x[r], parts[r])
          for r in range(world)],
         lambda r: peer.gather(plain[r], px[r], pparts[r]),
-        (world - 1) * 8, "one float64 value")}
+        (world - 1) * x[0].element_size(), "one float64 value"),
+        "peer_reduce": (
+        [lambda r=r: peer.reduce(links[r], x[r], sums[r])
+         for r in range(world)],
+        lambda r: peer.reduce(plain[r], px[r], psums[r]),
+        (world - 1) * x[0].element_size(), "the sum of one float64 value")}
     rows = {}
     for key, (calls, plain_call, nbytes, what) in timed.items():
-        on_streams(calls)
+        try:
+            on_streams(calls)
+        except RuntimeError as fault:
+            raise RuntimeError(f"peer: {key}: {fault}; the ranks' error "
+                               f"records {[lk.fault() for lk in links]}"
+                               ) from fault
         here = torch.cuda.current_stream(device)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -4913,16 +5076,17 @@ def phase_peer(device) -> dict:
         end.record(streams[0])
         end.synchronize()
         ms = start.elapsed_time(end) / PEER_REPS
+        bound = nbytes / NVLINK_BYTES_S * 1e3
         t0 = time.perf_counter()
         for _ in range(PEER_REPS // 10):
             _peer_ranks(plain_call, world)
         plain_ms = (time.perf_counter() - t0) / (PEER_REPS // 10) * 1e3
-        bound = nbytes / NVLINK_BYTES_S * 1e3
         print(f"[peer] {key} at {what}: {ms:.5f} ms a call (every rank's "
               f"kernel issued at once, {PEER_REPS} calls; two ranks on one "
               f"card, so the stores stay in its memory), plain (thread "
               f"ranks on the host) {plain_ms:.5f} ms, bound {bound:.3g} ms "
-              f"({nbytes} bytes a rank sends over NVLink at 450 GB/s); "
+              f"({nbytes} bytes the function must send a rank, over "
+              f"NVLink at 450 GB/s); "
               f"library: none on one card (NCCL takes one card a rank; "
               f"phase 20 times NCCL's captured call on four cards); {smi}")
         rows[key] = (err[key], ms, plain_ms, bound, "bytes", None,
@@ -4958,7 +5122,7 @@ def _looped(step):
 
     def fn(x, trips):
         def cond(carry):
-            return carry[2] < trips
+            return graphs.LoopTest(carry[2], trips)
 
         def body(carry):
             x, acc, i = carry
@@ -5065,7 +5229,8 @@ def _peer_probe_rank() -> dict:
                                            == _no_peer(eager))
                 rec["routed"].append(
                     counts["peer_exchange"] == eager["batch_isend_irecv"]
-                    and counts["peer_gather"] == eager["all_gather"])
+                    and counts["peer_gather"] + counts["peer_reduce"]
+                    == eager["all_gather"])
                 # the first call's warm-up and capture moved them too
                 rec["epochs"].append((trips, moved))
                 rec["counts"].append({k: v for k, v in counts.items() if v})
@@ -5146,9 +5311,15 @@ def _graph_call_us(fn, args, calls: int = PEER_CALLS) -> float:
 def _peer_call_costs(model, mesh, layout: str) -> dict:
     """Phase 20 (c): µs a call of the path's collectives in a graph, on
     the peer transport (the model's links) and on NCCL: level 0's deep
-    halo of (u, rhs) (rows) or four-edge exchange (2-D), and the norm's
-    gather of one float64 value."""
-    from hpcclassmultigridproject_tpu_torch.ops.cuda import peer
+    halo of (u, rhs) (rows) or four-edge exchange (2-D); the psum of a
+    body, one float64 value: the reduce against NCCL's all_gather and the
+    rank-order adds (`all_sum` outside a body) and against NCCL's
+    all_reduce of the value, and the parent's peer form (the gather, then
+    the adds); the gather of one float64 against NCCL's; and an empty
+    kernel, a graph node's floor."""
+    import torch.distributed as dist
+
+    from hpcclassmultigridproject_tpu_torch.ops.cuda import _build, peer
     from hpcclassmultigridproject_tpu_torch.parallel import (
         distributed,
         halo,
@@ -5177,12 +5348,43 @@ def _peer_call_costs(model, mesh, layout: str) -> dict:
         own = lambda x: distributed._peer_exchange(
             links, [x], 1, [(0, up, down), (1, left, right)]).wait()[0][0]
     out = torch.empty(mesh.world, dtype=torch.float64, device=dev)
+    total = torch.empty((), dtype=torch.float64, device=dev)
+
+    def gather_and_add(y):
+        peer.gather(links, y[0], out)
+        acc = out[0]
+        for q in range(1, mesh.world):
+            acc = acc + out[q]
+        return acc.reshape(1)
+
+    def all_reduce(y):
+        dist.all_reduce(y)
+        return y
+
+    lib = _yardsticks()
+
+    def empty(y):
+        _build.check(lib.mg_empty(torch.cuda.current_stream(
+            dev).cuda_stream), "mg_empty")
+        return y
+
+    reduce_us = _graph_call_us(
+        lambda y: peer.reduce(links, y[0], total) or total.reshape(1),
+        (one,))
     return {name: (_graph_call_us(own, (x,)), _graph_call_us(nccl, (x,))),
+            "psum of one float64, NCCL all_gather and adds": (
+                reduce_us, _graph_call_us(lambda y: distributed.all_sum(
+                    y[0], mesh).reshape(1), (one,))),
+            "psum of one float64, NCCL all_reduce": (
+                reduce_us, _graph_call_us(all_reduce, (one.clone(),))),
+            "psum of one float64, the parent's peer gather and adds": (
+                reduce_us, _graph_call_us(gather_and_add, (one,))),
             "gather of one float64": (
                 _graph_call_us(lambda y: peer.gather(links, y[0], out) or y,
                                (one,)),
                 _graph_call_us(lambda y: distributed.all_gather_blocks(
-                    y, mesh)[0], (one,)))}
+                    y, mesh)[0], (one,))),
+            "empty kernel node": (_graph_call_us(empty, (one,)), None)}
 
 
 def _peer_main_rank(n: int, steps: int, reps: int) -> dict:
@@ -5297,8 +5499,10 @@ def _phase_peer_main(n: int, steps: int, smi: str, reps: int) -> None:
                 f"residual {got['max_rel']:.3g}")
         rec = ranks[0]
         wall = st.median(got["walls"])
-        costs = "; ".join(f"{name}: peer {a:.2f} µs, NCCL {b:.2f} µs"
-                          for name, (a, b) in got["costs"].items())
+        costs = "; ".join(
+            f"{name}: peer {a:.2f} µs" + ("" if b is None else
+                                          f", other {b:.2f} µs")
+            for name, (a, b) in got["costs"].items())
         peaks = [tuple(round(v, 1) for v in m) for m in got["peak_mib"]]
         print(f"[peer-multi] (c) {layout}: replay {wall:.5f} s (rank 0, "
               f"median of {reps}: {[round(w, 5) for w in got['walls']]}) "
@@ -5373,6 +5577,12 @@ def main_multi_gpu(device, name: str) -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def _stamp(t_start: float, phase: str) -> None:
+    """One line: the seconds since the script's start at a phase's end."""
+    print(f"[time] {phase} done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
     if not torch.cuda.is_available():
@@ -5383,32 +5593,51 @@ def main(argv=None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     name = phase_device()
     phase_build()
+    _stamp(t_start, "phase_build")
     if args.multi_gpu:
         main_multi_gpu(device, name)
         return
     measured = phase_kernels(device, MAIN_N)
+    _stamp(t_start, "phase_kernels")
     counts, uT_main = phase_main_path(device, MAIN_N, MAIN_STEPS, CENTER_1024)
+    _stamp(t_start, "phase_main_path")
     main_counts = dict(counts)
     phase_golden(device)
+    _stamp(t_start, "phase_golden")
     counts["smooth9"] = phase_galerkin(device, MAIN_N, MAIN_STEPS)["smooth9"]
+    _stamp(t_start, "phase_galerkin")
     counts["smooth5"] = phase_poisson(device, MAIN_N)["smooth5"]
+    _stamp(t_start, "phase_poisson")
     phase_refined(device, MAIN_N, MAIN_STEPS)
+    _stamp(t_start, "phase_refined")
     counts["smooth_rows"] = phase_distributed(MAIN_N, MAIN_STEPS, uT_main)
+    _stamp(t_start, "phase_distributed")
     counts["open_presmooth"] = phase_open_smooth(
         device, MAIN_N, MAIN_STEPS, uT_main)["open_presmooth"]
+    _stamp(t_start, "phase_open_smooth")
     phase_cli(MAIN_N, MAIN_STEPS)
+    _stamp(t_start, "phase_cli")
     probes = phase_probe()
+    _stamp(t_start, "phase_probe")
     big = phase_device_build(device, MAIN_N, MAIN_STEPS, uT_main,
                              main_counts)
+    _stamp(t_start, "phase_device_build")
     phase_grid(MAIN_N, MAIN_STEPS, uT_main)
+    _stamp(t_start, "phase_grid")
     phase_routes_oracle(device, MAIN_N, MAIN_STEPS, uT_main)
+    _stamp(t_start, "phase_routes_oracle")
     single_wall = phase_compiled(device, MAIN_N, MAIN_STEPS, uT_main,
                                  main_counts, big)
+    _stamp(t_start, "phase_compiled")
     loops = phase_loops(device, MAIN_N, MAIN_STEPS)
+    _stamp(t_start, "phase_loops")
     peers = phase_peer(device)
+    _stamp(t_start, "phase_peer")
     phase_multi_gpu(MAIN_N, MAIN_STEPS, uT_main, big, single_wall)
+    _stamp(t_start, "phase_multi_gpu")
     kernels = []
     for key, label, source, replaces in KERNELS:
         if key in probes:

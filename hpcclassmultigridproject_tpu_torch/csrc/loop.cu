@@ -7,14 +7,26 @@
 //
 // One kernel, `while_set_kernel`, launched by the wrapper
 // ops/cuda/loop.py::while_set once before the node (the first test) and
-// once at the end of the node's body (each later test): one thread reads
-// the loop's predicate, a device bool that the loop's cond computed with the
-// same torch expression as the host form, sets the node's condition to it
-// (cudaGraphSetConditional), and where it holds counts one trip, so that a
-// replay's data-dependent launch counts can be read back after it.  It
-// moves one byte in and four out and does one add: it is bound by the
-// launch, and the design keeps it to one block of one thread with no shared
-// memory.
+// once at the end of the node's body (each later test).  It is the whole
+// test of a loop in one launch: every loop of the port tests
+// `(it < max_it) & (res / denom > tol)` (`res > tol` without a
+// denominator; `it < max_it` alone without a residual), and the kernel
+// reads the carry's int32 `it`, the limit (a number, or an int32 on the
+// card), the carry's `res` and the loop's `denom`, evaluates that
+// predicate in res's dtype (float32 or float64; `tol` rounded to it on the
+// host as torch rounds a Python scalar against the tensor; IEEE division
+// and comparison, no fast math, so a NaN ratio tests false as in torch),
+// sets the node's condition to it (cudaGraphSetConditional), and where it
+// holds counts one trip, so that a replay's data-dependent launch counts
+// can be read back after it.  Before it, the loop's cond built the
+// predicate with 3-4 torch launches (the compare, the division, the
+// compare with tol, the and) and a second kernel read the bool: one node
+// a test now, where there were four or five.  It moves at most 28 bytes
+// and does a division and two compares: it is bound by the launch, and the
+// design keeps it to one block of one thread with no shared memory.  The
+// loops' `it + step` stays a torch launch of the body: the counter is part
+// of the carry the body returns and the host form reads, and folding it in
+// here would make the kernel write the carry.
 //
 // The host half, plain C called through ctypes with torch's stream handle
 // (as utils/graphs.py already calls libcuda): mg_while_handle creates the
@@ -32,9 +44,28 @@
 
 namespace {
 
+// res / denom > tol in T (res > tol where denom is null)
+template <typename T>
+__device__ inline bool above(const void* res, const void* denom,
+                             double tol) {
+  T ratio = *static_cast<const T*>(res);
+  if (denom != nullptr) ratio = ratio / *static_cast<const T*>(denom);
+  return ratio > static_cast<T>(tol);
+}
+
+// kind: 0 no residual clause, 1 float32, 2 float64; `max_it` read from
+// `limit` where that is not null
 __global__ void while_set_kernel(cudaGraphConditionalHandle handle,
-                                 const bool* pred, int* trips) {
-  const bool go = *pred;
+                                 const int* it, const int* limit,
+                                 int max_it, const void* res,
+                                 const void* denom, double tol, int kind,
+                                 int* trips) {
+  bool go = *it < (limit != nullptr ? *limit : max_it);
+  if (kind == 1) {
+    go = above<float>(res, denom, tol) && go;
+  } else if (kind == 2) {
+    go = above<double>(res, denom, tol) && go;
+  }
   cudaGraphSetConditional(handle, go ? 1u : 0u);
   if (go) *trips += 1;
 }
@@ -54,10 +85,13 @@ cudaError_t capturing_into(cudaStream_t stream, cudaGraph_t* graph,
 
 }  // namespace
 
-extern "C" int mg_while_set(unsigned long long handle, const void* pred,
+extern "C" int mg_while_set(unsigned long long handle, const void* it,
+                            const void* limit, int max_it, const void* res,
+                            const void* denom, double tol, int kind,
                             void* trips, void* stream) {
   while_set_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      handle, static_cast<const bool*>(pred), static_cast<int*>(trips));
+      handle, static_cast<const int*>(it), static_cast<const int*>(limit),
+      max_it, res, denom, tol, kind, static_cast<int*>(trips));
   return static_cast<int>(cudaGetLastError());
 }
 

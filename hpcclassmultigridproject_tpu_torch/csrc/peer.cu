@@ -54,18 +54,35 @@
 // copying that rank's block out of this one's (its own block copied
 // locally), chunk by chunk with the same flags.  The slots, flags and
 // epochs are peer.cuh's; a rank of no neighbour on a side gets the zeros
-// the wrapper allocated.
+// the wrapper allocated.  Inside a body it carries the blocks a partitioned
+// level gathers into the first replicated one.
+//
+// mg_peer_reduce does what all_sum (and all_max) do with one float32 or
+// float64 value: the psum of a WHILE body, the residual norm the loop's
+// test reads.  The chunk protocol above spends, on one 8-byte value, the
+// stores, a barrier, a system-scope fence, a separate flag store over
+// NVLink, the spin and the copy-out, and all_sum then adds the parts in
+// world - 1 torch launches.  The reduce is one warp: lane p serves peer p.
+// It stores this rank's value as a flagged line (peer.cuh: NCCL's LL
+// protocol) into line slot e & 1 of peer p's mailbox with one 16-byte
+// volatile store, with no fence, then spins with 16-byte volatile loads on
+// peer p's line in its own mailbox until both halves carry message e's
+// tag, and advances the pair's epoch.  Lane 0 then gathers the values with
+// warp shuffles and adds them in rank order, ((x0 + x1) + x2) + x3, as
+// all_sum's loop does (the max: a NaN propagated, as torch.stack(...).max()
+// does), so every rank has the same bits, and writes the 0-d result.
 //
 // Bound: the bytes a rank sends to a neighbour over NVLink, 450 GB/s a
 // direction on the H100 SXM: main's level-0 deep halo at n=1024 by rows,
 // (u, rhs) of 8 rows of 1152 float64, is 147,456 B, 0.33 µs.  Above it
 // lies the protocol's latency: the launch, the fence of the remote stores,
 // one flag's trip over NVLink, the copy-out.  The gather of one 8-byte
-// value, which has no payload to speak of, takes 7.8-8.3 µs a call in a
+// value, which has no payload to speak of, took 7.8-8.3 µs a call in a
 // graph on four H100 SXM (700 W): the floor an exchange of any size
 // approaches.  That deep halo takes 16.2-16.5 µs there (NCCL's captured
 // call 31-32 µs); one fence a thread in place of one a block cost ~2 µs
-// more on both.
+// more on both.  The reduce's floor is a graph node and one line's trip
+// over NVLink.
 //
 // A spin has a budget of clock64 cycles.  Past it the block writes which
 // wait ran out into a host-mapped error record, then __trap()s: the hang
@@ -323,6 +340,108 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// One line: a 16-byte volatile store into a peer's mailbox, and a 16-byte
+// volatile load of this rank's own (written by a peer over NVLink).
+__device__ __forceinline__ void store_line(char* p, uint32_t lo,
+                                           uint32_t tag, uint32_t hi) {
+  asm volatile("st.volatile.global.v4.u32 [%0], {%1, %2, %3, %4};" ::"l"(p),
+               "r"(lo), "r"(tag), "r"(hi), "r"(tag)
+               : "memory");
+}
+
+__device__ __forceinline__ uint4 load_line(const char* p) {
+  uint4 v;
+  asm volatile("ld.volatile.global.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void words_of(float x, uint32_t* lo,
+                                         uint32_t* hi) {
+  *lo = __float_as_uint(x);
+  *hi = 0;
+}
+
+__device__ __forceinline__ void words_of(double x, uint32_t* lo,
+                                         uint32_t* hi) {
+  *lo = static_cast<uint32_t>(__double2loint(x));
+  *hi = static_cast<uint32_t>(__double2hiint(x));
+}
+
+template <typename T>
+__device__ __forceinline__ T value_of(uint32_t lo, uint32_t hi);
+
+template <>
+__device__ __forceinline__ float value_of<float>(uint32_t lo, uint32_t) {
+  return __uint_as_float(lo);
+}
+
+template <>
+__device__ __forceinline__ double value_of<double>(uint32_t lo,
+                                                   uint32_t hi) {
+  return __hiloint2double(static_cast<int>(hi), static_cast<int>(lo));
+}
+
+constexpr int REDUCE_THREADS = 32;
+
+// One warp; lane p < world serves peer p (design: the head comment).
+template <typename T, bool MAX>
+__global__ void __launch_bounds__(REDUCE_THREADS)
+    reduce_kernel(const __grid_constant__ mg::peer::ReduceArgs a) {
+  using namespace mg::peer;
+  const int p = static_cast<int>(threadIdx.x);
+  const int rank = static_cast<int>(a.rank), world = static_cast<int>(a.world);
+  char* local = reinterpret_cast<char*>(a.local);
+  T v = T(0);
+  if (p < world) {
+    const T x = *reinterpret_cast<const T*>(a.src);
+    if (p == rank) {
+      v = x;
+    } else {
+      const uint64_t e = read_epoch(local, world, p);
+      const uint32_t tag = line_tag(e);
+      uint32_t lo, hi;
+      words_of(x, &lo, &hi);
+      store_line(reinterpret_cast<char*>(a.remote[p]) +
+                     line_offset(world, rank, slot_of(e)),
+                 lo, tag, hi);
+      const char* in = local + line_offset(world, p, slot_of(e));
+      const long long start = clock64();
+      uint4 got = load_line(in);
+      while (got.y != tag || got.w != tag) {
+        if (static_cast<uint64_t>(clock64() - start) > a.budget) {
+          volatile uint64_t* error =
+              reinterpret_cast<volatile uint64_t*>(a.error);
+          error[1] = 2;
+          error[2] = a.rank;
+          error[3] = p;
+          error[4] = e;
+          error[5] = 0;
+          error[0] = 1;
+          __threadfence_system();
+          __trap();
+        }
+        got = load_line(in);
+      }
+      v = value_of<T>(got.x, got.z);
+      *reinterpret_cast<uint64_t*>(local + epoch_offset(world, p)) = e + 1;
+    }
+  }
+  // rank order, every lane taking part in each shuffle
+  T acc = __shfl_sync(0xffffffffu, v, 0);
+  for (int q = 1; q < world; ++q) {
+    const T y = __shfl_sync(0xffffffffu, v, q);
+    if constexpr (MAX) {
+      acc = (acc != acc || acc > y) ? acc : y;
+    } else {
+      acc = acc + y;
+    }
+  }
+  if (p == 0) *reinterpret_cast<T*>(a.dst) = acc;
+}
+
 __global__ void __launch_bounds__(THREADS)
     gather_kernel(const __grid_constant__ GatherArgs a) {
   using namespace mg::peer;
@@ -398,6 +517,24 @@ extern "C" int mg_peer_gather(const void* args, void* stream) {
   std::memcpy(&a, args, sizeof(a));
   gather_kernel<<<static_cast<unsigned>(a.world), THREADS, 0,
                   static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int mg_peer_reduce(const void* args, void* stream) {
+  mg::peer::ReduceArgs a;
+  std::memcpy(&a, args, sizeof(a));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a.bytes == 8) {
+    if (a.op == 1) {
+      reduce_kernel<double, true><<<1, REDUCE_THREADS, 0, st>>>(a);
+    } else {
+      reduce_kernel<double, false><<<1, REDUCE_THREADS, 0, st>>>(a);
+    }
+  } else if (a.op == 1) {
+    reduce_kernel<float, true><<<1, REDUCE_THREADS, 0, st>>>(a);
+  } else {
+    reduce_kernel<float, false><<<1, REDUCE_THREADS, 0, st>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,6 +21,11 @@
 //                        out (0 between calls); the block that brings it to
 //                        the message's chunk count resets it and advances
 //                        epoch(peer)
+//   line(sender, slot)   16 bytes each, world x 2: the last one-value
+//                        message of `sender` in `slot` (the reduce of
+//                        mg_peer_reduce), {lo word, tag, hi word, tag}
+//                        with tag = line_tag(e), stored by the sender with
+//                        one 16-byte store
 //   slot(sender, slot)   `capacity` bytes each, world x 2, from
 //                        header_bytes(world) on: message e of `sender`
 //                        lies in slot e & 1
@@ -32,9 +37,22 @@
 // so a receiving block waits for its chunk only.
 //
 // Each ordered pair of ranks meets once a call in each direction (a halo
-// exchange with a neighbour is symmetric, a gather reaches every rank), so
-// the two ranks of a pair advance their epochs of each other in the same
-// post order: the same contract as NCCL's pairing in start_exchange.
+// exchange with a neighbour is symmetric, a gather or a reduce reaches
+// every rank), so the two ranks of a pair advance their epochs of each
+// other in the same post order: the same contract as NCCL's pairing in
+// start_exchange.  The three kinds of call share the pair's epoch: message
+// e of a pair is a chunked message in slot e & 1 or a line in line slot
+// e & 1, whichever call the two ranks make e-th.
+//
+// A line (NCCL's "LL" protocol) carries one 4- or 8-byte value and its own
+// flag: the value's low word and the tag, then its high word (0 for a
+// 4-byte value) and the tag again.  The sender stores the 16 bytes with one
+// st.volatile.global.v4.u32; NVLink and the memory keep each aligned 8-byte
+// half whole, though the halves may land in either order.  So a reader
+// that sees the tag in both halves has both words of message e, with no
+// fence between data and flag and no flag of its own: one store a peer and
+// one trip over NVLink.  A tag is 32 bits; an older line in the slot has
+// tag e - 1 (message e - 2), never e + 1, and a zeroed mailbox holds 0.
 //
 // Why two slots suffice.  A launch's blocks first store all their chunks
 // of the outgoing messages, then wait for the same chunks of the incoming
@@ -50,6 +68,14 @@
 // flag of slot e & 1 goes from e - 1 to e + 1, so a wait for e + 1 cannot
 // be met by an older message; and nothing is reset between calls, WHILE
 // trips or replays.
+//
+// The same holds for lines, whose reduce launch also first stores, then
+// waits and reads (a lane a peer).  A line of message e + 2 overwrites
+// line slot e & 1 only once A's launch of message e + 1 has ended, so once
+// A has read B's message e + 1; B stored that in its launch e + 1, which
+// began after its launch e had read A's line e out of that slot.  A rank
+// that runs ahead is held at most one message ahead of each peer, and its
+// line of e + 1 goes to the other slot.
 
 #pragma once
 
@@ -110,8 +136,22 @@ __host__ __device__ inline uint64_t count_offset(int world, int peer) {
   return epoch_offset(world, world + peer);
 }
 
+// a line's bytes, and where line(sender, slot) lies: after the counts
+constexpr uint64_t LINE_BYTES = 16;
+
+__host__ __device__ inline uint64_t line_offset(int world, int sender,
+                                                uint64_t slot) {
+  return count_offset(world, world) +
+         (2 * static_cast<uint64_t>(sender) + slot) * LINE_BYTES;
+}
+
+// the tag both halves of message e's line carry
+__host__ __device__ inline uint32_t line_tag(uint64_t epoch) {
+  return static_cast<uint32_t>(epoch + 1);
+}
+
 __host__ __device__ inline uint64_t header_bytes(int world) {
-  return round_up(count_offset(world, world), ALIGN);
+  return round_up(line_offset(world, world, 0), ALIGN);
 }
 
 __host__ __device__ inline uint64_t slot_offset(int world, int sender,
@@ -211,6 +251,14 @@ struct GatherArgs {
   uint64_t remote[MAX_WORLD];
 };
 
+// One reduce of a value of `bytes` (4 or 8: float32 or float64) at `src`
+// over every rank into the 0-d `dst`: op 0 the sum in rank order, op 1 the
+// max (a NaN propagated).
+struct ReduceArgs {
+  uint64_t local, error, budget, rank, world, src, dst, bytes, op;
+  uint64_t remote[MAX_WORLD];
+};
+
 // the words of a message's field, as the host packs ExchangeArgs
 __host__ __device__ inline int exchange_word(int msg, int piece, int field) {
   const int head = 7, per_msg = 3 + 5 * MAX_PIECES;
@@ -218,8 +266,8 @@ __host__ __device__ inline int exchange_word(int msg, int piece, int field) {
 }
 
 // what the error record holds after a spin ran past its budget
-constexpr int ERROR_WORDS = 6;  // timed out, kind (0 exchange, 1 gather),
-                                // rank, peer, epoch, chunk
+constexpr int ERROR_WORDS = 6;  // timed out, kind (0 exchange, 1 gather,
+                                // 2 reduce), rank, peer, epoch, chunk
 
 }  // namespace peer
 }  // namespace mg

@@ -77,7 +77,10 @@ from hpcclassmultigridproject_tpu_torch.parallel.rows_halo import (
     fused_smooth_sharded,
     sharded_eligible,
 )
-from hpcclassmultigridproject_tpu_torch.utils.graphs import while_loop
+from hpcclassmultigridproject_tpu_torch.utils.graphs import (
+    LoopTest,
+    while_loop,
+)
 
 # Fold the prolonged correction into the post-smooth kernel's reads
 # (fused_rb_sweeps(corr=...)) instead of a separate u + corr pass; the two
@@ -161,7 +164,7 @@ def coarse_solve_gs(level, u, rhs, cfg: SolverConfig):
 
     def cond(carry):
         _, res, it = carry
-        return (it < cfg.coarse_maxiter) & (res > cfg.coarse_tol)
+        return LoopTest(it, cfg.coarse_maxiter, res, None, cfg.coarse_tol)
 
     def body(carry):
         u, _, it = carry
@@ -328,7 +331,7 @@ def mg_solve(levels, u, rhs, cfg: SolverConfig, shardings=None):
 
     def cond(carry):
         _, res, it = carry
-        return (it < cfg.max_cycles) & (res / res0_safe > cfg.tol)
+        return LoopTest(it, cfg.max_cycles, res, res0_safe, cfg.tol)
 
     def body(carry):
         u, _, it = carry

@@ -37,7 +37,10 @@ from hpcclassmultigridproject_tpu_torch.parallel.blocks import (
     neighbor_sum,
     residual,
 )
-from hpcclassmultigridproject_tpu_torch.utils.graphs import while_loop
+from hpcclassmultigridproject_tpu_torch.utils.graphs import (
+    LoopTest,
+    while_loop,
+)
 
 
 def _correction(levels, r_lo, cfg: SolverConfig, shardings):
@@ -78,7 +81,7 @@ def refined_solve(levels, fine_hi, u, rhs, cfg: SolverConfig, r0=None,
     else:
         def cond(carry):
             _, _, res, it = carry
-            return (it < cfg.max_cycles) & (res / res0_safe > cfg.tol)
+            return LoopTest(it, cfg.max_cycles, res, res0_safe, cfg.tol)
 
         def body(carry):
             u, r_lo, _, it = carry

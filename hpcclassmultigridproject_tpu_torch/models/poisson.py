@@ -173,7 +173,7 @@ class Poisson:
 
         def cond(carry):
             _, res, it = carry
-            return (it < max_iters) & (res / res0 > tol)
+            return graphs.LoopTest(it, max_iters, res, res0, tol)
 
         def body(carry):
             u, _, it = carry

@@ -29,7 +29,7 @@ LAUNCHES = {"delta_open": 0, "open_presmooth": 0, "smooth": 0, "smooth5": 0,
             "probe_dot_decimate": 0, "probe_interleave_rows": 0,
             "probe_flatten": 0, "probe_dot_decimate_rows": 0,
             "probe_dot_prolong_rows": 0, "while_set": 0,
-            "peer_exchange": 0, "peer_gather": 0}
+            "peer_exchange": 0, "peer_gather": 0, "peer_reduce": 0}
 
 # The predicate tests that the host form of `utils.graphs.while_loop` made,
 # one host read each: where the loop is captured, each test is a launch of

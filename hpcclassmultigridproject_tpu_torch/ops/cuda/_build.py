@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Every `csrc/*.cu` of the package is compiled in one nvcc invocation into
-one shared library with a plain C interface, for sm_90a (Hopper).  The
+Every `csrc/*.cu` of the package is compiled by its own nvcc, all started
+together, and the objects linked into one shared library with a plain C
+interface, for sm_90a (Hopper).  The
 library's name carries a hash of the sources and flags, so a build is
 reused until they change.  The build runs at the first launch, never at
 import.  A missing nvcc or a failed build raises: there is no fallback.
@@ -16,6 +17,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import tempfile
 
 PACKAGE = pathlib.Path(__file__).resolve().parents[2]
 CSRC = PACKAGE / "csrc"
@@ -53,17 +55,18 @@ _F32_SIGNATURES = {
 # conditional handle is an unsigned long long
 _U64 = ctypes.c_ulonglong
 _LOOP_SIGNATURES = {
-    "mg_while_set": [_U64, _P, _P, _P],
+    "mg_while_set": [_U64, _P, _P, _I, _P, _P, _D, _I, _P, _P],
     "mg_while_handle": [_P, _P],
     "mg_while_begin": [_P, _U64, _P, _P],
     "mg_while_end": [_P],
 }
 # the peer transport's entry points (csrc/peer.cu), of no dtype: a kernel
 # takes its arguments as one packed array (peer.cuh's ExchangeArgs,
-# GatherArgs) and the stream
+# GatherArgs, ReduceArgs) and the stream
 _PEER_SIGNATURES = {
     "mg_peer_exchange": [_P, _P],
     "mg_peer_gather": [_P, _P],
+    "mg_peer_reduce": [_P, _P],
     "mg_peer_alloc": [_I, _U64, _P, _P, _P, _P],
     "mg_peer_handle": [_P, _P],
     "mg_peer_open": [_P, _I, _I, _P],
@@ -84,8 +87,9 @@ def _nvcc() -> str:
 
 
 def build() -> pathlib.Path:
-    """Compile every csrc/*.cu into one library unless a build of the same
-    sources and flags exists; returns the library's path.  The compiler's
+    """Compile every csrc/*.cu, one nvcc a source, all started together,
+    and link the objects into one library, unless a build of the same
+    sources and flags exists; returns the library's path.  The compilers'
     output (register and shared-memory use per kernel) is kept beside the
     library as `.log`."""
     sources = sorted(CSRC.glob("*.cu"))
@@ -96,15 +100,36 @@ def build() -> pathlib.Path:
     if lib.is_file():
         return lib
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
+    work = pathlib.Path(tempfile.mkdtemp(prefix=f"{lib.stem}.",
+                                         dir=BUILD_DIR))
+    try:
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        objects = [work / f"{src.stem}.o" for src in sources]
+        procs = [subprocess.Popen(
+            [_nvcc(), *compile_flags, "-c", "-I", str(CSRC), "-o", str(obj),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for src, obj in zip(sources, objects)]
+        logs, failed = [], []
+        for src, proc in zip(sources, procs):
+            out, err = proc.communicate()
+            logs.append(out + err)
+            if proc.returncode != 0:
+                failed.append(f"{src.name}: exit code {proc.returncode}:\n"
+                              f"{err}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = work / lib.name
+        link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp),
+                               *map(str, objects)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link, exit code "
+                               f"{link.returncode}:\n{link.stderr}")
+        lib.with_suffix(".log").write_text(
+            "".join(logs) + link.stdout + link.stderr)
+        os.replace(tmp, lib)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return lib
 
 

@@ -16,14 +16,21 @@ function.
     `LAUNCHES["peer_exchange"]`), `exchange_plain` on CPU tensors;
   * `gather(links, x, out)`: every rank's x into out[rank], in rank
     order: `mg_peer_gather` (`LAUNCHES["peer_gather"]`), or
-    `gather_plain`.
+    `gather_plain`;
+  * `reduce(links, x, out, op)`: the sum in rank order (op "sum") or the
+    max (op "max") of one float32 or float64 value over the ranks, into
+    the 0-d `out`, each rank's value a flagged 16-byte line
+    (`csrc/peer.cuh`): `mg_peer_reduce` (`LAUNCHES["peer_reduce"]`), or
+    `reduce_plain`.
 
-The plain versions run the same slots, chunks, flags, counts and epochs
-on CPU mailboxes (numpy arrays) for ranks that are threads of one
+The plain versions run the same slots, chunks, flags, counts, lines and
+epochs on CPU mailboxes (numpy arrays) for ranks that are threads of one
 process, or processes mapping one another's mailbox files: each sends
 every chunk, then waits on each chunk's flag (a TimeoutError past
 `SPIN_SECONDS`, where the kernel traps) and copies it out; the last
-chunk counted advances the epoch.  `plain_route()` does not reach the
+chunk counted advances the epoch.  A line's data words are stored
+before its two tag words, and a reader waits for both tags, as the
+kernel's lanes do.  `plain_route()` does not reach the
 kernels: like `loop.while_set` they stand for XLA's own collectives,
 which the JAX package's "jnp" backend keeps.  No path on the card calls
 a plain version.
@@ -46,6 +53,9 @@ MAX_WORLD, MAX_PEERS, MAX_PIECES = 8, 4, 4
 MAX_CHUNKS, CHUNK_BYTES = 512, 4096
 ALIGN, PIECE_ALIGN = 256, 16
 ERROR_WORDS = 6
+LINE_BYTES = 16
+# ReduceArgs' op
+REDUCE_OPS = {"sum": 0, "max": 1}
 # a spin's budget, in seconds of the card's maximum SM clock (a slower
 # clock waits longer), and the plain version's timeout
 SPIN_SECONDS = 10.0
@@ -81,8 +91,16 @@ def count_offset(world: int, peer: int) -> int:
     return epoch_offset(world, world + peer)
 
 
+def line_offset(world: int, sender: int, slot: int) -> int:
+    return count_offset(world, world) + (2 * sender + slot) * LINE_BYTES
+
+
+def line_tag(epoch: int) -> int:
+    return (epoch + 1) & 0xFFFFFFFF
+
+
 def header_bytes(world: int) -> int:
-    return round_up(count_offset(world, world), ALIGN)
+    return round_up(line_offset(world, world, 0), ALIGN)
 
 
 def slot_offset(world: int, sender: int, slot: int, capacity: int) -> int:
@@ -163,8 +181,8 @@ class Links:
 
     def fault(self) -> list | None:
         """The error record after a spin ran past its budget on the card:
-        [kind (0 exchange, 1 gather), rank, peer, epoch, chunk], else
-        None."""
+        [kind (0 exchange, 1 gather, 2 reduce), rank, peer, epoch, chunk],
+        else None."""
         if not self.error:
             return None
         words = (ctypes.c_uint64 * ERROR_WORDS).from_address(self.error)
@@ -355,6 +373,78 @@ def gather_plain(links: Links, x: torch.Tensor, out: torch.Tensor) -> None:
     out[links.rank].copy_(x)
 
 
+def _wait_line(box: np.ndarray, off: int, tag: int, what: str) -> None:
+    """Spin until both tag words of the line at `off` carry `tag`."""
+    end = time.monotonic() + SPIN_SECONDS
+    spins = 0
+    words = box[off:off + LINE_BYTES].view(np.uint32)
+    while int(words[1]) != tag or int(words[3]) != tag:
+        spins += 1
+        if time.monotonic() > end:
+            raise TimeoutError(f"peer transport: {what} not received "
+                               f"within {SPIN_SECONDS} s")
+        time.sleep(0 if spins < 1000 else 1e-4)
+
+
+def _send_line(links: Links, peer: int, x: torch.Tensor, e: int) -> None:
+    """Message e to `peer` as a line in line slot e & 1 for this rank:
+    x's low and high words (the high one 0 for a float32), then the two
+    tag words.  The card's one 16-byte store keeps each 8-byte half
+    whole; here the data is stored before the tags, which a reader checks
+    both, so it reads whole values as the kernel's lanes do."""
+    off = line_offset(links.world, links.rank, slot_of(e))
+    box = links.remote[peer]
+    data = _bytes(x)
+    torch.from_numpy(box[off:off + 4]).copy_(data[:4])
+    if data.numel() == 8:
+        torch.from_numpy(box[off + 8:off + 12]).copy_(data[4:])
+    else:
+        box[off + 8:off + 12] = 0
+    words = box[off:off + LINE_BYTES].view(np.uint32)
+    words[3] = line_tag(e)
+    words[1] = line_tag(e)
+
+
+def _receive_line(links: Links, peer: int, e: int,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """Message e of `peer`, a line: waited on until both tag words carry
+    its tag, its value read as a 0-d tensor of `dtype`, and the pair's
+    epoch advanced."""
+    world, local = links.world, links.local
+    off = line_offset(world, peer, slot_of(e))
+    _wait_line(local, off, line_tag(e),
+               f"rank {links.rank}: line {e} of rank {peer}")
+    line = torch.from_numpy(local[off:off + LINE_BYTES]).clone()
+    size = torch.empty((), dtype=dtype).element_size()
+    value = torch.cat([line[:4], line[8:12]])[:size].view(dtype).reshape(())
+    _u64(local, epoch_offset(world, peer))[0] = e + 1
+    return value
+
+
+def reduce_plain(links: Links, x: torch.Tensor, out: torch.Tensor,
+                 op: str) -> None:
+    """`reduce` on CPU mailboxes and tensors: a line to every peer, then
+    each peer's line waited on and read (the kernel's lanes); then
+    all_sum's sum in rank order, or all_max's `torch.stack(...).max()`."""
+    world, rank = links.world, links.rank
+    others = [p for p in range(world) if p != rank]
+    epochs = {p: int(_u64(links.local, epoch_offset(world, p))[0])
+              for p in others}
+    for p in others:
+        _send_line(links, p, x, epochs[p])
+    values = [None] * world
+    values[rank] = x.detach().reshape(())
+    for p in others:
+        values[p] = _receive_line(links, p, epochs[p], x.dtype)
+    if op == "max":
+        total = torch.stack(values).max()
+    else:
+        total = values[0]
+        for v in values[1:]:
+            total = total + v
+    out.copy_(total)
+
+
 def _check_piece(src: torch.Tensor, dst: torch.Tensor) -> None:
     if src.dtype != dst.dtype or src.shape != dst.shape:
         raise ValueError(f"piece {tuple(src.shape)} {src.dtype} into "
@@ -457,3 +547,34 @@ def gather(links: Links, x: torch.Tensor, out: torch.Tensor) -> None:
                                           _stream(links.device)),
                  "mg_peer_gather")
     cuda.LAUNCHES["peer_gather"] += 1
+
+
+def reduce(links: Links, x: torch.Tensor, out: torch.Tensor,
+           op: str = "sum") -> None:
+    """out = the sum in rank order (op "sum": ((x0 + x1) + x2) + ..., the
+    bits of `distributed.all_sum`'s gathered form on every rank) or the
+    max (op "max", a NaN propagated, as `distributed.all_max`'s) of every
+    rank's x, one float32 or float64 value, into the 0-d `out` of its
+    dtype: the kernel for CUDA tensors, the plain version for CPU
+    tensors; either advances each pair's epoch by one."""
+    if op not in REDUCE_OPS:
+        raise ValueError(f"reduce op {op!r}, not one of {list(REDUCE_OPS)}")
+    if x.numel() != 1 or x.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"a reduce takes one float32 or float64 value, "
+                         f"not {tuple(x.shape)} {x.dtype}")
+    if out.shape != () or out.dtype != x.dtype:
+        raise ValueError(f"reduce of {x.dtype} into {tuple(out.shape)} "
+                         f"{out.dtype}")
+    others = [(r, []) for r in range(links.world) if r != links.rank]
+    if not _check(links, others, [x, out]):
+        reduce_plain(links, x, out, op)
+        return
+    args = np.zeros(9 + MAX_WORLD, np.uint64)
+    args[:9] = (links.local, links.error_device, links.budget, links.rank,
+                links.world, x.data_ptr(), out.data_ptr(),
+                x.element_size(), REDUCE_OPS[op])
+    args[9:9 + links.world] = links.remote
+    _build.check(_build.entry("mg_peer_reduce")(args.ctypes.data,
+                                          _stream(links.device)),
+                 "mg_peer_reduce")
+    cuda.LAUNCHES["peer_reduce"] += 1

@@ -61,9 +61,11 @@ allocated or mapped inside a capture (it raises there).  An eager run
 never takes it: the eager NCCL form is the reference a replay is held to.
 `start_exchange` sends each neighbour one message holding its lines of
 every block, `all_gather_blocks` one message to every rank, and
-`all_sum` adds the gathered parts in rank order, so the sum has the NCCL
-form's bits; `COLLECTIVES` counts each under its usual name, and the
-kernels count their launches in `LAUNCHES`.
+`all_sum` (the residual norm an adaptive loop tests) one flagged 16-byte
+line to every rank, which the reduce kernel adds in rank order, so the
+sum has the NCCL form's bits (`all_max` likewise, with a max);
+`COLLECTIVES` counts each under its usual name, and the kernels count
+their launches in `LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -298,14 +300,35 @@ def _peer_links(mesh: Mesh, device, need: int) -> peer.Links | None:
     return held[-1]
 
 
+def _peer_reduce(x: torch.Tensor, mesh: Mesh, op: str):
+    """`all_sum` (op "sum") or `all_max` (op "max") of the 0-d x on the
+    peer transport's reduce, one launch and no adds, where the collective
+    takes that transport (inside a `while_loop` body of a program being
+    compiled, `_peer_links`); counted as the all_gather of the NCCL form.
+    None elsewhere."""
+    if host_staged(mesh, x):
+        return None
+    links = _peer_links(mesh, x.device, peer.LINE_BYTES)
+    if links is None:
+        return None
+    out = torch.empty((), dtype=x.dtype, device=x.device)
+    peer.reduce(links, x, out, op)
+    COLLECTIVES["all_gather"] += 1
+    return out
+
+
 def all_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Σ over the ranks of the 0-d tensor x, the same bits on every rank:
     each rank gathers every rank's x (`all_gather_blocks`) and adds them
     in rank order (an all-reduce may add in another order on another
-    rank, and the adaptive loops branch on the sum).  On one rank it is
-    x."""
+    rank, and the adaptive loops branch on the sum).  Inside a loop body
+    of a program being compiled, the peer transport's reduce adds them in
+    the same order in its one launch.  On one rank it is x."""
     if _single_rank(mesh):
         return x
+    reduced = _peer_reduce(x, mesh, "sum")
+    if reduced is not None:
+        return reduced
     parts = all_gather_blocks(x.reshape(1), mesh)
     total = parts[0]
     for p in parts[1:]:
@@ -315,9 +338,14 @@ def all_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 def all_max(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """max over the ranks of the 0-d tensor x, on every rank (exact, so
-    the same bits whatever the order).  On one rank it is x."""
+    the same bits whatever the order, but the sign of a zero and a NaN's
+    payload; a NaN propagates).  Inside a loop body of a program being
+    compiled, the peer transport's reduce.  On one rank it is x."""
     if _single_rank(mesh):
         return x
+    reduced = _peer_reduce(x, mesh, "max")
+    if reduced is not None:
+        return reduced
     return torch.stack(all_gather_blocks(x.reshape(1), mesh)).max().reshape(
         ())
 

@@ -101,16 +101,23 @@ CUDA tensors through the host, so it runs eagerly):
 A body may hold data-dependent loops, `while_loop`, the counterpart of
 `jax.lax.while_loop`: outside a capture it is a host loop that reads its
 predicate once a test; inside one it becomes a CUDA conditional WHILE node
-whose predicate the kernel `mg_while_set` (csrc/loop.cu) sets on the
-device, so the adaptive solvers are one graph as their JAX programs are one
-XLA program:
+whose predicate the kernel `mg_while_set` (csrc/loop.cu) evaluates and sets
+on the device, so the adaptive solvers are one graph as their JAX programs
+are one XLA program:
+
+- A loop's `cond` returns a `LoopTest` (it, max_it, res, denom, tol), not
+  a bool: the host form reads the predicate the torch expression makes of
+  it (`loop.predicate`), and a captured test is one launch of the kernel,
+  which evaluates the same predicate.  A cond that returns anything else
+  raises, captured or not.
 
 - The carry is copied into static buffers before the node; the node's body
   is captured once, on a body stream (one per nesting depth and device,
   created with the side stream and warmed with a product, so that torch's
   cuBLAS workspace for it exists before any capture), with its allocations
   routed to the programs' pool (`CudaGraphs._route_to_pool`); it ends by
-  copying its results into the static carry and testing again.
+  copying its results into the static carry and testing again (one
+  launch of `mg_while_set`).
 - Each node's trip counter (an int32 on the device, counted up by
   `mg_while_set`) is zeroed by the replay itself (`Loops`) and read back
   after it (one read for the program, where the eager form reads once a
@@ -137,6 +144,10 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from hpcclassmultigridproject_tpu_torch.ops import cuda
 from hpcclassmultigridproject_tpu_torch.ops.cuda import loop
+# the test a loop's cond returns (re-exported for the loops)
+from hpcclassmultigridproject_tpu_torch.ops.cuda.loop import (  # noqa: F401
+    LoopTest,
+)
 
 # How deep captured loops may nest: a body stream each, made before any
 # capture (the port's loops nest two deep: the GS coarse solve inside an
@@ -321,7 +332,8 @@ def static_carry(carry):
 
 def capture_trip(cond, body, state, static, test) -> dict:
     """Capture one trip of a loop on its static carry: the body, its
-    results copied into the carry, then `test(cond(carry))`.  Returns the
+    results copied into the carry, then `test(cond(carry))` (one launch of
+    `mg_while_set`).  Returns the
     launches and collectives this made, taken back out of LAUNCHES and
     COLLECTIVES (a replay adds them once a trip)."""
     before = counts()
@@ -339,25 +351,28 @@ def capture_trip(cond, body, state, static, test) -> dict:
 
 def while_loop(cond, body, carry):
     """`jax.lax.while_loop(cond, body, carry)`: `cond` is tested before
-    each `body`, so zero trips are possible; `cond(carry)` is a bool
-    tensor and `body(carry)` returns a carry of the same structure.
+    each `body`, so zero trips are possible; `cond(carry)` is a
+    `LoopTest` and `body(carry)` returns a carry of the same structure.
 
     Outside a capture (the CPU, an eager call on the card, a rank
     partitioned under gloo) a host loop that reads the predicate once a
     test.  Inside one, a
     conditional WHILE node (`CAPTURE.while_node`): the carry's tensors
     become static buffers, the body is captured once, and `mg_while_set`
-    tests the same predicate on the device."""
+    evaluates the same predicate on the device, one launch a test."""
     device = next(t for t in tree_flatten(carry)[0]
                   if isinstance(t, torch.Tensor)).device
     if CAPTURE.capturing(device):
         return CAPTURE.while_node(cond, body, carry, device)
+    test = cond(carry)
+    loop.check(test)
     while True:
         cuda.HOST_TESTS["while_set"] += 1
-        if not bool(cond(carry)):
+        if not bool(loop.predicate(test)):
             return carry
         with loop_body():
             carry = body(carry)
+        test = cond(carry)
 
 
 class CudaGraphs:
@@ -455,7 +470,8 @@ class CudaGraphs:
 
     def while_node(self, cond, body, carry, device: torch.device):
         """`while_loop`'s device form, inside `capture`: the static carry,
-        the first test (mg_while_set), the WHILE node after the stream's
+        the first test (mg_while_set, given the cond's LoopTest; any other
+        cond raises), the WHILE node after the stream's
         work, and its body captured once on this depth's body stream with
         its allocations in the pool."""
         if self._loops is None:
@@ -466,10 +482,11 @@ class CudaGraphs:
             raise RuntimeError(f"captured while loops nest at most "
                                f"{MAX_DEPTH} deep")
         state, static = static_carry(carry)
+        first = cond(state)
         k, trips = self._loops.node()
         outer = torch.cuda.current_stream(device)
         handle = loop.while_handle(outer)
-        loop.while_set(handle, cond(state), trips)
+        loop.while_set(handle, first, trips)
         inner = self._bodies[device][self._depth]
         self._route_to_pool(device)
         graph = loop.while_begin(outer, handle, inner)

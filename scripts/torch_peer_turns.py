@@ -8,9 +8,15 @@ n=1024 over four ranks: level 0's deep halo of (u, rhs) by rows, (264,
 1152) with k=8; level 0's four edges in the 2-D layout, (528, 576); and
 the gather of one float64 value.  Before timing, each case runs once
 eagerly on both transports, which must agree to the bit on every rank.
+With `--runs`, each turn also runs that float64 adaptive run (n=1024, 100
+steps, min_local 64, built whole) through `distributed_run` in each
+layout, captured at the default: after the capture's call, `--reps`
+replays timed on rank 0 by the host clock after a barrier, each ending in
+`torch.cuda.synchronize()`, with the program's top and body nodes and
+uT's SHA-256, which must be the same in every turn.
 
     python3 scripts/torch_peer_turns.py [--tree c=.] [--tree p=DIR ...]
-        [--turns cppc] [--calls 100] [--reps 5]
+        [--turns cppc] [--calls 100] [--reps 5] [--runs]
 
 A tree is a directory holding the package (a `git archive` of another
 commit, or a copy with another design of a kernel); the first is this
@@ -26,13 +32,14 @@ import argparse
 import json
 import pathlib
 import statistics
-import subprocess
 import sys
+
+import _turns
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 DEEP, K, EDGES = (264, 1152), 8, (528, 576)
 WORLD = 4
-DEADLINE_S = 240
+DEADLINE_S = 360
 
 
 def _graph_us(fn, x, calls: int, reps: int) -> list[float]:
@@ -71,7 +78,50 @@ def _flat(out) -> list:
     return [out]
 
 
-def _rank(calls: int, reps: int) -> dict:
+def _runs(reps: int) -> dict:
+    """The float64 adaptive run in each layout, captured: rank 0's replay
+    walls, the program's nodes, uT's SHA-256 (module docstring)."""
+    import gc
+    import hashlib
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from hpcclassmultigridproject_tpu_torch import ProblemConfig, SolverConfig
+    from hpcclassmultigridproject_tpu_torch.models import AdvectionDiffusion
+    from hpcclassmultigridproject_tpu_torch.parallel import distributed_run
+
+    res = {}
+    for layout in ("rows", "2d"):
+        model = AdvectionDiffusion(ProblemConfig(n=1024, num_steps=100),
+                                   SolverConfig(dtype=torch.float64),
+                                   device="cuda")
+        kw = dict(min_local=64, layout=layout)
+        first, _ = distributed_run(model, **kw)
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(reps):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            uT, _ = distributed_run(model, **kw)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        program = model.programs.last
+        shas = {hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+                for t in (first, uT)}
+        res[f"f64 adaptive, {layout}"] = {
+            "walls": walls, "nodes": program.nodes,
+            "body_nodes": program.body_nodes, "sha": sorted(shas)}
+        # a rank holding captured graphs does not leave the group
+        model = program = first = uT = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def _rank(calls: int, reps: int, runs: bool = False) -> dict:
     import torch
     import torch.distributed as dist
 
@@ -118,15 +168,17 @@ def _rank(calls: int, reps: int) -> dict:
                      "peer": _graph_us(own, x, calls, reps),
                      "nccl": _graph_us(nccl, x, calls, reps)}
     links.close()
+    if runs:
+        res["runs"] = _runs(reps)
     return res
 
 
-def _one(tree: str, calls: int, reps: int) -> None:
+def _one(tree: str, calls: int, reps: int, runs: bool) -> None:
     """One turn, in this process: the ranks from `tree`'s package."""
     sys.path.insert(0, str(pathlib.Path(tree).resolve()))
     from hpcclassmultigridproject_tpu_torch.parallel import launch_local
 
-    res = launch_local(_rank, WORLD, (calls, reps), backend="nccl",
+    res = launch_local(_rank, WORLD, (calls, reps, runs), backend="nccl",
                        device="cuda", deadline=DEADLINE_S)
     print(json.dumps(res))
 
@@ -138,10 +190,12 @@ def main(argv=None) -> None:
     parser.add_argument("--turns", default="cppc")
     parser.add_argument("--calls", type=int, default=100)
     parser.add_argument("--reps", type=int, default=5)
+    parser.add_argument("--runs", action="store_true",
+                        help="also time the float64 adaptive run's replays")
     parser.add_argument("--one", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.one:
-        _one(args.one, args.calls, args.reps)
+        _one(args.one, args.calls, args.reps, args.runs)
         return
     import torch
 
@@ -151,47 +205,52 @@ def main(argv=None) -> None:
     for spec in args.tree:
         name, _, where = spec.partition("=")
         trees[name] = where
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()
-    turns = []
-    for name in args.turns:
-        proc = subprocess.run(
-            [sys.executable, __file__, "--one", trees[name], "--calls",
-             str(args.calls), "--reps", str(args.reps)],
-            capture_output=True, text=True, timeout=DEADLINE_S + 60)
-        if proc.returncode:
-            sys.exit(f"turn {name} ({trees[name]}) failed:\n"
-                     f"{proc.stderr[-4000:]}")
-        res = json.loads(proc.stdout.strip().splitlines()[-1])
+    smi = _turns.card()
+
+    def show(res):
+        runs = res.get("runs", {})
+        return "; ".join(
+            [f"{case}: peer {statistics.median(g['peer']):.2f} µs, NCCL "
+             f"{statistics.median(g['nccl']):.2f} µs"
+             for case, g in res.items() if case != "runs"]
+            + [f"{case}: replay {statistics.median(g['walls']):.5f} s "
+               f"{[round(w, 5) for w in g['walls']]}, {g['nodes']} top / "
+               f"{g['body_nodes']} body nodes" for case, g in runs.items()])
+
+    turns = _turns.take_turns(
+        args.turns, lambda name: [
+            sys.executable, __file__, "--one", trees[name], "--calls",
+            str(args.calls), "--reps", str(args.reps)]
+        + (["--runs"] if args.runs else []), show, DEADLINE_S + 60)
+    shas = {}
+    for name, res in turns:
+        for case, got in res.get("runs", {}).items():
+            seen = shas.setdefault(case, got["sha"])
+            if len(got["sha"]) != 1 or got["sha"] != seen:
+                sys.exit(f"turn {name}: {case}: uT {got['sha']}, another "
+                         f"turn's {seen}")
         for case, got in res.items():
-            if not all(got["equal"]):
+            if case != "runs" and not all(got["equal"]):
                 sys.exit(f"turn {name}: {case}: the peer kernels differ "
                          f"from NCCL, per rank {got['equal']}")
-        turns.append((name, res))
-        print(f"turn {name}: " + "; ".join(
-            f"{case}: peer {statistics.median(g['peer']):.2f} µs, NCCL "
-            f"{statistics.median(g['nccl']):.2f} µs"
-            for case, g in res.items()), flush=True)
-    summary = {}
-    for name in trees:
-        mine = [res for n, res in turns if n == name]
-        if not mine:
-            continue
-        summary[name] = {case: {
-            kind: statistics.median(
-                [v for res in mine for v in res[case][kind]])
-            for kind in ("peer", "nccl")} for case in mine[0]}
+    summary = _turns.by_tree(turns)
     for name, cases in summary.items():
+        runs = cases.pop("runs", {})
         print(f"tree {name} ({trees[name]}), median over its turns: "
               + "; ".join(f"{case}: peer {v['peer']:.2f} µs, NCCL "
                           f"{v['nccl']:.2f} µs" for case, v in cases.items()))
+        if runs:
+            print(f"tree {name}, replays, median over its turns: "
+                  + "; ".join(f"{case}: {v['walls']:.5f} s, "
+                              f"{v['body_nodes']} body nodes"
+                              for case, v in runs.items()))
+        cases["runs"] = runs
+    if shas:
+        print("uT equal in every turn (SHA-256): " + json.dumps(shas))
     print("; ".join(smi))
     print(json.dumps({"cards": smi, "calls": args.calls, "reps": args.reps,
                       "turns": args.turns, "trees": trees,
-                      "us": summary}))
-
+                      "medians": summary}))
 
 if __name__ == "__main__":
     main()

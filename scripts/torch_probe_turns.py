@@ -41,9 +41,10 @@ import hashlib
 import importlib.util
 import json
 import pathlib
-import statistics
 import subprocess
 import sys
+
+import _turns
 
 HERE = pathlib.Path(__file__).resolve().parents[1]
 PROBES = ("stride2_rows", "dot_decimate", "interleave_rows", "flatten",
@@ -188,31 +189,20 @@ def main() -> None:
         shapes = [list(s) for s in MAP_SHAPES]
     keys = KEYS + LIBRARY_KEYS + shape_keys(shapes)
     roots = {"p": str(pathlib.Path(args.parent).resolve()), "c": str(HERE)}
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    smi = "; ".join(_turns.card())
     print(f"[turns] card: {smi}; order {args.order}", flush=True)
-    runs = {"p": [], "c": []}
-    for turn in args.order:
-        proc = subprocess.run(
-            [sys.executable, __file__, "--parent", args.parent, "--measure",
-             roots[turn], "--map-shapes", json.dumps(shapes)],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            sys.exit(f"turn {turn} failed:\n{proc.stderr}")
-        rec = json.loads(proc.stdout.splitlines()[-1])
-        runs[turn].append(rec)
-        print(f"[turns] {turn}: " + ", ".join(
-            f"{k} {rec[k]:.5f}" for k in keys), flush=True)
-    summary = {tree: {k: statistics.median(r[k] for r in recs)
-                      for k in keys}
-               for tree, recs in runs.items() if recs}
-    hashes = {r["main_uT_sha256"] for recs in runs.values() for r in recs}
+    turns = _turns.take_turns(
+        args.order, lambda turn: [
+            sys.executable, __file__, "--parent", args.parent, "--measure",
+            roots[turn], "--map-shapes", json.dumps(shapes)],
+        lambda rec: ", ".join(f"{k} {rec[k]:.5f}" for k in keys))
+    summary = {tree: {k: rec[k] for k in keys}
+               for tree, rec in _turns.by_tree(turns).items()}
+    hashes = {rec["main_uT_sha256"] for _, rec in turns}
     print(f"[turns] main path uT the same to the bit in every turn: "
           f"{len(hashes) == 1}", flush=True)
     print(json.dumps({"card": smi, "order": args.order, "median": summary,
                       "main_uT_bit_equal": len(hashes) == 1}))
-
 
 if __name__ == "__main__":
     main()

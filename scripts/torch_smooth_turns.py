@@ -53,9 +53,10 @@ import io
 import json
 import pathlib
 import statistics
-import subprocess
 import sys
 import time
+
+import _turns
 
 HERE = pathlib.Path(__file__).resolve().parents[1]
 KEYS = ("k2_pre_ms", "k2_post_ms", "k1_ms", "k1_k2pre_ms", "k8_dec_ms",
@@ -245,33 +246,22 @@ def main() -> None:
         print(json.dumps(measure(args.measure)), flush=True)
         return
     roots = {"p": str(pathlib.Path(args.parent).resolve()), "c": str(HERE)}
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    smi = "; ".join(_turns.card())
     print(f"[turns] card: {smi}; order {args.order}", flush=True)
-    runs = {"p": [], "c": []}
-    for turn in args.order:
-        proc = subprocess.run(
-            [sys.executable, __file__, "--parent", args.parent, "--measure",
-             roots[turn]], capture_output=True, text=True)
-        if proc.returncode != 0:
-            sys.exit(f"turn {turn} failed:\n{proc.stderr}")
-        rec = json.loads(proc.stdout.splitlines()[-1])
-        runs[turn].append(rec)
-        print(f"[turns] {turn}: " + ", ".join(
-            f"{k} {rec[k]:.5f}" for k in KEYS), flush=True)
-    summary = {tree: {k: statistics.median(r[k] for r in recs) for k in KEYS}
-               for tree, recs in runs.items() if recs}
-    equal = {h: len({r[h] for recs in runs.values() for r in recs}) == 1
-             for h in HASHES}
+    turns = _turns.take_turns(
+        args.order, lambda turn: [
+            sys.executable, __file__, "--parent", args.parent, "--measure",
+            roots[turn]],
+        lambda rec: ", ".join(f"{k} {rec[k]:.5f}" for k in KEYS))
+    summary = {tree: {k: rec[k] for k in KEYS}
+               for tree, rec in _turns.by_tree(turns).items()}
+    equal = {h: len({rec[h] for _, rec in turns}) == 1 for h in HASHES}
     equal["open_uT_is_main_uT"] = all(
-        r["open_uT_sha256"] == r["main_uT_sha256"]
-        for recs in runs.values() for r in recs)
+        rec["open_uT_sha256"] == rec["main_uT_sha256"] for _, rec in turns)
     print(f"[turns] each path's output the same to the bit in every turn: "
           f"{equal}", flush=True)
     print(json.dumps({"card": smi, "order": args.order, "median": summary,
                       "bit_equal": equal}))
-
 
 if __name__ == "__main__":
     main()

@@ -18,6 +18,7 @@ import torch
 from torch.utils._pytree import tree_flatten
 
 from hpcclassmultigridproject_tpu_torch.ops import cuda
+from hpcclassmultigridproject_tpu_torch.ops.cuda import loop
 from hpcclassmultigridproject_tpu_torch.utils import graphs
 
 
@@ -95,9 +96,10 @@ class StandIn:
     `no_host_reads` checks that the capture reads nothing back), and a
     `graphs.while_loop` met there becomes a StandInNode: the carry made
     static, the first test and the body recorded once, each test counted
-    as the launch of `while_set` it is on the card.  On replay each node
-    loops its body while the predicate holds, read unguarded, counting its
-    trips on its device counter."""
+    as the launch of `while_set` it is on the card (a cond that does not
+    return the fused test, a `graphs.LoopTest`, raises as it does there).
+    On replay each node loops its body while the predicate holds, read
+    unguarded, counting its trips on its device counter."""
 
     def __init__(self, fail=False, guard=contextlib.nullcontext):
         self.warmups = self.captures = 0
@@ -136,8 +138,8 @@ class StandIn:
         return graph, out, 7, loops
 
     @staticmethod
-    def _test(pred):
-        assert pred.dtype == torch.bool and pred.numel() == 1
+    def _test(test):
+        loop.check(test)
         cuda.LAUNCHES["while_set"] += 1
 
     def while_node(self, cond, body, carry, device):
@@ -145,7 +147,7 @@ class StandIn:
             frame = self._frames[-1]
             node = frame[0][frame[1]]
             frame[1] += 1
-            while _UNGUARDED_BOOL(cond(carry)):
+            while _UNGUARDED_BOOL(loop.predicate(cond(carry))):
                 node.trips += 1
                 self._frames.append([node.children, 0])
                 try:

@@ -62,7 +62,7 @@ STUBS = {
     "phase_compiled": 0.02,
     "phase_loops": (0.0, 1.0, 2.0, 0.5, "bytes", 3),
     "phase_peer": {k: (0.0, 1.0, 2.0, 0.5, "bytes", None, 3)
-                   for k in ("peer_exchange", "peer_gather")},
+                   for k in ("peer_exchange", "peer_gather", "peer_reduce")},
     "phase_multi_gpu": None,
     "_phase_big": (5, {}),
     "_compiled_main": (None, 0.02),

@@ -18,10 +18,17 @@ counterpart of `jax.lax.while_loop`), on the CPU.
     a*b+c into an FMA, a few ulp an op); the refined state, float64 with
     float32 corrections, to 1e-8 (ROADMAP's FMA note).  The captured form
     equals the direct one to the bit;
-(iii) `csrc/loop.cu` built by g++ against a stand-in CUDA runtime
-    (`SHIM`): the kernel passes its predicate to cudaGraphSetConditional
-    and counts a trip where it holds, and the host half adds a conditional
-    WHILE node after the stream's dependencies and captures its body;
+(iii) the fused test (`graphs.LoopTest`, `loop.predicate`): its plain
+    version has the bits of the torch expression the loops wrote, in
+    float32 and float64, at the edges (res/denom at the rounded tol and
+    one ulp either side, it == max_it, NaN, res0 at finfo.tiny, no
+    denominator); a cond that returns a bool, not the fused test, raises
+    in the host form and in the stand-in's capture; `csrc/loop.cu` built
+    by g++ against a stand-in CUDA runtime (`SHIM`): the kernel evaluates
+    the same predicate on the same edges, passes it to
+    cudaGraphSetConditional and counts a trip where it holds, and the host
+    half adds a conditional WHILE node after the stream's dependencies and
+    captures its body;
 (iv) `cli gsbench` through `graphs.Programs`: one capture per (n, sweeps,
     backend, dtype), and `LAUNCHES["smooth"]` grows by `sweeps` a replay.
 """
@@ -79,9 +86,11 @@ def entry(request, monkeypatch):
 def _halving(xp, tol, cap):
     """cond and body of one loop for either framework: halve x (exact in
     binary) until max|x| <= tol or `cap` trips ran; the carry is (x,
-    max|x|, trips)."""
+    max|x|, trips).  The port's cond returns the fused test."""
     def cond(carry):
         _, res, it = carry
+        if xp is torch:
+            return graphs.LoopTest(it, cap, res, None, tol)
         return (it < cap) & (res > tol)
 
     def body(carry):
@@ -150,7 +159,8 @@ def _counting_loops(inner_trips):
             cuda.LAUNCHES["smooth"] += 2
 
             def inner_cond(c):  # table[it], read on the device
-                return c[1] < torch.index_select(table, 0, it.view(1))[0]
+                return graphs.LoopTest(
+                    c[1], torch.index_select(table, 0, it.view(1))[0])
 
             def inner_body(c):
                 cuda.LAUNCHES["smooth5"] += 1
@@ -160,7 +170,8 @@ def _counting_loops(inner_trips):
                                      (x, torch.zeros_like(it)))
             return x * 2.0, it + 1
 
-        return graphs.while_loop(lambda c: c[1] < len(inner_trips),
+        return graphs.while_loop(lambda c: graphs.LoopTest(
+                                     c[1], len(inner_trips)),
                                  outer_body,
                                  (x, torch.zeros((), dtype=torch.int32)))
 
@@ -224,19 +235,126 @@ def test_carry_holds_tensors_only():
 def test_while_set_plain_version():
     cuda.reset_launches()
     trips = torch.zeros((), dtype=torch.int32)
-    flags = torch.tensor([False, True, False, True])
-    assert loop.while_set(0, flags[1], trips) is True
-    assert loop.while_set(0, flags[2], trips) is False
-    assert loop.while_set(0, flags[3:], trips) is True
+    it = torch.tensor([0, 3, 5], dtype=torch.int32)
+    res = torch.tensor([2.0, 0.5])
+    test = lambda i, r: graphs.LoopTest(it[i], 5, res[r], res[1], 1.5)
+    assert loop.while_set(0, test(0, 0), trips) is True  # 4.0 > 1.5
+    assert loop.while_set(0, test(1, 1), trips) is False  # 1.0
+    assert loop.while_set(0, test(2, 0), trips) is False  # it == max_it
+    assert loop.while_set(0, graphs.LoopTest(it[1], it[2]), trips) is True
     assert int(trips) == 2 and cuda.LAUNCHES["while_set"] == 0
-    with pytest.raises(ValueError, match="one bool"):
-        loop.while_set(0, flags, trips)
+    with pytest.raises(TypeError, match="not a LoopTest"):
+        loop.while_set(0, it[0] < 5, trips)
     with pytest.raises(ValueError, match="int32"):
-        loop.while_set(0, flags[0], trips.to(torch.int64))
+        loop.while_set(0, test(0, 0), trips.to(torch.int64))
     with pytest.raises(ValueError, match="several devices"):
-        loop.while_set(0, flags[0], trips.to("meta"))
+        loop.while_set(0, test(0, 0), trips.to("meta"))
+    with pytest.raises(ValueError, match="it is"):
+        loop.while_set(0, graphs.LoopTest(it[:2], 5), trips)
+    with pytest.raises(ValueError, match="denom is"):
+        loop.while_set(0, graphs.LoopTest(it[0], 5, res[0],
+                                          res[1].double(), 1.0), trips)
+    with pytest.raises(ValueError, match="not an int32"):
+        loop.while_set(0, graphs.LoopTest(it[0], 2**31), trips)
     with cuda.plain_route():  # the route leaves the loop's test as it is
-        assert loop.while_set(0, flags[1], trips) is True
+        assert loop.while_set(0, test(0, 0), trips) is True
+
+
+# (the tol, the dtype): the edges of the fused test's residual clause
+FUSED_TOLS = [1e-5, 0.1, 1e-6, 1e-10]
+
+
+def _edge_tests(dtype, tol):
+    """(name, LoopTest, the torch expression the loops wrote) at the
+    edges of the predicate: res/denom at tol rounded to `dtype` and one
+    ulp either side, it == max_it, NaN, res0 clamped at finfo.tiny, a
+    zero denominator, no denominator and no residual."""
+    ndt = np.float32 if dtype == torch.float32 else np.float64
+    t = ndt(tol)
+    tiny = np.finfo(ndt).tiny
+    up, down = np.nextafter(t, ndt(np.inf)), np.nextafter(t, ndt(0))
+    it = torch.tensor(2, dtype=torch.int32)
+    cap = torch.tensor(2, dtype=torch.int32)
+    cases = []
+
+    def ratio(name, res, denom, max_it=7, i=it):
+        res = torch.tensor(res, dtype=dtype)
+        den = None if denom is None else torch.tensor(denom, dtype=dtype)
+        want = ((i < max_it) & (res > tol) if den is None
+                else (i < max_it) & (res / den > tol))
+        cases.append((name, graphs.LoopTest(i, max_it, res, den, tol), want))
+
+    ratio("at the rounded tol", t, 1.0)
+    ratio("one ulp above", up, 1.0)
+    ratio("one ulp below", down, 1.0)
+    ratio("at the rounded tol, denom 4", t * ndt(4), 4.0)
+    ratio("one ulp above, denom 3", up * ndt(3), 3.0)
+    ratio("it == max_it", 1.0, 1.0, max_it=2)
+    ratio("it == max_it on the card", 1.0, 1.0, max_it=cap)
+    ratio("it < max_it", 1.0, 1.0, max_it=3)
+    ratio("NaN res", np.nan, 1.0)
+    ratio("NaN denom", 1.0, np.nan)
+    ratio("res0 at tiny", up * tiny, tiny)
+    ratio("res over tiny overflows", np.finfo(ndt).max, tiny)
+    ratio("0 over tiny", 0.0, tiny)
+    ratio("0 over 0", 0.0, 0.0)
+    ratio("no denominator, at tol", t, None)
+    ratio("no denominator, one ulp above", up, None)
+    ratio("negative res", -1.0, 1.0)
+    cases.append(("no residual", graphs.LoopTest(it, 3), it < 3))
+    cases.append(("no residual, at the limit", graphs.LoopTest(it, cap),
+                  it < cap))
+    return cases
+
+
+@pytest.mark.parametrize("tol", FUSED_TOLS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_fused_test_equals_the_torch_expression(dtype, tol):
+    """The plain version's predicate has the torch expression's bits at
+    every edge, and the host form reads it as the loops read theirs."""
+    trips = torch.zeros((), dtype=torch.int32)
+    seen = set()
+    for name, test, want in _edge_tests(dtype, tol):
+        got = loop.predicate(test)
+        assert got.dtype == torch.bool and got.shape == want.shape, name
+        assert bool(got) == bool(want), name
+        assert loop.while_set(0, test, trips) is bool(want), name
+        seen.add(bool(want))
+    assert seen == {True, False}
+    # the float32 tol is rounded to the tensor's dtype, to nearest
+    assert loop.rounded_tol(tol, dtype) == float(
+        torch.tensor(tol, dtype=dtype))
+
+
+def test_a_cond_not_fused_raises(monkeypatch):
+    """A cond that builds its own bool predicate raises: in the host form,
+    and in the capture (the stand-in checks the test as the card's
+    while_set does), so no loop's test is anything but the one kernel."""
+    carry = (torch.ones(2), torch.zeros((), dtype=torch.int32))
+    cond = lambda c: c[1] < 3
+    body = lambda c: (c[0] * 2.0, c[1] + 1)
+    with pytest.raises(TypeError, match="not a LoopTest"):
+        graphs.while_loop(cond, body, carry)
+
+    def nested(*c):
+        def outer_body(d):
+            x, _ = graphs.while_loop(cond, body, (d[0], d[1] * 0))
+            return x, d[1] + 1
+
+        return graphs.while_loop(lambda d: graphs.LoopTest(d[1], 2),
+                                 outer_body, c)
+
+    # the capture itself raises, its warm-up (the host form) skipped; a
+    # nested loop's cond is checked in its outer body's capture
+    for tag, fn in (("bool cond", lambda *c: graphs.while_loop(
+            cond, body, c)), ("nested bool cond", nested)):
+        fake = StandIn(guard=no_host_reads)
+        fake.warm_up = lambda *args: None
+        monkeypatch.setattr(graphs, "CAPTURE", fake)
+        with pytest.raises(TypeError, match="not a LoopTest"):
+            graphs.Programs()(tag, fn, carry)
+        assert fake.captures == 1
 
 
 # (ii) the four loop sites against the JAX package
@@ -383,6 +501,7 @@ SHIM = r"""
 #include <vector>
 #define CUDART_VERSION 12090
 #define __global__
+#define __device__
 typedef unsigned long long cudaGraphConditionalHandle;
 enum cudaError_t { cudaSuccess = 0, cudaErrorStreamCaptureImplicit = 906 };
 enum cudaStreamCaptureStatus { cudaStreamCaptureStatusNone = 0,
@@ -414,7 +533,7 @@ struct cudaGraphNodeParams {
   cudaConditionalNodeParams conditional;
 };
 
-inline unsigned long long mg_log[64][2];
+inline unsigned long long mg_log[4096][2];
 inline int mg_logged = 0;
 inline unsigned long long mg_handles = 40;
 inline cudaGraph_t mg_body_out[1];
@@ -553,22 +672,44 @@ def host_loop(tmp_path_factory):
 
 
 def _logged(lib):
-    out = (ctypes.c_ulonglong * 128)()
+    out = (ctypes.c_ulonglong * (2 * 4096))()
     count = lib.mg_shim_logged(out)
     return [(out[2 * i], out[2 * i + 1]) for i in range(count)]
 
 
 def test_kernel_passes_the_predicate_through(host_loop):
-    flags = torch.tensor([True, False, False, True, False])
+    it = torch.tensor([1, 4], dtype=torch.int32)
+    res = torch.tensor([3.0, 0.25, 1.0], dtype=torch.float64)
     trips = torch.zeros(3, dtype=torch.int32)
-    calls = [(11, 0, 1), (11, 1, 1), (12, 3, 2), (12, 4, 2)]
+    calls = [(11, graphs.LoopTest(it[0], 4, res[0], res[2], 2.0), 1),
+             (11, graphs.LoopTest(it[0], 4, res[1], res[2], 2.0), 1),
+             (12, graphs.LoopTest(it[0], it[1]), 2),
+             (12, graphs.LoopTest(it[1], it[1]), 2)]
     start = len(_logged(host_loop))
-    for handle, at, slot in calls:
-        err = host_loop.mg_while_set(handle, flags[at:].data_ptr(),
-                                     trips[slot:].data_ptr(), None)
+    for handle, test, slot in calls:
+        err = host_loop.mg_while_set(
+            *loop.kernel_args(handle, test, trips[slot]), None)
         assert err == 0
     assert _logged(host_loop)[start:] == [(11, 1), (11, 0), (12, 1), (12, 0)]
     assert trips.tolist() == [0, 1, 1]
+
+
+@pytest.mark.parametrize("tol", FUSED_TOLS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_kernel_evaluates_the_fused_test_at_the_edges(host_loop, dtype,
+                                                      tol):
+    """loop.cu's kernel, built by g++ (IEEE division and compares, no FMA
+    to form), sets every edge's condition to the torch expression's value
+    and counts a trip for each true one."""
+    trips = torch.zeros((), dtype=torch.int32)
+    start, want = len(_logged(host_loop)), []
+    for _, test, expect in _edge_tests(dtype, tol):
+        assert host_loop.mg_while_set(*loop.kernel_args(7, test, trips),
+                                      None) == 0
+        want.append((7, int(bool(expect))))
+    assert _logged(host_loop)[start:] == want
+    assert int(trips) == sum(v for _, v in want)
 
 
 def test_host_half_adds_a_while_node_and_captures_its_body(host_loop):

@@ -24,6 +24,13 @@ plain versions run the same protocol on CPU mailboxes.  Here:
   * the gather gives every rank's block in rank order, and `all_sum`
     through it has the bits of the NCCL form (an emulated all-gather) in
     float32 and float64;
+  * the line path: peer.cuh's line offsets and tags equal peer.py's, a
+    line is read only once both its halves carry the tag, and the reduce
+    of one value (`all_sum`, `all_max` inside a body) over 2 to 8 ranks
+    has the NCCL form's bits, the sum in rank order, the max with a NaN
+    propagated;
+  * a rank held back before each receive, over reduces and exchanges
+    mixed, never has a line or a slot overwritten before it reads it;
   * a rank held back before each of three consecutive receives never
     has a slot overwritten before it reads it: its peer runs ahead by one
     message at most, and every message arrives whole, of one chunk or of
@@ -107,6 +114,10 @@ u64 h_message_bytes(const u64* shapes, int n) {
   return message_bytes(m);
 }
 u64 h_header_bytes(int world) { return header_bytes(world); }
+u64 h_line_offset(int world, int sender, u64 slot) {
+  return line_offset(world, sender, slot);
+}
+u64 h_line_tag(u64 e) { return line_tag(e); }
 u64 h_slot_offset(int world, int sender, u64 slot, u64 cap) {
   return slot_offset(world, sender, slot, cap);
 }
@@ -125,6 +136,9 @@ u64 h_sizes(int which) {
     case 0: return sizeof(ExchangeArgs);
     case 1: return sizeof(GatherArgs);
     case 2: return offsetof(GatherArgs, remote);
+    case 3: return sizeof(ReduceArgs);
+    case 4: return offsetof(ReduceArgs, remote);
+    case 5: return LINE_BYTES;
     default: return 0;
   }
 }
@@ -161,6 +175,7 @@ def cuh(tmp_path_factory):
                        "h_word_bytes": [u64], "h_exchange_grid": [u64, u64],
                        "h_message_bytes": [p64, i],
                        "h_header_bytes": [i],
+                       "h_line_offset": [i, i, u64], "h_line_tag": [u64],
                        "h_slot_offset": [i, i, u64, u64],
                        "h_mailbox_bytes": [i, u64],
                        "h_next_piece": [u64, u64], "h_field_word": [i, i, i],
@@ -468,6 +483,218 @@ def test_gather_in_rank_order_and_all_sum_bits(monkeypatch, world, dtype):
         assert torch.equal(total, in_order)
         for p, w, b in zip(parts, want_parts, blocks_):
             assert torch.equal(p, w) and torch.equal(p, b)
+
+
+def test_line_arithmetic_equals_the_plain_versions(cuh):
+    """The lines' offsets and tags, and ReduceArgs' words: the kernel's
+    formulas equal the plain version's; the lines lie after the counts,
+    16-byte aligned, one a (sender, slot), inside the header."""
+    assert cuh.h_sizes(5) == peer.LINE_BYTES == 16
+    assert cuh.h_sizes(3) == 8 * (9 + peer.MAX_WORLD)
+    assert cuh.h_sizes(4) == 8 * 9
+    for e in (0, 1, 2, 37, 2**32 - 2, 2**32 - 1, 2**32, 2**40 + 2):
+        assert cuh.h_line_tag(e) == peer.line_tag(e) == (e + 1) % 2**32
+        # a line two messages older in the slot never carries the tag
+        assert e < 2 or peer.line_tag(e - 2) != peer.line_tag(e)
+    for world in range(2, peer.MAX_WORLD + 1):
+        lines = []
+        for r in range(world):
+            for slot in (0, 1):
+                off = peer.line_offset(world, r, slot)
+                assert cuh.h_line_offset(world, r, slot) == off
+                assert off % 16 == 0
+                lines.append(off)
+        assert len(set(lines)) == 2 * world
+        assert min(lines) >= peer.count_offset(world, world - 1) + 8
+        assert max(lines) + 16 <= peer.header_bytes(world)
+
+
+def test_a_line_is_read_only_whole(monkeypatch):
+    """A reader waits until both halves carry the message's tag: a line
+    whose halves are of two messages (the store's halves landed apart) is
+    not read; a float32 and a float64 value arrive whole."""
+    monkeypatch.setattr(peer, "SPIN_SECONDS", 0.2)
+    links = peer.local_links(2, "cpu", 256)
+    x = torch.tensor(-3.0e-7, dtype=torch.float64)
+    peer._send_line(links[1], 0, x, 0)  # message 0, in line slot 0
+    off = peer.line_offset(2, 1, peer.slot_of(2))
+    words = links[0].local[off:off + 16].view(np.uint32)
+    assert list(words[[1, 3]]) == [peer.line_tag(0)] * 2
+    words[3] = peer.line_tag(2)  # the high half of message 2 landed
+    with pytest.raises(TimeoutError, match="line 2 of rank 1"):
+        peer._receive_line(links[0], 1, 2, torch.float64)
+    words[1] = peer.line_tag(2)
+    got = peer._receive_line(links[0], 1, 2, torch.float64)
+    assert got.dtype == torch.float64 and got.shape == ()
+    assert torch.equal(got, x)
+    assert peer.epochs(links[0]) == [0, 3]
+    f32 = torch.tensor(1.5e-3, dtype=torch.float32)
+    peer._send_line(links[0], 1, f32, 5)
+    assert int(links[1].local[peer.line_offset(2, 0, 1) + 8:][:4].view(
+        np.uint32)[0]) == 0  # a float32's high word
+    assert torch.equal(peer._receive_line(links[1], 0, 5, torch.float32),
+                       f32)
+
+
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("world", WORLDS)
+def test_reduce_equals_the_nccl_form(monkeypatch, world, dtype, op):
+    """all_sum and all_max inside a compiled body take the reduce: every
+    rank's result has the bits of the NCCL form (an emulated all-gather,
+    then the adds in rank order or the stack's max), over three calls
+    (the epochs and line slots advancing), a NaN propagated by the max;
+    one all_gather counted a call either way."""
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(Mesh, "backend", property(lambda self: "gloo"))
+    rng = np.random.default_rng(10 * world + (op == "max"))
+    calls = []
+    for c in range(3):
+        v = rng.standard_normal(world) * 10.0 ** rng.integers(-6, 6, world)
+        if op == "max" and c == 2:
+            v[world // 2] = np.nan
+        calls.append([torch.tensor(x, dtype=dtype) for x in v])
+    fn = distributed.all_sum if op == "sum" else distributed.all_max
+
+    def rank(r):
+        mesh = Mesh(world, r)
+        return [fn(values[r], mesh) for values in calls]
+
+    links = _ThreadLinks(world)
+    with monkeypatch.context() as m:
+        m.setattr(dist, "all_gather", _AllGatherEmulation(world,
+                                                          links.local))
+        want = links.run(world, rank)  # _peer_links not patched: NCCL form
+    monkeypatch.setattr(distributed, "_peer_links", links)
+    monkeypatch.setattr(dist, "all_gather", None)  # not reached
+    distributed.COLLECTIVES["all_gather"] = 0
+    got = links.run(world, rank)
+    assert distributed.COLLECTIVES["all_gather"] == 3 * world
+    for c, values in enumerate(calls):
+        if op == "sum":
+            expect = values[0]
+            for v in values[1:]:
+                expect = expect + v
+        else:
+            expect = torch.stack(values).max()
+        for r in range(world):
+            g, w = got[r][c], want[r][c]
+            assert g.dtype == dtype and g.shape == ()
+            assert torch.equal(g, w) or (g.isnan() and w.isnan())
+            assert torch.equal(g, expect) or (g.isnan() and expect.isnan())
+    for lk in links.links:
+        assert peer.epochs(lk) == [0 if p == lk.rank else 3
+                                   for p in range(world)]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_held_back_rank_never_loses_a_line(monkeypatch, world):
+    """Rank 1 stops before each receive, over a mix of reduces (a line to
+    every rank) and exchanges (chunked messages to the neighbours), which
+    share each pair's epochs: no peer runs more than one message ahead of
+    it, no line or slot of message e reaches it before it has read
+    message e - 2 of that peer, and every value arrives whole."""
+    import queue
+
+    held, kinds = 1, ["reduce", "reduce", "exchange", "reduce", "exchange",
+                      "reduce"]
+    log, lock, holds = [], threading.Lock(), queue.Queue()
+    originals = {name: getattr(peer, name) for name in
+                 ("_send", "_receive", "_send_line", "_receive_line")}
+
+    def sending(name):
+        def call(links, p, payload, e):
+            originals[name](links, p, payload, e)
+            with lock:
+                log.append(("send", links.rank, p, e))
+        return call
+
+    def receiving(name):
+        def call(links, p, *args):
+            e = args[1] if name == "_receive" else args[0]
+            if links.rank == held:
+                go = threading.Event()
+                holds.put((p, e, go))
+                assert go.wait(20)
+            out = originals[name](links, p, *args)
+            with lock:
+                log.append(("receive", links.rank, p, e))
+            return out
+        return call
+
+    for name in ("_send", "_send_line"):
+        monkeypatch.setattr(peer, name, sending(name))
+    for name in ("_receive", "_receive_line"):
+        monkeypatch.setattr(peer, name, receiving(name))
+    links = peer.local_links(world, "cpu", CAPACITY)
+    neighbours = lambda r: [p for p in (r - 1, r + 1) if 0 <= p < world]
+
+    def rank(r):
+        out = []
+        for call, kind in enumerate(kinds):
+            if kind == "reduce":
+                x = torch.tensor(1.0 + 10.0 ** call * (r + 1),
+                                 dtype=torch.float64)
+                total = torch.empty((), dtype=torch.float64)
+                peer.reduce(links[r], x, total)
+                out.append(total)
+            else:
+                msgs = [(p, _pieces(world, r, p, call)[0])
+                        for p in neighbours(r)]
+                peer.exchange(links[r], msgs)
+                out.append([pieces[0][1] for _, pieces in msgs])
+        return out
+
+    with concurrent.futures.ThreadPoolExecutor(world) as pool:
+        futures = [pool.submit(rank, r) for r in range(world)]
+        while not all(f.done() for f in futures):
+            try:
+                p, e, go = holds.get(timeout=0.05)
+            except queue.Empty:
+                continue
+            time.sleep(0.1)  # the others run as far as the protocol lets
+            with lock:
+                for q in range(world):
+                    sent = [m for op, r, to, m in log
+                            if op == "send" and r == q and to == held]
+                    read = sum(1 for op, r, frm, _ in log
+                               if op == "receive" and r == held
+                               and frm == q)
+                    assert not sent or max(sent) <= read + 1, (q, sent,
+                                                              read)
+            go.set()
+        results = [f.result() for f in futures]
+    for r, per_rank in enumerate(results):
+        for call, kind in enumerate(kinds):
+            got = per_rank[call]
+            if kind == "reduce":
+                want = torch.tensor(1.0 + 10.0 ** call, dtype=torch.float64)
+                for q in range(1, world):
+                    want = want + torch.tensor(1.0 + 10.0 ** call * (q + 1),
+                                               dtype=torch.float64)
+                assert torch.equal(got, want)
+            else:
+                for p, dst in zip(neighbours(r), got):
+                    assert torch.equal(dst, _pieces(world, r, p, call)[1])
+    for i, (op, r, p, e) in enumerate(log):
+        if op == "send" and p == held and e >= 2:
+            assert ("receive", held, r, e - 2) in log[:i], (r, e)
+
+
+def test_reduce_refuses_what_the_kernel_does_not_take():
+    links = peer.local_links(2, "cpu", 256)[0]
+    one = torch.zeros(())
+    with pytest.raises(ValueError, match="reduce op"):
+        peer.reduce(links, one, torch.zeros(()), "min")
+    with pytest.raises(ValueError, match="one float32 or float64 value"):
+        peer.reduce(links, torch.zeros(2), torch.zeros(()))
+    with pytest.raises(ValueError, match="one float32 or float64 value"):
+        peer.reduce(links, torch.zeros((), dtype=torch.int32),
+                    torch.zeros((), dtype=torch.int32))
+    with pytest.raises(ValueError, match="into"):
+        peer.reduce(links, one, torch.zeros((), dtype=torch.float64))
+    with pytest.raises(ValueError, match="peer transport on"):
+        peer.reduce(links, one.to("meta"), torch.zeros((), device="meta"))
 
 
 def _pieces(world, r, peer_rank, call, rows=3, cols=4):
